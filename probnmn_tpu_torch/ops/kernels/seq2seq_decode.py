@@ -1,0 +1,193 @@
+r"""
+Kernel K1: the whole ProgramGenerator sampling forward in one CUDA launch
+(``probnmn_tpu_torch/csrc/seq2seq_decode.cu``).
+
+Replaces ``probnmn_tpu/ops/pallas/seq2seq_decode.py::_sampling_kernel`` (entry
+``fused_sampling_forward``). One launch computes: boundary add, the
+zeroed-pad source embedding, the masked 2-layer LSTM encoder over L+1 steps,
+the decoder initialized from the top-layer final state, 26 attentive decode
+steps with Gumbel-max sampling (pad, unk and start blocked; logprob from the
+unblocked log-softmax), the @end@ trim quirk and the length-normalized loss.
+
+What bounds it on an H100: not the 35.6 GFLOP of a batch of 256 (36 µs at the
+bf16 tensor peak) but latency, since the 46 + 26 steps depend on each other.
+Design: rows are independent across the whole recurrence, so each block owns
+2 rows and runs every step itself with no inter-block sync (128 blocks
+for a batch of 256, about one per SM); thread u owns
+hidden unit u of all four gates, so a gate update needs no exchange; the
+~3.6 MB of bf16 weights are streamed from L2 each step, coalesced across
+threads; the encoder outputs (46 x 256 x 256, 6 MB bf16) live in a global
+scratch that stays in the 50 MB L2 (the TPU kept them in VMEM, over a block's
+227 KB of shared memory here). Matmul operands are rounded to the compute
+type and summed in float32, as the TPU kernel did.
+
+The TPU's hardware PRNG becomes Philox4x32-10 with counter (v // 4, step,
+row, 0) and key ``seed``, so draws do not depend on the block layout, and
+:func:`philox_gumbel` reproduces them on the host: the plain version fed that
+noise samples the same tokens. ``noise=`` (T, B, >=V) float32 drives both from
+explicit noise instead, for token-for-token comparisons.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from probnmn_tpu_torch.models.seq2seq import SAMPLING, Seq2SeqSpec, seq2seq_forward
+from probnmn_tpu_torch.ops.kernels import _build
+
+_PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = np.uint64(0xFFFFFFFF)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def philox_gumbel(seed: int, num_steps: int, batch: int, vocab: int) -> np.ndarray:
+    r"""(num_steps, batch, vocab) float32 Gumbel noise: the kernel's Philox
+    stream. Word ``v % 4`` of Philox4x32-10 at counter (v // 4, step, row, 0)
+    with key (seed low, seed high) gives ``u = (bits >> 8) * 2**-24 + 1e-12``
+    and ``g = -log(-log(u))``, the TPU kernel's uniform-to-Gumbel map."""
+    groups = -(-vocab // 4)
+    c0 = np.broadcast_to(np.arange(groups, dtype=np.uint64)[None, None, :],
+                         (num_steps, batch, groups))
+    c1 = np.broadcast_to(np.arange(num_steps, dtype=np.uint64)[:, None, None], c0.shape)
+    c2 = np.broadcast_to(np.arange(batch, dtype=np.uint64)[None, :, None], c0.shape)
+    c3 = np.zeros(c0.shape, np.uint64)
+    k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    for _ in range(10):
+        p0 = _PHILOX_M[0] * c0
+        p1 = _PHILOX_M[1] * c2
+        c0, c1, c2, c3 = (
+            (p1 >> np.uint64(32)) ^ c1 ^ np.uint64(k0), p1 & _MASK32,
+            (p0 >> np.uint64(32)) ^ c3 ^ np.uint64(k1), p0 & _MASK32,
+        )
+        k0 = (k0 + _PHILOX_W[0]) & 0xFFFFFFFF
+        k1 = (k1 + _PHILOX_W[1]) & 0xFFFFFFFF
+    bits = np.stack([c0, c1, c2, c3], axis=-1).reshape(num_steps, batch, 4 * groups)
+    u = (bits[:, :, :vocab] >> np.uint64(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    u = u + np.float32(1e-12)
+    return (-np.log(-np.log(u))).astype(np.float32)
+
+
+def sampling_forward_with_noise(
+    params: Dict[str, Any],
+    spec: Seq2SeqSpec,
+    source_tokens: torch.Tensor,
+    noise: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    r"""Plain PyTorch version of K1: Gumbel-max sampling on explicit noise
+    (T, B, >=V), with the kernel's arithmetic (operands rounded to
+    ``compute_dtype``, float32 sums). Counterpart of the JAX package's
+    ``sampling_forward_with_noise_xla``."""
+    out = seq2seq_forward(
+        params, spec, source_tokens, SAMPLING, noise=noise, compute_dtype=compute_dtype
+    )
+    return {k: out[k] for k in ("predictions", "loss", "logprobs")}
+
+
+def pack_weights(
+    params: Dict[str, Any], spec: Seq2SeqSpec, compute_dtype: torch.dtype,
+    device: torch.device,
+) -> Dict[str, torch.Tensor]:
+    r"""The kernel's weight layout: matrices transposed to (in, 4H) / (H, V) so
+    threads read neighbouring gate columns, in ``compute_dtype``; the encoder's
+    layers flattened into one buffer; biases summed in float32."""
+    def mat(w):
+        return w.to(device=device, dtype=torch.float32).T.contiguous().to(compute_dtype)
+
+    def f32(v):
+        return v.to(device=device, dtype=torch.float32).contiguous()
+
+    enc = params["encoder"]
+    cell = params["decoder_cell"]
+    proj = params["output_projection"]
+    return {
+        "src_emb": params["source_embedding"].to(device=device, dtype=compute_dtype).contiguous(),
+        "tgt_emb": params["target_embedding"].to(device=device, dtype=compute_dtype).contiguous(),
+        "enc_wih": torch.cat([mat(p["w_ih"]).reshape(-1) for p in enc]),
+        "enc_whh": torch.stack([mat(p["w_hh"]) for p in enc]),
+        "enc_bias": torch.stack([f32(p["b_ih"] + p["b_hh"]) for p in enc]),
+        "dec_wih": mat(cell["w_ih"]),
+        "dec_whh": mat(cell["w_hh"]),
+        "dec_bias": f32(cell["b_ih"] + cell["b_hh"]),
+        "proj_w": mat(proj["w"]),
+        "proj_b": f32(proj["b"]),
+    }
+
+
+def fused_sampling_forward(
+    params: Dict[str, Any],
+    spec: Seq2SeqSpec,
+    source_tokens: torch.Tensor,
+    *,
+    seed: Optional[int] = None,
+    noise: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    packed: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    r"""The sampling forward: ``{"predictions": (B, T) int64 trimmed,
+    "loss": (B,), "logprobs": (B, T)}``. The serving engine calls it
+    directly: it is also the counterpart of the JAX package's
+    ``models/seq2seq.py::sampling_forward_serving``.
+
+    Noise comes from ``noise`` (T, B, >=V) float32 when given, else from the
+    Philox stream of ``seed``. A CPU ``source_tokens`` runs the plain version;
+    a CUDA one launches the kernel (and raises if it cannot).
+    """
+    if noise is None and seed is None:
+        raise ValueError("pass a Philox seed or explicit noise")
+    batch, raw_len = source_tokens.shape
+    num_steps = spec.max_decoding_steps
+    vocab = spec.target_vocab_size
+    device = source_tokens.device
+    if device.type == "cpu":
+        if noise is None:
+            noise = torch.from_numpy(philox_gumbel(seed, num_steps, batch, vocab))
+        return sampling_forward_with_noise(params, spec, source_tokens, noise, compute_dtype)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if compute_dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported compute dtype {compute_dtype}")
+    hidden = spec.hidden_size
+    if hidden % 32 or not 128 <= hidden <= 512:
+        raise ValueError(f"the kernel needs 128 <= hidden_size <= 512, a multiple of 32; got {hidden}")
+    if packed is None:
+        packed = pack_weights(params, spec, compute_dtype, device)
+    if packed["dec_wih"].dtype != compute_dtype:
+        raise ValueError("packed weights are in another compute dtype")
+    if noise is not None:
+        if noise.shape[:2] != (num_steps, batch) or noise.shape[2] < vocab:
+            raise ValueError(f"noise must be ({num_steps}, {batch}, >={vocab}), got {tuple(noise.shape)}")
+        noise = noise.to(device=device, dtype=torch.float32).contiguous()
+
+    src = source_tokens.to(torch.int32).contiguous()
+    enc_scratch = torch.empty(batch, raw_len + 1, hidden, dtype=compute_dtype, device=device)
+    preds = torch.empty(batch, num_steps, dtype=torch.int32, device=device)
+    loss = torch.empty(batch, dtype=torch.float32, device=device)
+    logprobs = torch.empty(batch, num_steps, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    p = packed
+    code = _build.library().probnmn_seq2seq_sample(
+        _DTYPE_CODES[compute_dtype],
+        src.data_ptr(), batch, raw_len,
+        noise.data_ptr() if noise is not None else None,
+        noise.shape[2] if noise is not None else 0,
+        (seed or 0) & 0xFFFFFFFFFFFFFFFF,
+        p["src_emb"].data_ptr(), p["tgt_emb"].data_ptr(),
+        p["enc_wih"].data_ptr(), p["enc_whh"].data_ptr(), p["enc_bias"].data_ptr(),
+        p["dec_wih"].data_ptr(), p["dec_whh"].data_ptr(), p["dec_bias"].data_ptr(),
+        p["proj_w"].data_ptr(), p["proj_b"].data_ptr(),
+        enc_scratch.data_ptr(),
+        preds.data_ptr(), loss.data_ptr(), logprobs.data_ptr(),
+        spec.input_size, hidden, spec.num_layers, vocab, num_steps,
+        spec.pad_index, spec.unk_index, spec.start_index, spec.end_index,
+        stream,
+    )
+    _build.check(code, "seq2seq sampling kernel")
+    fused_sampling_forward.launches += 1
+    return {"predictions": preds.long(), "loss": loss, "logprobs": logprobs}
+
+
+fused_sampling_forward.launches = 0

@@ -1,0 +1,112 @@
+r"""
+Multi-layer LSTM primitives with PyTorch ``nn.LSTM`` semantics, as plain
+functions on tensors (counterpart of ``probnmn_tpu/ops/rnn.py``):
+
+- gate order (i, f, g, o), two bias vectors (``b_ih`` + ``b_hh``), uniform
+  :math:`\pm 1/\sqrt{H}` init — torch's parameterization, so reference
+  checkpoints port weight for weight;
+- masked sequences behave like packed sequences: outputs at padded positions
+  are zero and the state of each sequence freezes at its last valid step.
+
+``compute_dtype`` rounds the matmul operands (inputs, hidden state, weights)
+to that type while the state and the sums stay float32 — the arithmetic of
+the sampling kernel in ``ops/kernels/seq2seq_decode.py``. Serving has no
+dropout, so there is none here.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from probnmn_tpu_torch.ops.common import as_operand, uniform
+
+
+def init_lstm_params(
+    gen: torch.Generator, input_size: int, hidden_size: int, num_layers: int
+) -> List[Dict[str, torch.Tensor]]:
+    r"""Torch-style per-layer params: w_ih (4H, D), w_hh (4H, H), b_ih, b_hh (4H,)."""
+    scale = 1.0 / (hidden_size ** 0.5)
+    layers = []
+    for layer in range(num_layers):
+        in_size = input_size if layer == 0 else hidden_size
+        layers.append(
+            {
+                "w_ih": uniform(gen, (4 * hidden_size, in_size), scale),
+                "w_hh": uniform(gen, (4 * hidden_size, hidden_size), scale),
+                "b_ih": uniform(gen, (4 * hidden_size,), scale),
+                "b_hh": uniform(gen, (4 * hidden_size,), scale),
+            }
+        )
+    return layers
+
+
+def init_lstm_cell_params(
+    gen: torch.Generator, input_size: int, hidden_size: int
+) -> Dict[str, torch.Tensor]:
+    return init_lstm_params(gen, input_size, hidden_size, 1)[0]
+
+
+def _gates(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    h: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    r"""x @ W_ih^T + h @ W_hh^T + (b_ih + b_hh) with operands rounded to
+    ``compute_dtype``."""
+    w_ih = as_operand(params["w_ih"], compute_dtype)
+    w_hh = as_operand(params["w_hh"], compute_dtype)
+    return (
+        as_operand(x, compute_dtype) @ w_ih.T
+        + as_operand(h, compute_dtype) @ w_hh.T
+        + (params["b_ih"] + params["b_hh"])
+    )
+
+
+def _update(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def lstm_cell(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    state: Tuple[torch.Tensor, torch.Tensor],
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""One torch-``LSTMCell`` step. x: (B, D); state: ((B, H), (B, H))."""
+    h, c = state
+    return _update(_gates(params, x, h, compute_dtype), c)
+
+
+def lstm_encode(
+    params: List[Dict[str, torch.Tensor]],
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    r"""Multi-layer masked LSTM. x: (B, T, D); mask: (B, T) bool.
+
+    Returns (top-layer outputs (B, T, H), per-layer final (h, c)). The state
+    freezes at masked steps, so each final state is the state at the last
+    *valid* step, and padded outputs are zero.
+    """
+    batch, seq_len, _ = x.shape
+    hidden = params[0]["w_hh"].shape[1]
+    states = [
+        (x.new_zeros(batch, hidden), x.new_zeros(batch, hidden)) for _ in params
+    ]
+    outputs = []
+    for t in range(seq_len):
+        m = mask[:, t].to(x.dtype)[:, None]
+        out = x[:, t]
+        for layer, layer_params in enumerate(params):
+            h, c = states[layer]
+            h_new, c_new = lstm_cell(layer_params, out, (h, c), compute_dtype)
+            states[layer] = (m * h_new + (1.0 - m) * h, m * c_new + (1.0 - m) * c)
+            out = h_new * m
+        outputs.append(out)
+    return torch.stack(outputs, dim=1), states

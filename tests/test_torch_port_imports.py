@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: importing it loads no JAX and nothing of the
+JAX package, no source file of it (or chip_smoke.py) imports them, and its
+entry points refuse a CUDA device that is not there."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "probnmn_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "probnmn_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module):
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import probnmn_tpu_torch\n"
+        "for m in pkgutil.walk_packages(probnmn_tpu_torch.__path__, 'probnmn_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'probnmn_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules if k.startswith('probnmn_tpu_torch')]))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")])
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+    assert int(proc.stdout.split()[1]) >= 15  # every submodule was imported
+
+
+def test_sources_import_no_jax():
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 15
+    offending = {
+        str(f.relative_to(REPO)): m
+        for f in files for m in _imported_modules(f) if _forbidden(m)
+    }
+    assert not offending, offending
+
+
+def test_cuda_engine_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from probnmn_tpu_torch.models import nmn, program_generator
+    from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary
+    from probnmn_tpu_torch.serving import InferenceEngine
+
+    vocab = make_clevr_like_vocabulary()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(
+            vocab, program_generator.make_spec(vocab), nmn.make_spec(vocab), {}, {},
+            device="cuda",
+        )
