@@ -29,6 +29,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
    per batch (the timed K2 batch is checked against the plain version too),
    the NMN forward and ``predict`` per batch and questions/s, each beside its
    bound (operations and bytes of this run's inputs).
+6. The program_prior training phase at the shipped width
+   (``configs/program_prior.yml``: D=H=256, 2 layers, batch 256) on 8,192
+   CLEVR-like programs in memory (1,024 for validation), each set with a
+   full-length and an all-pad row: K3f's per-example loss within 1e-4 of its
+   plain version and every K3b gradient leaf within 1e-4 * max(1, max|g|) of
+   autograd through the plain loss under a random positive cotangent; 20
+   ``ProgramPriorTrainer.step()``s on ``cuda`` with the counters set to 0
+   before and read after (K3f and K3b once per step) and a falling loss; the
+   first step against the same step on the CPU (loss within 1e-4, every
+   parameter's gradient within 1e-4 * max(1, max|g|)); the
+   evaluator (K3f), ``after_validation``'s checkpoint, and a resume from it
+   with identical params; then K3f, K3b, their plain versions, cuDNN's LSTM
+   over the same lengths (a partial yardstick: recurrence only) and the
+   train step, timed beside their bounds.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -227,6 +241,208 @@ def stem_classifier_work(spec, batch, feature_itemsize, itemsize):
     flops = 2.0 * batch * (HW * 9 * (F * C + C * C) + HW * C * P + flat * L + L * A)
     weights = (9 * F * C + 9 * C * C + C * P + flat * L + L * A) * itemsize
     return flops, batch * HW * F * feature_itemsize + weights + batch * A * 4
+
+
+def lm_programs(np, vocab, n, seed):
+    r"""``n`` CLEVR-like programs (Lt=26) with a full-length row and an all-pad row."""
+    from probnmn_tpu_torch.utils.clevr import sample_clevr_like_programs
+
+    programs = sample_clevr_like_programs(vocab, n, seed=seed)
+    rs = np.random.RandomState(seed)
+    programs[0] = rs.randint(4, vocab.get_vocab_size("programs"), programs.shape[1])
+    programs[1] = 0
+    return programs.astype(np.int64)
+
+
+def lm_work(spec, programs):
+    r"""FLOPs and bytes K3f and K3b need for these programs: the LSTM and the
+    head over each row's valid steps (its tokens, @start@ and the @end@
+    label: len + 1); K3b replays the forward, sweeps back (dh and dx) and
+    contracts the weight gradients, each as much as the forward's LSTM, plus
+    the head's three gradient products. Weights and tokens in once, the loss
+    or the gradients out once."""
+    D, H, V, L = spec.input_size, spec.hidden_size, spec.vocab_size, spec.num_layers
+    steps = float(((programs != spec.pad_index).sum(1) + 1).sum())
+    lstm = steps * sum(2 * 4 * H * ((D if l == 0 else H) + H) for l in range(L))
+    head = steps * (2 * H * D + 2 * D * V)
+    weights = 4 * (V * D + D * H + sum(4 * H * ((D if l == 0 else H) + H) + 8 * H for l in range(L)))
+    tokens = programs.size * 4
+    fwd = (lstm + head, weights + tokens + 4 * len(programs))
+    bwd = (3 * lstm + head + steps * (4 * D * V + 4 * D * H), 2 * weights + tokens + 4 * len(programs))
+    return fwd, bwd
+
+
+def train_program_prior(np, torch, dev, gen, vocab, smi):
+    r"""Phase 6: kernels K3f and K3b against their plain versions at full
+    program_prior width, the trainer on the card (launch counts, falling
+    loss, evaluation, checkpoint and resume, one step against the CPU's),
+    and times. Returns the two kernels' entries of the kernels line."""
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import ProgramPriorDataset
+    from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain, pack_lm_weights,
+        param_leaves,
+    )
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_prior_")
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    config = Config(os.path.join(repo, "configs", "program_prior.yml"),
+                    ["DATA.VOCABULARY", os.path.join(work, "vocab")])
+    train_set = ProgramPriorDataset.from_programs(lm_programs(np, vocab, 8192, seed=5))
+    val_set = ProgramPriorDataset.from_programs(lm_programs(np, vocab, 1024, seed=6), split="val")
+
+    def make_trainer(device, name="run"):
+        return ProgramPriorTrainer(config, os.path.join(work, name), device=device,
+                                   writer=RecordingWriter(), dataset=train_set)
+
+    trainer = make_trainer("cuda")
+    spec, batch = trainer.spec, config.OPTIM.BATCH_SIZE
+    log(f"[prior] {spec}, batch {batch}, {len(train_set)} train / {len(val_set)} val programs")
+    init = tree_map(lambda t: t.detach().clone(), trainer.params["program_prior"])
+
+    # K3f and K3b against their plain versions on the first training batch's
+    # programs (row 0 full length, row 1 all padding).
+    tok_np = train_set.get_batch(np.arange(batch))["program"]
+    tok = torch.from_numpy(tok_np).to(dev)
+    packed = pack_lm_weights(init)
+    loss_k = lm_forward_cuda(packed, spec, tok)
+    loss_p = lm_loss_plain(init, spec, tok)
+    torch.cuda.synchronize()
+    k3f_err = float((loss_k - loss_p).abs().max())
+    log(f"[K3f] per-example loss vs plain: max |err| {k3f_err:.3e} (mean loss "
+        f"{float(loss_p.mean()):.4f}; all-pad row {float(loss_k[1]):.4f})")
+    check(bool(torch.isfinite(loss_k).all()), "K3f loss not finite")
+    check(k3f_err <= 1e-4, f"K3f error {k3f_err}")
+    dloss = (torch.rand(batch, generator=gen) + 0.5).to(dev)
+    names = ["embedding", "projection"] + [
+        f"encoder[{l}].{n}" for l in range(spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    k3b_err = 0.0
+    for name, got, want in zip(names, param_leaves(lm_backward_cuda(packed, spec, tok, dloss)),
+                               param_leaves(lm_grads_plain(init, spec, tok, dloss))):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        log(f"[K3b] {name:18s} {tuple(want.shape)}: max |err| {err:.3e}, max |grad| {scale:.3e}")
+        check(err <= 1e-4 * max(1.0, scale), f"K3b {name} error {err}")
+        k3b_err = max(k3b_err, err)
+
+    # The trainer on the card: K3f and K3b once per step.
+    steps = 20
+    lm_forward_cuda.launches = 0
+    lm_backward_cuda.launches = 0
+    losses = [trainer.step()["loss"]]
+    after_one = tree_map(lambda t: t.detach().clone(), trainer.params["program_prior"])
+    grads_one = [p.grad.detach().clone() for p in tree_leaves(trainer.params["program_prior"])]
+    losses += [trainer.step()["loss"] for _ in range(steps - 1)]
+    torch.cuda.synchronize()
+    launches = {"lm_forward": lm_forward_cuda.launches, "lm_backward": lm_backward_cuda.launches}
+    log(f"[prior] {steps} train steps on cuda: launches {launches}, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(launches == {"lm_forward": steps, "lm_backward": steps}, f"launches {launches}")
+    check(all(np.isfinite(losses)), "train loss not finite")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+
+    # One float32 step on the CPU (plain versions) from the same params and
+    # batch: the same loss, the same (clamped) gradient of every parameter as
+    # the trainer's pack, K3b and unpack produced it, and the same params.
+    cpu = make_trainer("cpu", "cpu_run")
+    copy_into(cpu.params["program_prior"], init)
+    cpu_loss = cpu.step()["loss"]
+    log(f"[prior] one step, card vs CPU: loss {losses[0]:.6f} / {cpu_loss:.6f} (|diff| "
+        f"{abs(losses[0] - cpu_loss):.2e})")
+    check(abs(losses[0] - cpu_loss) <= 1e-4, "card vs CPU step loss")
+    for index, (got, leaf) in enumerate(zip(grads_one, tree_leaves(cpu.params["program_prior"]))):
+        err, scale = float((got.cpu() - leaf.grad).abs().max()), float(leaf.grad.abs().max())
+        log(f"[prior]   grad of leaf {index} {tuple(leaf.shape)}: max |err| {err:.3e}, "
+            f"max |grad| {scale:.3e}")
+        check(err <= 1e-4 * max(1.0, scale), f"card vs CPU gradient of leaf {index}: {err}")
+    diffs = [(a.detach().cpu() - b.detach()).abs()
+             for a, b in zip(tree_leaves(after_one), tree_leaves(cpu.params["program_prior"]))]
+    close = sum(int((d <= 1e-5).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    log(f"[prior]   params within 1e-5: {close:.6f}, max |diff| "
+        f"{max(float(d.max()) for d in diffs):.2e} (Adam's first step is lr * sign(g))")
+    check(close >= 0.99, "card vs CPU params after one step")
+
+    # Evaluation (K3f under no_grad), a checkpoint, and a resume from it.
+    before = lm_forward_cuda.launches
+    val = ProgramPriorEvaluator(config, trainer, dataset=val_set).evaluate(num_batches=2)
+    ppl = val["program_prior"]["perplexity"]
+    check(lm_forward_cuda.launches == before + 2, "the evaluator did not run K3f")
+    check(1.0 < ppl < spec.vocab_size, f"perplexity {ppl}")
+    trainer.after_validation(val, steps - 1)
+    ckpt = os.path.join(work, "run", f"checkpoint_{steps - 1}.ckpt")
+    check(os.path.exists(ckpt) and os.path.exists(os.path.join(work, "run", "checkpoint_best.ckpt")),
+          "checkpoint files")
+    resumed = make_trainer("cuda")
+    resumed.load_checkpoint(ckpt)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params), tree_leaves(trainer.params)))
+    check(same and resumed.iteration == steps - 1, "resume from the checkpoint")
+    log(f"[prior] val perplexity {ppl:.4f} on 2 batches; checkpoint_{steps - 1}.ckpt written and "
+        f"resumed with identical params at iteration {resumed.iteration}")
+
+    # Times, each beside its bound.
+    k3f_ms = cuda_ms(torch, lambda: lm_forward_cuda(packed, spec, tok), iters=20)
+    k3b_ms = cuda_ms(torch, lambda: lm_backward_cuda(packed, spec, tok, dloss), iters=20)
+    k3f_plain_ms = cuda_ms(torch, lambda: lm_loss_plain(init, spec, tok), iters=5, warmup=1)
+    k3b_plain_ms = cuda_ms(torch, lambda: lm_grads_plain(init, spec, tok, dloss), iters=5, warmup=1)
+    (f_flops, f_bytes), (b_flops, b_bytes) = lm_work(spec, tok_np)
+    k3f_bound, k3f_by = bound(f_flops, f_bytes, "float32")
+    k3b_bound, k3b_by = bound(b_flops, b_bytes, "float32")
+    # Yardstick: cuDNN's LSTM over the same packed lengths, recurrence only.
+    lstm = torch.nn.LSTM(spec.input_size, spec.hidden_size, spec.num_layers, batch_first=True).to(dev)
+    lens = torch.from_numpy((tok_np != spec.pad_index).sum(1) + 1)
+    x = torch.randn(batch, tok_np.shape[1] + 1, spec.input_size, generator=gen).to(dev)
+    packed_x = torch.nn.utils.rnn.pack_padded_sequence(x, lens, batch_first=True, enforce_sorted=False)
+    with torch.no_grad():
+        cudnn_fwd_ms = cuda_ms(torch, lambda: lstm(packed_x), iters=20)
+    cudnn_train_ms = cuda_ms(torch, lambda: lstm(packed_x)[0].data.sum().backward(), iters=20)
+    for _ in range(3):
+        trainer.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 10
+    for _ in range(timed):
+        trainer.step()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    log(f"[time] K3f {k3f_ms:.3f} ms/batch (plain {k3f_plain_ms:.3f}, bound {k3f_bound:.4f} by "
+        f"{k3f_by}: {f_flops / 1e9:.2f} GFLOP over {int(lens.sum())} valid row-steps of "
+        f"{batch * (tok_np.shape[1] + 1)}; cuDNN LSTM forward, recurrence only, {cudnn_fwd_ms:.3f})")
+    log(f"[time] K3b {k3b_ms:.3f} ms/batch (plain {k3b_plain_ms:.3f}, bound {k3b_bound:.4f} by "
+        f"{k3b_by}: {b_flops / 1e9:.2f} GFLOP; cuDNN LSTM forward+backward, recurrence only, "
+        f"{cudnn_train_ms:.3f})")
+    log(f"[time] program_prior train step {step_ms:.3f} ms (host clock, loss fetched each step): "
+        f"{batch / step_ms * 1e3:.1f} examples/s; kernel bound {k3f_bound + k3b_bound:.4f} ms; "
+        f"card {smi}")
+    wall_ms, busy_ms, top = trace(torch, trainer.step)
+    if busy_ms > 0:
+        log(f"[trace] train step under torch.profiler: {wall_ms:.2f} ms host clock, device busy "
+            f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        for us, name, count in top:
+            log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log("[trace] the profiler recorded no device time: idle share not measured")
+    shutil.rmtree(work, ignore_errors=True)
+
+    yardstick = "cuDNN LSTM, recurrence only"
+    return [
+        {"name": "lm_forward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/lm_train.cu",
+         "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:917",
+         "launches": launches["lm_forward"], "max_abs_err": k3f_err,
+         "ms": k3f_ms, "plain_ms": k3f_plain_ms, "bound_ms": k3f_bound, "bound_by": k3f_by,
+         "library_ms": None, "yardstick": yardstick, "yardstick_ms": cudnn_fwd_ms},
+        {"name": "lm_backward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/lm_train.cu",
+         "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:987",
+         "launches": launches["lm_backward"], "max_abs_err": k3b_err,
+         "ms": k3b_ms, "plain_ms": k3b_plain_ms, "bound_ms": k3b_bound, "bound_by": k3b_by,
+         "library_ms": None, "yardstick": yardstick, "yardstick_ms": cudnn_train_ms},
+    ]
 
 
 def main():
@@ -482,6 +698,9 @@ def main():
     else:
         log("[trace] the profiler recorded no device time: idle share not measured")
 
+    # ---------------------------------------------------------------- 6. program_prior training
+    prior = train_program_prior(np, torch, dev, gen, vocab, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; K2: outputs, both 256-row comparisons);
     # the float32 build's error stands beside it.
@@ -500,6 +719,7 @@ def main():
          "max_abs_err_float32": k2["float32"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},
+        *prior,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -28,6 +28,13 @@ def program_generator_from_jax(params_np: Any, device="cpu") -> dict:
     return _tree_to_torch(params_np, device)
 
 
+def program_prior_from_jax(params_np: Any, device="cpu") -> dict:
+    r"""ProgramPrior params (``embedding`` (V, D), ``encoder`` as a list of
+    ``{w_ih, w_hh, b_ih, b_hh}``, ``projection`` (D, H)): same layout, as
+    float32 tensors on ``device``."""
+    return _tree_to_torch(params_np, device)
+
+
 _BANK_OF_CLASS = {
     "attention": "conv1", "query": "conv1", "relate": "conv1", "same": "conv",
     "compare": "conv1",

@@ -10,13 +10,18 @@ behaviours the reference relies on:
 - ``trim_at_end``   = the per-row trimming loop in reference
   ``seq2seq_base.py:278-293``, as one vectorized mask.
 - ``length_normalized_logprob_loss`` = reference ``seq2seq_base.py:235-246``.
+- ``sequence_cross_entropy`` = ``allennlp.nn.util.sequence_cross_entropy_with_logits``
+  with ``average=None`` (per-example masked mean CE, eps 1e-13).
+- ``sample_with_blocked_tokens`` = ``torch.multinomial`` over a softmax whose
+  blocked entries were zeroed (reference ``seq2seq_base.py:211-215``), drawn
+  as Gumbel-max.
 
-Initializers take an explicit ``torch.Generator`` and draw on the CPU; callers
-move the parameters to their device afterwards.
+Initializers and samplers take an explicit ``torch.Generator`` and draw on
+the CPU; callers move the results to their device afterwards.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -129,6 +134,39 @@ def trim_at_end(predictions: torch.Tensor, end_index: int) -> torch.Tensor:
         has_end[:, None] & (first_end[:, None] > 0), keep, ~has_end[:, None]
     )
     return predictions * keep.to(predictions.dtype)
+
+
+def sequence_cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor
+) -> torch.Tensor:
+    r"""Per-example masked mean token cross entropy.
+
+    logits: (B, T, V); targets, weights: (B, T). Returns (B,), with allennlp's
+    1e-13 epsilon in the denominator.
+    """
+    log_probs = torch.log_softmax(logits, dim=-1)
+    nll = -log_probs.gather(-1, targets.unsqueeze(-1)).squeeze(-1)
+    weights = weights.to(logits.dtype)
+    return (nll * weights).sum(-1) / (weights.sum(-1) + 1e-13)
+
+
+def sample_with_blocked_tokens(
+    logits: torch.Tensor,
+    blocked: Sequence[int],
+    gen: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    r"""Categorical sample over the last axis with the ``blocked`` ids given zero
+    probability: ``argmax(logits + Gumbel noise)`` with blocked logits at
+    NEG_INF, which is the distribution of the reference's zero-then-multinomial.
+    The noise is ``noise`` (the logits' shape) when given, else standard
+    Gumbel noise drawn on the CPU from ``gen``."""
+    masked = logits.clone()
+    masked[..., list(blocked)] = NEG_INF
+    if noise is None:
+        u = torch.rand(tuple(logits.shape), generator=gen)
+        noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(masked + noise.to(device=logits.device, dtype=logits.dtype), dim=-1)
 
 
 def length_normalized_logprob_loss(

@@ -135,6 +135,23 @@ def library() -> ctypes.CDLL:
         _INT, _INT, _INT,                       # H, W, C
         _VOID_P,                                # stream
     ]
+    lib.probnmn_lm_workspace_floats.restype = ctypes.c_longlong
+    lib.probnmn_lm_workspace_floats.argtypes = [_INT] * 7  # B, Lt, D, H, layers, V, backward
+    lm_weights = [
+        _VOID_P, _INT, _INT,                    # tokens (B, Lt) int32, B, Lt
+        _VOID_P, _VOID_P,                       # embedding (V, D), projection (D, H)
+        _VOID_P, _VOID_P, _VOID_P,              # w_ih (flat), w_hh (L, 4H, H), bias (L, 4H)
+    ]
+    lm_sizes = [_INT] * 7 + [_VOID_P]           # V, D, H, layers, pad, start, end; stream
+    lib.probnmn_lm_forward.restype = _INT
+    lib.probnmn_lm_forward.argtypes = lm_weights + [
+        _VOID_P, _VOID_P,                       # workspace, loss (B,)
+    ] + lm_sizes
+    lib.probnmn_lm_backward.restype = _INT
+    lib.probnmn_lm_backward.argtypes = lm_weights + [
+        _VOID_P, _VOID_P,                       # dloss (B,), workspace
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # d_emb, d_proj, d_wih, d_whh, d_bias
+    ] + lm_sizes
     return lib
 
 

@@ -10,8 +10,10 @@ functions on tensors (counterpart of ``probnmn_tpu/ops/rnn.py``):
 
 ``compute_dtype`` rounds the matmul operands (inputs, hidden state, weights)
 to that type while the state and the sums stay float32 — the arithmetic of
-the sampling kernel in ``ops/kernels/seq2seq_decode.py``. Serving has no
-dropout, so there is none here.
+the sampling kernel in ``ops/kernels/seq2seq_decode.py``.
+
+Inter-layer dropout (torch ``nn.LSTM(dropout=p)``) is not ported: no shipped
+config sets it, and :func:`check_no_dropout` refuses it on every device.
 """
 from __future__ import annotations
 
@@ -39,6 +41,14 @@ def init_lstm_params(
             }
         )
     return layers
+
+
+def check_no_dropout(dropout: float) -> None:
+    if dropout > 0.0:
+        raise NotImplementedError(
+            f"LSTM dropout {dropout} is not ported (ROADMAP.md queue 1: "
+            "'LSTM inter-layer dropout > 0'); set DROPOUT: 0.0"
+        )
 
 
 def init_lstm_cell_params(
@@ -110,3 +120,22 @@ def lstm_encode(
             out = h_new * m
         outputs.append(out)
     return torch.stack(outputs, dim=1), states
+
+
+def lstm_step_stacked(
+    params: List[Dict[str, torch.Tensor]],
+    x: torch.Tensor,
+    hs: torch.Tensor,
+    cs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    r"""One time step through all layers (free-running decode, e.g. prior
+    sampling). x: (B, D); hs, cs: (L, B, H). Returns (top output (B, H), new
+    hs, new cs)."""
+    new_hs, new_cs = [], []
+    out = x
+    for layer, layer_params in enumerate(params):
+        h, c = lstm_cell(layer_params, out, (hs[layer], cs[layer]))
+        new_hs.append(h)
+        new_cs.append(c)
+        out = h
+    return out, torch.stack(new_hs), torch.stack(new_cs)

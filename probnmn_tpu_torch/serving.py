@@ -30,22 +30,13 @@ import torch
 
 from probnmn_tpu_torch.data.pipeline import image_to_nhwc
 from probnmn_tpu_torch.data.vocabulary import Vocabulary
+from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.models import nmn as nmn_lib
 from probnmn_tpu_torch.models.nmn import cast_params, resolve_compute_dtype
 from probnmn_tpu_torch.models.seq2seq import GREEDY, seq2seq_forward
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward, pack_weights
 
 _SEED_RANGE = 2 ** 62
-
-
-def resolve_device(device) -> torch.device:
-    r"""``torch.device(device)``; asking for CUDA without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class InferenceEngine:

@@ -9,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-from probnmn_tpu_torch.models import nmn, program_generator
+from probnmn_tpu_torch.models import nmn, program_generator, program_prior
 from probnmn_tpu_torch.models.nmn import cast_params
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
     fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
+)
+from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+    fused_lm_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
+    pack_lm_weights, param_leaves, params_from_leaves,
 )
 from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
 
@@ -79,3 +83,45 @@ def test_interpreter_kernel_matches_plain_version(cuda):
     plain_banks = {k: v for k, v in banks.items() if k not in ("w3t", "wcmpt")}
     with pytest.raises(ValueError):
         execute_programs_kernel(plain_banks, tables, spec, stem, programs)
+
+
+@pytest.mark.parametrize("sizes", [
+    dict(vocab_size=20, input_size=16, hidden_size=12, num_layers=1, batch=9, length=7),
+    dict(vocab_size=44, input_size=64, hidden_size=96, num_layers=2, batch=37, length=26),
+])
+def test_lm_kernels_match_plain_versions(cuda, sizes):
+    sizes = dict(sizes)
+    batch, length = sizes.pop("batch"), sizes.pop("length")
+    spec = program_prior.ProgramPriorSpec(**sizes)
+    gen = torch.Generator().manual_seed(3)
+    params = program_prior.init_program_prior_params(gen, spec)
+    params = {"embedding": params["embedding"].to(cuda), "projection": params["projection"].to(cuda),
+              "encoder": [{k: v.to(cuda) for k, v in layer.items()} for layer in params["encoder"]]}
+    rs = np.random.RandomState(4)
+    tok = rs.randint(4, spec.vocab_size, (batch, length))
+    tok *= np.arange(length)[None, :] < rs.randint(1, length, (batch, 1))
+    tok[0] = rs.randint(4, spec.vocab_size, (length,))
+    tok[1] = 0
+    tok = torch.from_numpy(tok).to(cuda)
+    dloss = torch.from_numpy(rs.rand(batch).astype(np.float32) + 0.5).to(cuda)
+    packed = pack_lm_weights(params)
+
+    before = (lm_forward_cuda.launches, lm_backward_cuda.launches)
+    loss = lm_forward_cuda(packed, spec, tok)
+    torch.testing.assert_close(loss, lm_loss_plain(params, spec, tok), rtol=0, atol=1e-5)
+    got = lm_backward_cuda(packed, spec, tok, dloss)
+    want = lm_grads_plain(params, spec, tok, dloss)
+    for g, w in zip(param_leaves(got), param_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+    again = lm_backward_cuda(packed, spec, tok, dloss)
+    for a, b in zip(param_leaves(got), param_leaves(again)):
+        assert torch.equal(a, b)  # no float atomics: the same bits every time
+    assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 1, before[1] + 2)
+
+    # Through autograd: K3f forward, K3b backward, once each.
+    leaves = [p.detach().clone().requires_grad_(True) for p in param_leaves(params)]
+    out = fused_lm_loss(params_from_leaves(leaves), spec, tok)
+    (out * dloss).sum().backward()
+    for leaf, w in zip(leaves, param_leaves(want)):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 2, before[1] + 3)

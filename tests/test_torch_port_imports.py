@@ -13,6 +13,27 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "probnmn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "probnmn_tpu")
+# Modules each slice added; the walk below must import every one of them.
+SLICE_MODULES = (
+    "probnmn_tpu_torch.serving",
+    "probnmn_tpu_torch.ops.kernels.seq2seq_decode",
+    "probnmn_tpu_torch.ops.kernels.nmn_interpreter",
+    "probnmn_tpu_torch.ops.kernels.seq2seq_train",
+    "probnmn_tpu_torch.models.program_prior",
+    "probnmn_tpu_torch.data.readers",
+    "probnmn_tpu_torch.data.samplers",
+    "probnmn_tpu_torch.data.datasets",
+    "probnmn_tpu_torch.data.pipeline",
+    "probnmn_tpu_torch.utils.checkpointing",
+    "probnmn_tpu_torch.utils.metrics",
+    "probnmn_tpu_torch.utils.observability",
+    "probnmn_tpu_torch.training.optim",
+    "probnmn_tpu_torch.training._trainer",
+    "probnmn_tpu_torch.training.program_prior_trainer",
+    "probnmn_tpu_torch.evaluators._evaluator",
+    "probnmn_tpu_torch.evaluators.program_prior_evaluator",
+    "probnmn_tpu_torch.train",
+)
 
 
 def _imported_modules(path):
@@ -37,6 +58,8 @@ def test_import_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'probnmn_tpu'))\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {SLICE_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len([k for k in sys.modules if k.startswith('probnmn_tpu_torch')]))\n"
     )
     env = dict(os.environ)
@@ -47,12 +70,12 @@ def test_import_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
-    assert int(proc.stdout.split()[1]) >= 15  # every submodule was imported
+    assert int(proc.stdout.split()[1]) >= 35  # every submodule was imported
 
 
 def test_sources_import_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 35
     offending = {
         str(f.relative_to(REPO)): m
         for f in files for m in _imported_modules(f) if _forbidden(m)
@@ -73,3 +96,14 @@ def test_cuda_engine_raises_without_a_card():
             vocab, program_generator.make_spec(vocab), nmn.make_spec(vocab), {}, {},
             device="cuda",
         )
+
+
+def test_cuda_trainer_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
+
+    config = Config(str(REPO / "configs" / "program_prior.yml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProgramPriorTrainer(config, str(tmp_path))
