@@ -42,7 +42,28 @@ Phases (any failure raises, and the script exits non-zero with no result):
    evaluator (K3f), ``after_validation``'s checkpoint, and a resume from it
    with identical params; then K3f, K3b, their plain versions, cuDNN's LSTM
    over the same lengths (a partial yardstick: recurrence only) and the
-   train step, timed beside their bounds.
+   train step, timed beside their bounds. Its best checkpoint is phase 7's
+   frozen prior.
+7. The question_coding training phase at the shipped width
+   (``configs/question_coding_ours.yml``: D=H=256, 2 layers, batch 256,
+   ALPHA 100, BETA 0.1, DELTA 0.99) on 8,192 in-memory CLEVR-like programs
+   with random questions (1,000 supervised; 1,024 for validation), each set
+   with full-length and all-pad rows. On the four passes of the first
+   batch (supervised ProgramGenerator and QuestionReconstructor, the
+   generator in REINFORCE mode at the z kernel K1 sampled, the
+   reconstructor from z): K4f's per-example loss within 1e-4 of its plain
+   version, every K4b gradient leaf within 1e-4 * max(1, max|g|) of
+   autograd under a random positive cotangent, and K4b bitwise repeatable;
+   ``question_coding_objective`` at the card's z against the same call on
+   the CPU (total, logs and baseline within 1e-4, every gradient leaf within
+   1e-4 * max(1, max|g|)); 20 ``QuestionCodingTrainer.step()``s on ``cuda``
+   with the counters set to 0 before and read after (K4f and K4b four times
+   a step, K1 and K3f once), finite logs and a baseline that moved; the
+   evaluator, a checkpoint and a resume with identical params and baseline;
+   two OBJECTIVE ``baseline`` steps (K4f and K4b twice a step, nothing
+   else); then K4f, K4b and their plain versions per pass, cuDNN's LSTM
+   over each pass's encoder (a partial yardstick), and the train step,
+   timed beside their bounds.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -272,11 +293,12 @@ def lm_work(spec, programs):
     return fwd, bwd
 
 
-def train_program_prior(np, torch, dev, gen, vocab, smi):
+def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     r"""Phase 6: kernels K3f and K3b against their plain versions at full
     program_prior width, the trainer on the card (launch counts, falling
     loss, evaluation, checkpoint and resume, one step against the CPU's),
-    and times. Returns the two kernels' entries of the kernels line."""
+    and times. Copies the best checkpoint to ``prior_out`` (phase 7's frozen
+    prior) and returns the two kernels' entries of the kernels line."""
     import shutil
     import tempfile
 
@@ -428,6 +450,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi):
             log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
     else:
         log("[trace] the profiler recorded no device time: idle share not measured")
+    shutil.copy(os.path.join(work, "run", "checkpoint_best.ckpt"), prior_out)
     shutil.rmtree(work, ignore_errors=True)
 
     yardstick = "cuDNN LSTM, recurrence only"
@@ -442,6 +465,298 @@ def train_program_prior(np, torch, dev, gen, vocab, smi):
          "launches": launches["lm_backward"], "max_abs_err": k3b_err,
          "ms": k3b_ms, "plain_ms": k3b_plain_ms, "bound_ms": k3b_bound, "bound_by": k3b_by,
          "library_ms": None, "yardstick": yardstick, "yardstick_ms": cudnn_train_ms},
+    ]
+
+
+def tf_work(spec, src, tgt, reinforce_norm):
+    r"""FLOPs and bytes K4f and K4b need for one pass over these tokens: the
+    encoder over each row's valid source steps (len + 1), the decoder (its
+    gates over [attended, embedded, h], attention over the valid source
+    positions, the head) over the steps up to each row's last real label
+    (len + 1 in cross-entropy mode, the z length in REINFORCE mode). K4b
+    replays the forward and does each product twice more (the data and the
+    weight gradients). Weights and tokens in once, the loss or the gradients
+    out once."""
+    D, H, L = spec.input_size, spec.hidden_size, spec.num_layers
+    V, pad = spec.target_vocab_size, spec.pad_index
+    src_steps = (src != pad).sum(1) + 1
+    dec_steps = (tgt != pad).sum(1) + (0 if reinforce_norm else 1)
+    enc = float(src_steps.sum()) * sum(2 * 4 * H * ((D if l == 0 else H) + H) for l in range(L))
+    dec = float(dec_steps.sum()) * 2 * 4 * H * (H + D + H)
+    att = float((dec_steps * src_steps).sum()) * 2 * 2 * H
+    head = float(dec_steps.sum()) * 2 * H * V
+    weights = 4 * (spec.source_vocab_size * D + V * D + V * (H + 1) + 4 * H * (H + D + H + 2)
+                   + sum(4 * H * ((D if l == 0 else H) + H + 2) for l in range(L)))
+    tokens = 4 * (src.size + tgt.size)
+    fwd = (enc + dec + att + head, weights + tokens + 4 * len(src))
+    bwd = (3 * (enc + dec + att + head), 2 * weights + tokens + 4 * len(src))
+    return fwd, bwd
+
+
+def qc_questions(np, vocab, n, seed):
+    r"""``n`` random questions (lengths 4-45, a full-length and an all-pad row)
+    and ``n`` CLEVR-like programs (a full-length and an all-pad row)."""
+    from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH
+
+    return lm_programs(np, vocab, n, seed), random_questions(np, vocab, n, MAX_QUESTION_LENGTH,
+                                                             seed + 1)
+
+
+def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt):
+    r"""Phase 7: kernels K4f and K4b against their plain versions on the four
+    passes of a question_coding step at full width, the objective on the
+    card against the CPU's at the card's z, 20 trainer steps (launch counts),
+    two OBJECTIVE baseline steps, the evaluator, checkpoint and resume, and
+    times. Returns the two kernels' entries of the kernels line."""
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import QuestionCodingDataset
+    from probnmn_tpu_torch.evaluators.question_coding_evaluator import QuestionCodingEvaluator
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_backward_cuda, lm_forward_cuda, pack_tf_weights, tf_backward_cuda, tf_forward_cuda,
+        tf_grads_plain, tf_loss_plain, tf_param_leaves,
+    )
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_qc_")
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    overrides = ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                 "CHECKPOINTS.PROGRAM_PRIOR", prior_ckpt]
+    config = Config(os.path.join(repo, "configs", "question_coding_ours.yml"), overrides)
+    np.random.seed(config.RANDOM_SEED)  # the supervision subset, as the CLI seeds it
+    train_set = QuestionCodingDataset.from_tokens(
+        *qc_questions(np, vocab, 8192, seed=7), num_supervision=config.SUPERVISION,
+        supervision_question_max_length=config.SUPERVISION_QUESTION_MAX_LENGTH)
+    val_set = QuestionCodingDataset.from_tokens(*qc_questions(np, vocab, 1024, seed=9),
+                                                split="val")
+
+    def make_trainer(device, name="run", cfg=config):
+        return QuestionCodingTrainer(cfg, os.path.join(work, name), device=device,
+                                     writer=RecordingWriter(), dataset=train_set)
+
+    trainer = make_trainer("cuda")
+    pg_spec, qr_spec, batch_size = trainer.pg_spec, trainer.qr_spec, config.OPTIM.BATCH_SIZE
+    log(f"[qc] PG {pg_spec}, QR {qr_spec}, batch {batch_size}, {len(train_set)} train "
+        f"({int(train_set.get_supervision_list().sum())} supervised) / {len(val_set)} val")
+    init = tree_map(lambda t: t.detach().clone(), trainer.params)
+
+    # The four passes of a step on its first batch: supervised PG and QR,
+    # PG in REINFORCE mode at the sampled z, QR reconstructing from z.
+    batch = next(trainer._batches)
+    n_sup = batch[COUNT_KEY]
+    questions, programs = batch["question"], batch["program"]
+    z = trainer.sample_programs(questions[n_sup:])
+    torch.cuda.synchronize()
+    z_np = z.cpu().numpy()
+    log(f"[qc] first batch: {n_sup} supervised, {batch_size - n_sup} unsupervised; z lengths "
+        f"{int((z_np != 0).sum(1).min())}-{int((z_np != 0).sum(1).max())}, "
+        f"{int((z_np == 0).all(1).sum())} all pad, {int((z_np == pg_spec.end_index).any(1).sum())} "
+        f"with @end@")
+    pg, qr = init["program_generator"], init["question_reconstructor"]
+    passes = [
+        ("pg_sup", pg, pg_spec, questions[:n_sup], programs[:n_sup], False),
+        ("qr_sup", qr, qr_spec, programs[:n_sup], questions[:n_sup], False),
+        ("pg_z", pg, pg_spec, questions[n_sup:], z, True),
+        ("qr_z", qr, qr_spec, z, questions[n_sup:], False),
+    ]
+    leaf_names = ["source_embedding", "target_embedding"] + [
+        f"encoder[{l}].{n}" for l in range(pg_spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")
+    ] + [f"decoder_cell.{n}" for n in ("w_ih", "w_hh", "b_ih", "b_hh")] + ["proj.w", "proj.b"]
+    k4f_err = k4b_err = 0.0
+    checked = []
+    for name, params, spec, src, tgt, reinforce_norm in passes:
+        packed = pack_tf_weights(params, spec)
+        loss_k = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+        loss_p = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
+        torch.cuda.synchronize()
+        err = float((loss_k - loss_p).abs().max())
+        log(f"[K4f {name}] B={src.shape[0]} S={src.shape[1] + 1} T={tgt.shape[1] + (0 if reinforce_norm else 1)} "
+            f"V={spec.target_vocab_size}: max |loss err| {err:.3e} (mean loss {float(loss_p.mean()):.4f})")
+        check(bool(torch.isfinite(loss_k).all()), f"K4f {name} loss not finite")
+        check(err <= 1e-4, f"K4f {name} error {err}")
+        k4f_err = max(k4f_err, err)
+        dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
+        got = tf_param_leaves(tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm))
+        again = tf_param_leaves(tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm))
+        want = tf_param_leaves(tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm))
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K4b {name} is not bitwise repeatable")
+        worst = (0.0, 0.0, "")
+        for leaf, g, w in zip(leaf_names, got, want):
+            e, scale = float((g - w).abs().max()), float(w.abs().max())
+            check(e <= 1e-4 * max(1.0, scale), f"K4b {name} {leaf} error {e} (max |g| {scale})")
+            worst = max(worst, (e, scale, leaf))
+            k4b_err = max(k4b_err, e)
+        log(f"[K4b {name}] every leaf within 1e-4 * max(1, max|g|); worst {worst[2]}: max |err| "
+            f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; bitwise repeatable")
+        checked.append((name, params, spec, src, tgt, reinforce_norm, packed, dloss))
+
+    # The objective on the card against the same call on the CPU at the card's z.
+    baseline0 = torch.tensor(0.25, device=dev)
+    total, new_baseline, logs = trainer.question_coding_objective(trainer.params, batch, z, baseline0)
+    total.backward()
+    card_grads = [p.grad.detach().clone() for p in tree_leaves(trainer.params)]
+    trainer._optimizer.zero_grad()
+    cpu = make_trainer("cpu", "cpu_run")
+    copy_into(cpu.params, init)
+    cpu_batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+    total_c, baseline_c, logs_c = cpu.question_coding_objective(cpu.params, cpu_batch, z.cpu(),
+                                                                baseline0.cpu())
+    total_c.backward()
+    loss_diff = abs(float(total.detach()) - float(total_c.detach()))
+    log(f"[qc] objective at the card's z, card vs CPU: total {float(total.detach()):.6f} / "
+        f"{float(total_c.detach()):.6f} (|diff| {loss_diff:.2e}), baseline {float(new_baseline):.6f} / "
+        f"{float(baseline_c):.6f}")
+    check(loss_diff <= 1e-4 * max(1.0, abs(float(total_c.detach()))), "card vs CPU objective")
+    check(abs(float(new_baseline) - float(baseline_c)) <= 1e-4, "card vs CPU baseline")
+    for group, values in logs_c.items():
+        for key, value in values.items():
+            check(abs(float(logs[group][key]) - float(value)) <= 1e-4 * max(1.0, abs(float(value))),
+                  f"card vs CPU log {group}/{key}")
+    grad_err = 0.0
+    for index, (g, leaf) in enumerate(zip(card_grads, tree_leaves(cpu.params))):
+        err, scale = float((g.cpu() - leaf.grad).abs().max()), float(leaf.grad.abs().max())
+        check(err <= 1e-4 * max(1.0, scale), f"card vs CPU gradient of leaf {index}: {err}")
+        grad_err = max(grad_err, err / max(1.0, scale))
+    log(f"[qc]   every log within 1e-4; every gradient leaf within 1e-4 * max(1, max|g|) (worst "
+        f"ratio {grad_err:.3e})")
+
+    # The trainer on the card: K4f and K4b four times a step, K1 and K3f once.
+    steps = 20
+    counters = (fused_sampling_forward, lm_forward_cuda, lm_backward_cuda, tf_forward_cuda,
+                tf_backward_cuda)
+    for fn in counters:
+        fn.launches = 0
+    step_logs = [trainer.step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    values = [v for out in step_logs for group in out.values() for v in group.values()]
+    log(f"[qc] {steps} train steps on cuda (OBJECTIVE ours): launches {launches}; supervised "
+        f"loss {step_logs[0]['loss']['program_generation_gt']:.4f} -> "
+        f"{step_logs[-1]['loss']['program_generation_gt']:.4f} (PG), "
+        f"{step_logs[0]['loss']['question_reconstruction_gt']:.4f} -> "
+        f"{step_logs[-1]['loss']['question_reconstruction_gt']:.4f} (QR); elbo "
+        f"{step_logs[0]['elbo']['elbo']:.4f} -> {step_logs[-1]['elbo']['elbo']:.4f}; baseline "
+        f"{float(trainer.baseline):.4f}")
+    check(launches == {"fused_sampling_forward": steps, "lm_forward_cuda": steps,
+                       "lm_backward_cuda": 0, "tf_forward_cuda": 4 * steps,
+                       "tf_backward_cuda": 4 * steps}, f"launches {launches}")
+    check(all(np.isfinite(values)), "train logs not finite")
+    check(float(trainer.baseline) != 0.0, "the REINFORCE baseline did not move")
+
+    # Evaluation (plain teacher-forced greedy forward), a checkpoint, a resume.
+    val = QuestionCodingEvaluator(config, trainer, dataset=val_set).evaluate(num_batches=2)
+    for model, metrics in val.items():
+        log(f"[qc] val {model}: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        check(all(np.isfinite(v) for v in metrics.values()) and metrics["perplexity"] > 1.0
+              and 0.0 <= metrics["BLEU"] <= 1.0, f"val metrics of {model}")
+    trainer.after_validation(val, steps - 1)
+    ckpt = os.path.join(work, "run", f"checkpoint_{steps - 1}.ckpt")
+    resumed = make_trainer("cuda")
+    resumed.load_checkpoint(ckpt)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params), tree_leaves(trainer.params)))
+    check(same and torch.equal(resumed.baseline, trainer.baseline) and resumed.iteration == steps - 1,
+          "resume from the checkpoint")
+    log(f"[qc] checkpoint_{steps - 1}.ckpt written and resumed with identical params and baseline "
+        f"{float(resumed.baseline):.6f}")
+
+    # OBJECTIVE baseline: the supervised passes only.
+    base_cfg = Config(os.path.join(repo, "configs", "question_coding_baseline.yml"), overrides)
+    base = make_trainer("cuda", "baseline_run", base_cfg)
+    for fn in counters:
+        fn.launches = 0
+    base_logs = [base.step() for _ in range(2)]
+    base_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"[qc] 2 steps with OBJECTIVE baseline: launches {base_launches}, logs {base_logs[-1]}")
+    check(base_launches == {"fused_sampling_forward": 0, "lm_forward_cuda": 0, "lm_backward_cuda": 0,
+                            "tf_forward_cuda": 4, "tf_backward_cuda": 4}, f"launches {base_launches}")
+    check(all(np.isfinite(v) for out in base_logs for g in out.values() for v in g.values()),
+          "baseline logs not finite")
+
+    # Times per pass, each beside its bound; cuDNN's LSTM over each pass's
+    # encoder (same lengths) as a partial yardstick.
+    per_pass = {}
+    lstm = torch.nn.LSTM(pg_spec.input_size, pg_spec.hidden_size, pg_spec.num_layers,
+                         batch_first=True).to(dev)
+    for name, params, spec, src, tgt, reinforce_norm, packed, dloss in checked:
+        fwd_ms = cuda_ms(torch, lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm), iters=10)
+        bwd_ms = cuda_ms(torch, lambda: tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm),
+                         iters=10)
+        fwd_plain = cuda_ms(torch, lambda: tf_loss_plain(params, spec, src, tgt, reinforce_norm),
+                            iters=3, warmup=1)
+        bwd_plain = cuda_ms(torch, lambda: tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm),
+                            iters=3, warmup=1)
+        src_np, tgt_np = src.cpu().numpy(), tgt.cpu().numpy()
+        lens = torch.from_numpy((src_np != spec.pad_index).sum(1) + 1)
+        x = torch.randn(src.shape[0], src.shape[1] + 1, spec.input_size, generator=gen).to(dev)
+        packed_x = torch.nn.utils.rnn.pack_padded_sequence(x, lens, batch_first=True,
+                                                           enforce_sorted=False)
+        with torch.no_grad():
+            cudnn_fwd = cuda_ms(torch, lambda: lstm(packed_x), iters=10)
+        cudnn_train = cuda_ms(torch, lambda: lstm(packed_x)[0].data.sum().backward(), iters=10)
+        per_pass[name] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain=fwd_plain, bwd_plain=bwd_plain,
+                              work=tf_work(spec, src_np, tgt_np, reinforce_norm),
+                              cudnn_fwd=cudnn_fwd, cudnn_train=cudnn_train)
+        (ff, fb), (bf, bb) = per_pass[name]["work"]
+        log(f"[time] {name}: K4f {fwd_ms:.3f} ms (plain {fwd_plain:.3f}, bound "
+            f"{bound(ff, fb, 'float32')[0]:.4f}: {ff / 1e9:.2f} GFLOP), K4b {bwd_ms:.3f} ms (plain "
+            f"{bwd_plain:.3f}, bound {bound(bf, bb, 'float32')[0]:.4f}: {bf / 1e9:.2f} GFLOP); cuDNN "
+            f"LSTM encoder, recurrence only: {cudnn_fwd:.3f} forward, {cudnn_train:.3f} forward+backward")
+
+    def total_of(key):
+        return sum(p[key] for p in per_pass.values())
+
+    f_flops = sum(p["work"][0][0] for p in per_pass.values())
+    f_bytes = sum(p["work"][0][1] for p in per_pass.values())
+    b_flops = sum(p["work"][1][0] for p in per_pass.values())
+    b_bytes = sum(p["work"][1][1] for p in per_pass.values())
+    k4f_bound, k4f_by = bound(f_flops, f_bytes, "float32")
+    k4b_bound, k4b_by = bound(b_flops, b_bytes, "float32")
+    for _ in range(3):
+        trainer.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 10
+    for _ in range(timed):
+        trainer.step()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    log(f"[time] K4f, the four passes of a step: {total_of('fwd_ms'):.3f} ms (plain "
+        f"{total_of('fwd_plain'):.3f}, bound {k4f_bound:.4f} by {k4f_by}: {f_flops / 1e9:.2f} GFLOP); "
+        f"K4b {total_of('bwd_ms'):.3f} ms (plain {total_of('bwd_plain'):.3f}, bound {k4b_bound:.4f} "
+        f"by {k4b_by}: {b_flops / 1e9:.2f} GFLOP)")
+    log(f"[time] question_coding train step {step_ms:.3f} ms (host clock, logs fetched each step): "
+        f"{batch_size / step_ms * 1e3:.1f} examples/s; K4 bound {k4f_bound + k4b_bound:.4f} ms; "
+        f"card {smi}")
+    wall_ms, busy_ms, top = trace(torch, trainer.step)
+    if busy_ms > 0:
+        log(f"[trace] question_coding train step under torch.profiler: {wall_ms:.2f} ms host clock, "
+            f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        for us, name, count in top:
+            log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log("[trace] the profiler recorded no device time: idle share not measured")
+    shutil.rmtree(work, ignore_errors=True)
+
+    yardstick = "cuDNN LSTM over the four encoders, recurrence only"
+    passes_ms = {name: {"ms": p["fwd_ms"], "backward_ms": p["bwd_ms"]} for name, p in per_pass.items()}
+    return [
+        {"name": "tf_forward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/tf_train.cu",
+         "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:163",
+         "launches": launches["tf_forward_cuda"], "max_abs_err": k4f_err,
+         "ms": total_of("fwd_ms"), "plain_ms": total_of("fwd_plain"), "bound_ms": k4f_bound,
+         "bound_by": k4f_by, "library_ms": None, "yardstick": yardstick,
+         "yardstick_ms": total_of("cudnn_fwd"), "per_pass": passes_ms},
+        {"name": "tf_backward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/tf_train.cu",
+         "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:285",
+         "launches": launches["tf_backward_cuda"], "max_abs_err": k4b_err,
+         "ms": total_of("bwd_ms"), "plain_ms": total_of("bwd_plain"), "bound_ms": k4b_bound,
+         "bound_by": k4b_by, "library_ms": None, "yardstick": yardstick,
+         "yardstick_ms": total_of("cudnn_train")},
     ]
 
 
@@ -699,7 +1014,16 @@ def main():
         log("[trace] the profiler recorded no device time: idle share not measured")
 
     # ---------------------------------------------------------------- 6. program_prior training
-    prior = train_program_prior(np, torch, dev, gen, vocab, smi)
+    import shutil
+    import tempfile
+
+    shared = tempfile.mkdtemp(prefix="chip_smoke_")
+    prior_ckpt = os.path.join(shared, "program_prior_best.ckpt")
+    prior = train_program_prior(np, torch, dev, gen, vocab, smi, prior_ckpt)
+
+    # ---------------------------------------------------------------- 7. question_coding training
+    question_coding = train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt)
+    shutil.rmtree(shared, ignore_errors=True)
 
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; K2: outputs, both 256-row comparisons);
@@ -720,6 +1044,7 @@ def main():
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},
         *prior,
+        *question_coding,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,6 +1,5 @@
 // Shared LSTM device helpers (torch gate order i, f, g, o; masked steps
-// freeze the state), for the training kernels: lm_train.cu now, the
-// teacher-forced seq2seq kernels next.
+// freeze the state), for the training kernels (train_common.cuh).
 #pragma once
 
 #include "common.cuh"

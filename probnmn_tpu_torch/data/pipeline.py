@@ -7,16 +7,20 @@ Host -> device batch pipeline (counterpart of ``probnmn_tpu/data/pipeline.py``).
   gather, a bounded queue ahead of the consumer; the consumer stages each
   batch in pinned host memory and starts its copy to the card with
   ``non_blocking=True`` one batch ahead, so the copy overlaps the current
-  step.
+  step. With ``sort_descending_by`` (the semi-supervised phases pass
+  "supervision") each batch is stable-sorted by that field, descending, and
+  carries the host-side count of its nonzero rows under ``_num_<key>``, a
+  plain int that never goes to the card: the trainer takes the exact
+  supervised and unsupervised subsets with it.
 - :class:`EpochIterator`: one pass for evaluation, dropping the final partial
   batch.
 - :func:`image_to_nhwc`: image features arrive NCHW from the H5 files
   (reference layout (N, 1024, 14, 14)); the port's NMN functions take NHWC,
   like the JAX package's, so the two can be compared on the same arrays.
 
-Not ported yet: ``sort_descending_by`` (the semi-supervised phases' batch
-sort, with question_coding), ``transform`` and ``include_last`` (their
-callers come with later slices).
+Both iterators put batches on ``cuda`` unless the caller asks for the CPU.
+Not ported yet: ``transform`` and ``include_last`` (their callers come with
+later slices).
 """
 from __future__ import annotations
 
@@ -24,10 +28,12 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from probnmn_tpu_torch.device import resolve_device
 
 
 def image_to_nhwc(image: torch.Tensor) -> torch.Tensor:
@@ -35,11 +41,15 @@ def image_to_nhwc(image: torch.Tensor) -> torch.Tensor:
     return image.permute(0, 2, 3, 1)
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     r"""numpy batch -> tensors on ``device``; for a CUDA device staged in pinned
-    host memory and copied asynchronously on the current stream."""
+    host memory and copied asynchronously on the current stream. Keys that
+    start with "_" are host-side metadata and stay as they are."""
     out = {}
     for key, value in batch.items():
+        if key.startswith("_"):
+            out[key] = value
+            continue
         tensor = torch.from_numpy(np.ascontiguousarray(value))
         if device.type == "cuda":
             tensor = tensor.pin_memory().to(device, non_blocking=True)
@@ -54,11 +64,13 @@ class BatchIterator:
 
     PREFETCH = 2  # host batches gathered ahead of the consumer
 
-    def __init__(self, dataset, sampler, batch_size: int, device="cpu"):
+    def __init__(self, dataset, sampler, batch_size: int, device="cuda",
+                 sort_descending_by: Optional[str] = None):
         self._dataset = dataset
         self._sampler = sampler
         self._batch_size = batch_size
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
+        self._sort_key = sort_descending_by
         # Rolling per-stage timers: how long the consumer waited on the
         # host-gather queue, and how long staging and starting the copy took.
         self._wait_times: deque = deque(maxlen=50)
@@ -81,9 +93,15 @@ class BatchIterator:
             for start in range(0, len(order) - self._batch_size + 1, self._batch_size):
                 yield order[start : start + self._batch_size]
 
-    def _host_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+    def _host_batches(self) -> Iterator[Dict[str, Any]]:
         for indices in self._index_stream():
-            yield self._dataset.get_batch(indices)
+            batch = self._dataset.get_batch(indices)
+            if self._sort_key is not None:
+                key_values = np.asarray(batch[self._sort_key])
+                order = np.argsort(-key_values.astype(np.int64), kind="stable")
+                batch = {k: v[order] for k, v in batch.items()}
+                batch["_num_" + self._sort_key] = int(np.count_nonzero(key_values))
+            yield batch
 
     def _put(self, batch):
         t0 = time.perf_counter()
@@ -141,10 +159,10 @@ class EpochIterator:
     r"""Single-pass (evaluation) iterator; drops the final partial batch,
     mirroring the reference evaluator's fixed ``num_batches`` loop."""
 
-    def __init__(self, dataset, batch_size: int, device="cpu"):
+    def __init__(self, dataset, batch_size: int, device="cuda"):
         self._dataset = dataset
         self._batch_size = batch_size
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
 
     def __len__(self):
         return len(self._dataset) // self._batch_size

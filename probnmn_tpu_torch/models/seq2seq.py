@@ -10,8 +10,10 @@ Attentive seq2seq LSTM — the stack under the ProgramGenerator (counterpart of
   LSTMCell over ``concat(attended, embedded)``, projection to the target vocab;
 - greedy argmax, or Gumbel-max sampling with @@PADDING@@/@@UNKNOWN@@/@start@
   blocked; the chosen token's logprob comes from the *unblocked* log-softmax;
-- loss = length-normalized negative logprob of the decoded tokens after
-  @end@-trimming.
+- free-running loss = length-normalized negative logprob of the decoded
+  tokens after @end@-trimming; teacher-forced loss = per-example masked
+  sequence cross entropy with the shifted-target scheme (reference
+  ``seq2seq_base.py:235-254``, ``295-341``).
 
 Sampling takes explicit Gumbel noise, ``argmax(blocked_logits + noise[t])``,
 which is a categorical draw from the blocked distribution. Random streams
@@ -22,7 +24,10 @@ module and to the JAX package. The serving entry, the JAX package's
 it runs the sampling kernel, on a CPU tensor its plain version, both from
 Philox noise seeded by the caller.
 
-Teacher forcing and beam search are not ported yet.
+Teacher forcing (``target_tokens``) is the plain version of the training
+kernels K4f/K4b (``ops/kernels/seq2seq_train.py::fused_tf_loss``) in its
+cross-entropy mode, and the evaluator's greedy forward. Beam search is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from probnmn_tpu_torch.ops.common import (
     init_linear,
     length_normalized_logprob_loss,
     masked_softmax,
+    sequence_cross_entropy,
     trim_at_end,
 )
 
@@ -142,6 +148,24 @@ def _decode_step(
     return logits, decoder_hidden, decoder_context
 
 
+def teacher_forced_logits(
+    params: Dict[str, Any],
+    spec: Seq2SeqSpec,
+    source_tokens: torch.Tensor,
+    step_inputs: torch.Tensor,
+) -> torch.Tensor:
+    r"""Decoder logits (B, T, V) with the given token ``step_inputs[:, t]``
+    fed at step t, in float32."""
+    encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens)
+    step_logits = []
+    for t in range(step_inputs.shape[1]):
+        logits, h, c = _decode_step(
+            params, spec, step_inputs[:, t], h, c, encoder_outputs, source_mask
+        )
+        step_logits.append(logits)
+    return torch.stack(step_logits, dim=1)
+
+
 def seq2seq_forward(
     params: Dict[str, Any],
     spec: Seq2SeqSpec,
@@ -149,18 +173,40 @@ def seq2seq_forward(
     decoding_strategy: str = SAMPLING,
     noise: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
+    target_tokens: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    r"""Free-running decode for ``max_decoding_steps``.
+    r"""Free-running decode for ``max_decoding_steps``, or teacher forcing
+    with ``target_tokens``.
 
     ``GREEDY`` takes the argmax of the logits; ``SAMPLING`` takes
     ``argmax(blocked_logits + noise[t])`` with ``noise`` (T, B, >=V) Gumbel
-    noise. Returns ``predictions`` (B, T) trimmed at @end@, ``loss`` (B,),
-    ``logits`` (B, T, V) and ``logprobs`` (B, T) of the chosen tokens.
+    noise. Free-running returns ``predictions`` (B, T) trimmed at @end@,
+    ``loss`` (B,), ``logits`` (B, T, V) and ``logprobs`` (B, T) of the
+    chosen tokens. Teacher forcing (``GREEDY``, float32) feeds the gold token
+    of the boundary-added targets at each step and returns ``predictions``
+    (the argmax tokens, trimmed), ``logits``, the per-example masked sequence
+    cross entropy ``loss``, ``relevant_targets`` (the targets after @start@)
+    and ``relevant_mask`` (where they are not pad).
     """
     if decoding_strategy not in (GREEDY, SAMPLING):
         raise ValueError(f"unknown decoding strategy: {decoding_strategy!r}")
     if decoding_strategy == SAMPLING and noise is None:
         raise ValueError("sampling decode requires Gumbel noise")
+    if target_tokens is not None:
+        if decoding_strategy != GREEDY or compute_dtype != torch.float32:
+            raise ValueError("teacher forcing takes greedy predictions in float32")
+        targets = add_boundary(target_tokens, spec.pad_index, spec.start_index, spec.end_index)
+        logits = teacher_forced_logits(params, spec, source_tokens, targets[:, :-1])
+        relevant_targets = targets[:, 1:]
+        relevant_mask = relevant_targets != spec.pad_index
+        return {
+            "predictions": trim_at_end(torch.argmax(logits, dim=-1), spec.end_index),
+            "logits": logits,
+            "loss": sequence_cross_entropy(logits, relevant_targets, relevant_mask),
+            "relevant_targets": relevant_targets,
+            "relevant_mask": relevant_mask,
+        }
+
     batch = source_tokens.shape[0]
     encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens, compute_dtype)
     vocab = spec.target_vocab_size
@@ -194,4 +240,3 @@ def seq2seq_forward(
         "logits": torch.stack(step_logits, dim=1),
         "logprobs": logprobs,
     }
-

@@ -35,6 +35,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 BUILD_INFO: Dict[str, object] = {"seconds": 0.0, "log": "", "path": None}
 
 _VOID_P = ctypes.c_void_p
+_VOID_P_ARRAY = ctypes.POINTER(ctypes.c_void_p)
 _INT = ctypes.c_int
 
 
@@ -152,7 +153,28 @@ def library() -> ctypes.CDLL:
         _VOID_P, _VOID_P,                       # dloss (B,), workspace
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # d_emb, d_proj, d_wih, d_whh, d_bias
     ] + lm_sizes
+    lib.probnmn_tf_workspace_floats.restype = ctypes.c_longlong
+    lib.probnmn_tf_workspace_floats.argtypes = [_INT] * 10  # B, Ls, Lt, D, H, L, Vs, Vt, reinforce, backward
+    tf_inputs = [
+        _VOID_P, _VOID_P, _INT, _INT, _INT,     # src (B, Ls), tgt (B, Lt) int32, B, Ls, Lt
+        _VOID_P_ARRAY,                          # the ten packed weights
+    ]
+    tf_sizes = [_INT] * 9 + [_VOID_P]           # D, H, layers, Vs, Vt, reinforce, pad, start, end; stream
+    lib.probnmn_tf_forward.restype = _INT
+    lib.probnmn_tf_forward.argtypes = tf_inputs + [
+        _VOID_P, _VOID_P,                       # workspace, loss (B,)
+    ] + tf_sizes
+    lib.probnmn_tf_backward.restype = _INT
+    lib.probnmn_tf_backward.argtypes = tf_inputs + [
+        _VOID_P, _VOID_P,                       # dloss (B,), workspace
+        _VOID_P_ARRAY,                          # the ten gradients
+    ] + tf_sizes
     return lib
+
+
+def pointers(tensors) -> ctypes.Array:
+    r"""A C array of the tensors' device pointers (for a ``void**`` argument)."""
+    return (_VOID_P * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def check(code: int, what: str) -> None:

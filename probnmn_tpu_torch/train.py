@@ -7,9 +7,9 @@ dispatch and the same loop: ``trainer.step()`` every iteration, evaluate and
     python -m probnmn_tpu_torch.train --phase program_prior \
         --config-yml configs/program_prior.yml --serialization-dir checkpoints/prior
 
-``--device`` is ``cuda`` (the default) or ``cpu``. Only the ``program_prior``
-phase is ported; the others raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+``--device`` is ``cuda`` (the default) or ``cpu``. The ``program_prior`` and
+``question_coding`` phases are ported; the others raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 import argparse
 import logging
@@ -22,7 +22,6 @@ from probnmn_tpu_torch.config import Config
 
 PHASES = ["program_prior", "question_coding", "module_training", "joint_training"]
 NOT_PORTED = {
-    "question_coding": "queue 1: the question_coding slice, with kernels K4f/K4b",
     "module_training": "queue 1: the module_training slice, with kernels K5/K6",
     "joint_training": "queue 1: the joint_training slice",
 }
@@ -45,10 +44,18 @@ parser.add_argument("--num-val-batches", type=int, default=256)
 
 def build(phase: str, config: Config, serialization_dir: str, device: str):
     r"""(trainer, evaluator) of ``phase``."""
-    if phase != "program_prior":
+    if phase in NOT_PORTED:
         raise NotImplementedError(
             f"phase {phase} is not ported to PyTorch yet (ROADMAP.md {NOT_PORTED[phase]})"
         )
+    if phase == "question_coding":
+        from probnmn_tpu_torch.evaluators.question_coding_evaluator import (
+            QuestionCodingEvaluator,
+        )
+        from probnmn_tpu_torch.training.question_coding_trainer import QuestionCodingTrainer
+
+        trainer = QuestionCodingTrainer(config, serialization_dir, device=device)
+        return trainer, QuestionCodingEvaluator(config, trainer)
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
     from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
 

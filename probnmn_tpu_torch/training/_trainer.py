@@ -127,7 +127,9 @@ class _Trainer:
             serialization_dir=serialization_dir, keep_recent=100
         )
         self._generator = torch.Generator().manual_seed(self._C.RANDOM_SEED)
-        self._baseline = 0.0  # REINFORCE moving-average baseline
+        # REINFORCE moving-average baseline: a 0-dim float32 tensor on the
+        # device, updated there without a host sync.
+        self._baseline = torch.zeros((), dtype=torch.float32, device=self._device)
         self._iteration: int = -1
         self._step_timer = StepTimer(batch_size=self._C.OPTIM.BATCH_SIZE)
 
@@ -164,7 +166,7 @@ class _Trainer:
         objects: Dict[str, Any] = dict(self._params)
         objects["optimizer"] = self._optimizer.state_dict()
         objects["scheduler"] = self._lr_scheduler.state_dict()
-        objects["reinforce_baseline"] = torch.tensor(self._baseline, dtype=torch.float32)
+        objects["reinforce_baseline"] = self._baseline
         return objects
 
     def after_validation(
@@ -202,7 +204,8 @@ class _Trainer:
         self._optimizer.load_state_dict(restored["optimizer"])
         self._lr_scheduler.load_state_dict(restored["scheduler"])
         self._optimizer.set_learning_rate(self._lr_scheduler.lr)
-        self._baseline = float(restored["reinforce_baseline"])
+        self._baseline = torch.as_tensor(restored["reinforce_baseline"]).to(
+            self._device, torch.float32)
         self._iteration = iteration if iteration is not None else ckpt_iteration
 
     # ------------------------------------------------------------------ accessors -----
@@ -217,6 +220,11 @@ class _Trainer:
     @property
     def params(self) -> Dict[str, Any]:
         return self._params
+
+    @property
+    def baseline(self) -> torch.Tensor:
+        r"""The REINFORCE baseline, a 0-dim float32 tensor on ``device``."""
+        return self._baseline
 
     @property
     def learning_rate(self) -> float:

@@ -6,8 +6,9 @@ Optimization (counterpart of ``probnmn_tpu/training/optim.py``; reference
 :class:`ClampedAdam` clamps every gradient elementwise to (-5, 5) after
 backward (the reference's ``clamp_`` before ``optimizer.step``), then runs
 ``torch.optim.Adam`` with beta (0.9, 0.999), eps 1e-8 and bias correction,
-which adds the weight decay to the gradient torch style. The learning rate
-is set in place, without rebuilding anything.
+which adds the weight decay to the gradient torch style. A parameter that
+got no gradient steps on a zero gradient, as under ``jax.grad`` and optax.
+The learning rate is set in place, without rebuilding anything.
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ class ClampedAdam:
     @torch.no_grad()
     def step(self) -> None:
         r"""Clamp every ``.grad`` to (-5, 5), then one Adam update."""
-        grads = [p.grad for p in self._params if p.grad is not None]
-        for g in grads:
-            g.clamp_(-GRAD_CLAMP, GRAD_CLAMP)
+        for p in self._params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            p.grad.clamp_(-GRAD_CLAMP, GRAD_CLAMP)
         self._adam.step()
 
     def set_learning_rate(self, lr: float) -> None:

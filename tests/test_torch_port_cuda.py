@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from probnmn_tpu_torch.models import nmn, program_generator, program_prior
+from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec, init_seq2seq_params
 from probnmn_tpu_torch.models.nmn import cast_params
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
@@ -18,8 +19,9 @@ from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
     fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
-    fused_lm_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
-    pack_lm_weights, param_leaves, params_from_leaves,
+    fused_lm_loss, fused_tf_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
+    pack_lm_weights, pack_tf_weights, param_leaves, params_from_leaves, tf_backward_cuda,
+    tf_forward_cuda, tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_params_from_leaves,
 )
 from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
 
@@ -125,3 +127,61 @@ def test_lm_kernels_match_plain_versions(cuda, sizes):
     for leaf, w in zip(leaves, param_leaves(want)):
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
     assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 2, before[1] + 3)
+
+
+def _tf_tokens(rs, batch, length, vocab, end_index=3):
+    r"""Right-padded rows with a full-length row and an all-pad row."""
+    tok = rs.randint(4, vocab, (batch, length))
+    tok *= np.arange(length)[None, :] < rs.randint(1, length + 1, (batch, 1))
+    tok[0] = rs.randint(4, vocab, (length,))
+    tok[1] = 0
+    return tok
+
+
+@pytest.mark.parametrize("sizes", [
+    dict(source_vocab_size=20, target_vocab_size=15, input_size=16, hidden_size=12, num_layers=1,
+         batch=9, ls=7, lt=5),
+    dict(source_vocab_size=92, target_vocab_size=44, input_size=64, hidden_size=96, num_layers=2,
+         batch=37, ls=45, lt=26),
+])
+@pytest.mark.parametrize("reinforce_norm", [False, True])
+def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
+    sizes = dict(sizes)
+    batch, ls, lt = sizes.pop("batch"), sizes.pop("ls"), sizes.pop("lt")
+    spec = Seq2SeqSpec(**sizes)
+    params = init_seq2seq_params(torch.Generator().manual_seed(5), spec)
+    params = tf_params_from_leaves([p.to(cuda) for p in tf_param_leaves(params)])
+    rs = np.random.RandomState(6)
+    src = _tf_tokens(rs, batch, ls, spec.source_vocab_size)
+    tgt = _tf_tokens(rs, batch, lt, spec.target_vocab_size)
+    if reinforce_norm:  # a trimmed z: @end@ kept after the last token of some rows
+        ends = rs.rand(batch) < 0.5
+        lens = (tgt != 0).sum(1)
+        for b in np.flatnonzero(ends & (lens < lt)):
+            tgt[b, lens[b]] = spec.end_index
+        tgt[2] = 0  # @end@ came first: trimmed to all pad
+    src, tgt = torch.from_numpy(src).to(cuda), torch.from_numpy(tgt).to(cuda)
+    dloss = torch.from_numpy(rs.rand(batch).astype(np.float32) + 0.5).to(cuda)
+    packed = pack_tf_weights(params, spec)
+
+    before = (tf_forward_cuda.launches, tf_backward_cuda.launches)
+    loss = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+    want_loss = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-5)
+    got = tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm)
+    want = tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm)
+    for g, w in zip(tf_param_leaves(got), tf_param_leaves(want)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+    again = tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm)
+    for a, b in zip(tf_param_leaves(got), tf_param_leaves(again)):
+        assert torch.equal(a, b)  # no float atomics: the same bits every time
+    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 1, before[1] + 2)
+
+    # Through autograd: K4f forward, K4b backward, once each.
+    leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(params)]
+    out = fused_tf_loss(tf_params_from_leaves(leaves), spec, src, tgt, reinforce_norm)
+    (out * dloss).sum().backward()
+    for leaf, w in zip(leaves, tf_param_leaves(want)):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 2, before[1] + 3)

@@ -33,6 +33,10 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.evaluators._evaluator",
     "probnmn_tpu_torch.evaluators.program_prior_evaluator",
     "probnmn_tpu_torch.train",
+    "probnmn_tpu_torch.models.question_reconstructor",
+    "probnmn_tpu_torch.modules.elbo",
+    "probnmn_tpu_torch.training.question_coding_trainer",
+    "probnmn_tpu_torch.evaluators.question_coding_evaluator",
 )
 
 
@@ -70,12 +74,12 @@ def test_import_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
-    assert int(proc.stdout.split()[1]) >= 35  # every submodule was imported
+    assert int(proc.stdout.split()[1]) >= 40  # every submodule was imported
 
 
 def test_sources_import_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 35
+    assert len(files) >= 40
     offending = {
         str(f.relative_to(REPO)): m
         for f in files for m in _imported_modules(f) if _forbidden(m)
@@ -107,3 +111,14 @@ def test_cuda_trainer_raises_without_a_card(tmp_path):
     config = Config(str(REPO / "configs" / "program_prior.yml"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProgramPriorTrainer(config, str(tmp_path))
+
+
+def test_cuda_question_coding_trainer_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.training.question_coding_trainer import QuestionCodingTrainer
+
+    config = Config(str(REPO / "configs" / "question_coding_ours.yml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QuestionCodingTrainer(config, str(tmp_path))

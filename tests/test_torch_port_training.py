@@ -179,12 +179,15 @@ def test_clamped_adam_matches_optax(weight_decay):
     tx = make_optimizer(0.01, weight_decay)
     jp = jax.numpy.asarray(params)
     state = tx.init(jp)
+    grads[2][:] = 0.0  # a step without a gradient: optax steps on zeros
     p = torch.from_numpy(params.copy()).requires_grad_(True)
     opt = ClampedAdam([p], 0.01, weight_decay)
-    for g in grads:
+    for index, g in enumerate(grads):
         updates, state = tx.update(jax.numpy.asarray(g), state, jp)
         jp = optax.apply_updates(jp, updates)
-        p.grad = torch.from_numpy(g.copy())
+        opt.zero_grad()
+        if index < 2:
+            p.grad = torch.from_numpy(g.copy())
         opt.step()
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), atol=1e-6, rtol=0)
     opt.set_learning_rate(0.002)
@@ -229,7 +232,8 @@ def test_data_path_matches_jax(fixture):
     path = fixture["jax_config"].DATA.TRAIN_TOKENS
     port_set, jax_set = ProgramPriorDataset(path), JaxProgramPriorDataset(path)
     assert len(port_set) == len(jax_set) == 40 and port_set.split == "train"
-    port_batches = iter(BatchIterator(port_set, RandomSampler(len(port_set), seed=3), 8))
+    port_batches = iter(BatchIterator(port_set, RandomSampler(len(port_set), seed=3), 8,
+                                      device="cpu"))
     jax_batches = iter(JaxBatchIterator(jax_set, JaxRandomSampler(len(jax_set), seed=3), 8,
                                         device_put=False))
     for _ in range(7):  # 5 batches an epoch: crosses an epoch boundary
@@ -237,7 +241,7 @@ def test_data_path_matches_jax(fixture):
         assert isinstance(got["program"], torch.Tensor)
         np.testing.assert_array_equal(got["program"].numpy(), want["program"])
     memory = ProgramPriorDataset.from_programs(port_set.get_batch(np.arange(20))["program"])
-    got = [b["program"].numpy() for b in EpochIterator(memory, 8)]
+    got = [b["program"].numpy() for b in EpochIterator(memory, 8, device="cpu")]
     want = [b["program"] for b in JaxEpochIterator(
         JaxProgramPriorDataset(path), 8, device_put=False)][:2]
     assert len(got) == 2
@@ -259,4 +263,4 @@ def test_train_cli_runs_on_the_cpu(fixture, tmp_path):
                                            "config.yml"]
     assert Config(os.path.join(out, "config.yml")).OPTIM.NUM_ITERATIONS == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build("question_coding", fixture["config"], out, "cpu")
+        train.build("module_training", fixture["config"], out, "cpu")
