@@ -63,7 +63,31 @@ Phases (any failure raises, and the script exits non-zero with no result):
    two OBJECTIVE ``baseline`` steps (K4f and K4b twice a step, nothing
    else); then K4f, K4b and their plain versions per pass, cuDNN's LSTM
    over each pass's encoder (a partial yardstick), and the train step,
-   timed beside their bounds.
+   timed beside their bounds. Its checkpoint is phase 8's frozen generator.
+8. The module_training training phase at the shipped width
+   (``configs/module_training.yml``: NMN C=128 on 14x14 with 1024 feature
+   channels, class projection and classifier 1024, batch 128, lr 1e-4,
+   bfloat16; the frozen ProgramGenerator at D=H=256, 2 layers) on 8,192
+   questions over 512 random (1024, 14, 14) float32 images in memory
+   (1,024 for validation), CLEVR-like programs and random questions and
+   answers. At B=128 on CLEVR programs plus invalid and all-pad rows: K5's
+   final and flags equal K2's bit for bit and the plain version's within
+   K2's tolerances, in both dtypes; every K6 leaf within 1e-4 (float32) or
+   1e-1 (bfloat16) * max(1, max|g|) of autograd through the plain version
+   under a random cotangent, bitwise repeatable, with dx 0 on invalid rows;
+   its weight-gradient kernel and conv input gradients within 1e-5 of
+   float64 sums over the operands it wrote to its workspace.
+   20 ``ModuleTrainingTrainer.step()``s in each of two regimes, the
+   generator phase 7's checkpoint (programs mostly abort early) and a
+   scripted generator whose program runs nine 3x3 convs, with the counters
+   set to 0 before and read after (K1, K5 and K6 once a step, K2 never) and
+   the 3x3 convs a step counted by a host replay; one float32 step on 16
+   rows at the card's K1 programs against the same step on the CPU (loss
+   within 1e-4, every gradient leaf within 1e-4 * max(1, max|g|)); the
+   evaluator in both decode modes (K2); a checkpoint and a resume; then K5,
+   K6, K2 and the plain versions per batch, cuDNN's bf16 conv over as many
+   3x3 convs (a partial yardstick), and the train step in both regimes,
+   timed beside their bounds, with a profiler trace.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -198,58 +222,93 @@ def k1_work(spec, questions, weight_bytes):
     return flops, nbytes
 
 
-def k2_work(tables, spec, programs, itemsize):
-    r"""FLOPs and bytes K2 needs for these programs: the tag machine replayed
-    on the host counts the module work that runs; stem features in and the
-    output out once, and each bank slot the programs use read once."""
+def nmn_replay(tables, programs):
+    r"""The tag machine replayed on the host over these programs: the module
+    work K2 and K5 run (3x3 convs, compare projections, 1x1 heads, same steps,
+    relate and two-conv steps, steps run), the same counted over the valid
+    rows only (what K6 sweeps back), and the bank slots read."""
     kind = tables["kind"].cpu().numpy()
     slot3 = tables["slot3"].cpu().numpy()
     head = tables["head_slot"].cpu().numpy()
     cmp_slot = tables["cmp_slot"].cpu().numpy()
     same_slot = tables["same_slot"].cpu().numpy()
-    C, HW = spec.module_channels, spec.height * spec.width
     NOP, SCENE, AND, OR, ATT, QUERY, RELATE, SAME, COMPARE = range(9)
-    convs = proj = heads = sames = 0
-    used3, used1, usedc, useds = set(), set(), set(), set()
+    keys = ("convs", "proj", "heads", "sames", "relates", "two_conv", "steps")
+    total = dict.fromkeys(keys, 0)
+    valid_total = dict(dict.fromkeys(keys, 0), rows=0)
+    used = {"w3": set(), "w1": set(), "wcmp": set(), "same": set()}
     for row in programs:
-        out_tag, saved_tag = 2, 0
+        out_tag, saved_tag, ok = 2, 0, True
+        work = dict.fromkeys(keys, 0)
+        started = False
         for tok in row[::-1]:
+            started = started or tok != 0
+            if not started:
+                continue
+            work["steps"] += 1
             k = kind[tok]
             if k == SCENE:
                 out_tag, saved_tag = 1, out_tag
             elif k in (AND, OR):
                 if saved_tag == 0:
+                    ok = False
                     break
                 out_tag = 1 if (out_tag == 1 and saved_tag == 1) else 2
             elif k in (ATT, QUERY, RELATE):
                 if out_tag != 1:
+                    ok = False
                     break
                 n = 5 if k == RELATE else 2
-                convs += n
-                used3.update(slot3[tok, :n].tolist())
+                work["convs"] += n
+                work["relates" if k == RELATE else "two_conv"] += 1
+                used["w3"].update(slot3[tok, :n].tolist())
                 if head[tok] >= 0:
-                    heads += 1
-                    used1.add(int(head[tok]))
+                    work["heads"] += 1
+                    used["w1"].add(int(head[tok]))
                 out_tag = 1 if head[tok] >= 0 else 2
             elif k == COMPARE:
                 if out_tag != 2 or saved_tag != 2:
+                    ok = False
                     break
-                convs += 2
-                proj += 1
-                used3.update(slot3[tok, :2].tolist())
-                usedc.add(int(cmp_slot[tok]))
+                work["convs"] += 2
+                work["proj"] += 1
+                work["two_conv"] += 1
+                used["w3"].update(slot3[tok, :2].tolist())
+                used["wcmp"].add(int(cmp_slot[tok]))
                 out_tag = 2
             elif k == SAME:
                 if out_tag != 1:
+                    ok = False
                     break
-                sames += 1
-                useds.add(int(same_slot[tok]))
-    flops = float(convs * 2 * HW * 9 * C * C + proj * 2 * HW * 2 * C * C
-                  + heads * 2 * HW * C + sames * 3 * HW * C)
-    weights = (len(used3) * 9 * C * C + len(used1) * C + len(usedc) * 2 * C * C
-               + len(useds) * C) * itemsize
+                work["sames"] += 1
+                used["same"].add(int(same_slot[tok]))
+        for key in keys:
+            total[key] += work[key]
+        if ok and out_tag == 2:
+            valid_total["rows"] += 1
+            for key in keys:
+                valid_total[key] += work[key]
+    return dict(total, valid=valid_total, used={k: len(v) for k, v in used.items()})
+
+
+def module_flops(spec, work):
+    r"""FLOPs of the module work of a :func:`nmn_replay` count."""
+    C, HW = spec.module_channels, spec.height * spec.width
+    return float(work["convs"] * 2 * HW * 9 * C * C + work["proj"] * 2 * HW * 2 * C * C
+                 + work["heads"] * 2 * HW * C + work["sames"] * 3 * HW * C)
+
+
+def k2_work(tables, spec, programs, itemsize):
+    r"""FLOPs and bytes K2 needs for these programs: the module work that
+    runs (:func:`nmn_replay`); stem features in and the output out once, and
+    each bank slot the programs use read once."""
+    run = nmn_replay(tables, programs)
+    C, HW = spec.module_channels, spec.height * spec.width
+    used = run["used"]
+    weights = (used["w3"] * 9 * C * C + used["w1"] * C + used["wcmp"] * 2 * C * C
+               + used["same"] * C) * itemsize
     nbytes = weights + 2 * len(programs) * HW * C * itemsize + programs.size * 4 + len(programs) * 4
-    return flops, nbytes, convs
+    return module_flops(spec, run), nbytes, run["convs"]
 
 
 def stem_classifier_work(spec, batch, feature_itemsize, itemsize):
@@ -502,12 +561,13 @@ def qc_questions(np, vocab, n, seed):
                                                              seed + 1)
 
 
-def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt):
+def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     r"""Phase 7: kernels K4f and K4b against their plain versions on the four
     passes of a question_coding step at full width, the objective on the
     card against the CPU's at the card's z, 20 trainer steps (launch counts),
     two OBJECTIVE baseline steps, the evaluator, checkpoint and resume, and
-    times. Returns the two kernels' entries of the kernels line."""
+    times. Copies its checkpoint to ``qc_out`` (phase 8's frozen generator)
+    and returns the two kernels' entries of the kernels line."""
     import shutil
     import tempfile
 
@@ -664,6 +724,7 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt):
           "resume from the checkpoint")
     log(f"[qc] checkpoint_{steps - 1}.ckpt written and resumed with identical params and baseline "
         f"{float(resumed.baseline):.6f}")
+    shutil.copy(ckpt, qc_out)
 
     # OBJECTIVE baseline: the supervised passes only.
     base_cfg = Config(os.path.join(repo, "configs", "question_coding_baseline.yml"), overrides)
@@ -757,6 +818,344 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt):
          "ms": total_of("bwd_ms"), "plain_ms": total_of("bwd_plain"), "bound_ms": k4b_bound,
          "bound_by": k4b_by, "library_ms": None, "yardstick": yardstick,
          "yardstick_ms": total_of("cudnn_train")},
+    ]
+
+
+# The program phase 8's scripted generator emits: scene, an attention
+# (filter: two convs and a head), relate (five convs and a head), same, a
+# no-op and query (two convs): nine 3x3 convs that run.
+SCRIPTED_PROGRAM = ["query_color", "unique", "same_shape", "relate[left]", "filter_color[red]",
+                    "scene"]
+# K6 against autograd through the plain machine (as tests/test_torch_port_cuda.py):
+# float32 within 1e-4 of each leaf's scale; bfloat16 within 1e-1. The plain
+# version rounds every gradient to bfloat16 where its forward rounds a value;
+# the kernel rounds only g_z and the heads' g, as the JAX kernel does: the two
+# differ by up to 7.7% of a leaf's scale on this phase's batch. That bound
+# is coarse, so the tensor-core pieces are also held tightly, on the operands
+# K6 itself wrote: its weight-gradient kernel and its conv input gradients
+# against float64 sums over its workspace (``workspace_errors``), within
+# 1e-5 of the sum of |products| in both dtypes, where a CLEVR batch at full
+# width reads a few 1e-6 or less (this phase prints it; PERF.md records it).
+# A dropped tap or a g_z off by a pixel reads above 1e-2
+# (tests/test_torch_port_module_training.py).
+K6_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+WS_TOL = 1e-5
+
+
+def mt_arrays(np, vocab, n, n_images, seed):
+    r"""``n`` module_training examples: CLEVR-like programs and random
+    questions (each with a full-length and an all-pad row), answers in 28 and
+    indices into ``n_images`` images."""
+    programs, questions = qc_questions(np, vocab, n, seed)
+    rs = np.random.RandomState(seed + 2)
+    answers = rs.randint(0, vocab.get_vocab_size("answers") - 1, n)
+    return programs, questions, answers, rs.randint(0, n_images, n)
+
+
+def k5_k6_work(tables, spec, programs, itemsize, bank_floats):
+    r"""FLOPs and bytes K5 and K6 need for these programs. K5: K2's work
+    (:func:`k2_work`) plus the residuals it writes (the out register at
+    every step run, the two conv outputs of every two-conv step). K6, over
+    the valid rows: each conv's input and weight gradients (twice its
+    forward), relate's chain recomputed, compare's projection recomputed and
+    its two gradients, the heads' gradients; stem features and the float32
+    cotangent in, the residuals read, d(stem) and the gradient banks (in
+    the banks' type) out."""
+    run = nmn_replay(tables, programs)
+    valid = run["valid"]
+    C, HW = spec.module_channels, spec.height * spec.width
+    N, B = HW * C, len(programs)
+    k2_flops, k2_bytes, convs = k2_work(tables, spec, programs, itemsize)
+    resid = lambda w: (w["steps"] + 2 * w["two_conv"]) * N * itemsize  # noqa: E731
+    conv = 2.0 * HW * 9 * C * C
+    flops6 = (2 * valid["convs"] * conv + 5 * valid["relates"] * conv
+              + 3 * valid["proj"] * 2 * HW * 2 * C * C + 2 * valid["heads"] * 2 * HW * C
+              + valid["sames"] * 8 * HW * C)
+    bytes6 = 2 * B * N * itemsize + B * N * 4 + resid(valid) + bank_floats * itemsize
+    return (k2_flops, k2_bytes + resid(run)), (flops6, bytes6), convs, run
+
+
+def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt):
+    r"""Phase 8: kernels K5 and K6 against K2 and their plain versions at
+    full NMN width, 20 trainer steps on the card in two program regimes
+    (launch counts, 3x3 convs per step), one float32 step against the CPU's,
+    the evaluator in both decode modes, checkpoint and resume, and times.
+    Returns the two kernels' entries of the kernels line."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset
+    from probnmn_tpu_torch.evaluators.module_training_evaluator import ModuleTrainingEvaluator
+    from probnmn_tpu_torch.models import nmn, program_generator
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
+        execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
+        workspace_errors,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
+    from probnmn_tpu_torch.utils.checkpointing import save_objects
+    from probnmn_tpu_torch.utils.clevr import sample_clevr_like_programs
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_mt_")
+    vocab.save_to_files(os.path.join(work, "vocab"))
+
+    def config(ckpt, *extra):
+        return Config(os.path.join(repo, "configs", "module_training.yml"),
+                      ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                       "CHECKPOINTS.QUESTION_CODING", ckpt, *extra])
+
+    t0 = time.perf_counter()
+    features = np.random.default_rng(10).standard_normal((512, 1024, 14, 14), dtype=np.float32)
+    train_set = ModuleTrainingDataset.from_arrays(*mt_arrays(np, vocab, 8192, 512, seed=11),
+                                                  features)
+    val_set = ModuleTrainingDataset.from_arrays(*mt_arrays(np, vocab, 1024, 512, seed=13),
+                                                features, split="val")
+    cfg = config(qc_ckpt)
+    pg_spec = program_generator.make_spec(vocab, cfg)
+    scripted_ckpt = os.path.join(work, "scripted_generator.ckpt")
+    save_objects(scripted_ckpt, {"program_generator": scripted_generator(
+        torch, program_generator.init_params(gen, pg_spec), pg_spec, vocab, SCRIPTED_PROGRAM)})
+    log(f"[mt] {len(train_set)} train / {len(val_set)} val questions over 512 images of "
+        f"(1024, 14, 14) float32 ({features.nbytes / 1e6:.0f} MB), made in "
+        f"{time.perf_counter() - t0:.1f} s; batch {cfg.OPTIM.BATCH_SIZE}, lr {cfg.OPTIM.LR_INITIAL}")
+
+    def make_trainer(ckpt, name, device="cuda", *extra):
+        return ModuleTrainingTrainer(config(ckpt, *extra), os.path.join(work, name), device=device,
+                                     writer=RecordingWriter(), dataset=train_set)
+
+    trainer = make_trainer(qc_ckpt, "early_abort")
+    spec, tables, batch = trainer.nmn_spec, trainer.tables, cfg.OPTIM.BATCH_SIZE
+    init = tree_map(lambda t: t.detach().clone(), trainer.params["nmn"])
+
+    # K5 and K6 at full width: valid CLEVR programs, token soups (mostly
+    # invalid), an all-pad row and a program with no scene.
+    programs_np = sample_clevr_like_programs(vocab, batch, seed=12)
+    rs = np.random.RandomState(14)
+    programs_np[-8:] = rs.randint(0, len(vocab.get_index_to_token_vocabulary("programs")),
+                                  (8, programs_np.shape[1]))
+    programs_np[-1] = 0
+    programs_np[-2, :] = 0
+    programs_np[-2, :2] = [vocab.get_token_index("count", "programs"),
+                           vocab.get_token_index("filter_color[red]", "programs")]
+    programs = torch.from_numpy(programs_np).to(dev)
+    feats = torch.randn(batch, spec.height, spec.width, spec.feature_channels, generator=gen).to(dev)
+    errs, timed = {}, {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        stem = nmn.apply_stem(cast_params(init["stem"], dtype), feats.to(dtype)).contiguous()
+        banks = build_banks(init, spec, dtype)
+        final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
+        out2, inv2 = execute_programs_kernel(banks, tables, spec, stem, programs)
+        want, want_inv = execute_programs_plain(banks, tables, spec, stem, programs)
+        torch.cuda.synchronize()
+        check(torch.equal(final, out2) and torch.equal(invalid, inv2), f"K5 {name} differs from K2")
+        check(torch.equal(invalid, want_inv), f"K5 {name} invalid flags differ")
+        check(not bool(invalid[:batch - 8].any()) and bool(invalid[-2]) and not bool(invalid[-1]),
+              f"K5 {name} invalid/all-pad rows")
+        err = float((final.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale),
+              f"K5 {name} error {err}")
+        g = torch.randn(final.shape, generator=gen).to(dev).to(dtype).float()
+        ws = {}
+        d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                                   otraj, atraj, workspace=ws)
+        again_banks, again_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                           invalid, g, otraj, atraj)
+        w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, g)
+        torch.cuda.synchronize()
+        check(torch.equal(d_stem, again_stem) and all(
+            torch.equal(d_banks[k], again_banks[k]) for k in DIFF_BANKS), f"K6 {name} bits differ")
+        check(float(d_stem[invalid].float().abs().max()) == 0.0, f"K6 {name} dx on invalid rows")
+        worst = (0.0, 0.0, 0.0, "")
+        for leaf, got, ref in [("stem", d_stem, w_stem)] + [(k, d_banks[k], w_banks[k])
+                                                             for k in DIFF_BANKS]:
+            e, sc = float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+            worst = max(worst, (e / max(1.0, sc), e, sc, leaf))
+            check(e <= K6_TOL[name] * max(1.0, sc), f"K6 {name} {leaf} error {e} (max |g| {sc})")
+        tight = workspace_errors(ws, banks, tables, spec)
+        check(tight["weight_grad"] <= WS_TOL and tight["input_grad"] <= WS_TOL,
+              f"K6 {name} against float64 sums over its own workspace: {tight}")
+        errs[name] = (err, worst[1], tight)
+        log(f"[K5 {name}] B={batch}: equal to K2 bit for bit; invalid {int(invalid.sum())}/{batch} "
+            f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e})")
+        log(f"[K6 {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
+            f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
+            f"{worst[2]:.3e} (ratio {worst[0]:.3e}); bitwise repeatable; dx 0 on invalid rows")
+        log(f"[K6 {name}] against float64 sums over its own {tight['entries']} workspace entries "
+            f"(error over the sum of |products|, limit {WS_TOL}): weight-gradient kernel "
+            f"{tight['weight_grad']:.3e}; conv input gradients of {tight['chained']} chained "
+            f"entries {tight['input_grad']:.3e}")
+        timed[name] = (banks, stem, invalid, otraj, atraj, g)
+
+    # The trainer on the card in two regimes: K1, K5 and K6 once a step, K2 never.
+    counters = (fused_sampling_forward, execute_programs_train_kernel, interpreter_grads_kernel,
+                execute_programs_kernel)
+    steps = 20
+
+    def run_regime(tr, name):
+        sampled = []
+        sample = tr.sample_programs
+
+        def recording(questions):
+            z = sample(questions)
+            sampled.append(z)
+            return z
+
+        tr.sample_programs = recording
+        for fn in counters:
+            fn.launches = 0
+        logs = [tr.step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        tr.sample_programs = sample
+        run = nmn_replay(tables, torch.cat(sampled).cpu().numpy())
+        losses = [out["loss"] for out in logs]
+        log(f"[mt {name}] {steps} train steps on cuda: launches {launches}; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; invalid programs {batch * steps - run['valid']['rows']}/{batch * steps}"
+            f"; 3x3 convs per step {run['convs'] / steps:.1f}")
+        check(launches == {"fused_sampling_forward": steps, "execute_programs_train_kernel": steps,
+                           "interpreter_grads_kernel": steps, "execute_programs_kernel": 0},
+              f"launches {launches}")
+        check(all(np.isfinite(losses)), f"{name} loss not finite")
+        return dict(launches=launches, run=run, losses=losses)
+
+    early = run_regime(trainer, "early abort")
+    valid_trainer = make_trainer(scripted_ckpt, "valid")
+    valid = run_regime(valid_trainer, "valid programs")
+    check(valid["run"]["valid"]["rows"] == batch * steps and valid["run"]["convs"] == 9 * batch * steps,
+          "the scripted programs did not all run")
+
+    # One float32 step on 16 rows at the programs the card's K1 sampled,
+    # against the same step on the CPU.
+    f32 = ("NMN.COMPUTE_DTYPE", "float32", "OPTIM.BATCH_SIZE", 16)
+    card = make_trainer(scripted_ckpt, "f32_card", "cuda", *f32)
+    host = make_trainer(scripted_ckpt, "f32_cpu", "cpu", *f32)
+    copy_into(host.params, tree_map(lambda t: t.detach().cpu(), card.params))
+    b16 = next(card._batches)
+    z = card.sample_programs(b16["question"])
+    loss_card = card.module_training_loss(card.params, b16, z)["loss"].mean()
+    loss_card.backward()
+    loss_host = host.module_training_loss(
+        host.params, {k: v.cpu() for k, v in b16.items()}, z.cpu())["loss"].mean()
+    loss_host.backward()
+    loss_card, loss_host = float(loss_card.detach()), float(loss_host.detach())
+    diff = abs(loss_card - loss_host)
+    check(diff <= 1e-4, f"card vs CPU float32 loss {loss_card} / {loss_host}")
+    ratio = 0.0
+    for index, (a, b) in enumerate(zip(tree_leaves(card.params), tree_leaves(host.params))):
+        e, sc = float((a.grad.cpu() - b.grad).abs().max()), float(b.grad.abs().max())
+        check(e <= 1e-4 * max(1.0, sc), f"card vs CPU float32 gradient of leaf {index}: {e}")
+        ratio = max(ratio, e / max(1.0, sc))
+    log(f"[mt] float32 step on 16 rows at the card's K1 programs, card vs CPU: loss "
+        f"{loss_card:.6f} / {loss_host:.6f} (|diff| {diff:.2e}); every gradient leaf "
+        f"within 1e-4 * max(1, max|g|) (worst ratio {ratio:.3e})")
+
+    # The evaluator in both decode modes (K2 over banks rebuilt from the live
+    # params), the checkpoint, and a resume from it.
+    for decode in ("tf_greedy", "free_greedy"):
+        execute_programs_kernel.launches = 0
+        val = ModuleTrainingEvaluator(cfg, valid_trainer, dataset=val_set,
+                                      program_decode=decode).evaluate(num_batches=2)
+        check(execute_programs_kernel.launches == 2, f"the {decode} evaluator did not run K2")
+        check(0.0 <= val["nmn"]["answer_accuracy"] <= 1.0
+              and 0.0 <= val["nmn"]["average_invalid"] <= batch, f"{decode} metrics {val}")
+        log(f"[mt] val ({decode}, 2 batches): answer_accuracy {val['nmn']['answer_accuracy']:.4f}, "
+            f"average_invalid {val['nmn']['average_invalid']:.2f}")
+    valid_trainer.after_validation(val, steps - 1)
+    resumed = make_trainer(scripted_ckpt, "valid")
+    resumed.load_checkpoint(os.path.join(work, "valid", f"checkpoint_{steps - 1}.ckpt"))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params),
+                                                 tree_leaves(valid_trainer.params)))
+    check(same and resumed.iteration == steps - 1, "resume from the checkpoint")
+    log(f"[mt] checkpoint_{steps - 1}.ckpt written and resumed with identical params")
+
+    # Times, each beside its bound, on the bf16 check batch.
+    banks, stem, invalid, otraj, atraj, g = timed["bfloat16"]
+    k5_ms = cuda_ms(torch, lambda: execute_programs_train_kernel(banks, tables, spec, stem, programs),
+                    iters=10)
+    k2_ms = cuda_ms(torch, lambda: execute_programs_kernel(banks, tables, spec, stem, programs),
+                    iters=10)
+    k6_ms = cuda_ms(torch, lambda: interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                            invalid, g, otraj, atraj), iters=10)
+    k5_plain = cuda_ms(torch, lambda: execute_programs_plain(banks, tables, spec, stem, programs,
+                                                             record=True), iters=2, warmup=1)
+    k6_plain = cuda_ms(torch, lambda: interpreter_grads_plain(banks, tables, spec, stem, programs, g),
+                       iters=2, warmup=1)
+    bank_floats = sum(banks[k].numel() for k in DIFF_BANKS)
+    (f5, b5), (f6, b6), n_convs, run = k5_k6_work(tables, spec, programs_np, 2, bank_floats)
+    k5_bound, k5_by = bound(f5, b5, "bfloat16")
+    k6_bound, k6_by = bound(f6, b6, "bfloat16")
+    # Yardstick: cuDNN's bf16 conv over as many 14 x 14 x 128 3x3 convs.
+    C = spec.module_channels
+    x = torch.randn(n_convs, C, spec.height, spec.width, generator=gen).to(dev, torch.bfloat16)
+    w = (0.05 * torch.randn(C, C, 3, 3, generator=gen)).to(dev, torch.bfloat16)
+    gy = torch.randn(n_convs, C, spec.height, spec.width, generator=gen).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        cudnn_fwd = cuda_ms(torch, lambda: F.conv2d(x, w, padding=1), iters=10)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    cudnn_train = cuda_ms(torch, lambda: torch.autograd.grad(F.conv2d(xg, wg, padding=1), (xg, wg), gy),
+                          iters=10)
+    log(f"[time] K5 {k5_ms:.3f} ms/batch of {batch} (K2 on the same batch {k2_ms:.3f}; plain "
+        f"{k5_plain:.3f}; bound {k5_bound:.4f} by {k5_by}: {n_convs} 3x3 convs, {f5 / 1e9:.1f} GFLOP, "
+        f"{b5 / 1e6:.1f} MB; cuDNN bf16 conv forward over {n_convs} convs {cudnn_fwd:.3f})")
+    log(f"[time] K6 {k6_ms:.3f} ms/batch (plain {k6_plain:.3f}; bound {k6_bound:.4f} by {k6_by}: "
+        f"{run['valid']['rows']} valid rows, {f6 / 1e9:.1f} GFLOP, {b6 / 1e6:.1f} MB; cuDNN bf16 conv "
+        f"forward + both gradients over {n_convs} convs {cudnn_train:.3f})")
+
+    step_ms = {}
+    for name, tr in (("early abort", trainer), ("valid programs", valid_trainer)):
+        for _ in range(3):
+            tr.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tr.step()
+        step_ms[name] = (time.perf_counter() - t0) / 10 * 1e3
+        stage = tr._batch_source.stage_metrics()
+        log(f"[time] module_training train step, {name}: {step_ms[name]:.3f} ms (host clock, loss "
+            f"fetched each step): {batch / step_ms[name] * 1e3:.1f} examples/s; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f"; card {smi}")
+    wall_ms, busy_ms, top = trace(torch, valid_trainer.step)
+    if busy_ms > 0:
+        log(f"[trace] module_training train step (valid programs) under torch.profiler: {wall_ms:.2f} "
+            f"ms host clock, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        for us, name, count in top:
+            log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log("[trace] the profiler recorded no device time: idle share not measured")
+    shutil.rmtree(work, ignore_errors=True)
+
+    regimes = {"early_abort": early["launches"], "valid_programs": valid["launches"]}
+    return [
+        {"name": "nmn_train_forward", "route": "cuda",
+         "source": "probnmn_tpu_torch/csrc/nmn_interpreter.cu",
+         "replaces": "probnmn_tpu/ops/pallas/nmn_interpreter.py:604",
+         "launches": valid["launches"]["execute_programs_train_kernel"],
+         "launches_by_regime": {k: v["execute_programs_train_kernel"] for k, v in regimes.items()},
+         "max_abs_err": errs["bfloat16"][0], "max_abs_err_float32": errs["float32"][0],
+         "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound, "bound_by": k5_by,
+         "library_ms": None, "yardstick": "cuDNN bf16 conv2d forward over the same 3x3 convs",
+         "yardstick_ms": cudnn_fwd, "k2_ms_same_batch": k2_ms},
+        {"name": "nmn_backward", "route": "cuda",
+         "source": "probnmn_tpu_torch/csrc/nmn_interpreter.cu",
+         "replaces": "probnmn_tpu/ops/pallas/nmn_interpreter.py:870",
+         "launches": valid["launches"]["interpreter_grads_kernel"],
+         "launches_by_regime": {k: v["interpreter_grads_kernel"] for k, v in regimes.items()},
+         "max_abs_err": errs["bfloat16"][1], "max_abs_err_float32": errs["float32"][1],
+         "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound, "bound_by": k6_by,
+         "library_ms": None,
+         "workspace_err": {k: {e: v[2][e] for e in ("weight_grad", "input_grad")}
+                           for k, v in errs.items()},
+         "yardstick": "cuDNN bf16 conv2d forward and both gradients over the same 3x3 convs",
+         "yardstick_ms": cudnn_train},
     ]
 
 
@@ -1022,7 +1421,11 @@ def main():
     prior = train_program_prior(np, torch, dev, gen, vocab, smi, prior_ckpt)
 
     # ---------------------------------------------------------------- 7. question_coding training
-    question_coding = train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt)
+    qc_ckpt = os.path.join(shared, "question_coding.ckpt")
+    question_coding = train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt)
+
+    # ---------------------------------------------------------------- 8. module_training
+    module_training = train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt)
     shutil.rmtree(shared, ignore_errors=True)
 
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
@@ -1045,6 +1448,7 @@ def main():
          "library_ms": None},
         *prior,
         *question_coding,
+        *module_training,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,6 +1,7 @@
-// Kernel K2: the NMN program interpreter (inference), one launch per batch.
+// Kernels K2, K5 and K6: the NMN program interpreter (inference), its
+// training forward, and its backward.
 //
-// Replaces probnmn_tpu/ops/pallas/nmn_interpreter.py::_interpreter_kernel.
+// K2 replaces probnmn_tpu/ops/pallas/nmn_interpreter.py::_interpreter_kernel.
 // Each example runs its own program exactly: the tag machine walks the
 // reversed tokens from the first non-pad step and stops at the first invalid
 // op; only the chain of each step's module kind runs:
@@ -12,24 +13,46 @@
 // The output is zeroed when the program is invalid or its final register is
 // not a feature map.
 //
-// Bound on an H100: compute (3x3 convs, 57.8 MFLOP each, ~15 per valid CLEVR
-// program). Design: one block per example, so the scalar tag machine is
-// uniform within the block. The conv input and output tiles (H*W rows of C
-// channels, unpadded, plus one zero row that out-of-range taps read instead
-// of being predicated) live in shared memory, rows pitched at C + 8 elements
-// so the eight rows a tensor-core fragment reads fall in distinct banks:
-// 2 x 197 x 136 x 4 B = 214 KB in float32, half that in bf16. Weights stream
-// tap by tap from the unified bank, which stays in L2.
+// K5 replaces _interpreter_train_kernel: the same kernel body with kTrain set,
+// which also stores what K6 reads back: the out register at the entry of every
+// executed step (otraj, (B, T, HW, C)) and the outputs of the two 3x3 convs of
+// every attention, query and compare step (atraj, (B, T, 2, HW, C)), both in
+// the compute type, the JAX package's layout. The atraj stores leave the conv
+// epilogue straight for global memory; final and flags are K2's bit for bit.
 //
-// bf16 with C == 128 (the serving path) runs each conv as an implicit GEMM on
-// the tensor cores (mma.sync m16n8k16, float32 accumulate): warp w owns output
-// channels 32 * (w % 4) .. + 31 and every other 16-pixel tile, A fragments
-// come from the shared tile at the tap's shifted rows, B fragments from the
-// bank transposed to (tap, C_out, C_in); bf16 takes no other path. float32
-// runs the SIMT path, the reference that holds the kernel's arithmetic to a
-// tight tolerance: each thread keeps 4 output channels x kPix pixels of
-// float32 sums. The out and saved registers live in a per-example global
-// scratch, in the compute type, attentions broadcast over all C channels.
+// K6 replaces _interpreter_bwd_kernel (its no-replay mode): one block per
+// example sweeps its executed steps in reverse, reading K5's residuals;
+// relate's chain is recomputed from its entry register. Invalid examples get
+// zero gradients. Each conv's backward runs its input gradient as a
+// tap-flipped conv of g_z over the bank in its stored (tap, C_in, C_out)
+// layout, on the same conv code as the forward. The weight gradients are
+// deterministic without float atomics: the sweep writes each conv's (input,
+// g_z) pair in the compute type to a workspace tagged with its bank slot,
+// and nmn_weight_grad_mma (or _simt) sums each slot's entries in (example, step)
+// order, one block per (slot, tap); the small banks (biases, heads, same)
+// take per-example float32 partials that nmn_sum_rows_kernel adds in example
+// order.
+//
+// Bound on an H100: compute (3x3 convs, 57.8 MFLOP each, ~15 per valid CLEVR
+// program; K6 does about twice K5's conv work). Design: one block per
+// example, so the scalar tag machine is uniform within the block. The conv
+// input and output tiles (H*W rows of C channels, unpadded, plus one zero row
+// that out-of-range taps read instead of being predicated) live in shared
+// memory, rows pitched at C + 8 elements so the eight rows a tensor-core
+// fragment reads fall in distinct banks: 2 x 197 x 136 x 4 B = 214 KB in
+// float32, half that in bf16. Weights stream tap by tap from the unified
+// bank, which stays in L2; the per-example scratch of K6 (gradient registers,
+// relate's activations) lives in global memory.
+//
+// bf16 with C == 128 runs each conv as an implicit GEMM on the tensor cores
+// (mma.sync m16n8k16, float32 accumulate): warp w owns output channels
+// 32 * (w % 4) .. + 31 and every other 16-pixel tile, A fragments come from
+// the shared tile at the tap's shifted rows, B fragments from a bank laid out
+// (tap, N, K); bf16 takes no other path. float32 runs the SIMT path, the
+// reference that holds the kernels' arithmetic to a tight tolerance: each
+// thread keeps 4 output channels x kPix pixels of float32 sums. The out and
+// saved registers live in a per-example global scratch, in the compute type,
+// attentions broadcast over all C channels.
 
 #include "common.cuh"
 
@@ -46,6 +69,8 @@ constexpr int kPix = 25;       // SIMT: pixels per thread per pass (8 groups x 2
 constexpr int kRowPad = 8;     // shared-tile row pitch is C + kRowPad elements
 constexpr int kMmaC = 128;     // channels of the tensor-core path
 constexpr int kMmaTiles = 7;   // 16-pixel tiles per warp: HW <= 2 * 7 * 16
+constexpr int kMaxHW = 256;    // K6: pixels of the per-pixel head gradients
+constexpr int kGradChunk = 32; // weight-gradient SIMT path: pixels staged per pass
 constexpr size_t kMaxSmem = 232448;
 
 struct NmnParams {
@@ -71,7 +96,56 @@ struct NmnParams {
   void* out;
   void* saved;
   int* invalid;
+  void* otraj;        // K5: (B, T, HW, C) out register at step entry
+  void* atraj;        // K5: (B, T, 2, HW, C) outputs of the two-conv chains
   int H, W, C;
+};
+
+// ---------------------------------------------------------------- epilogues
+// A conv hands its float32 sums to an epilogue two output channels at a time.
+
+// dst = relu(v + bias) in T (pitch `pitch`), and with kResid the same
+// values to `resid` (pitch C).
+template <typename T, bool kResid>
+struct StoreRelu {
+  T* dst;
+  int pitch;
+  T* resid;
+  int C;
+  const float* bias;
+  __device__ __forceinline__ void operator()(int pix, int o, float v0, float v1) const {
+    v0 = fmaxf(v0 + bias[o], 0.f);
+    v1 = fmaxf(v1 + bias[o + 1], 0.f);
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(dst + pix * pitch + o) = pair;
+      if constexpr (kResid) *reinterpret_cast<__nv_bfloat162*>(resid + pix * C + o) = pair;
+    } else {
+      dst[pix * pitch + o] = v0;
+      dst[pix * pitch + o + 1] = v1;
+      if constexpr (kResid) {
+        resid[pix * C + o] = v0;
+        resid[pix * C + o + 1] = v1;
+      }
+    }
+  }
+};
+
+// dst (float32, pitch C) = v, or += v with kAdd.
+template <bool kAdd>
+struct StoreF32 {
+  float* dst;
+  int C;
+  __device__ __forceinline__ void operator()(int pix, int o, float v0, float v1) const {
+    float* d = dst + pix * C + o;
+    if (kAdd) {
+      d[0] += v0;
+      d[1] += v1;
+    } else {
+      d[0] = v0;
+      d[1] = v1;
+    }
+  }
 };
 
 // ---------------------------------------------------------------- SIMT path
@@ -87,33 +161,26 @@ struct Tile {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ void store_relu(T* dst, int pitch, const float acc[kPix][4],
-                                           const float* bias, const Tile& tl, int p0, int HW) {
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int pix = p0 + i * tl.ng;
-    if (pix < HW) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dst[pix * pitch + tl.co + j] = from_f<T>(fmaxf(acc[i][j] + bias[tl.co + j], 0.f));
-    }
-  }
-}
-
-// dst = relu(conv3x3_d(in) + bias). `in` is a shared tile of HW + 1 rows at
-// pitch P whose row HW is zero; w is (9, C_in, C_out) for one bank slot.
-template <typename T>
-__device__ void conv3x3_simt(const T* __restrict__ in, T* __restrict__ dst, const T* __restrict__ w,
-                             const float* __restrict__ bias, int d, int H, int W, int C, int P) {
+// acc[p, o] = sum over taps of src_tap[p + off_tap, :] . W_tap[:, o], handed
+// to `epi`. taps == 9: a 3x3 conv at dilation d over in0, whose weight for
+// the tap at offset k is W[flip ? 8 - k : k]; taps == 2: a 1x1 over
+// concat(in0, in1); taps == 1: a 1x1 over in0. Sources are shared tiles at
+// pitch P whose row HW is zero. W_tap[i, o] is w[tap][i][o], or w[tap][o][i]
+// with kTrans (the input gradient of a conv reads its bank transposed).
+template <typename T, bool kTrans, class Epi>
+__device__ void conv_simt(const T* __restrict__ in0, const T* __restrict__ in1,
+                          const T* __restrict__ w, int taps, int d, bool flip, int H, int W,
+                          int C, int P, const Epi epi) {
   const int HW = H * W;
   const Tile tl(C);
   for (int p0 = tl.pg; p0 < HW; p0 += tl.ng * kPix) {
     float acc[kPix][4];
 #pragma unroll
     for (int i = 0; i < kPix; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = (tap / 3 - 1) * d, dx = (tap % 3 - 1) * d;
+    for (int tap = 0; tap < taps; ++tap) {
+      const T* src = tap == 1 && taps == 2 ? in1 : in0;
+      const int dy = taps == 9 ? (tap / 3 - 1) * d : 0, dx = taps == 9 ? (tap % 3 - 1) * d : 0;
+      const int tw = taps == 9 && flip ? 8 - tap : tap;
       int off[kPix];
 #pragma unroll
       for (int i = 0; i < kPix; ++i) {
@@ -121,46 +188,15 @@ __device__ void conv3x3_simt(const T* __restrict__ in, T* __restrict__ dst, cons
         const int y = pix / W + dy, xx = pix % W + dx;
         off[i] = (pix < HW && y >= 0 && y < H && xx >= 0 && xx < W) ? (y * W + xx) * P : HW * P;
       }
-      const T* wt = w + static_cast<size_t>(tap) * C * C + tl.co;
+      const T* wt = w + static_cast<size_t>(tw) * C * C;
       for (int ci = 0; ci < C; ++ci) {
         float wv[4];
-        load4(wt + static_cast<size_t>(ci) * C, wv);
+        if constexpr (kTrans) {
 #pragma unroll
-        for (int i = 0; i < kPix; ++i) {
-          const float xv = to_f(in[off[i] + ci]);
-          acc[i][0] = fmaf(xv, wv[0], acc[i][0]);
-          acc[i][1] = fmaf(xv, wv[1], acc[i][1]);
-          acc[i][2] = fmaf(xv, wv[2], acc[i][2]);
-          acc[i][3] = fmaf(xv, wv[3], acc[i][3]);
+          for (int j = 0; j < 4; ++j) wv[j] = to_f(wt[static_cast<size_t>(tl.co + j) * C + ci]);
+        } else {
+          load4(wt + static_cast<size_t>(ci) * C + tl.co, wv);
         }
-      }
-    }
-    store_relu<T>(dst, P, acc, bias, tl, p0, HW);
-  }
-}
-
-// dst (global, pitch C) = relu(concat(a, b) @ w + bias): compare's 1x1
-// projection; a and b are shared tiles at pitch P; w is (2C, C).
-template <typename T>
-__device__ void proj1x1_simt(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ dst,
-                             const T* __restrict__ w, const float* __restrict__ bias, int HW, int C,
-                             int P) {
-  const Tile tl(C);
-  for (int p0 = tl.pg; p0 < HW; p0 += tl.ng * kPix) {
-    float acc[kPix][4];
-    int off[kPix];
-#pragma unroll
-    for (int i = 0; i < kPix; ++i) {
-      const int pix = p0 + i * tl.ng;
-      off[i] = (pix < HW ? pix : HW) * P;
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    }
-    for (int half = 0; half < 2; ++half) {
-      const T* src = half == 0 ? a : b;
-      const T* wh = w + static_cast<size_t>(half) * C * C + tl.co;
-      for (int ci = 0; ci < C; ++ci) {
-        float wv[4];
-        load4(wh + static_cast<size_t>(ci) * C, wv);
 #pragma unroll
         for (int i = 0; i < kPix; ++i) {
           const float xv = to_f(src[off[i] + ci]);
@@ -171,7 +207,14 @@ __device__ void proj1x1_simt(const T* __restrict__ a, const T* __restrict__ b, T
         }
       }
     }
-    store_relu<T>(dst, C, acc, bias, tl, p0, HW);
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      const int pix = p0 + i * tl.ng;
+      if (pix < HW) {
+        epi(pix, tl.co, acc[i][0], acc[i][1]);
+        epi(pix, tl.co + 2, acc[i][2], acc[i][3]);
+      }
+    }
   }
 }
 
@@ -189,14 +232,13 @@ __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, u
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// dst = relu(sum over taps of shift_tap(src_tap) @ wt[tap]^T + bias) as an
-// implicit GEMM: M = pixels (16-row tiles), N = kMmaC output channels,
-// K = taps x kMmaC. taps == 9: a 3x3 conv at dilation d over in0; taps == 2:
-// a 1x1 over concat(in0, in1). Sources are shared tiles at pitch P with a zero
-// row HW; wt is (taps, C_out, C_in); dst has pitch dst_pitch.
-__device__ void conv_mma(const bf16* in0, const bf16* in1, bf16* dst, int dst_pitch,
-                         const bf16* __restrict__ wt, const float* __restrict__ bias, int taps,
-                         int d, int H, int W) {
+// The sums of conv_simt as an implicit GEMM: M = pixels (16-row tiles), N =
+// kMmaC output channels, K = taps x kMmaC. wt is laid out (tap, N, K), K
+// contiguous: the forward reads the banks transposed (w3t, wcmpt), the input
+// gradient reads them as stored (w3, wcmp), its taps flipped (kFlip).
+template <bool kFlip, class Epi>
+__device__ void conv_mma(const bf16* in0, const bf16* in1, const bf16* __restrict__ wt, int taps,
+                         int d, int H, int W, const Epi epi) {
   constexpr int C = kMmaC, P = kMmaC + kRowPad;
   const int HW = H * W, tiles = (HW + 15) / 16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -211,6 +253,7 @@ __device__ void conv_mma(const bf16* in0, const bf16* in1, bf16* dst, int dst_pi
   for (int tap = 0; tap < taps; ++tap) {
     const bf16* src = tap == 1 && taps == 2 ? in1 : in0;
     const int dy = taps == 9 ? (tap / 3 - 1) * d : 0, dx = taps == 9 ? (tap % 3 - 1) * d : 0;
+    const int tw = kFlip && taps == 9 ? 8 - tap : tap;
     int off[kMmaTiles][2];  // element offsets of this lane's two A rows per tile
 #pragma unroll
     for (int i = 0; i < kMmaTiles; ++i)
@@ -221,7 +264,7 @@ __device__ void conv_mma(const bf16* in0, const bf16* in1, bf16* dst, int dst_pi
         const bool ok = pix < HW && y >= 0 && y < H && x >= 0 && x < W;
         off[i][h] = (ok ? y * W + x : HW) * P + 2 * t4;
       }
-    const bf16* wtap = wt + static_cast<size_t>(tap) * C * C + 2 * t4;
+    const bf16* wtap = wt + static_cast<size_t>(tw) * C * C + 2 * t4;
     for (int kc = 0; kc < C; kc += 16) {
       uint32_t b[4][2];
 #pragma unroll
@@ -248,12 +291,8 @@ __device__ void conv_mma(const bf16* in0, const bf16* in1, bf16* dst, int dst_pi
       const int pix = (m_first + 2 * i) * 16 + g + 8 * h;
       if (pix < HW) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int co = n_base + nt * 8 + 2 * t4;
-          const float v0 = fmaxf(acc[i][nt][2 * h] + bias[co], 0.f);
-          const float v1 = fmaxf(acc[i][nt][2 * h + 1] + bias[co + 1], 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(dst + pix * dst_pitch + co) = __floats2bfloat162_rn(v0, v1);
-        }
+        for (int nt = 0; nt < 4; ++nt)
+          epi(pix, n_base + nt * 8 + 2 * t4, acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
       }
     }
 }
@@ -273,19 +312,51 @@ __device__ void head_to_out(const T* act, int P, T* out, const T* w1, float b1, 
   }
 }
 
-template <typename T, bool kMma>
-__device__ __forceinline__ void conv3x3(const T* in, T* dst, const NmnParams& p, int slot, int d,
-                                        int P) {
+// dst (shared, pitch P) = relu(conv3x3_d(in) + b3[slot]), and with kResid
+// the same to `resid` (global, pitch C).
+template <typename T, bool kMma, bool kResid>
+__device__ __forceinline__ void conv3x3(const T* in, T* dst, T* resid, const NmnParams& p,
+                                        int slot, int d, int P) {
   const size_t w_off = static_cast<size_t>(slot) * 9 * p.C * p.C;
-  const float* bias = p.b3 + static_cast<size_t>(slot) * p.C;
+  const StoreRelu<T, kResid> epi{dst, P, resid, p.C, p.b3 + static_cast<size_t>(slot) * p.C};
   if constexpr (kMma) {
-    conv_mma(in, nullptr, dst, P, static_cast<const bf16*>(p.w3t) + w_off, bias, 9, d, p.H, p.W);
+    conv_mma<false>(in, nullptr, static_cast<const bf16*>(p.w3t) + w_off, 9, d, p.H, p.W, epi);
   } else {
-    conv3x3_simt<T>(in, dst, static_cast<const T*>(p.w3) + w_off, bias, d, p.H, p.W, p.C, P);
+    conv_simt<T, false>(in, nullptr, static_cast<const T*>(p.w3) + w_off, 9, d, false, p.H, p.W,
+                        p.C, P, epi);
   }
 }
 
+// dst (global, pitch C) = relu(concat(a, b) @ wcmp[cs] + bcmp[cs]): compare's
+// 1x1 projection; a and b are shared tiles at pitch P.
 template <typename T, bool kMma>
+__device__ __forceinline__ void compare_projection(const T* a, const T* b, T* dst,
+                                                   const NmnParams& p, int cs, int P) {
+  const size_t w_off = static_cast<size_t>(cs) * 2 * p.C * p.C;
+  const StoreRelu<T, false> epi{dst, p.C, nullptr, p.C, p.bcmp + static_cast<size_t>(cs) * p.C};
+  if constexpr (kMma) {
+    conv_mma<false>(a, b, static_cast<const bf16*>(p.wcmpt) + w_off, 2, 1, p.H, p.W, epi);
+  } else {
+    conv_simt<T, false>(a, b, static_cast<const T*>(p.wcmp) + w_off, 2, 1, false, p.H, p.W, p.C,
+                        P, epi);
+  }
+}
+
+// Copies a (HW, C) register into a shared tile at pitch P.
+template <typename T>
+__device__ __forceinline__ void to_tile(T* tile, const T* src, int N, int C, int P) {
+  for (int e = threadIdx.x; e < N; e += blockDim.x) tile[(e / C) * P + e % C] = src[e];
+}
+
+// First non-pad step of an example in reversed (execution) order.
+__device__ __forceinline__ int first_step(const int* prog, int T_len) {
+  for (int t = 0; t < T_len; ++t)
+    if (prog[T_len - 1 - t] != 0) return t;
+  return T_len;
+}
+
+// ---------------------------------------------------------------- K2 / K5
+template <typename T, bool kMma, bool kTrain>
 __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_argmax;
@@ -312,12 +383,7 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
   }
   // Reversed prefix order: the last token runs first; the reversed order's
   // leading pads are no-ops and are skipped.
-  int start = T_len;
-  for (int t = 0; t < T_len; ++t)
-    if (prog[T_len - 1 - t] != 0) {
-      start = t;
-      break;
-    }
+  const int start = first_step(prog, T_len);
   int out_tag = TAG_FEAT, saved_tag = TAG_NONE;
   bool invalid = false;
   __syncthreads();
@@ -345,6 +411,14 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
                                         : out_tag;
     if (scene_ok) saved_tag = out_tag;
     out_tag = new_out_tag;
+    // K5: the out register at the step's entry. Each thread copies the
+    // elements it alone updates below, so no barrier is needed.
+    T* resid = nullptr;
+    if constexpr (kTrain) {
+      T* entry = static_cast<T*>(p.otraj) + (static_cast<size_t>(b) * T_len + t) * N;
+      for (int e = tid; e < N; e += nthreads) entry[e] = out[e];
+      resid = static_cast<T*>(p.atraj) + (static_cast<size_t>(b) * T_len + t) * 2 * N;
+    }
 
     if (scene_ok) {  // save the output, reset it to an all-ones attention
       for (int e = tid; e < N; e += nthreads) {
@@ -366,7 +440,12 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
       T* dst = buf_b;
       for (int l = 0; l < layers; ++l) {
         const int d = relate ? (l == 4 ? 1 : 1 << l) : 1;
-        conv3x3<T, kMma>(src, dst, p, p.slot3[tok * kMaxChain + l], d, P);
+        const int slot = p.slot3[tok * kMaxChain + l];
+        if (kTrain && !relate) {  // K5: the outputs of a two-conv chain
+          conv3x3<T, kMma, kTrain>(src, dst, resid + static_cast<size_t>(l) * N, p, slot, d, P);
+        } else {
+          conv3x3<T, kMma, false>(src, dst, nullptr, p, slot, d, P);
+        }
         __syncthreads();
         T* tmp = src;
         src = dst;
@@ -378,26 +457,21 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
         for (int e = tid; e < N; e += nthreads) out[e] = src[(e / C) * P + e % C];
       }
     } else if (do_cmp) {
+      // Copies written out here, not through to_tile: nvcc unrolls these
+      // loops, which hides the loads' latency (to_tile's loop stays rolled).
       for (int e = tid; e < N; e += nthreads) {
         buf_a[(e / C) * P + e % C] = out[e];
         buf_b[(e / C) * P + e % C] = saved[e];
       }
       __syncthreads();
-      const int cs = p.cmp_slot[tok];
-      const float* bias = p.bcmp + static_cast<size_t>(cs) * C;
-      if constexpr (kMma) {
-        conv_mma(buf_a, buf_b, out, C, static_cast<const bf16*>(p.wcmpt) + static_cast<size_t>(cs) * 2 * C * C,
-                 bias, 2, 1, H, W);
-      } else {
-        proj1x1_simt<T>(buf_a, buf_b, out, static_cast<const T*>(p.wcmp) + static_cast<size_t>(cs) * 2 * C * C,
-                        bias, HW, C, P);
-      }
+      compare_projection<T, kMma>(buf_a, buf_b, out, p, p.cmp_slot[tok], P);
       __syncthreads();
       for (int e = tid; e < N; e += nthreads) buf_a[(e / C) * P + e % C] = out[e];
       __syncthreads();
-      conv3x3<T, kMma>(buf_a, buf_b, p, p.slot3[tok * kMaxChain], 1, P);
+      conv3x3<T, kMma, kTrain>(buf_a, buf_b, resid, p, p.slot3[tok * kMaxChain], 1, P);
       __syncthreads();
-      conv3x3<T, kMma>(buf_b, buf_a, p, p.slot3[tok * kMaxChain + 1], 1, P);
+      conv3x3<T, kMma, kTrain>(buf_b, buf_a, kTrain ? resid + N : nullptr, p,
+                               p.slot3[tok * kMaxChain + 1], 1, P);
       __syncthreads();
       for (int e = tid; e < N; e += nthreads) out[e] = buf_a[(e / C) * P + e % C];
     } else if (do_same) {
@@ -438,37 +512,552 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
   if (tid == 0) p.invalid[b] = invalid ? 1 : 0;
 }
 
+// ---------------------------------------------------------------- K6
+struct BwdParams {
+  NmnParams f;          // the forward's operands (out / saved / otraj unused)
+  const int* invalid;   // (B,) the forward's flags
+  const float* gfin;    // (B, HW, C) cotangent of the final encoding
+  const void* otraj;    // K5's residuals
+  const void* atraj;
+  float* scratch;       // (B, 4, HW, C): g_a, g_out, g_saved, dx_acc
+  void* acts;           // (B, 6, HW, C): chain activations of the step
+  void* ent_inp;        // (E, HW, C) conv inputs, compute type
+  void* ent_g;          // (E, HW, C) their g_z, compute type
+  int* ent_tag;         // (E,) weight-gradient target of each entry
+  int* ent_dil;         // (E,) dilation of a 3x3 entry, 0 for a 1x1
+  const int* ent_base;  // (B,) first entry of each example
+  float* part;          // (B, R) per-example partials of the small banks
+  int S3, S1, Ss, Sc;
+  float* dx;            // (B, HW, C)
+};
+
+// Offsets of the small banks in a row of BwdParams::part.
+struct PartLayout {
+  int db3, dw1, db1, dwf, dwa, dsb, dbc, size;
+  __host__ __device__ PartLayout(int S3, int S1, int Ss, int Sc, int C) {
+    db3 = 0;
+    dw1 = db3 + S3 * C;
+    db1 = dw1 + S1 * C;
+    dwf = db1 + S1;
+    dwa = dwf + Ss * C;
+    dsb = dwa + Ss;
+    dbc = dsb + Ss;
+    size = dbc + Sc * C;
+  }
+};
+
 template <typename T, bool kMma>
+__device__ __forceinline__ void conv_input_grad(const T* tile, float* dst, const T* w, int taps,
+                                                int d, int H, int W, int C, int P) {
+  const StoreF32<false> epi{dst, C};
+  if constexpr (kMma) {
+    conv_mma<true>(tile, nullptr, w, taps, d, H, W, epi);
+  } else {
+    conv_simt<T, true>(tile, nullptr, w, taps, d, true, H, W, C, P, epi);
+  }
+}
+
+template <typename T, bool kMma>
+__global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float s_h[kMaxHW];
+  __shared__ int s_argmax;
+  const NmnParams& p = q.f;
+  const int H = p.H, W = p.W, C = p.C, HW = H * W, N = HW * C, T_len = p.T, P = C + kRowPad;
+  const PartLayout lay(q.S3, q.S1, q.Ss, q.Sc, C);
+  T* buf_a = reinterpret_cast<T*>(smem_raw);
+  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
+  const int b = blockIdx.x, tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(b) * N;
+  float* dx = q.dx + static_cast<size_t>(b) * N;
+  if (q.invalid[b]) {  // the forward zeroed the output: every gradient is 0
+    for (int e = tid; e < N; e += nthreads) dx[e] = 0.f;
+    return;
+  }
+  float* ga = q.scratch + static_cast<size_t>(b) * 4 * N;
+  float* gout = ga + N;
+  float* gsaved = ga + 2 * N;
+  float* dxacc = ga + 3 * N;
+  T* acts = static_cast<T*>(q.acts) + static_cast<size_t>(b) * 6 * N;
+  const T* otraj = static_cast<const T*>(q.otraj) + static_cast<size_t>(b) * T_len * N;
+  const T* atraj = static_cast<const T*>(q.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
+  T* ent_inp = static_cast<T*>(q.ent_inp);
+  T* ent_g = static_cast<T*>(q.ent_g);
+  float* part = q.part + static_cast<size_t>(b) * lay.size;
+  const T* w1 = static_cast<const T*>(p.w1);
+  const int* prog = p.programs + static_cast<size_t>(b) * T_len;
+  const T zero = from_f<T>(0.f);
+  int entry = q.ent_base[b];
+
+  for (int c = tid; c < C; c += nthreads) {
+    buf_a[HW * P + c] = zero;
+    buf_b[HW * P + c] = zero;
+  }
+  const float* gfin = q.gfin + static_cast<size_t>(b) * N;
+  for (int e = tid; e < N; e += nthreads) {
+    gout[e] = gfin[e];
+    gsaved[e] = 0.f;
+    dxacc[e] = 0.f;
+  }
+  const int start = first_step(prog, T_len);
+  __syncthreads();
+
+  // Backward of relu(conv3x3_d(inp)) for bank slot `slot`, from g_a (in ga)
+  // to the gradient of inp (into ga): g_z = g_a * (outp > 0) is rounded to
+  // the compute type before both products, as the JAX kernel does. The
+  // (inp, g_z) pair goes to the workspace for nmn_weight_grad_kernel, the
+  // bias gradient to the example's partials.
+  auto conv_layer_bwd = [&](const T* inp, const T* outp, int slot, int d) {
+    T* eg = ent_g + static_cast<size_t>(entry) * N;
+    T* ei = ent_inp + static_cast<size_t>(entry) * N;
+    for (int e = tid; e < N; e += nthreads) {
+      const T gz = from_f<T>(to_f(outp[e]) > 0.f ? ga[e] : 0.f);
+      buf_a[(e / C) * P + e % C] = gz;
+      eg[e] = gz;
+      ei[e] = inp[e];
+    }
+    float* db3 = part + lay.db3 + static_cast<size_t>(slot) * C;
+    for (int c = tid; c < C; c += nthreads) {
+      float s = 0.f;
+      for (int pix = 0; pix < HW; ++pix)
+        s += to_f(outp[pix * C + c]) > 0.f ? ga[pix * C + c] : 0.f;
+      db3[c] += s;
+    }
+    if (tid == 0) {
+      q.ent_tag[entry] = slot;
+      q.ent_dil[entry] = d;
+    }
+    ++entry;
+    __syncthreads();
+    conv_input_grad<T, kMma>(buf_a, ga, static_cast<const T*>(p.w3) + static_cast<size_t>(slot) * 9 * C * C,
+                             9, d, H, W, C, P);
+    __syncthreads();
+  };
+
+  // Backward of the sigmoid 1x1 head (slot hs) over a_last, broadcast over
+  // the channels: g_a = round(g_h0) * w1[hs].
+  auto head_bwd = [&](const T* a_last, int hs) {
+    const T* w = w1 + static_cast<size_t>(hs) * C;
+    const float bias = p.b1[hs];
+    for (int pix = warp; pix < HW; pix += nwarps) {
+      float s = 0.f, g = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        s = fmaf(to_f(a_last[pix * C + c]), to_f(w[c]), s);
+        g += gout[pix * C + c];
+      }
+      s = warp_sum(s);
+      g = warp_sum(g);
+      const float attn = sigmoid(s + bias);
+      if (lane == 0) s_h[pix] = g * attn * (1.f - attn);
+    }
+    __syncthreads();
+    for (int c = tid; c < C; c += nthreads) {
+      float s = 0.f;
+      for (int pix = 0; pix < HW; ++pix) s += to_f(a_last[pix * C + c]) * rnd<T>(s_h[pix]);
+      part[lay.dw1 + hs * C + c] += s;
+    }
+    if (tid == 0) {
+      float s = 0.f;
+      for (int pix = 0; pix < HW; ++pix) s += s_h[pix];
+      part[lay.db1 + hs] += s;
+    }
+    for (int e = tid; e < N; e += nthreads) ga[e] = rnd<T>(s_h[e / C]) * to_f(w[e % C]);
+    __syncthreads();
+  };
+
+  for (int t = T_len - 1; t >= start; --t) {
+    const int tok = prog[T_len - 1 - t];
+    const int kind = p.kind[tok];
+    const T* out_in = otraj + static_cast<size_t>(t) * N;
+    // The saved register at step t is the entry value of the last scene step
+    // before t (the only steps that write it).
+    int ls = -1;
+    for (int s = t - 1; s >= start; --s)
+      if (p.kind[prog[T_len - 1 - s]] == SCENE) {
+        ls = s;
+        break;
+      }
+    const T* saved_in = ls >= 0 ? otraj + static_cast<size_t>(ls) * N : nullptr;
+
+    if (kind == SCENE) {
+      for (int e = tid; e < N; e += nthreads) {
+        gout[e] = gsaved[e];
+        gsaved[e] = 0.f;
+      }
+    } else if (kind == AND || kind == OR) {
+      // min / max subgradient, a tie split 0.5 / 0.5 (as torch.minimum).
+      for (int e = tid; e < N; e += nthreads) {
+        const float a = to_f(out_in[e]), c = saved_in ? to_f(saved_in[e]) : 0.f;
+        const float w = (kind == AND ? (a < c ? 1.f : 0.f) : (a > c ? 1.f : 0.f)) + (a == c ? 0.5f : 0.f);
+        const float go = gout[e];
+        gout[e] = go * w;
+        gsaved[e] = go * (1.f - w) + gsaved[e];
+      }
+    } else if (kind == ATTENTION || kind == QUERY || kind == RELATE) {
+      const bool relate = kind == RELATE;
+      const int layers = relate ? 5 : 2;
+      const int hs = p.head_slot[tok];
+      const T* act[kMaxChain + 1];
+      for (int e = tid; e < N; e += nthreads) {
+        const T v = from_f<T>(to_f(x[e]) * to_f(out_in[e]));
+        acts[e] = v;
+        if (relate) buf_a[(e / C) * P + e % C] = v;
+      }
+      act[0] = acts;
+      if (relate) {  // recompute the chain from its entry register
+        __syncthreads();
+        T* src = buf_a;
+        T* dst = buf_b;
+        for (int l = 0; l < 5; ++l) {
+          const int d = l == 4 ? 1 : 1 << l;
+          conv3x3<T, kMma, true>(src, dst, acts + static_cast<size_t>(l + 1) * N, p,
+                                 p.slot3[tok * kMaxChain + l], d, P);
+          __syncthreads();
+          T* tmp = src;
+          src = dst;
+          dst = tmp;
+          act[l + 1] = acts + static_cast<size_t>(l + 1) * N;
+        }
+      } else {
+        act[1] = atraj + static_cast<size_t>(t) * 2 * N;
+        act[2] = act[1] + N;
+      }
+      __syncthreads();
+      if (hs >= 0) {
+        head_bwd(act[layers], hs);
+      } else {
+        for (int e = tid; e < N; e += nthreads) ga[e] = gout[e];
+        __syncthreads();
+      }
+      for (int l = layers - 1; l >= 0; --l) {
+        const int d = relate ? (l == 4 ? 1 : 1 << l) : 1;
+        conv_layer_bwd(act[l], act[l + 1], p.slot3[tok * kMaxChain + l], d);
+      }
+      for (int e = tid; e < N; e += nthreads) {
+        const float g = ga[e];
+        dxacc[e] += g * to_f(out_in[e]);
+        gout[e] = g * to_f(x[e]);
+      }
+    } else if (kind == COMPARE) {
+      const int cs = p.cmp_slot[tok];
+      to_tile(buf_a, out_in, N, C, P);
+      if (saved_in) {
+        to_tile(buf_b, saved_in, N, C, P);
+      } else {
+        for (int e = tid; e < N; e += nthreads) buf_b[(e / C) * P + e % C] = zero;
+      }
+      __syncthreads();
+      compare_projection<T, kMma>(buf_a, buf_b, acts, p, cs, P);  // acts[0], recomputed
+      const T* act1 = atraj + static_cast<size_t>(t) * 2 * N;
+      for (int e = tid; e < N; e += nthreads) ga[e] = gout[e];
+      __syncthreads();
+      conv_layer_bwd(act1, act1 + N, p.slot3[tok * kMaxChain + 1], 1);
+      conv_layer_bwd(acts, act1, p.slot3[tok * kMaxChain], 1);
+      // g_pre = g_a * (acts[0] > 0): the projection's bias gradient, then its
+      // two weight halves as workspace entries over out_in and saved_in.
+      float* dbc = part + lay.dbc + static_cast<size_t>(cs) * C;
+      for (int c = tid; c < C; c += nthreads) {
+        float s = 0.f;
+        for (int pix = 0; pix < HW; ++pix) s += to_f(acts[pix * C + c]) > 0.f ? ga[pix * C + c] : 0.f;
+        dbc[c] += s;
+      }
+      T* eg0 = ent_g + static_cast<size_t>(entry) * N;
+      T* ei0 = ent_inp + static_cast<size_t>(entry) * N;
+      for (int e = tid; e < N; e += nthreads) {
+        const T gp = from_f<T>(to_f(acts[e]) > 0.f ? ga[e] : 0.f);
+        buf_a[(e / C) * P + e % C] = gp;
+        eg0[e] = gp;
+        eg0[N + e] = gp;
+        ei0[e] = out_in[e];
+        ei0[N + e] = saved_in ? saved_in[e] : zero;
+      }
+      if (tid == 0) {
+        q.ent_tag[entry] = q.S3 + 2 * cs;
+        q.ent_tag[entry + 1] = q.S3 + 2 * cs + 1;
+        q.ent_dil[entry] = q.ent_dil[entry + 1] = 0;
+      }
+      entry += 2;
+      __syncthreads();
+      const T* wc = static_cast<const T*>(p.wcmp) + static_cast<size_t>(cs) * 2 * C * C;
+      conv_input_grad<T, kMma>(buf_a, gout, wc, 1, 1, H, W, C, P);
+      if constexpr (kMma) {
+        conv_mma<true>(buf_a, nullptr, wc + C * C, 1, 1, H, W, StoreF32<true>{gsaved, C});
+      } else {
+        conv_simt<T, true>(buf_a, nullptr, wc + C * C, 1, 1, true, H, W, C, P,
+                           StoreF32<true>{gsaved, C});
+      }
+    } else if (kind == SAME) {
+      if (tid == 0) {
+        float best = to_f(out_in[0]);
+        int best_p = 0;
+        for (int pix = 1; pix < HW; ++pix) {
+          const float v = to_f(out_in[pix * C]);
+          if (v > best) {
+            best = v;
+            best_p = pix;
+          }
+        }
+        s_argmax = best_p;
+      }
+      __syncthreads();
+      const int ss = p.same_slot[tok], am = s_argmax;
+      const T* vec = x + static_cast<size_t>(am) * C;
+      const T* wf = static_cast<const T*>(p.same_wf) + static_cast<size_t>(ss) * C;
+      const float wa = p.same_wa[ss], bias = p.same_b[ss];
+      for (int pix = warp; pix < HW; pix += nwarps) {
+        float s = 0.f, g = 0.f;
+        for (int c = lane; c < C; c += 32) {
+          s = fmaf(rnd<T>(to_f(x[pix * C + c]) * to_f(vec[c])), to_f(wf[c]), s);
+          g += gout[pix * C + c];
+        }
+        s = warp_sum(s);
+        g = warp_sum(g);
+        const float attn = sigmoid(s + to_f(out_in[pix * C]) * wa + bias);
+        if (lane == 0) s_h[pix] = g * attn * (1.f - attn);
+      }
+      __syncthreads();
+      for (int c = tid; c < C; c += nthreads) {
+        const float v = to_f(vec[c]), wfc = to_f(wf[c]);
+        float dwf = 0.f, gvec = 0.f;
+        for (int pix = 0; pix < HW; ++pix) {
+          const float xv = to_f(x[pix * C + c]), gh = rnd<T>(s_h[pix]);
+          dwf += rnd<T>(xv * v) * gh;
+          const float gx = gh * wfc;
+          dxacc[pix * C + c] += gx * v;
+          gvec += xv * gx;
+        }
+        dxacc[am * C + c] += gvec;
+        part[lay.dwf + ss * C + c] += dwf;
+      }
+      if (tid == 0) {
+        float dwa = 0.f, dsb = 0.f;
+        for (int pix = 0; pix < HW; ++pix) {
+          dwa += to_f(out_in[pix * C]) * s_h[pix];
+          dsb += s_h[pix];
+        }
+        part[lay.dwa + ss] += dwa;
+        part[lay.dsb + ss] += dsb;
+      }
+      for (int e = tid; e < N; e += nthreads) gout[e] = e % C == 0 ? s_h[e / C] * wa : 0.f;
+    }
+    __syncthreads();
+  }
+  // The initial out register was the stem features themselves.
+  for (int e = tid; e < N; e += nthreads) dx[e] = dxacc[e] + gout[e];
+}
+
+// ---------------------------------------------------------------- K6: weight gradients
+// Block j < S3 * 9: dw3[j / 9][j % 9] (C_in, C_out) = sum over the entries
+// of slot j / 9 of shift_tap(inp)^T . g_z; block S3 * 9 + k: dwc[k / 2][k % 2]
+// = sum over its entries of inp^T . g. Entries are summed in the order
+// `order` lists them (example, then step), so the result repeats bit for bit.
+struct GradParams {
+  const void* ent_inp;
+  const void* ent_g;
+  const int* ent_dil;
+  const int* order;
+  const int* seg_start;
+  const int* seg_count;
+  int S3, Sc;
+  float* dw3;
+  float* dwc;
+  int H, W, C;
+};
+
+struct GradBlock {
+  int target, tap, taps;
+  float* out;
+  __device__ GradBlock(const GradParams& g) {
+    const int j = blockIdx.x;
+    const size_t cc = static_cast<size_t>(g.C) * g.C;
+    if (j < g.S3 * 9) {
+      target = j / 9;
+      tap = j % 9;
+      taps = 9;
+      out = g.dw3 + static_cast<size_t>(j) * cc;
+    } else {
+      target = g.S3 + (j - g.S3 * 9);
+      tap = 0;
+      taps = 1;
+      out = g.dwc + static_cast<size_t>(j - g.S3 * 9) * cc;
+    }
+  }
+};
+
+// Source pixel of output pixel `pix` for tap `tap` at dilation d, or -1.
+__device__ __forceinline__ int tap_source(int pix, int tap, int taps, int d, int H, int W) {
+  if (taps == 1) return pix;
+  const int y = pix / W + (tap / 3 - 1) * d, x = pix % W + (tap % 3 - 1) * d;
+  return (y >= 0 && y < H && x >= 0 && x < W) ? y * W + x : -1;
+}
+
+// SIMT: each thread owns an 8 x 8 block of (C_in, C_out); pixels are staged
+// kGradChunk at a time as float32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) nmn_weight_grad_simt(const GradParams g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = g.C, HW = g.H * g.W, N = HW * C, tid = threadIdx.x;
+  float* s_in = reinterpret_cast<float*>(smem_raw);
+  float* s_g = s_in + kGradChunk * C;
+  const GradBlock blk(g);
+  const int count = g.seg_count[blk.target], first = g.seg_start[blk.target];
+  const int groups = C / 8, ntile = groups * groups;
+  for (int round = 0; round * kThreads < ntile; ++round) {
+    const int tile = round * kThreads + tid;
+    const bool active = tile < ntile;
+    const int ci0 = (tile / groups) * 8, co0 = (tile % groups) * 8;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int k = 0; k < count; ++k) {
+      const int e = g.order[first + k];
+      const int d = g.ent_dil[e];
+      const T* inp = static_cast<const T*>(g.ent_inp) + static_cast<size_t>(e) * N;
+      const T* gz = static_cast<const T*>(g.ent_g) + static_cast<size_t>(e) * N;
+      for (int p0 = 0; p0 < HW; p0 += kGradChunk) {
+        const int np = min(kGradChunk, HW - p0);
+        __syncthreads();
+        for (int idx = tid; idx < np * C; idx += blockDim.x) {
+          const int pp = idx / C, c = idx % C;
+          const int src = tap_source(p0 + pp, blk.tap, blk.taps, d, g.H, g.W);
+          s_in[idx] = src >= 0 ? to_f(inp[src * C + c]) : 0.f;
+          s_g[idx] = to_f(gz[(p0 + pp) * C + c]);
+        }
+        __syncthreads();
+        if (active) {
+          for (int pp = 0; pp < np; ++pp) {
+            float a[8], bv[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              a[i] = s_in[pp * C + ci0 + i];
+              bv[i] = s_g[pp * C + co0 + i];
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+    if (active)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) blk.out[(ci0 + i) * C + co0 + j] = acc[i][j];
+  }
+}
+
+// Tensor cores (bf16, C == 128): M = C_in (warp w owns rows 16w .. 16w+15),
+// N = C_out (16 tiles of 8), K = pixels. Both operands are staged transposed,
+// channel-major with pixels contiguous, so every fragment is a 32-bit load.
+constexpr int kGradPixPad = 16 * ((kMmaTiles * 32 + 15) / 16);  // pixels padded to the K chunk
+
+__global__ void __launch_bounds__(kThreads) nmn_weight_grad_mma(const GradParams g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int C = kMmaC;
+  const int HW = g.H * g.W, N = HW * C, tid = threadIdx.x;
+  const int kpad = (HW + 15) / 16 * 16, KP = kpad + 8;  // pixel pitch of a channel row
+  bf16* s_in = reinterpret_cast<bf16*>(smem_raw);
+  bf16* s_g = s_in + C * KP;
+  const GradBlock blk(g);
+  const int count = g.seg_count[blk.target], first = g.seg_start[blk.target];
+  const int lane = tid & 31, warp = tid >> 5, gq = lane >> 2, t4 = lane & 3;
+  const int m0 = warp * 16;
+  float acc[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int k = 0; k < count; ++k) {
+    const int e = g.order[first + k];
+    const int d = g.ent_dil[e];
+    const bf16* inp = static_cast<const bf16*>(g.ent_inp) + static_cast<size_t>(e) * N;
+    const bf16* gz = static_cast<const bf16*>(g.ent_g) + static_cast<size_t>(e) * N;
+    __syncthreads();
+    for (int idx = tid; idx < kpad * C; idx += blockDim.x) {
+      const int pix = idx / C, c = idx % C;
+      const int src = pix < HW ? tap_source(pix, blk.tap, blk.taps, d, g.H, g.W) : -1;
+      s_in[c * KP + pix] = src >= 0 ? inp[src * C + c] : zero;
+      s_g[c * KP + pix] = pix < HW ? gz[pix * C + c] : zero;
+    }
+    __syncthreads();
+    for (int kc = 0; kc < kpad; kc += 16) {
+      const bf16* ar = s_in + (m0 + gq) * KP + kc + 2 * t4;
+      const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * KP);
+      const uint32_t a2 = ld32(ar + 8), a3 = ld32(ar + 8 * KP + 8);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const bf16* br = s_g + (nt * 8 + gq) * KP + kc + 2 * t4;
+        mma_bf16(acc[nt], a0, a1, a2, a3, ld32(br), ld32(br + 8));
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int co = nt * 8 + 2 * t4;
+    float* r0 = blk.out + (m0 + gq) * C + co;
+    float* r1 = r0 + 8 * C;
+    r0[0] = acc[nt][0];
+    r0[1] = acc[nt][1];
+    r1[0] = acc[nt][2];
+    r1[1] = acc[nt][3];
+  }
+}
+
+// out[c] = sum over rows r (in order) of part[r][c].
+__global__ void nmn_sum_rows_kernel(const float* part, int rows, int cols, float* out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += part[static_cast<size_t>(r) * cols + c];
+  out[c] = s;
+}
+
+// ---------------------------------------------------------------- launchers
+size_t tile_bytes(int H, int W, int C, size_t elem) {
+  return 2ull * (static_cast<size_t>(H) * W + 1) * (C + kRowPad) * elem;
+}
+
+template <typename T, bool kMma, bool kTrain>
 cudaError_t launch_nmn(const NmnParams& p, cudaStream_t stream) {
-  const size_t bytes = 2ull * (static_cast<size_t>(p.H) * p.W + 1) * (p.C + kRowPad) * sizeof(T);
+  const size_t bytes = tile_bytes(p.H, p.W, p.C, sizeof(T));
   if (bytes + sizeof(int) > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(nmn_interpreter_kernel<T, kMma>,
+  cudaError_t err = cudaFuncSetAttribute(nmn_interpreter_kernel<T, kMma, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  nmn_interpreter_kernel<T, kMma><<<p.batch, kThreads, bytes, stream>>>(p);
+  nmn_interpreter_kernel<T, kMma, kTrain><<<p.batch, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <typename T, bool kMma>
+cudaError_t launch_backward(const BwdParams& q, cudaStream_t stream) {
+  const size_t bytes = tile_bytes(q.f.H, q.f.W, q.f.C, sizeof(T));
+  if (bytes + sizeof(float) * kMaxHW + sizeof(int) > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(nmn_backward_kernel<T, kMma>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  nmn_backward_kernel<T, kMma><<<q.f.batch, kThreads, bytes, stream>>>(q);
+  return cudaGetLastError();
+}
 
-// dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores: needs w3t / wcmpt, the
-// banks transposed to (.., C_out, C_in), C == 128 and H * W <= 224).
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int probnmn_nmn_interpret(
-    int dtype, const void* programs, int batch, int num_steps, const void* kind,
-    const void* slot3, const void* head_slot, const void* cmp_slot, const void* same_slot,
-    const void* x, const void* w3, const void* w3t, const void* b3, const void* w1,
-    const void* b1, const void* same_wf, const void* same_wa, const void* same_b,
-    const void* wcmp, const void* wcmpt, const void* bcmp, void* out, void* saved,
-    void* invalid, int H, int W, int C, void* stream) {
-  if (batch <= 0) return 0;
-  if (C % 4 != 0 || kThreads % (C / 4) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool mma = dtype == 1;
-  if (mma && (w3t == nullptr || wcmpt == nullptr || C != kMmaC || H * W > 2 * kMmaTiles * 16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!mma && dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  NmnParams p;
+bool params_ok(int dtype, const void* w3t, const void* wcmpt, int H, int W, int C) {
+  if (C % 4 != 0 || kThreads % (C / 4) != 0) return false;
+  if (dtype == 1) return w3t != nullptr && wcmpt != nullptr && C == kMmaC && H * W <= 2 * kMmaTiles * 16;
+  return dtype == 0;
+}
+
+NmnParams make_params(const void* programs, int batch, int num_steps, const void* kind,
+                      const void* slot3, const void* head_slot, const void* cmp_slot,
+                      const void* same_slot, const void* x, const void* w3, const void* w3t,
+                      const void* b3, const void* w1, const void* b1, const void* same_wf,
+                      const void* same_wa, const void* same_b, const void* wcmp,
+                      const void* wcmpt, const void* bcmp, int H, int W, int C) {
+  NmnParams p = {};
   p.programs = static_cast<const int*>(programs);
   p.batch = batch;
   p.T = num_steps;
@@ -489,17 +1078,131 @@ extern "C" int probnmn_nmn_interpret(
   p.wcmp = wcmp;
   p.wcmpt = wcmpt;
   p.bcmp = static_cast<const float*>(bcmp);
-  p.out = out;
-  p.saved = saved;
-  p.invalid = static_cast<int*>(invalid);
   p.H = H;
   p.W = W;
   p.C = C;
+  return p;
+}
+
+}  // namespace
+
+// dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores: needs w3t / wcmpt, the
+// banks transposed to (.., C_out, C_in), C == 128 and H * W <= 224). With
+// otraj and atraj set this is K5, else K2. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int probnmn_nmn_interpret(
+    int dtype, const void* programs, int batch, int num_steps, const void* kind,
+    const void* slot3, const void* head_slot, const void* cmp_slot, const void* same_slot,
+    const void* x, const void* w3, const void* w3t, const void* b3, const void* w1,
+    const void* b1, const void* same_wf, const void* same_wa, const void* same_b,
+    const void* wcmp, const void* wcmpt, const void* bcmp, void* out, void* saved,
+    void* invalid, void* otraj, void* atraj, int H, int W, int C, void* stream) {
+  if (batch <= 0) return 0;
+  if (!params_ok(dtype, w3t, wcmpt, H, W, C) || (otraj == nullptr) != (atraj == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  NmnParams p = make_params(programs, batch, num_steps, kind, slot3, head_slot, cmp_slot,
+                            same_slot, x, w3, w3t, b3, w1, b1, same_wf, same_wa, same_b, wcmp,
+                            wcmpt, bcmp, H, W, C);
+  p.out = out;
+  p.saved = saved;
+  p.invalid = static_cast<int*>(invalid);
+  p.otraj = otraj;
+  p.atraj = atraj;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool train = otraj != nullptr;
+  if (dtype == 1) return static_cast<int>(train ? launch_nmn<bf16, true, true>(p, s)
+                                                : launch_nmn<bf16, true, false>(p, s));
+  return static_cast<int>(train ? launch_nmn<float, false, true>(p, s)
+                                : launch_nmn<float, false, false>(p, s));
+}
+
+// K6's sweep: one block per example. Fills dx, the workspace entries and
+// the per-example partials (which the caller zeroes); ent_tag must hold the
+// sentinel S3 + 2 * Sc where no entry is written.
+extern "C" int probnmn_nmn_backward(
+    int dtype, const void* programs, int batch, int num_steps, const void* kind,
+    const void* slot3, const void* head_slot, const void* cmp_slot, const void* same_slot,
+    const void* x, const void* w3, const void* w3t, const void* b3, const void* w1,
+    const void* b1, const void* same_wf, const void* same_wa, const void* same_b,
+    const void* wcmp, const void* wcmpt, const void* bcmp, const void* invalid,
+    const void* gfin, const void* otraj, const void* atraj, void* scratch, void* acts,
+    void* ent_inp, void* ent_g, void* ent_tag, void* ent_dil, const void* ent_base, void* part,
+    int S3, int S1, int Ss, int Sc, void* dx, int H, int W, int C, void* stream) {
+  if (batch <= 0) return 0;
+  if (!params_ok(dtype, w3t, wcmpt, H, W, C) || H * W > kMaxHW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams q = {};
+  q.f = make_params(programs, batch, num_steps, kind, slot3, head_slot, cmp_slot, same_slot, x,
+                    w3, w3t, b3, w1, b1, same_wf, same_wa, same_b, wcmp, wcmpt, bcmp, H, W, C);
+  q.invalid = static_cast<const int*>(invalid);
+  q.gfin = static_cast<const float*>(gfin);
+  q.otraj = otraj;
+  q.atraj = atraj;
+  q.scratch = static_cast<float*>(scratch);
+  q.acts = acts;
+  q.ent_inp = ent_inp;
+  q.ent_g = ent_g;
+  q.ent_tag = static_cast<int*>(ent_tag);
+  q.ent_dil = static_cast<int*>(ent_dil);
+  q.ent_base = static_cast<const int*>(ent_base);
+  q.part = static_cast<float*>(part);
+  q.S3 = S3;
+  q.S1 = S1;
+  q.Ss = Ss;
+  q.Sc = Sc;
+  q.dx = static_cast<float*>(dx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 1 ? launch_backward<bf16, true>(q, s)
+                                     : launch_backward<float, false>(q, s));
+}
+
+// The floats of one row of probnmn_nmn_backward's partials.
+extern "C" int probnmn_nmn_partial_floats(int S3, int S1, int Ss, int Sc, int C) {
+  return PartLayout(S3, S1, Ss, Sc, C).size;
+}
+
+// K6's weight gradients of the 3x3 bank (dw3 (S3, 9, C, C)) and of compare's
+// projection (dwc (Sc, 2, C, C)) from the sweep's entries; order lists the
+// entries grouped by target (seg_start / seg_count per target).
+extern "C" int probnmn_nmn_weight_grad(int dtype, const void* ent_inp, const void* ent_g,
+                                       const void* ent_dil, const void* order,
+                                       const void* seg_start, const void* seg_count, int S3,
+                                       int Sc, void* dw3, void* dwc, int H, int W, int C,
+                                       void* stream) {
+  const int blocks = S3 * 9 + Sc * 2;
+  if (blocks <= 0) return 0;
+  GradParams g = {ent_inp, ent_g, static_cast<const int*>(ent_dil),
+                  static_cast<const int*>(order), static_cast<const int*>(seg_start),
+                  static_cast<const int*>(seg_count), S3, Sc, static_cast<float*>(dw3),
+                  static_cast<float*>(dwc), H, W, C};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (mma)
-    err = launch_nmn<bf16, true>(p, s);
-  else
-    err = launch_nmn<float, false>(p, s);
-  return static_cast<int>(err);
+  if (dtype == 1) {
+    if (C != kMmaC || H * W > kGradPixPad) return static_cast<int>(cudaErrorInvalidValue);
+    const int KP = (H * W + 15) / 16 * 16 + 8;
+    const size_t bytes = 2ull * C * KP * sizeof(bf16);
+    err = cudaFuncSetAttribute(nmn_weight_grad_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    nmn_weight_grad_mma<<<blocks, kThreads, bytes, s>>>(g);
+  } else if (dtype == 0) {
+    if (C % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t bytes = 2ull * kGradChunk * C * sizeof(float);
+    err = cudaFuncSetAttribute(nmn_weight_grad_simt<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    nmn_weight_grad_simt<float><<<blocks, kThreads, bytes, s>>>(g);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (cols,) = the sum of part (rows, cols) over its rows, in row order.
+extern "C" int probnmn_nmn_sum_rows(const void* part, int rows, int cols, void* out, void* stream) {
+  if (cols <= 0) return 0;
+  nmn_sum_rows_kernel<<<(cols + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part), rows,
+                                                             cols, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,7 @@ r"""
 Phase datasets (counterpart of ``probnmn_tpu/data/datasets.py``; reference
 ``probnmn/data/datasets.py``), numpy-native: ``__len__`` and the vectorized
 ``get_batch(indices)`` that the batch pipeline gathers with. Each also builds
-from in-memory token arrays (``from_programs``, ``from_tokens``).
+from in-memory arrays (``from_programs``, ``from_tokens``, ``from_arrays``).
 
 The question_coding supervision subset is drawn with the *global* NumPy RNG,
 as the reference does (``datasets.py:67-78``): questions longer than
@@ -17,7 +17,7 @@ from typing import Dict
 
 import numpy as np
 
-from probnmn_tpu_torch.data.readers import ClevrTokensReader
+from probnmn_tpu_torch.data.readers import ClevrImageFeaturesReader, ClevrTokensReader
 
 
 def check_token_ids(tokens: np.ndarray, vocab_size: int, what: str) -> None:
@@ -135,6 +135,64 @@ class QuestionCodingDataset:
 
     def get_supervision_list(self) -> np.ndarray:
         return self._supervision_list
+
+    @property
+    def split(self):
+        return self._split
+
+
+class ModuleTrainingDataset:
+    r"""{"question", "answer", "image", "program"} (reference
+    ``datasets.py:110-146``); ``image`` is float32 NCHW as stored, gathered
+    through each question's ``image_indices`` entry."""
+
+    def __init__(self, tokens_h5path: str, features_h5path: str, in_memory: bool = True):
+        tokens = ClevrTokensReader(tokens_h5path)
+        self._setup(tokens.programs, tokens.questions, tokens.answers, tokens.image_indices,
+                    ClevrImageFeaturesReader(features_h5path, in_memory), tokens.split)
+
+    @classmethod
+    def from_arrays(
+        cls,
+        programs: np.ndarray,
+        questions: np.ndarray,
+        answers: np.ndarray,
+        image_indices: np.ndarray,
+        features: np.ndarray,
+        split: str = "train",
+    ) -> "ModuleTrainingDataset":
+        r"""A dataset over in-memory (N, Lp) programs, (N, Lq) questions, (N,)
+        answers and (N,) indices into ``features`` (M, C, H, W)."""
+        dataset = cls.__new__(cls)
+        dataset._setup(np.asarray(programs), np.asarray(questions), np.asarray(answers),
+                       np.asarray(image_indices), np.asarray(features), split)
+        return dataset
+
+    def _setup(self, programs, questions, answers, image_indices, features, split):
+        if not len(programs) == len(questions) == len(answers) == len(image_indices):
+            raise ValueError("programs, questions, answers and image_indices differ in length")
+        self._programs = programs
+        self._questions = questions
+        self._answers = answers
+        self._image_indices = image_indices
+        self._features = features
+        self._split = split
+
+    def check_tokens(self, program_vocab_size: int, question_vocab_size: int) -> None:
+        r"""Raise unless every program and question token id lies in its vocabulary."""
+        check_token_ids(self._programs, program_vocab_size, f"{self._split} program")
+        check_token_ids(self._questions, question_vocab_size, f"{self._split} question")
+
+    def __len__(self):
+        return len(self._questions)
+
+    def get_batch(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        return {
+            "question": self._questions[indices].astype(np.int64),
+            "answer": self._answers[indices].astype(np.int64),
+            "image": np.asarray(self._features[self._image_indices[indices]], np.float32),
+            "program": self._programs[indices].astype(np.int64),
+        }
 
     @property
     def split(self):

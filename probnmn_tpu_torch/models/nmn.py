@@ -21,7 +21,10 @@ Parameters are a plain dict in the JAX package's layout, except the stem's
 converts. Module banks keep one slot per program-vocab token of their class.
 :func:`nmn_forward` runs the plain register machine;
 :func:`make_fast_inference_fn` is the serving path, which on CUDA runs the
-interpreter kernel (``ops/kernels/nmn_interpreter.py``).
+interpreter kernel K2 (``ops/kernels/nmn_interpreter.py``);
+:func:`nmn_forward_fast` is the training path (K5 forward, K6 backward) and
+:func:`fast_forward_from_tables` the evaluators' K2 forward over prebuilt
+banks.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     TAG_NONE,
     build_banks,
     build_tables,
+    execute_programs_diff,
     execute_programs_kernel,
     execute_programs_plain,
 )
@@ -57,7 +61,8 @@ __all__ = [
     "NOP", "SCENE", "AND", "OR", "ATTENTION", "QUERY", "RELATE", "SAME", "COMPARE",
     "TAG_NONE", "TAG_ATTN", "TAG_FEAT", "INVALID_LOSS", "NMNSpec", "classify_token",
     "make_spec", "init_nmn_params", "apply_stem", "apply_classifier",
-    "execute_programs", "nmn_forward", "make_fast_inference_fn", "resolve_compute_dtype",
+    "execute_programs", "nmn_forward", "nmn_forward_fast", "fast_forward_from_tables",
+    "make_fast_inference_fn", "resolve_compute_dtype",
 ]
 
 _KIND_NAMES = [
@@ -303,6 +308,52 @@ def nmn_forward(
     return _outputs_from_logits(logits, invalid, spec, answers)
 
 
+def nmn_forward_fast(
+    params: Dict[str, Any],
+    spec: NMNSpec,
+    features: torch.Tensor,
+    programs: torch.Tensor,
+    answers: Optional[torch.Tensor] = None,
+    tables: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, Any]:
+    r"""The training forward, with the output contract of :func:`nmn_forward`
+    (counterpart of the JAX package's ``nmn_forward_fast``): the banks are
+    built from the live ``params`` each call, the stem runs ``F.conv2d``, the
+    interpreter is :func:`execute_programs_diff` (K5 forward and K6 backward
+    on CUDA, their plain versions on the CPU), then the classifier. Fully
+    differentiable in ``params`` and ``features``. ``tables`` (from
+    :func:`build_tables` on the features' device) saves rebuilding them."""
+    dtype = resolve_compute_dtype(spec.compute_dtype, features.device)
+    banks = build_banks(params, spec, dtype)
+    if tables is None:
+        tables = build_tables(spec, features.device)
+    stem_feats = apply_stem(cast_params(params["stem"], dtype), features.to(dtype))
+    final, invalid = execute_programs_diff(banks, tables, spec, stem_feats.contiguous(), programs)
+    logits = apply_classifier(cast_params(params["classifier"], dtype), final).float()
+    return _outputs_from_logits(logits, invalid, spec, answers)
+
+
+def fast_forward_from_tables(
+    banks: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    spec: NMNSpec,
+    stem_params: Dict[str, Any],
+    classifier_params: Dict[str, Any],
+    features: torch.Tensor,
+    programs: torch.Tensor,
+    answers: Optional[torch.Tensor] = None,
+) -> Dict[str, Any]:
+    r"""The inference forward over prebuilt ``banks`` and ``tables``, in the
+    banks' dtype: the stem, K2 (its plain version on the CPU) and the
+    classifier, with the output contract of :func:`nmn_forward`. The
+    evaluators rebuild the banks from the live params before each pass."""
+    dtype = banks["w3"].dtype
+    stem_feats = apply_stem(cast_params(stem_params, dtype), features.to(dtype))
+    final, invalid = execute_programs_kernel(banks, tables, spec, stem_feats.contiguous(), programs)
+    logits = apply_classifier(cast_params(classifier_params, dtype), final).float()
+    return _outputs_from_logits(logits, invalid, spec, answers)
+
+
 def make_fast_inference_fn(
     params: Dict[str, Any], spec: NMNSpec, device=None, dtype: Optional[torch.dtype] = None
 ):
@@ -321,9 +372,7 @@ def make_fast_inference_fn(
     classifier_params = cast_params(params["classifier"], dtype, device)
 
     def forward(features, programs, answers=None):
-        stem_feats = apply_stem(stem_params, features.to(device=device, dtype=dtype))
-        final, invalid = execute_programs_kernel(banks, tables, spec, stem_feats, programs)
-        logits = apply_classifier(classifier_params, final).float()
-        return _outputs_from_logits(logits, invalid, spec, answers)
+        return fast_forward_from_tables(banks, tables, spec, stem_params, classifier_params,
+                                        features.to(device), programs, answers)
 
     return forward

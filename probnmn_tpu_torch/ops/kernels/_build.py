@@ -122,8 +122,7 @@ def library() -> ctypes.CDLL:
         _INT, _INT, _INT, _INT,                 # pad, unk, start, end
         _VOID_P,                                # stream
     ]
-    lib.probnmn_nmn_interpret.restype = _INT
-    lib.probnmn_nmn_interpret.argtypes = [
+    nmn_operands = [
         _INT,                                   # dtype
         _VOID_P, _INT, _INT,                    # programs (B, T) int32, B, T
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # kind, slot3, head, cmp, same tables
@@ -132,10 +131,39 @@ def library() -> ctypes.CDLL:
         _VOID_P, _VOID_P,                       # w1, b1
         _VOID_P, _VOID_P, _VOID_P,              # same_wf, same_wa, same_b
         _VOID_P, _VOID_P, _VOID_P,              # wcmp, wcmpt (or NULL), bcmp
+    ]
+    lib.probnmn_nmn_interpret.restype = _INT
+    lib.probnmn_nmn_interpret.argtypes = nmn_operands + [
         _VOID_P, _VOID_P, _VOID_P,              # out, saved scratch, invalid
+        _VOID_P, _VOID_P,                       # otraj, atraj (K5) or NULL (K2)
         _INT, _INT, _INT,                       # H, W, C
         _VOID_P,                                # stream
     ]
+    lib.probnmn_nmn_backward.restype = _INT
+    lib.probnmn_nmn_backward.argtypes = nmn_operands + [
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P,     # invalid, g_final, otraj, atraj
+        _VOID_P, _VOID_P,                       # scratch (B, 4, HW, C) f32, acts (B, 6, HW, C)
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # entries: inp, g, tag, dilation; bases
+        _VOID_P,                                # partials (B, R) f32
+        _INT, _INT, _INT, _INT,                 # S3, S1, Ss, Sc
+        _VOID_P,                                # dx (B, HW, C) f32
+        _INT, _INT, _INT,                       # H, W, C
+        _VOID_P,                                # stream
+    ]
+    lib.probnmn_nmn_partial_floats.restype = _INT
+    lib.probnmn_nmn_partial_floats.argtypes = [_INT] * 5  # S3, S1, Ss, Sc, C
+    lib.probnmn_nmn_weight_grad.restype = _INT
+    lib.probnmn_nmn_weight_grad.argtypes = [
+        _INT,                                   # dtype
+        _VOID_P, _VOID_P, _VOID_P,              # entries: inp, g, dilation
+        _VOID_P, _VOID_P, _VOID_P,              # order, seg_start, seg_count (int32)
+        _INT, _INT,                             # S3, Sc
+        _VOID_P, _VOID_P,                       # dw3 (S3, 9, C, C), dwc (Sc, 2, C, C) f32
+        _INT, _INT, _INT,                       # H, W, C
+        _VOID_P,                                # stream
+    ]
+    lib.probnmn_nmn_sum_rows.restype = _INT
+    lib.probnmn_nmn_sum_rows.argtypes = [_VOID_P, _INT, _INT, _VOID_P, _VOID_P]
     lib.probnmn_lm_workspace_floats.restype = ctypes.c_longlong
     lib.probnmn_lm_workspace_floats.argtypes = [_INT] * 7  # B, Lt, D, H, layers, V, backward
     lm_weights = [

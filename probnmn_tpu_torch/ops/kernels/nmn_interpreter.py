@@ -1,34 +1,59 @@
 r"""
-Kernel K2: the NMN program interpreter, inference path, in one CUDA launch
-(``probnmn_tpu_torch/csrc/nmn_interpreter.cu``).
+Kernels K2, K5 and K6: the NMN program interpreter, its training forward and
+its backward, in CUDA (``probnmn_tpu_torch/csrc/nmn_interpreter.cu``).
 
-Replaces ``probnmn_tpu/ops/pallas/nmn_interpreter.py::_interpreter_kernel``
-(entry ``execute_programs_pallas``). Each example's program runs exactly: the
-tag machine walks the reversed tokens from the first non-pad step, runs only
-the module chain of each step's kind and stops at the first invalid op.
+- K2 replaces ``probnmn_tpu/ops/pallas/nmn_interpreter.py::_interpreter_kernel``
+  (entry ``execute_programs_pallas``): :func:`execute_programs_kernel`.
+- K5 replaces ``_interpreter_train_kernel`` (entry
+  ``_execute_train_fwd_pallas``): :func:`execute_programs_train_kernel`, K2's
+  kernel body with the residual stores switched on. Besides the final
+  encodings and invalid flags (K2's, bit for bit) it returns ``otraj``
+  (B, T, H*W, C), the out register at the entry of every executed step, and
+  ``atraj`` (B, T, 2, H*W, C), the outputs of the two 3x3 convs of every
+  attention, query and compare step, both in the compute dtype: the JAX
+  package's layout. Steps that did not run are left unwritten.
+- K6 replaces ``_interpreter_bwd_kernel`` in its no-replay mode (entry
+  ``_execute_bwd_pallas`` with residuals): :func:`interpreter_grads_kernel`,
+  the reverse sweep over each valid example's steps that reads K5's
+  residuals (relate's chain is recomputed from its entry register) and gives
+  d(stem features) and the gradients of every bank. Invalid examples get
+  zero gradients. It is deterministic: the 3x3 bank's and compare
+  projection's weight gradients are summed from a workspace of (input,
+  g_z) pairs in (example, step) order by a second kernel, the small banks
+  from per-example partials in example order; no float atomics.
+- :func:`execute_programs_diff` puts K5 and K6 behind one
+  ``torch.autograd.Function`` (the JAX package's custom VJP ``_execute_diff``).
 
-What bounds it on an H100: the 3x3 convs, 57.8 MFLOP each (15.1 per valid
-CLEVR program, 224 GFLOP per batch of 256: 0.23 ms at the bf16 tensor peak,
-against ~48 MB of bytes, 14 µs) — it is compute-bound. Design: one block per
-example, so the scalar tag machine is uniform within a block and never
-diverges; the conv input and output tiles (14 x 14 x 128, unpadded, plus one
-zero row that out-of-range taps read) live in shared memory; weights stream
-tap by tap from the 22 MB unified bank, which stays in L2. In bfloat16 at
-C = 128 (the serving path) each conv is an implicit GEMM on the tensor cores
-(``mma.sync`` m16n8k16, float32 accumulate), reading the bank transposed to
-(tap, C_out, C_in) (``w3t``/``wcmpt`` from :func:`build_banks`); bfloat16 at
-other widths raises. float32 runs float32 FMAs on the SIMT cores: the
-reference that checks the kernel's arithmetic at a tight tolerance. Neither
-uses ``wgmma`` or TMA yet: making it fast is later work.
+Each program runs exactly: the tag machine walks the reversed tokens from the
+first non-pad step, runs only the module chain of each step's kind and stops
+at the first invalid op.
+
+What bounds them on an H100: the 3x3 convs, 57.8 MFLOP each (15.1 per valid
+CLEVR program: 224 GFLOP per batch of 256, 0.23 ms at the bf16 tensor peak,
+against ~48 MB of bytes, 14 µs); K6 runs each conv's two gradient products,
+about twice K5's work. Design: one block per example, so the scalar tag
+machine is uniform within a block and never diverges; the conv input and
+output tiles (14 x 14 x 128, unpadded, plus one zero row that out-of-range
+taps read) live in shared memory; weights stream tap by tap from the 22 MB
+unified bank, which stays in L2. In bfloat16 at C = 128 (the serving and
+training paths) each conv is an implicit GEMM on the tensor cores
+(``mma.sync`` m16n8k16, float32 accumulate), the forward reading the banks
+transposed to (tap, C_out, C_in) (``w3t``/``wcmpt`` from :func:`build_banks`),
+the input gradient reading them as stored; bfloat16 at other widths raises.
+float32 runs float32 FMAs on the SIMT cores: the reference that checks the
+kernels' arithmetic at a tight tolerance. None uses ``wgmma`` or TMA yet:
+making them fast is later work.
 
 The registers ``out`` and ``saved`` live in a per-example global scratch, in
 the compute type. Attentions are stored broadcast over all C channels so
 AND/OR min/max stay exact, as in the JAX package.
 
-Beside the kernel: :func:`build_tables` / :func:`build_banks` (the dispatch
-tables and unified weight banks, in the JAX package's slot order) and
-:func:`execute_programs_plain`, the batched register machine that the kernel
-is held against and that runs for CPU tensors.
+Beside the kernels: :func:`build_tables` / :func:`build_banks` (the dispatch
+tables and unified weight banks, in the JAX package's slot order; the banks
+are differentiable in the params), :func:`execute_programs_plain` (the
+batched register machine K2 and K5 are held against, and that runs for CPU
+tensors) and :func:`interpreter_grads_plain` (autograd through it, K6's
+plain version).
 """
 from __future__ import annotations
 
@@ -49,7 +74,10 @@ MAX_CHAIN = 5  # relate has 5 3x3 convs; attention/query/compare use 2
 RELATE_DILATIONS = (1, 2, 4, 8, 1)
 MMA_CHANNELS = 128      # the tensor-core path: bf16, C == 128, H * W <= 224
 MMA_MAX_PIXELS = 224
+GRAD_MAX_PIXELS = 256   # K6 keeps one float per pixel in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The banks that take gradients, in the order execute_programs_diff passes them.
+DIFF_BANKS = ("w3", "b3", "w1", "b1", "same_wf", "same_wa", "same_b", "wcmp", "bcmp")
 
 
 # ------------------------------------------------------------------ host tables -------
@@ -111,7 +139,10 @@ def build_banks(params: Dict[str, Any], spec, dtype: torch.dtype) -> Dict[str, t
     ``w1`` (S1, C) 1x1 attention heads; ``same_wf`` (Ss, C) with the
     attention-channel weight split out as ``same_wa`` (Ss,) float32; ``wcmp``
     (Sc, 2C, C). Weights are in ``dtype``; biases are float32 holding
-    ``dtype``-rounded values, as the TPU kernel's bias planes did.
+    ``dtype``-rounded values, as the TPU kernel's bias planes did. Every bank
+    of :data:`DIFF_BANKS` is differentiable in ``params``; the tensor-core
+    copies ``w3t``/``wcmpt`` are derived from the detached banks and carry no
+    gradient.
     """
     C = spec.module_channels
     p = params
@@ -147,12 +178,12 @@ def build_banks(params: Dict[str, Any], spec, dtype: torch.dtype) -> Dict[str, t
     }
     if dtype == torch.bfloat16 and C == MMA_CHANNELS:
         # The kernel's tensor-core path reads B fragments along C_in.
-        banks["w3t"] = banks["w3"].transpose(-1, -2).contiguous()
-        banks["wcmpt"] = banks["wcmp"].reshape(-1, 2, C, C).transpose(-1, -2).contiguous()
+        banks["w3t"] = banks["w3"].detach().transpose(-1, -2).contiguous()
+        banks["wcmpt"] = banks["wcmp"].detach().reshape(-1, 2, C, C).transpose(-1, -2).contiguous()
     return banks
 
 
-# ------------------------------------------------------------------ plain version -----
+# ------------------------------------------------------------------ plain versions ----
 def _broadcast(attn: torch.Tensor, channels: int) -> torch.Tensor:
     r"""(n, H, W) attention -> (n, H, W, C), stored over every channel."""
     return attn[..., None].expand(*attn.shape, channels)
@@ -164,19 +195,25 @@ def execute_programs_plain(
     spec,
     stem_feats: torch.Tensor,
     programs: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    r"""Plain PyTorch version of K2: the batched register machine of
-    ``probnmn_tpu/models/nmn.py::execute_programs`` over the unified banks.
+    record: bool = False,
+):
+    r"""Plain PyTorch version of K2 (and, with ``record``, of K5): the batched
+    register machine of ``probnmn_tpu/models/nmn.py::execute_programs`` over
+    the unified banks.
 
     stem_feats: (B, H, W, C) in the compute dtype; programs: (B, T) int.
     Returns (final encodings (B, H, W, C) in the compute dtype, invalid (B,)
-    bool). Each step runs every module kind for the rows whose token has that
-    kind; rows stop changing at their first invalid op. Values are kept
-    float32 and rounded to the compute dtype where the kernel stores them.
+    bool), and with ``record`` also K5's residuals ``otraj`` (B, T, H*W, C)
+    and ``atraj`` (B, T, 2, H*W, C), zero where a step ran no two-conv chain.
+    Each step runs every module kind for the rows whose token has that kind;
+    rows stop changing at their first invalid op. Values are kept float32 and
+    rounded to the compute dtype where the kernel stores them. Differentiable
+    in ``stem_feats`` and the banks (K6's plain version differentiates it).
     """
     batch, h, w, c = stem_feats.shape
     dtype = stem_feats.dtype
     device = stem_feats.device
+    steps = programs.shape[1]
 
     def rd(v):
         return as_operand(v, dtype)
@@ -192,11 +229,20 @@ def execute_programs_plain(
     out_tag = torch.full((batch,), TAG_FEAT, dtype=torch.long, device=device)
     saved_tag = torch.full((batch,), TAG_NONE, dtype=torch.long, device=device)
     invalid = torch.zeros(batch, dtype=torch.bool, device=device)
+    if record:
+        otraj = torch.zeros(batch, steps, h * w, c, dtype=dtype, device=device)
+        atraj = torch.zeros(batch, steps, 2, h * w, c, dtype=dtype, device=device)
 
-    def chain(a, tok, dilations):
+    def chain(a, tok, dilations, acts=None):
         for layer, d in enumerate(dilations):
             a = rd(torch.relu(gconv.gathered_conv3x3(a, w3, tab["slot3"][tok, layer], d)))
+            if acts is not None:
+                acts.append(a)
         return a
+
+    def keep(rows, t, acts):
+        if record:
+            atraj[rows, t] = torch.stack(acts, dim=1).reshape(rows.numel(), 2, h * w, c).to(dtype)
 
     def head(a, slots):
         logit = torch.einsum("nhwc,nc->nhw", a, w1[slots]) + b1[slots][:, None, None]
@@ -204,7 +250,9 @@ def execute_programs_plain(
 
     # Reversed prefix order (reference nmn.py:203): last token executes first.
     tokens_rev = programs.to(device=device, dtype=torch.long).flip(1)
-    for t in range(tokens_rev.shape[1]):
+    for t in range(steps):
+        if record:
+            otraj[:, t] = out.detach().reshape(batch, h * w, c).to(dtype)
         tok = tokens_rev[:, t]
         kind = tab["kind"][tok]
         has_head = tab["head_slot"][tok] >= 0
@@ -234,7 +282,11 @@ def execute_programs_plain(
             rows = (do_chain & ((kind == RELATE) == relate)).nonzero()[:, 0]
             if not rows.numel():
                 continue
-            a = chain(rd(x[rows] * out[rows]), tok[rows], RELATE_DILATIONS if relate else (1, 1))
+            acts = None if relate else []
+            a = chain(rd(x[rows] * out[rows]), tok[rows], RELATE_DILATIONS if relate else (1, 1),
+                      acts)
+            if not relate:
+                keep(rows, t, acts)
             heads = has_head[rows]
             res = a.clone()
             if heads.any():
@@ -244,7 +296,9 @@ def execute_programs_plain(
         if rows.numel():
             both = torch.cat([out[rows], saved[rows]], dim=-1)
             proj = rd(torch.relu(gconv.gathered_conv1x1(both, cmp_bank, tab["cmp_slot"][tok[rows]])))
-            new_out[rows] = chain(proj, tok[rows], (1, 1))
+            acts = []
+            new_out[rows] = chain(proj, tok[rows], (1, 1), acts)
+            keep(rows, t, acts)
         rows = do_same.nonzero()[:, 0]
         if rows.numel():
             # Argmax-location feature gather (first max, like torch max_pool2d
@@ -278,27 +332,40 @@ def execute_programs_plain(
 
     # Program must end in an "encoding", not an "attention" (reference nmn.py:231-232).
     invalid = invalid | (out_tag != TAG_FEAT)
-    final = torch.where(invalid[:, None, None, None], torch.zeros_like(out), out)
-    return final.to(dtype), invalid
+    final = torch.where(invalid[:, None, None, None], torch.zeros_like(out), out).to(dtype)
+    if record:
+        return final, invalid, otraj, atraj
+    return final, invalid
 
 
-# ------------------------------------------------------------------ kernel wrapper ----
-def execute_programs_kernel(
+def interpreter_grads_plain(
     banks: Dict[str, torch.Tensor],
     tables: Dict[str, torch.Tensor],
     spec,
     stem_feats: torch.Tensor,
     programs: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    r"""Drop-in for :func:`execute_programs_plain`: a CPU ``stem_feats`` runs the
-    plain version, a CUDA one launches the kernel (and raises if it cannot).
-    Program tokens must lie in the program vocabulary of ``tables``: the
-    kernel indexes the tables with them unchecked."""
+    g_final: torch.Tensor,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    r"""Plain PyTorch version of K6: ``torch.autograd.grad`` through
+    :func:`execute_programs_plain` with respect to the banks of
+    :data:`DIFF_BANKS` and ``stem_feats``, under the cotangent ``g_final``
+    (B, H, W, C). Returns (d_banks in each bank's dtype, d_stem in the stem
+    dtype). min / max split a tie 0.5 / 0.5, as the kernel does; invalid
+    rows get zero gradients because the forward zeroed their output."""
+    leaves = {k: banks[k].detach().requires_grad_(True) for k in DIFF_BANKS}
+    stem = stem_feats.detach().requires_grad_(True)
+    with torch.enable_grad():
+        final, _ = execute_programs_plain(dict(banks, **leaves), tables, spec, stem, programs)
+        inputs = [stem] + [leaves[k] for k in DIFF_BANKS]
+        grads = torch.autograd.grad(final, inputs, g_final.to(final.dtype), allow_unused=True)
+    grads = [torch.zeros_like(v) if g is None else g for v, g in zip(inputs, grads)]
+    return dict(zip(DIFF_BANKS, grads[1:])), grads[0]
+
+
+# ------------------------------------------------------------------ kernel wrappers ---
+def _check_operands(banks, stem_feats, programs) -> None:
+    r"""Raise on what the CUDA kernels do not take."""
     device = stem_feats.device
-    if device.type == "cpu":
-        return execute_programs_plain(banks, tables, spec, stem_feats, programs)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     dtype = stem_feats.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported compute dtype {dtype}")
@@ -317,16 +384,18 @@ def execute_programs_kernel(
             raise ValueError(f"bank {name} must be {dtype} on {device}")
         if banks[name].shape[-1] != c:
             raise ValueError(f"bank {name} has {banks[name].shape[-1]} channels, features {c}")
-    stem_feats = stem_feats.contiguous()
+
+
+def _operands(banks, tables, stem_feats, programs):
+    r"""The leading C arguments every interpreter entry point takes (dtype,
+    programs, tables, stem features, banks), and the tensors behind them."""
+    device = stem_feats.device
+    use_mma = stem_feats.dtype == torch.bfloat16
     progs = programs.to(device=device, dtype=torch.int32).contiguous()
     tab = {k: v.to(device=device, dtype=torch.int32).contiguous() for k, v in tables.items()}
-    use_mma = dtype == torch.bfloat16
-    out = torch.empty_like(stem_feats)
-    saved = torch.empty_like(stem_feats)
-    invalid = torch.empty(batch, dtype=torch.int32, device=device)
-    code = _build.library().probnmn_nmn_interpret(
-        _DTYPE_CODES[dtype],
-        progs.data_ptr(), batch, progs.shape[1],
+    args = [
+        _DTYPE_CODES[stem_feats.dtype],
+        progs.data_ptr(), progs.shape[0], progs.shape[1],
         tab["kind"].data_ptr(), tab["slot3"].data_ptr(), tab["head_slot"].data_ptr(),
         tab["cmp_slot"].data_ptr(), tab["same_slot"].data_ptr(),
         stem_feats.data_ptr(),
@@ -336,13 +405,317 @@ def execute_programs_kernel(
         banks["same_wf"].data_ptr(), banks["same_wa"].data_ptr(), banks["same_b"].data_ptr(),
         banks["wcmp"].data_ptr(), banks["wcmpt"].data_ptr() if use_mma else None,
         banks["bcmp"].data_ptr(),
+    ]
+    return args, (progs, tab)
+
+
+def _interpret(banks, tables, stem_feats, programs, train: bool):
+    r"""Launch K2 (``train`` False) or K5 on CUDA tensors."""
+    if stem_feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {stem_feats.device}")
+    _check_operands(banks, stem_feats, programs)
+    stem_feats = stem_feats.contiguous()
+    batch, h, w, c = stem_feats.shape
+    args, keep_alive = _operands(banks, tables, stem_feats, programs)
+    out = torch.empty_like(stem_feats)
+    saved = torch.empty_like(stem_feats)
+    invalid = torch.empty(batch, dtype=torch.int32, device=stem_feats.device)
+    otraj = atraj = None
+    if train:
+        steps = programs.shape[1]
+        otraj = stem_feats.new_empty(batch, steps, h * w, c)
+        atraj = stem_feats.new_empty(batch, steps, 2, h * w, c)
+    code = _build.library().probnmn_nmn_interpret(
+        *args,
         out.data_ptr(), saved.data_ptr(), invalid.data_ptr(),
+        otraj.data_ptr() if train else None, atraj.data_ptr() if train else None,
         h, w, c,
-        torch.cuda.current_stream(device).cuda_stream,
+        torch.cuda.current_stream(stem_feats.device).cuda_stream,
     )
-    _build.check(code, "NMN interpreter kernel")
+    _build.check(code, "NMN training forward kernel" if train else "NMN interpreter kernel")
+    return out, invalid.bool(), otraj, atraj
+
+
+def execute_programs_kernel(
+    banks: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    spec,
+    stem_feats: torch.Tensor,
+    programs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""K2, a drop-in for :func:`execute_programs_plain`: a CPU ``stem_feats``
+    runs the plain version, a CUDA one launches the kernel (and raises if it
+    cannot). Program tokens must lie in the program vocabulary of ``tables``:
+    the kernel indexes the tables with them unchecked."""
+    if stem_feats.device.type == "cpu":
+        return execute_programs_plain(banks, tables, spec, stem_feats, programs)
+    out, invalid, _, _ = _interpret(banks, tables, stem_feats, programs, train=False)
     execute_programs_kernel.launches += 1
-    return out, invalid.bool()
+    return out, invalid
 
 
 execute_programs_kernel.launches = 0
+
+
+def execute_programs_train_kernel(
+    banks: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    spec,
+    stem_feats: torch.Tensor,
+    programs: torch.Tensor,
+):
+    r"""K5: (final, invalid, otraj, atraj). A CPU ``stem_feats`` runs
+    :func:`execute_programs_plain` with ``record``; a CUDA one launches the
+    kernel (and raises if it cannot). final and invalid equal K2's on the
+    same inputs, bit for bit."""
+    if stem_feats.device.type == "cpu":
+        return execute_programs_plain(banks, tables, spec, stem_feats, programs, record=True)
+    result = _interpret(banks, tables, stem_feats, programs, train=True)
+    execute_programs_train_kernel.launches += 1
+    return result
+
+
+execute_programs_train_kernel.launches = 0
+
+
+def _entries_per_token(tables) -> torch.Tensor:
+    r"""Workspace entries K6 writes for a token: one per conv of its chain,
+    and two more for compare's projection (one per weight half)."""
+    return (tables["chain_len"].long()
+            + 2 * (tables["kind"].long() == COMPARE).long())
+
+
+def interpreter_grads_kernel(
+    banks: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    spec,
+    stem_feats: torch.Tensor,
+    programs: torch.Tensor,
+    invalid: torch.Tensor,
+    g_final: torch.Tensor,
+    otraj: torch.Tensor,
+    atraj: torch.Tensor,
+    workspace: Dict[str, torch.Tensor] = None,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    r"""K6: (d_banks of :data:`DIFF_BANKS` in each bank's dtype, d_stem in the
+    stem dtype) from K5's ``invalid``, ``otraj`` and ``atraj`` and the
+    cotangent ``g_final`` of the final encodings. A CPU ``stem_feats`` runs
+    :func:`interpreter_grads_plain` (which needs no residuals); a CUDA one
+    launches the kernels (and raises if they cannot).
+
+    On CUDA the workspace is sized from an upper bound of the entries each
+    valid example writes (its tokens' chain lengths, plus two per compare),
+    read back to the host once; the weight gradients are summed in float32
+    and cast to the bank's dtype at the end, as the JAX package does. A
+    ``workspace`` dict receives the sweep's entries and the float32 weight
+    gradients, for :func:`workspace_errors`."""
+    if stem_feats.device.type == "cpu":
+        return interpreter_grads_plain(banks, tables, spec, stem_feats, programs, g_final)
+    device, dtype = stem_feats.device, stem_feats.dtype
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    _check_operands(banks, stem_feats, programs)
+    batch, h, w, c = stem_feats.shape
+    if h * w > GRAD_MAX_PIXELS:
+        raise ValueError(f"the backward kernel needs H*W <= {GRAD_MAX_PIXELS}, got {h * w}")
+    steps = programs.shape[1]
+    if otraj.shape != (batch, steps, h * w, c) or atraj.shape != (batch, steps, 2, h * w, c):
+        raise ValueError("otraj / atraj do not match the training forward's layout")
+    stem_feats = stem_feats.contiguous()
+    args, keep_alive = _operands(banks, tables, stem_feats, programs)
+    progs, tab = keep_alive
+    s3, s1 = banks["w3"].shape[0], banks["w1"].shape[0]
+    ss, sc = banks["same_wf"].shape[0], banks["wcmp"].shape[0]
+    n_targets = s3 + 2 * sc
+    lib = _build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    upper = _entries_per_token(tab)[progs.long()].sum(1) * (~invalid.to(device)).long()
+    base = (torch.cumsum(upper, 0) - upper).to(torch.int32)
+    n_entries = max(int(upper.sum()), 1)  # the one host read of the backward
+    ent_inp = stem_feats.new_empty(n_entries, h * w, c)
+    ent_g = stem_feats.new_empty(n_entries, h * w, c)
+    ent_tag = torch.full((n_entries,), n_targets, dtype=torch.int32, device=device)
+    ent_dil = torch.zeros(n_entries, dtype=torch.int32, device=device)
+    part_floats = lib.probnmn_nmn_partial_floats(s3, s1, ss, sc, c)
+    part = torch.zeros(batch, part_floats, dtype=torch.float32, device=device)
+    scratch = torch.empty(batch, 4, h * w, c, dtype=torch.float32, device=device)
+    acts = stem_feats.new_empty(batch, 6, h * w, c)
+    dx = torch.empty(batch, h * w, c, dtype=torch.float32, device=device)
+    inv = invalid.to(device=device, dtype=torch.int32).contiguous()
+    gfin = g_final.to(device=device, dtype=torch.float32).contiguous()
+    otraj, atraj = otraj.contiguous(), atraj.contiguous()
+    code = lib.probnmn_nmn_backward(
+        *args,
+        inv.data_ptr(), gfin.data_ptr(), otraj.data_ptr(), atraj.data_ptr(),
+        scratch.data_ptr(), acts.data_ptr(),
+        ent_inp.data_ptr(), ent_g.data_ptr(), ent_tag.data_ptr(), ent_dil.data_ptr(),
+        base.data_ptr(), part.data_ptr(),
+        s3, s1, ss, sc, dx.data_ptr(), h, w, c, stream,
+    )
+    _build.check(code, "NMN backward kernel")
+    interpreter_grads_kernel.launches += 1
+
+    # Each target's entries in (example, step) order: a stable sort by tag.
+    order = torch.argsort(ent_tag, stable=True).to(torch.int32)
+    counts = torch.bincount(ent_tag, minlength=n_targets + 1)[:n_targets]
+    seg_start = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    seg_count = counts.to(torch.int32)
+    dw3 = torch.empty(s3, 9, c, c, dtype=torch.float32, device=device)
+    dwc = torch.empty(sc, 2, c, c, dtype=torch.float32, device=device)
+    code = lib.probnmn_nmn_weight_grad(
+        _DTYPE_CODES[dtype], ent_inp.data_ptr(), ent_g.data_ptr(), ent_dil.data_ptr(),
+        order.data_ptr(), seg_start.data_ptr(), seg_count.data_ptr(), s3, sc,
+        dw3.data_ptr(), dwc.data_ptr(), h, w, c, stream,
+    )
+    _build.check(code, "NMN weight-gradient kernel")
+    small = torch.empty(part_floats, dtype=torch.float32, device=device)
+    code = lib.probnmn_nmn_sum_rows(part.data_ptr(), batch, part_floats, small.data_ptr(), stream)
+    _build.check(code, "NMN partial-sum kernel")
+    if workspace is not None:
+        workspace.update(inp=ent_inp, g=ent_g, tag=ent_tag, dil=ent_dil, dw3=dw3, dwc=dwc)
+
+    sizes = [s3 * c, s1 * c, s1, ss * c, ss, ss, sc * c]
+    db3, dw1, db1, dwf, dwa, dsb, dbc = torch.split(small, sizes)
+    grads = {
+        "w3": dw3, "b3": db3.reshape(s3, c), "w1": dw1.reshape(s1, c), "b1": db1,
+        "same_wf": dwf.reshape(ss, c), "same_wa": dwa, "same_b": dsb,
+        "wcmp": dwc.reshape(sc, 2 * c, c), "bcmp": dbc.reshape(sc, c),
+    }
+    d_banks = {k: grads[k].to(banks[k].dtype) for k in DIFF_BANKS}
+    return d_banks, dx.reshape(batch, h, w, c).to(dtype)
+
+
+interpreter_grads_kernel.launches = 0
+
+
+def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    r"""(n, H, W, C) -> y with y[:, i, j] = x[:, i + dy, j + dx], zero outside."""
+    h, w = x.shape[1:3]
+    out = torch.zeros_like(x)
+    if abs(dy) < h and abs(dx) < w:
+        out[:, max(0, -dy):h - max(0, dy), max(0, -dx):w - max(0, dx)] = (
+            x[:, max(0, dy):h - max(0, -dy), max(0, dx):w - max(0, -dx)])
+    return out
+
+
+def _taps(d: int):
+    r"""(tap, dy, dx) of a 3x3 conv at dilation d, or the one tap of a 1x1 (d = 0)."""
+    if d == 0:
+        return [(0, 0, 0)]
+    return [(tap, (tap // 3 - 1) * d, (tap % 3 - 1) * d) for tap in range(9)]
+
+
+def workspace_errors(workspace: Dict[str, torch.Tensor], banks: Dict[str, torch.Tensor],
+                     tables: Dict[str, torch.Tensor], spec) -> Dict[str, float]:
+    r"""How far two pieces of K6 stand from float64 sums over the very
+    operands its sweep wrote to the workspace (``interpreter_grads_kernel(...,
+    workspace=ws)``), so none of the rounding the sweep does on the way is
+    compared:
+
+    - ``weight_grad``: the weight-gradient kernel's float32 dw3 and dwc
+      against the float64 sum, over each target's entries, of
+      shift_tap(inp)^T . g_z;
+    - ``input_grad``: each conv's input gradient (g_z through the bank as
+      stored, taps flipped) where the sweep's next entry holds it: layer
+      l >= 1 of a chain hands round((inp_l > 0) * dinp_l) to layer l - 1 as
+      its g_z, and compare's first conv hands it to the projection. The
+      rounding to the compute type (2**-8 of |value| in bfloat16) is taken off
+      the difference.
+
+    Each error is the largest difference over a target (or entry) over the
+    largest float64 sum of absolute products there, the scale that bounds a
+    float32 sum's error; a target without entries must be exactly 0."""
+    f64 = torch.float64
+    h, w = spec.height, spec.width
+    tag, dil = workspace["tag"].long(), workspace["dil"].long()
+    c = workspace["inp"].shape[-1]
+    inp = workspace["inp"].to(f64).reshape(-1, h, w, c)
+    gz = workspace["g"].to(f64).reshape(-1, h, w, c)
+    s3, sc = banks["w3"].shape[0], banks["wcmp"].shape[0]
+    n_targets = s3 + 2 * sc
+
+    want = torch.zeros(n_targets, 9, c, c, dtype=f64, device=inp.device)
+    scale = torch.zeros_like(want)
+    for d in dil[tag < n_targets].unique().tolist():
+        rows = ((dil == d) & (tag < n_targets)).nonzero()[:, 0]
+        for tap, dy, dx in _taps(d):
+            xs = _shift(inp[rows], dy, dx)
+            want[:, tap].index_add_(0, tag[rows], torch.einsum("nhwi,nhwo->nio", xs, gz[rows]))
+            scale[:, tap].index_add_(
+                0, tag[rows], torch.einsum("nhwi,nhwo->nio", xs.abs(), gz[rows].abs()))
+    got3 = workspace["dw3"].to(f64)
+    gotc = workspace["dwc"].to(f64).reshape(2 * sc, c, c)
+    err = torch.cat([(got3 - want[:s3]).abs().amax(dim=(1, 2, 3)),
+                     (gotc - want[s3:, 0]).abs().amax(dim=(1, 2))])
+    top = torch.cat([scale[:s3].amax(dim=(1, 2, 3)), scale[s3:, 0].amax(dim=(1, 2))])
+    weight_grad = float((err / top.clamp_min(1e-300)).max())
+
+    layer = torch.full((s3,), -1, dtype=torch.long)
+    slot3 = tables["slot3"].cpu()
+    for t, length in enumerate(tables["chain_len"].tolist()):
+        layer[slot3[t, :length].long()] = torch.arange(length)
+    layer = layer.to(tag.device)
+    first, nxt = tag[:-1], tag[1:]
+    is3 = first < s3
+    chained = is3 & (nxt < n_targets) & ((layer[first.clamp(max=s3 - 1)] >= 1) | (nxt >= s3))
+    rows = chained.nonzero()[:, 0]
+    ig = torch.zeros(rows.numel(), h, w, c, dtype=f64, device=inp.device)
+    ig_abs = torch.zeros_like(ig)
+    w3 = banks["w3"].to(f64)
+    for d in dil[rows].unique().tolist():
+        sel = (dil[rows] == d).nonzero()[:, 0]
+        for tap, dy, dx in _taps(d):
+            gs = _shift(gz[rows[sel]], -dy, -dx)
+            wt = w3[tag[rows[sel]], tap]
+            ig[sel] += torch.einsum("nhwo,nio->nhwi", gs, wt)
+            ig_abs[sel] += torch.einsum("nhwo,nio->nhwi", gs.abs(), wt.abs())
+    ig = torch.where(inp[rows] > 0, ig, torch.zeros_like(ig))
+    unit = 2.0 ** -8 if workspace["g"].dtype == torch.bfloat16 else 2.0 ** -24
+    excess = ((gz[rows + 1] - ig).abs() - unit * ig.abs()).clamp_min(0)
+    ratio = excess.amax(dim=(1, 2, 3)) / ig_abs.amax(dim=(1, 2, 3)).clamp_min(1e-300)
+    return {"weight_grad": weight_grad, "input_grad": float(ratio.max()) if rows.numel() else 0.0,
+            "entries": int((tag < n_targets).sum()), "chained": int(rows.numel())}
+
+
+class _InterpreterFunction(torch.autograd.Function):
+    r"""K5 forward, K6 backward (the JAX package's ``_execute_diff``). The
+    differentiable inputs are ``stem_feats`` and the banks of
+    :data:`DIFF_BANKS`; ``derived`` (``w3t``/``wcmpt``), the tables and the
+    programs take none."""
+
+    @staticmethod
+    def forward(ctx, tables, spec, programs, derived, stem_feats, *leaves):
+        banks = dict(zip(DIFF_BANKS, leaves), **derived)
+        final, invalid, otraj, atraj = execute_programs_train_kernel(
+            banks, tables, spec, stem_feats, programs)
+        ctx.mark_non_differentiable(invalid)
+        ctx.save_for_backward(stem_feats, programs, invalid, otraj, atraj, *leaves)
+        ctx.tables, ctx.spec, ctx.derived = tables, spec, derived
+        return final, invalid
+
+    @staticmethod
+    def backward(ctx, g_final, _g_invalid):
+        stem_feats, programs, invalid, otraj, atraj, *leaves = ctx.saved_tensors
+        banks = dict(zip(DIFF_BANKS, leaves), **ctx.derived)
+        d_banks, d_stem = interpreter_grads_kernel(
+            banks, ctx.tables, ctx.spec, stem_feats, programs, invalid, g_final, otraj, atraj)
+        return (None, None, None, None, d_stem, *[d_banks[k] for k in DIFF_BANKS])
+
+
+def execute_programs_diff(
+    banks: Dict[str, torch.Tensor],
+    tables: Dict[str, torch.Tensor],
+    spec,
+    stem_feats: torch.Tensor,
+    programs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""Differentiable interpreter (counterpart of the JAX package's
+    ``execute_programs_pallas_diff``): K5 forward, K6 backward, through one
+    ``torch.autograd.Function``. Gradients reach ``stem_feats`` and the banks
+    of :data:`DIFF_BANKS`, and through :func:`build_banks` the params; the
+    derived ``w3t``/``wcmpt`` are taken detached. Returns (final encodings,
+    invalid (B,) bool)."""
+    derived = {k: banks[k].detach() for k in ("w3t", "wcmpt") if k in banks}
+    return _InterpreterFunction.apply(tables, spec, programs, derived, stem_feats,
+                                      *[banks[k] for k in DIFF_BANKS])

@@ -7,9 +7,12 @@ dispatch and the same loop: ``trainer.step()`` every iteration, evaluate and
     python -m probnmn_tpu_torch.train --phase program_prior \
         --config-yml configs/program_prior.yml --serialization-dir checkpoints/prior
 
-``--device`` is ``cuda`` (the default) or ``cpu``. The ``program_prior`` and
-``question_coding`` phases are ported; the others raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``--device`` is ``cuda`` (the default) or ``cpu``. The ``program_prior``,
+``question_coding`` and ``module_training`` phases are ported;
+``joint_training`` raises ``NotImplementedError`` naming its ROADMAP.md
+item. ``--streaming-features`` reads image features from their H5 file per
+batch instead of loading the file into host memory (the phases that read
+features).
 """
 import argparse
 import logging
@@ -22,7 +25,6 @@ from probnmn_tpu_torch.config import Config
 
 PHASES = ["program_prior", "question_coding", "module_training", "joint_training"]
 NOT_PORTED = {
-    "module_training": "queue 1: the module_training slice, with kernels K5/K6",
     "joint_training": "queue 1: the joint_training slice",
 }
 
@@ -36,18 +38,35 @@ parser.add_argument(
     help="A sequence of key-value pairs overriding the config.",
 )
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu.")
+parser.add_argument(
+    "--streaming-features",
+    action="store_true",
+    help="Stream image features from the H5 file instead of loading it into host memory "
+    "(module_training).",
+)
 parser.add_argument("--serialization-dir", default="checkpoints/experiment")
 parser.add_argument("--checkpoint-every", type=int, default=500)
 parser.add_argument("--start-from-checkpoint", default="")
 parser.add_argument("--num-val-batches", type=int, default=256)
 
 
-def build(phase: str, config: Config, serialization_dir: str, device: str):
+def build(phase: str, config: Config, serialization_dir: str, device: str,
+          in_memory_features: bool = True):
     r"""(trainer, evaluator) of ``phase``."""
     if phase in NOT_PORTED:
         raise NotImplementedError(
             f"phase {phase} is not ported to PyTorch yet (ROADMAP.md {NOT_PORTED[phase]})"
         )
+    if phase == "module_training":
+        from probnmn_tpu_torch.evaluators.module_training_evaluator import (
+            ModuleTrainingEvaluator,
+        )
+        from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
+
+        trainer = ModuleTrainingTrainer(config, serialization_dir, device=device,
+                                        in_memory_features=in_memory_features)
+        return trainer, ModuleTrainingEvaluator(config, trainer,
+                                                in_memory_features=in_memory_features)
     if phase == "question_coding":
         from probnmn_tpu_torch.evaluators.question_coding_evaluator import (
             QuestionCodingEvaluator,
@@ -80,7 +99,8 @@ def main(args):
     # (reference train.py:104-110).
     np.random.seed(config.RANDOM_SEED)
 
-    trainer, evaluator = build(args.phase, config, args.serialization_dir, args.device)
+    trainer, evaluator = build(args.phase, config, args.serialization_dir, args.device,
+                               in_memory_features=not args.streaming_features)
     if args.start_from_checkpoint:
         trainer.load_checkpoint(args.start_from_checkpoint)
 

@@ -23,6 +23,7 @@ Adam first moment), which raises (ROADMAP.md queue 1).
 from __future__ import annotations
 
 import logging
+import zipfile
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -30,7 +31,7 @@ import torch
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.training.optim import ClampedAdam, ReduceLROnPlateau
-from probnmn_tpu_torch.utils.checkpointing import CheckpointManager
+from probnmn_tpu_torch.utils.checkpointing import CheckpointManager, load_objects
 from probnmn_tpu_torch.utils.observability import StepTimer
 
 logger = logging.getLogger(__name__)
@@ -68,6 +69,25 @@ def copy_into(dst: Any, src: Any, path: str = "") -> None:
         raise ValueError(f"{path}: keys {src_keys} for parameters {keys}")
     for key in keys:
         copy_into(dst[key], src[key], f"{path}/{key}")
+
+
+def load_frozen(path: str, name: str, params: Any, device: torch.device, writer: str) -> Any:
+    r"""The ``name`` params of a checkpoint written by the port's ``writer``
+    trainer (a ``torch.save`` zip archive), copied into ``params`` (a tree of
+    the right shapes), as float32 tensors on ``device`` that need no
+    gradient. The JAX package's msgpack ``.ckpt`` and the reference's
+    ``.pth`` raise: reading them is not ported."""
+    if path.endswith(".pth") or not zipfile.is_zipfile(path):
+        raise NotImplementedError(
+            f"{path} is not a checkpoint of the port's {writer}; reading the JAX package's "
+            "msgpack .ckpt and the reference's .pth is not ported (ROADMAP.md queue 1, "
+            "checkpoint interop)"
+        )
+    restored, _, missing = load_objects(path, {name: None})
+    if missing:
+        raise ValueError(f"{path} holds no {name} params")
+    copy_into(params, restored[name], name)
+    return tree_map(lambda t: t.to(device, torch.float32), params)
 
 
 def summary_writer(log_dir: str):

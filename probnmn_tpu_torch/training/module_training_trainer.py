@@ -1,0 +1,119 @@
+r"""
+Phase 3 trainer: Module Training, the Neural Module Network over cached image
+features with programs sampled from the frozen ProgramGenerator (counterpart
+of ``probnmn_tpu/training/module_training_trainer.py``; reference
+``probnmn/trainers/module_training_trainer.py``).
+
+A step over a batch of questions, answers and NCHW image features:
+
+- the frozen ProgramGenerator samples a program per question (kernel K1,
+  bfloat16, a Philox seed drawn from the trainer's generator; no gradient);
+- ``nmn_forward_fast`` runs the NMN: the unified banks built from the live
+  params, the stem, the interpreter (kernel K5 forward, K6 backward on
+  ``cuda``), the classifier; the loss is the batch mean of its per-example
+  loss (3.33 for an invalid program);
+- ``backward()``, clamp and Adam over the NMN's params.
+
+The generator comes from ``CHECKPOINTS.QUESTION_CODING``, a checkpoint of
+the port's ``QuestionCodingTrainer``; reading the JAX package's msgpack
+``.ckpt`` or the reference's ``.pth`` is not ported (ROADMAP.md queue 1,
+checkpoint interop) and raises. The NMN params are initialised from
+``RANDOM_SEED``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from probnmn_tpu_torch.config import Config
+from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset
+from probnmn_tpu_torch.data.pipeline import BatchIterator, image_to_nhwc
+from probnmn_tpu_torch.data.samplers import RandomSampler
+from probnmn_tpu_torch.data.vocabulary import Vocabulary
+from probnmn_tpu_torch.device import resolve_device
+from probnmn_tpu_torch.models import nmn, program_generator
+from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec
+from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
+from probnmn_tpu_torch.ops.rnn import check_no_dropout
+from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
+
+
+def load_frozen_generator(path: str, spec: Seq2SeqSpec, device: torch.device) -> Dict[str, Any]:
+    r"""The ``program_generator`` params of a checkpoint written by the port's
+    ``QuestionCodingTrainer``, as float32 tensors on ``device`` that need no
+    gradient (:func:`load_frozen`)."""
+    template = program_generator.init_params(torch.Generator().manual_seed(0), spec)
+    return load_frozen(path, "program_generator", template, device, "QuestionCodingTrainer")
+
+
+class ModuleTrainingTrainer(_Trainer):
+    r"""``dataset``: the training set; None reads ``config.DATA.TRAIN_TOKENS``
+    and ``config.DATA.TRAIN_FEATURES`` (all features in host memory, or
+    streamed from the file with ``in_memory_features=False``)."""
+
+    def __init__(self, config: Config, serialization_dir: str, device="cuda", writer=None,
+                 dataset: Optional[ModuleTrainingDataset] = None,
+                 in_memory_features: bool = True):
+        if config.PHASE != "module_training":
+            raise ValueError(f"Expected PHASE module_training, found {config.PHASE}")
+        device = resolve_device(device)
+
+        vocabulary = Vocabulary.from_files(config.DATA.VOCABULARY)
+        self.nmn_spec = nmn.make_spec(vocabulary, config)
+        self.pg_spec = program_generator.make_spec(vocabulary, config)
+        check_no_dropout(self.pg_spec.dropout)
+        if dataset is None:
+            dataset = ModuleTrainingDataset(config.DATA.TRAIN_TOKENS, config.DATA.TRAIN_FEATURES,
+                                            in_memory=in_memory_features)
+        dataset.check_tokens(self.pg_spec.target_vocab_size, self.pg_spec.source_vocab_size)
+        batches = BatchIterator(dataset, RandomSampler(len(dataset), seed=config.RANDOM_SEED),
+                                config.OPTIM.BATCH_SIZE, device=device)
+        params = nmn.init_nmn_params(torch.Generator().manual_seed(config.RANDOM_SEED),
+                                     self.nmn_spec)
+        super().__init__(config, batches, {"nmn": params}, serialization_dir, device=device,
+                         writer=writer)
+        self._vocabulary = vocabulary
+        self._pg_params = load_frozen_generator(config.CHECKPOINTS.QUESTION_CODING, self.pg_spec,
+                                                self._device)
+        self._tables = nmn.build_tables(self.nmn_spec, self._device)
+
+    def sample_programs(self, questions: torch.Tensor) -> torch.Tensor:
+        r"""Programs (N, 26) trimmed at @end@, sampled from the frozen generator
+        by kernel K1 in bfloat16 from a Philox seed drawn from the trainer's
+        generator."""
+        seed = int(torch.randint(2 ** 62, (1,), generator=self._generator))
+        with torch.no_grad():
+            out = fused_sampling_forward(self._pg_params, self.pg_spec, questions, seed=seed,
+                                         compute_dtype=torch.bfloat16)
+        return out["predictions"]
+
+    def module_training_loss(self, params: Dict[str, Any], batch: Dict[str, Any],
+                             programs: torch.Tensor) -> Dict[str, Any]:
+        r"""``nmn_forward_fast`` over the batch at the given programs; its
+        ``loss`` is per example."""
+        return nmn.nmn_forward_fast(params["nmn"], self.nmn_spec, image_to_nhwc(batch["image"]),
+                                    programs, batch["answer"], tables=self._tables)
+
+    def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        programs = self.sample_programs(batch["question"])
+        out = self.module_training_loss(self._params, batch, programs)
+        loss = out["loss"].mean()
+        self._optimizer.zero_grad()
+        loss.backward()
+        self._optimizer.step()
+        return {"loss": loss.detach(),
+                "metrics": {k: v.float() for k, v in out["metrics"].items()}}
+
+    def after_validation(self, val_metrics: Dict[str, Any], iteration=None) -> None:
+        val_metrics["metric"] = val_metrics["nmn"]["answer_accuracy"]
+        super().after_validation(val_metrics, iteration)
+
+    @property
+    def pg_params(self) -> Dict[str, Any]:
+        return self._pg_params
+
+    @property
+    def tables(self) -> Dict[str, torch.Tensor]:
+        r"""The NMN's dispatch tables on the trainer's device."""
+        return self._tables

@@ -36,7 +36,6 @@ checkpoint interop) and raises.
 """
 from __future__ import annotations
 
-import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -58,9 +57,8 @@ from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
     pack_lm_weights,
 )
 from probnmn_tpu_torch.ops.rnn import check_no_dropout
-from probnmn_tpu_torch.training._trainer import _Trainer, copy_into, tree_map
+from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
-from probnmn_tpu_torch.utils.checkpointing import load_objects
 
 SORT_KEY = "supervision"
 COUNT_KEY = "_num_" + SORT_KEY  # attached by BatchIterator(sort_descending_by=SORT_KEY)
@@ -68,20 +66,10 @@ COUNT_KEY = "_num_" + SORT_KEY  # attached by BatchIterator(sort_descending_by=S
 
 def load_frozen_prior(path: str, spec: ProgramPriorSpec, device: torch.device) -> Dict[str, Any]:
     r"""The ``program_prior`` params of a checkpoint written by the port's
-    ``ProgramPriorTrainer`` (a ``torch.save`` zip archive), as float32
-    tensors on ``device`` that need no gradient."""
-    if path.endswith(".pth") or not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path} is not a checkpoint of the port's ProgramPriorTrainer; reading the JAX "
-            "package's msgpack .ckpt and the reference's .pth is not ported (ROADMAP.md queue 1, "
-            "checkpoint interop)"
-        )
-    restored, _, missing = load_objects(path, {"program_prior": None})
-    if missing:
-        raise ValueError(f"{path} holds no program_prior params")
-    params = init_program_prior_params(torch.Generator().manual_seed(0), spec)
-    copy_into(params, restored["program_prior"], "program_prior")
-    return tree_map(lambda t: t.to(device, torch.float32), params)
+    ``ProgramPriorTrainer``, as float32 tensors on ``device`` that need no
+    gradient (:func:`load_frozen`)."""
+    template = init_program_prior_params(torch.Generator().manual_seed(0), spec)
+    return load_frozen(path, "program_prior", template, device, "ProgramPriorTrainer")
 
 
 class QuestionCodingTrainer(_Trainer):

@@ -10,6 +10,7 @@ Host-side numpy metric accumulators, copies of ``probnmn_tpu/utils/metrics.py``
   word error rate = 1 - unigram recall.
 - ``BleuScore``: corpus BLEU-4, uniform weights, ngrams containing
   pad/@start@/@end@ excluded, with brevity penalty and 1e-13 log-smoothing.
+- ``BooleanAccuracy``: elementwise exact match (answer accuracy).
 - ``SemanticQuestionReconstructionAccuracy``: CLEVR synonym rewrites, then
   sequence accuracy (reference ``probnmn/utils/metrics.py:9-118``).
 """
@@ -36,6 +37,24 @@ class Average:
         value = self._total / self._count if self._count else 0.0
         if reset:
             self._total, self._count = 0.0, 0
+        return value
+
+
+class BooleanAccuracy:
+    def __init__(self):
+        self._correct = 0
+        self._total = 0
+
+    def __call__(self, predictions: np.ndarray, gold: np.ndarray) -> None:
+        predictions = np.asarray(predictions)
+        gold = np.asarray(gold)
+        self._correct += int((predictions == gold).sum())
+        self._total += predictions.shape[0]
+
+    def get_metric(self, reset: bool = True) -> float:
+        value = self._correct / self._total if self._total else 0.0
+        if reset:
+            self._correct, self._total = 0, 0
         return value
 
 

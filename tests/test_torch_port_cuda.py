@@ -13,7 +13,9 @@ from probnmn_tpu_torch.models import nmn, program_generator, program_prior
 from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec, init_seq2seq_params
 from probnmn_tpu_torch.models.nmn import cast_params
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
-    build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
+    DIFF_BANKS, build_banks, build_tables, execute_programs_diff, execute_programs_kernel,
+    execute_programs_plain, execute_programs_train_kernel, interpreter_grads_kernel,
+    interpreter_grads_plain, workspace_errors,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
     fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
@@ -85,6 +87,79 @@ def test_interpreter_kernel_matches_plain_version(cuda):
     plain_banks = {k: v for k, v in banks.items() if k not in ("w3t", "wcmpt")}
     with pytest.raises(ValueError):
         execute_programs_kernel(plain_banks, tables, spec, stem, programs)
+
+
+# K6 against autograd through the plain machine: float32 within 1e-4 of
+# each leaf's scale; bfloat16 within 1e-1 of it. The plain version rounds
+# every gradient to bfloat16 where its forward rounds a value; the kernel
+# rounds only g_z and the heads' g, as the JAX kernel does; the two differ
+# by several percent of a leaf's scale at random init. The tensor-core
+# pieces are held tightly besides: K6's weight-gradient kernel and conv input
+# gradients within WS_TOL of float64 sums over the operands it wrote to its
+# workspace (relative to the sum of |products|; chip_smoke.py phase 8 says
+# what it measured).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
+WS_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_match_plain_versions(cuda, dtype):
+    vocab = make_clevr_like_vocabulary()
+    spec = nmn.make_spec(vocab)
+    spec.feature_channels, spec.height, spec.width = 16, 6, 6
+    gen = torch.Generator().manual_seed(3)
+    params = cast_params(nmn.init_nmn_params(gen, spec), torch.float32, cuda)
+    programs = sample_clevr_like_programs(vocab, 12, seed=4)
+    programs[-1] = 0
+    programs[-2, :] = 0
+    programs[-2, 0] = vocab.get_token_index("intersect", "programs")
+    programs = torch.from_numpy(programs).to(cuda)
+    feats = torch.randn(12, 6, 6, 16, generator=gen).to(cuda)
+    tables = build_tables(spec, cuda)
+    stem = nmn.apply_stem(cast_params(params["stem"], dtype), feats.to(dtype)).contiguous()
+    banks = build_banks(params, spec, dtype)
+
+    before = (execute_programs_train_kernel.launches, interpreter_grads_kernel.launches)
+    final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
+    out2, inv2 = execute_programs_kernel(banks, tables, spec, stem, programs)
+    assert torch.equal(final, out2) and torch.equal(invalid, inv2)  # K5 is K2, bit for bit
+    want, want_inv = execute_programs_plain(banks, tables, spec, stem, programs)
+    assert torch.equal(invalid, want_inv)
+    assert bool(invalid[-2]) and not bool(invalid[-1]) and not bool(invalid[:-2].any())
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert float((final.float() - want.float()).abs().max()) <= tol * scale
+
+    # A cotangent that final's dtype holds exactly, as autograd hands it over.
+    g = torch.randn(final.shape, generator=gen).to(cuda).to(dtype).float()
+    ws = {}
+    d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                               otraj, atraj, workspace=ws)
+    tight = workspace_errors(ws, banks, tables, spec)
+    assert tight["chained"] > 0 and tight["weight_grad"] <= WS_TOL, tight
+    assert tight["input_grad"] <= WS_TOL, tight
+    again = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g, otraj, atraj)
+    assert torch.equal(d_stem, again[1])  # no float atomics: the same bits every time
+    assert all(torch.equal(d_banks[k], again[0][k]) for k in DIFF_BANKS)
+    assert (execute_programs_train_kernel.launches, interpreter_grads_kernel.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert float(d_stem[-2].float().abs().max()) == 0.0  # invalid: zero gradient
+    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, g)
+    for name, got, want in [("stem", d_stem, w_stem)] + [(k, d_banks[k], w_banks[k])
+                                                          for k in DIFF_BANKS]:
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= GRAD_TOL[dtype] * max(1.0, float(want.float().abs().max())), (name, err)
+
+    # Through autograd: K5 forward, K6 backward, once each; w3t/wcmpt take none.
+    leaves = {k: banks[k].detach().clone().requires_grad_(True) for k in DIFF_BANKS}
+    stem_leaf = stem.detach().clone().requires_grad_(True)
+    final_d, _ = execute_programs_diff(dict(banks, **leaves), tables, spec, stem_leaf, programs)
+    (final_d.float() * g).sum().backward()
+    assert torch.equal(stem_leaf.grad, d_stem)
+    assert all(torch.equal(leaves[k].grad, d_banks[k]) for k in DIFF_BANKS)
+    assert (execute_programs_train_kernel.launches, interpreter_grads_kernel.launches) == (
+        before[0] + 2, before[1] + 3)
 
 
 @pytest.mark.parametrize("sizes", [

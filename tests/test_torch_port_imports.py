@@ -37,6 +37,8 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.modules.elbo",
     "probnmn_tpu_torch.training.question_coding_trainer",
     "probnmn_tpu_torch.evaluators.question_coding_evaluator",
+    "probnmn_tpu_torch.training.module_training_trainer",
+    "probnmn_tpu_torch.evaluators.module_training_evaluator",
 )
 
 
@@ -122,3 +124,14 @@ def test_cuda_question_coding_trainer_raises_without_a_card(tmp_path):
     config = Config(str(REPO / "configs" / "question_coding_ours.yml"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         QuestionCodingTrainer(config, str(tmp_path))
+
+
+def test_cuda_module_training_trainer_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
+
+    config = Config(str(REPO / "configs" / "module_training.yml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModuleTrainingTrainer(config, str(tmp_path))

@@ -263,4 +263,4 @@ def test_train_cli_runs_on_the_cpu(fixture, tmp_path):
                                            "config.yml"]
     assert Config(os.path.join(out, "config.yml")).OPTIM.NUM_ITERATIONS == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build("module_training", fixture["config"], out, "cpu")
+        train.build("joint_training", fixture["config"], out, "cpu")

@@ -1,0 +1,93 @@
+r"""K2 (the NMN interpreter kernel) in two checkouts of the repo, on one card
+in one call:
+
+    python3 tools/k2_ab.py <other checkout> [--sass DIR]
+
+Times K2 in bfloat16 on 256 valid CLEVR programs (chip_smoke.py phase 5's
+batch) with CUDA events over 50 launches, in ``<other checkout>`` and in this
+one, in turns (other, this, this, other), each in its own process that builds
+its checkout's kernels; prints each time and the registers ``ptxas`` gave the
+kernel. With ``--sass DIR`` it also writes the SASS of each checkout's
+``csrc/nmn_interpreter.cu`` (``nvcc -cubin``, then ``cuobjdump -sass``) to
+``DIR/{other,this}.sass``. Needs a CUDA card and the CUDA toolkit.
+"""
+import os
+import subprocess
+import sys
+
+TIMING = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from probnmn_tpu_torch.models import nmn
+from probnmn_tpu_torch.models.nmn import cast_params
+from probnmn_tpu_torch.ops.kernels import _build
+from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+    build_banks, build_tables, execute_programs_kernel)
+from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
+dev = torch.device("cuda")
+vocab = make_clevr_like_vocabulary()
+spec = nmn.make_spec(vocab)
+gen = torch.Generator().manual_seed(0)
+params = cast_params(nmn.init_nmn_params(gen, spec), torch.float32, dev)
+programs = torch.from_numpy(sample_clevr_like_programs(vocab, 256, seed=1)).to(dev)
+feats = torch.randn(256, spec.height, spec.width, spec.feature_channels, generator=gen).to(dev)
+stem = nmn.apply_stem(cast_params(params["stem"], torch.bfloat16), feats.to(torch.bfloat16)).contiguous()
+banks, tables = build_banks(params, spec, torch.bfloat16), build_tables(spec, dev)
+for _ in range(3):
+    execute_programs_kernel(banks, tables, spec, stem, programs)
+torch.cuda.synchronize()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(50):
+    execute_programs_kernel(banks, tables, spec, stem, programs)
+end.record()
+torch.cuda.synchronize()
+lines = str(_build.BUILD_INFO["log"]).splitlines()
+for i, line in enumerate(lines):
+    if "nmn_interpreter_kernel" in line and "Compiling entry" in line:
+        used = next(l for l in lines[i:] if "Used" in l)
+        print(line.split("nmn_interpreter_kernel")[1][:30], used.strip())
+print(start.elapsed_time(end) / 50)
+"""
+
+
+def sass(tree, path):
+    r"""Write the SASS of ``tree``'s csrc/nmn_interpreter.cu to ``path``."""
+    from probnmn_tpu_torch.ops.kernels import _build
+
+    cuda = os.path.dirname(os.path.dirname(_build._nvcc()))
+    src = os.path.join(tree, "probnmn_tpu_torch", "csrc", "nmn_interpreter.cu")
+    cubin = path + ".cubin"
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-cubin", src,
+                    "-o", cubin], check=True, timeout=600)
+    with open(path, "w") as out:
+        subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", cubin], stdout=out,
+                       check=True, timeout=600)
+    os.remove(cubin)
+
+
+def main(argv):
+    other = os.path.abspath(argv[0])
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, here)
+    if argv[1:2] == ["--sass"]:
+        os.makedirs(argv[2], exist_ok=True)
+        for name, tree in (("other", other), ("this", here)):
+            sass(tree, os.path.join(argv[2], f"{name}.sass"))
+    times = {"other": [], "this": []}
+    for name, tree in (("other", other), ("this", here), ("this", here), ("other", other)):
+        out = subprocess.run([sys.executable, "-c", TIMING, tree], cwd=tree, capture_output=True,
+                             text=True, check=True, timeout=600)
+        *regs, ms = out.stdout.strip().splitlines()
+        times[name].append(float(ms))
+        for line in regs:
+            print(f"[k2-ab] {name} [ptxas] {line}", flush=True)
+        print(f"[k2-ab] {name}: K2 {float(ms):.4f} ms/batch of 256 valid programs", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[k2-ab] other {times['other']}, this {times['this']}; card {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
