@@ -87,7 +87,29 @@ Phases (any failure raises, and the script exits non-zero with no result):
    evaluator in both decode modes (K2); a checkpoint and a resume; then K5,
    K6, K2 and the plain versions per batch, cuDNN's bf16 conv over as many
    3x3 convs (a partial yardstick), and the train step in both regimes,
-   timed beside their bounds, with a profiler trace.
+   timed beside their bounds, with a profiler trace. Its checkpoint (the
+   valid-programs run) is phase 9's NMN.
+9. The joint_training training phase at the shipped width
+   (``configs/joint_training_ours.yml``: batch 256, ALPHA 100, BETA 0.1,
+   GAMMA 1, DELTA 0.99, lr 1e-6, the bf16 NMN), resuming the prior, the
+   generator and reconstructor, and the NMN from phases 6, 7 and 8, on
+   8,192 questions over phase 8's 512 in-memory images (1,000 supervised;
+   1,024 for validation). K6's replay mode (K6r) at B=256 on CLEVR programs
+   plus invalid and all-pad rows, in both dtypes: dx, every bank gradient
+   and the workspace entries equal K6's over K5's residuals bit for bit;
+   K6r bitwise repeatable, within K6's tolerances of the plain version, and
+   within 1e-5 of float64 sums over its own workspace. The interpreter's
+   memory for a forward and backward at B=256 in each mode; the float32
+   objective on 32 rows (16 supervised) at the card's K1 z against the same
+   call on the CPU (total, logs and baseline within 1e-4, every gradient
+   leaf within 1e-4 * max(1, max|g|)); 20 ``JointTrainingTrainer.step()``s
+   (K1 1, K3f 1, K4f 4, K4b 4, K5 1, K6 1, K2 0 a step), 5 with the replay
+   selected (K2 1, K5 0, K6 1 in replay mode) and 2 with OBJECTIVE baseline
+   (K1 1, K4f 1, K4b 1, K5 1, K6 1, K3f 0), the counters set to 0 before
+   and read after each; the evaluator in both decode modes (K2), a
+   checkpoint and a resume; then K6r, K6 and the plain version timed beside
+   their bounds, and the train step in both modes (host clock, examples/s,
+   the memory a step takes), each with a profiler trace.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -875,12 +897,13 @@ def k5_k6_work(tables, spec, programs, itemsize, bank_floats):
     return (k2_flops, k2_bytes + resid(run)), (flops6, bytes6), convs, run
 
 
-def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt):
+def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     r"""Phase 8: kernels K5 and K6 against K2 and their plain versions at
     full NMN width, 20 trainer steps on the card in two program regimes
     (launch counts, 3x3 convs per step), one float32 step against the CPU's,
     the evaluator in both decode modes, checkpoint and resume, and times.
-    Returns the two kernels' entries of the kernels line."""
+    Copies the valid-programs run's checkpoint to ``mt_out`` (phase 9's NMN)
+    and returns the two kernels' entries of the kernels line."""
     import shutil
     import tempfile
 
@@ -1076,6 +1099,7 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt):
                                                  tree_leaves(valid_trainer.params)))
     check(same and resumed.iteration == steps - 1, "resume from the checkpoint")
     log(f"[mt] checkpoint_{steps - 1}.ckpt written and resumed with identical params")
+    shutil.copy(os.path.join(work, "valid", f"checkpoint_{steps - 1}.ckpt"), mt_out)
 
     # Times, each beside its bound, on the bf16 check batch.
     banks, stem, invalid, otraj, atraj, g = timed["bfloat16"]
@@ -1156,6 +1180,399 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt):
                            for k, v in errs.items()},
          "yardstick": "cuDNN bf16 conv2d forward and both gradients over the same 3x3 convs",
          "yardstick_ms": cudnn_train},
+    ]
+
+
+def plain_grads_by_row(torch, banks, tables, spec, stem, programs, g, d_stem, tol):
+    r"""K6's plain version as phase 9's reference: autograd through the plain
+    machine over the batch, except for the rows whose d(stem) stands off the
+    kernel's ``d_stem`` by more than ``tol`` of its scale. Those rows are
+    recomputed alone, and their bank gradients replace their share of the
+    batch's (the batch again under a cotangent zeroed on them: gradients are
+    linear in it). A ReLU input within float32 rounding of 0 takes one side
+    in the batched plain forward and the other in K5's and in the row's own
+    plain forward, which flips that element's gradient; the returned counts
+    say how many ReLU outputs of the two-conv chains differ in sign between
+    the batched plain forward and K5's, per such row.
+    Returns (d_banks, d_stem, {row: flips})."""
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        DIFF_BANKS, execute_programs_plain, execute_programs_train_kernel, interpreter_grads_plain,
+    )
+
+    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, g)
+    err = (d_stem.float() - w_stem.float()).abs().reshape(len(programs), -1).amax(1)
+    rows = (err > tol * max(1.0, float(w_stem.float().abs().max()))).nonzero().flatten().tolist()
+    if not rows:
+        return w_banks, w_stem, {}
+    _, _, _, atraj = execute_programs_train_kernel(banks, tables, spec, stem[rows], programs[rows])
+    _, _, _, plain_atraj = execute_programs_plain(banks, tables, spec, stem, programs, record=True)
+    # Flips count only on the steps that ran a two-conv chain: K5 leaves the
+    # others unwritten.
+    plain_atraj = plain_atraj[rows]
+    ran = plain_atraj.flatten(2).abs().amax(2) > 0
+    flips = (((plain_atraj > 0) != (atraj > 0)).flatten(2).sum(2) * ran).sum(1).tolist()
+    others = g.clone()
+    others[rows] = 0
+    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, others)
+    w_stem = w_stem.clone()
+    for row in rows:
+        one = slice(row, row + 1)
+        row_banks, w_stem[one] = interpreter_grads_plain(banks, tables, spec, stem[one],
+                                                         programs[one], g[one])
+        w_banks = {k: w_banks[k] + row_banks[k] for k in DIFF_BANKS}
+    return w_banks, w_stem, dict(zip(rows, flips))
+
+
+def k6r_work(tables, spec, programs, itemsize, bank_floats):
+    r"""FLOPs and bytes K6's replay mode needs for these programs: K6's work
+    (:func:`k5_k6_work`) plus the forward re-run over the valid rows; the
+    stem features, the float32 cotangent and the banks in once, d(stem) and
+    the gradient banks out once. The residuals never leave the kernel's own
+    scratch, so they are not counted."""
+    _, (flops6, bytes6), _, run = k5_k6_work(tables, spec, programs, itemsize, bank_floats)
+    valid = run["valid"]
+    resid = (valid["steps"] + 2 * valid["two_conv"]) * spec.height * spec.width * spec.module_channels
+    return flops6 + module_flops(spec, valid), bytes6 - resid * itemsize
+
+
+def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, mt_ckpt):
+    r"""Phase 9: K6's replay mode against K6 and the plain version at full
+    NMN width (B = 256), the interpreter's memory in both modes, the
+    objective on the card against the CPU's, trainer steps with launch
+    counts in both NMN modes and with OBJECTIVE baseline, the evaluator in
+    both decode modes, checkpoint and resume, and times. The trainer resumes
+    from phases 6, 7 and 8's checkpoints. Returns K6r's entry of the
+    kernels line."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import JointTrainingDataset
+    from probnmn_tpu_torch.data.pipeline import to_device
+    from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
+    from probnmn_tpu_torch.models import nmn
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels import _build
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        DIFF_BANKS, build_banks, execute_programs_diff, execute_programs_kernel,
+        execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
+        workspace_errors,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_forward_cuda, tf_backward_cuda, tf_forward_cuda,
+    )
+    from probnmn_tpu_torch.training._trainer import tree_leaves, tree_map
+    from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
+    from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY
+    from probnmn_tpu_torch.utils.clevr import sample_clevr_like_programs
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_jt_")
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    overrides = ["DATA.VOCABULARY", os.path.join(work, "vocab"), "CHECKPOINTS.PROGRAM_PRIOR",
+                 prior_ckpt, "CHECKPOINTS.QUESTION_CODING", qc_ckpt,
+                 "CHECKPOINTS.MODULE_TRAINING", mt_ckpt]
+
+    def config(objective="ours", *extra):
+        return Config(os.path.join(repo, "configs", f"joint_training_{objective}.yml"),
+                      overrides + list(extra))
+
+    cfg = config()
+    t0 = time.perf_counter()
+    features = np.random.default_rng(10).standard_normal((512, 1024, 14, 14), dtype=np.float32)
+    np.random.seed(cfg.RANDOM_SEED)  # the supervision subset, as the CLI seeds it
+    train_set = JointTrainingDataset.from_arrays(
+        *mt_arrays(np, vocab, 8192, 512, seed=15), features, num_supervision=cfg.SUPERVISION,
+        supervision_question_max_length=cfg.SUPERVISION_QUESTION_MAX_LENGTH)
+    val_set = JointTrainingDataset.from_arrays(*mt_arrays(np, vocab, 1024, 512, seed=17), features,
+                                               split="val")
+
+    def make_trainer(name, device="cuda", objective="ours", extra=(), replay=None):
+        return JointTrainingTrainer(config(objective, *extra), os.path.join(work, name),
+                                    device=device, writer=RecordingWriter(), dataset=train_set,
+                                    replay=replay)
+
+    trainer = make_trainer("run")
+    spec, tables, batch = trainer.nmn_spec, trainer.tables, cfg.OPTIM.BATCH_SIZE
+    log(f"[jt] {len(train_set)} train ({int(train_set.get_supervision_list().sum())} supervised) / "
+        f"{len(val_set)} val questions over 512 images of (1024, 14, 14) float32, made in "
+        f"{time.perf_counter() - t0:.1f} s; batch {batch}, lr {cfg.OPTIM.LR_INITIAL}, ALPHA "
+        f"{cfg.ALPHA}, BETA {cfg.BETA}, GAMMA {cfg.GAMMA}, DELTA {cfg.DELTA}; PG, QR from phase 7, "
+        f"the NMN from phase 8, the prior from phase 6")
+    init_nmn = tree_map(lambda t: t.detach().clone(), trainer.params["nmn"])
+
+    # K6's replay mode against K6 over K5's residuals and the plain version:
+    # B = 256 CLEVR programs, token soups (mostly invalid), an all-pad row
+    # and a program with no scene.
+    programs_np = sample_clevr_like_programs(vocab, batch, seed=16)
+    rs = np.random.RandomState(18)
+    programs_np[-8:] = rs.randint(0, len(vocab.get_index_to_token_vocabulary("programs")),
+                                  (8, programs_np.shape[1]))
+    programs_np[-1] = 0
+    programs_np[-2, :] = 0
+    programs_np[-2, :2] = [vocab.get_token_index("count", "programs"),
+                           vocab.get_token_index("filter_color[red]", "programs")]
+    programs = torch.from_numpy(programs_np).to(dev)
+    feats = torch.randn(batch, spec.height, spec.width, spec.feature_channels, generator=gen).to(dev)
+    grid = _build.library().probnmn_nmn_backward_grid(1, batch, spec.height, spec.width,
+                                                      spec.module_channels)
+    errs, timed = {}, {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        stem = nmn.apply_stem(cast_params(init_nmn["stem"], dtype), feats.to(dtype)).contiguous()
+        banks = build_banks(init_nmn, spec, dtype)
+        final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
+        check(not bool(invalid[:batch - 8].any()) and bool(invalid[-2]) and not bool(invalid[-1]),
+              f"K5 {name} invalid/all-pad rows")
+        g = torch.randn(final.shape, generator=gen).to(dev).to(dtype).float()
+        ws, ws_replay = {}, {}
+        d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                                   otraj, atraj, workspace=ws)
+        r_banks, r_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                                   workspace=ws_replay)
+        a_banks, a_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g)
+        w_banks, w_stem, alone = plain_grads_by_row(torch, banks, tables, spec, stem, programs, g,
+                                                    r_stem, K6_TOL[name])
+        torch.cuda.synchronize()
+        check(torch.equal(d_stem, r_stem) and all(torch.equal(d_banks[k], r_banks[k])
+                                                  for k in DIFF_BANKS),
+              f"K6r {name} differs from K6")
+        check(all(torch.equal(ws[k], ws_replay[k]) for k in ("inp", "g", "tag", "dil", "dw3", "dwc")),
+              f"K6r {name} workspace differs from K6's")
+        check(torch.equal(r_stem, a_stem) and all(torch.equal(r_banks[k], a_banks[k])
+                                                  for k in DIFF_BANKS), f"K6r {name} bits differ")
+        check(float(r_stem[invalid].float().abs().max()) == 0.0, f"K6r {name} dx on invalid rows")
+        worst = (0.0, 0.0, 0.0, "")
+        for leaf, got, ref in [("stem", r_stem, w_stem)] + [(k, r_banks[k], w_banks[k])
+                                                             for k in DIFF_BANKS]:
+            e, sc = float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+            worst = max(worst, (e / max(1.0, sc), e, sc, leaf))
+            check(e <= K6_TOL[name] * max(1.0, sc), f"K6r {name} {leaf} error {e} (max |g| {sc})")
+        tight = workspace_errors(ws_replay, banks, tables, spec)
+        check(tight["weight_grad"] <= WS_TOL and tight["input_grad"] <= WS_TOL,
+              f"K6r {name} against float64 sums over its own workspace: {tight}")
+        errs[name] = (worst[1], tight)
+        log(f"[K6r {name}] B={batch}, replay grid {grid}: dx, every bank gradient and the "
+            f"{tight['entries']} workspace entries equal K6's bit for bit; bitwise repeatable; "
+            f"invalid {int(invalid.sum())}/{batch}, dx 0 there")
+        log(f"[K6r {name}] rows held to the plain version run alone, with the ReLU outputs whose "
+            f"sign the batched plain forward flips against K5's: {alone or 'none'}")
+        log(f"[K6r {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
+            f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
+            f"{worst[2]:.3e} (ratio {worst[0]:.3e}); against float64 sums over its own workspace "
+            f"(limit {WS_TOL}): weight-gradient kernel {tight['weight_grad']:.3e}, conv input "
+            f"gradients of {tight['chained']} chained entries {tight['input_grad']:.3e}")
+        if dtype == torch.bfloat16:
+            timed = dict(banks=banks, stem=stem, invalid=invalid, otraj=otraj, atraj=atraj, g=g)
+        del otraj, atraj, ws, ws_replay
+
+    # The interpreter's training forward and backward at B = 256, bf16, in
+    # each mode: the memory it takes beyond what was allocated before.
+    banks, stem, invalid, g = timed["banks"], timed["stem"], timed["invalid"], timed["g"]
+
+    def fwd_bwd(replay):
+        leaves = {k: banks[k].detach().clone().requires_grad_(True) for k in DIFF_BANKS}
+        stem_leaf = stem.detach().clone().requires_grad_(True)
+        final, _ = execute_programs_diff(dict(banks, **leaves), tables, spec, stem_leaf, programs,
+                                         replay=replay)
+        (final.float() * g).sum().backward()
+
+    def transient_mb(fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+    interp_mb = {mode: transient_mb(lambda: fwd_bwd(mode == "replay"))
+                 for mode in ("no_replay", "replay")}
+    log(f"[jt] interpreter forward + backward at B={batch}, bf16, memory beyond what was allocated: "
+        f"K5 + K6 {interp_mb['no_replay']:.1f} MB, K2 + K6r {interp_mb['replay']:.1f} MB "
+        f"(replay grid {grid})")
+
+    # The objective on the card against the same call on the CPU: float32,
+    # 32 rows (16 supervised) at the programs the card's K1 sampled.
+    f32 = ("NMN.COMPUTE_DTYPE", "float32", "OPTIM.BATCH_SIZE", 32)
+    card = make_trainer("f32_card", "cuda", extra=f32)
+    host = make_trainer("f32_cpu", "cpu", extra=f32)
+    sup = train_set.get_supervision_list()
+    rows = np.concatenate([np.flatnonzero(sup)[:16], np.flatnonzero(sup == 0)[:16]])
+    host_batch = train_set.get_batch(rows)
+    b_card = dict(to_device(host_batch, dev), **{COUNT_KEY: 16})
+    b_cpu = dict(to_device(host_batch, torch.device("cpu")), **{COUNT_KEY: 16})
+    z = card.sample_programs(b_card["question"][16:])
+    baseline0 = torch.tensor(0.25, device=dev)
+    total, new_baseline, logs = card.joint_training_objective(card.params, b_card, z, baseline0)
+    total.backward()
+    total_c, baseline_c, logs_c = host.joint_training_objective(host.params, b_cpu, z.cpu(),
+                                                                baseline0.cpu())
+    total_c.backward()
+    z_run = nmn_replay(tables, z.cpu().numpy())
+    loss_diff = abs(float(total.detach()) - float(total_c.detach()))
+    log(f"[jt] float32 objective on 32 rows (16 supervised) at the card's K1 z ({z_run['valid']['rows']}"
+        f"/16 valid programs, {z_run['convs']} 3x3 convs), card vs CPU: total "
+        f"{float(total.detach()):.6f} / {float(total_c.detach()):.6f} (|diff| {loss_diff:.2e}), "
+        f"baseline {float(new_baseline):.6f} / {float(baseline_c):.6f}")
+    check(loss_diff <= 1e-4 * max(1.0, abs(float(total_c.detach()))), "card vs CPU objective")
+    check(abs(float(new_baseline) - float(baseline_c)) <= 1e-4, "card vs CPU baseline")
+    for group, values in logs_c.items():
+        for key, value in values.items():
+            check(abs(float(logs[group][key]) - float(value)) <= 1e-4 * max(1.0, abs(float(value))),
+                  f"card vs CPU log {group}/{key}")
+    ratio = 0.0
+    for index, (a, b) in enumerate(zip(tree_leaves(card.params), tree_leaves(host.params))):
+        e, sc = float((a.grad.cpu() - b.grad).abs().max()), float(b.grad.abs().max())
+        check(e <= 1e-4 * max(1.0, sc), f"card vs CPU gradient of leaf {index}: {e}")
+        ratio = max(ratio, e / max(1.0, sc))
+    log(f"[jt]   every log within 1e-4; every gradient leaf within 1e-4 * max(1, max|g|) (worst "
+        f"ratio {ratio:.3e})")
+    del card, host
+
+    # The trainer on the card, with the launch counters set to 0 before and
+    # read after: OBJECTIVE ours in both NMN modes, then OBJECTIVE baseline.
+    counters = (fused_sampling_forward, lm_forward_cuda, tf_forward_cuda, tf_backward_cuda,
+                execute_programs_train_kernel, interpreter_grads_kernel, execute_programs_kernel)
+
+    def run_steps(tr, n):
+        for fn in counters:
+            fn.launches = 0
+        interpreter_grads_kernel.replay_launches = 0
+        out = [tr.step() for _ in range(n)]
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        launches["replay"] = interpreter_grads_kernel.replay_launches
+        check(all(np.isfinite(v) for o in out for group in o.values() for v in group.values()),
+              "train logs not finite")
+        return out, launches
+
+    def per_step(n, k1, k3f, k4, k5, k6, k2, replay):
+        return {"fused_sampling_forward": k1 * n, "lm_forward_cuda": k3f * n,
+                "tf_forward_cuda": k4 * n, "tf_backward_cuda": k4 * n,
+                "execute_programs_train_kernel": k5 * n, "interpreter_grads_kernel": k6 * n,
+                "execute_programs_kernel": k2 * n, "replay": replay * n}
+
+    steps = 20
+    step_logs, launches = run_steps(trainer, steps)
+    log(f"[jt] {steps} train steps on cuda (OBJECTIVE ours, K5 + K6): launches {launches}; nmn "
+        f"{step_logs[0]['loss']['nmn']:.4f} -> {step_logs[-1]['loss']['nmn']:.4f}, PG "
+        f"{step_logs[0]['loss']['program_generation_gt']:.4f} -> "
+        f"{step_logs[-1]['loss']['program_generation_gt']:.4f}, elbo "
+        f"{step_logs[0]['elbo']['elbo']:.4f} -> {step_logs[-1]['elbo']['elbo']:.4f}; baseline "
+        f"{float(trainer.baseline):.4f}")
+    check(launches == per_step(steps, 1, 1, 4, 1, 1, 0, 0), f"launches {launches}")
+    check(float(trainer.baseline) != 0.0, "the REINFORCE baseline did not move")
+    replay_trainer = make_trainer("replay", replay=True)
+    replay_logs, replay_launches = run_steps(replay_trainer, 5)
+    log(f"[jt] 5 train steps with the replay selected (K2 + K6r): launches {replay_launches}; nmn "
+        f"{replay_logs[-1]['loss']['nmn']:.4f}")
+    check(replay_launches == per_step(5, 1, 1, 4, 0, 1, 1, 1), f"launches {replay_launches}")
+    base = make_trainer("baseline", objective="baseline")
+    base_logs, base_launches = run_steps(base, 2)
+    log(f"[jt] 2 steps with OBJECTIVE baseline: launches {base_launches}, logs {base_logs[-1]}")
+    check(base_launches == per_step(2, 1, 0, 1, 1, 1, 0, 0), f"launches {base_launches}")
+    del base
+
+    # The evaluator in both decode modes (K2), a checkpoint and a resume.
+    for decode in ("tf_greedy", "free_greedy"):
+        execute_programs_kernel.launches = 0
+        val = JointTrainingEvaluator(cfg, trainer, dataset=val_set,
+                                     program_decode=decode).evaluate(num_batches=2)
+        check(execute_programs_kernel.launches == 2, f"the {decode} evaluator did not run K2")
+        pg_val = val["program_generator"]
+        check(0.0 <= val["nmn"]["answer_accuracy"] <= 1.0 and 0.0 <= val["nmn"]["average_invalid"]
+              <= batch and np.isfinite(pg_val["perplexity"]) and 0.0 <= pg_val["BLEU"] <= 1.0,
+              f"{decode} metrics {val}")
+        log(f"[jt] val ({decode}, 2 batches): answer_accuracy {val['nmn']['answer_accuracy']:.4f}, "
+            f"average_invalid {val['nmn']['average_invalid']:.2f}; PG " + ", ".join(
+                f"{k} {v:.4f}" for k, v in pg_val.items()))
+    trainer.after_validation(val, steps - 1)
+    resumed = make_trainer("run")
+    resumed.load_checkpoint(os.path.join(work, "run", f"checkpoint_{steps - 1}.ckpt"))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params),
+                                                 tree_leaves(trainer.params)))
+    check(same and torch.equal(resumed.baseline, trainer.baseline)
+          and resumed.iteration == steps - 1, "resume from the checkpoint")
+    log(f"[jt] checkpoint_{steps - 1}.ckpt written and resumed with identical params and baseline "
+        f"{float(resumed.baseline):.6f}")
+    del resumed
+
+    # Times, each beside its bound, on the bf16 check batch.
+    otraj, atraj = timed["otraj"], timed["atraj"]
+    k6_ms = cuda_ms(torch, lambda: interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                            invalid, g, otraj, atraj), iters=10)
+    k6r_ms = cuda_ms(torch, lambda: interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                             invalid, g), iters=10)
+    k2_ms = cuda_ms(torch, lambda: execute_programs_kernel(banks, tables, spec, stem, programs),
+                    iters=10)
+    plain_ms = cuda_ms(torch, lambda: interpreter_grads_plain(banks, tables, spec, stem, programs, g),
+                       iters=2, warmup=1)
+    bank_floats = sum(banks[k].numel() for k in DIFF_BANKS)
+    _, (f6, b6), n_convs, run = k5_k6_work(tables, spec, programs_np, 2, bank_floats)
+    f6r, b6r = k6r_work(tables, spec, programs_np, 2, bank_floats)
+    k6_bound, k6_by = bound(f6, b6, "bfloat16")
+    k6r_bound, k6r_by = bound(f6r, b6r, "bfloat16")
+    C = spec.module_channels
+    x = torch.randn(n_convs, C, spec.height, spec.width, generator=gen).to(dev, torch.bfloat16)
+    w = (0.05 * torch.randn(C, C, 3, 3, generator=gen)).to(dev, torch.bfloat16)
+    gy = torch.randn(n_convs, C, spec.height, spec.width, generator=gen).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        cudnn_fwd = cuda_ms(torch, lambda: F.conv2d(x, w, padding=1), iters=10)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    cudnn_train = cuda_ms(torch, lambda: torch.autograd.grad(F.conv2d(xg, wg, padding=1), (xg, wg), gy),
+                          iters=10)
+    del x, gy, xg
+    log(f"[time] K6r {k6r_ms:.3f} ms/batch of {batch} (K6 over K5's residuals on the same batch "
+        f"{k6_ms:.3f}, bound {k6_bound:.4f} by {k6_by}; K2 {k2_ms:.3f}; plain {plain_ms:.3f}; "
+        f"bound {k6r_bound:.4f} by {k6r_by}: {run['valid']['rows']} valid rows, {n_convs} 3x3 "
+        f"convs, {f6r / 1e9:.1f} GFLOP, {b6r / 1e6:.1f} MB; cuDNN bf16 conv forward over "
+        f"{n_convs} convs {cudnn_fwd:.3f}, forward + both gradients {cudnn_train:.3f}); card {smi}")
+
+    # The train step in each mode: host clock over steps that each fetch
+    # their logs, the memory a step takes beyond what was allocated before
+    # it, and one step under the profiler.
+    step_ms, step_mb = {}, {}
+    for name, tr in (("K5 + K6", trainer), ("K2 + K6r", replay_trainer)):
+        for _ in range(3):
+            tr.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tr.step()
+        step_ms[name] = (time.perf_counter() - t0) / 10 * 1e3
+        step_mb[name] = transient_mb(tr.step)
+        stage = tr._batch_source.stage_metrics()
+        log(f"[time] joint_training train step, {name}: {step_ms[name]:.3f} ms (host clock, logs "
+            f"fetched each step): {batch / step_ms[name] * 1e3:.1f} examples/s; peak memory of a "
+            f"step beyond what was allocated before it {step_mb[name]:.1f} MB; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f"; card {smi}")
+        wall_ms, busy_ms, top = trace(torch, tr.step)
+        if busy_ms > 0:
+            log(f"[trace] joint_training train step ({name}) under torch.profiler: {wall_ms:.2f} ms "
+                f"host clock, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+            for us, kernel, count in top:
+                log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {kernel[:90]}")
+        else:
+            log("[trace] the profiler recorded no device time: idle share not measured")
+    shutil.rmtree(work, ignore_errors=True)
+
+    return [
+        {"name": "nmn_backward_replay", "route": "cuda",
+         "source": "probnmn_tpu_torch/csrc/nmn_interpreter.cu",
+         "replaces": "probnmn_tpu/ops/pallas/nmn_interpreter.py:870",
+         "launches": replay_launches["replay"], "max_abs_err": errs["bfloat16"][0],
+         "max_abs_err_float32": errs["float32"][0],
+         "ms": k6r_ms, "plain_ms": plain_ms, "bound_ms": k6r_bound, "bound_by": k6r_by,
+         "library_ms": None, "bit_equal_to_no_replay": True, "replay_grid": grid,
+         "k6_ms_same_batch": k6_ms, "k6_bound_ms_same_batch": k6_bound,
+         "workspace_err": {k: {e: v[1][e] for e in ("weight_grad", "input_grad")}
+                           for k, v in errs.items()},
+         "interpreter_mb": interp_mb, "step_ms": step_ms, "step_mb": step_mb,
+         "yardstick": "cuDNN bf16 conv2d forward, then forward and both gradients, over the same "
+                      "3x3 convs", "yardstick_ms": cudnn_fwd + cudnn_train},
     ]
 
 
@@ -1425,7 +1842,12 @@ def main():
     question_coding = train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt)
 
     # ---------------------------------------------------------------- 8. module_training
-    module_training = train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt)
+    mt_ckpt = os.path.join(shared, "module_training.ckpt")
+    module_training = train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_ckpt)
+
+    # ---------------------------------------------------------------- 9. joint_training
+    joint_training = train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt,
+                                          mt_ckpt)
     shutil.rmtree(shared, ignore_errors=True)
 
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
@@ -1449,6 +1871,7 @@ def main():
         *prior,
         *question_coding,
         *module_training,
+        *joint_training,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

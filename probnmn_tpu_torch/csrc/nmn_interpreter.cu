@@ -20,12 +20,18 @@
 // the compute type, the JAX package's layout. The atraj stores leave the conv
 // epilogue straight for global memory; final and flags are K2's bit for bit.
 //
-// K6 replaces _interpreter_bwd_kernel (its no-replay mode): one block per
-// example sweeps its executed steps in reverse, reading K5's residuals;
+// K6 replaces _interpreter_bwd_kernel: one block per example sweeps its
+// executed steps in reverse, reading K5's residuals (no-replay mode);
 // relate's chain is recomputed from its entry register. Invalid examples get
-// zero gradients. Each conv's backward runs its input gradient as a
-// tap-flipped conv of g_z over the bank in its stored (tap, C_in, C_out)
-// layout, on the same conv code as the forward. The weight gradients are
+// zero gradients. In replay mode (kReplay, the JAX kernel's no_replay=False)
+// K5 never stored the residuals: a co-resident grid of G blocks takes the
+// examples in turn, and each first re-runs its example's program on the
+// forward's own device code (interpret_example, K5's stores) into the block's
+// slice of a (G, T, 3, HW, C) scratch, which the unchanged sweep then reads.
+// The replay is K5's instruction sequence, so both modes give the same bits;
+// the scratch is sized by G, not B. Each conv's backward runs its input
+// gradient as a tap-flipped conv of g_z over the bank in its stored (tap,
+// C_in, C_out) layout, on the same conv code as the forward. The weight gradients are
 // deterministic without float atomics: the sweep writes each conv's (input,
 // g_z) pair in the compute type to a workspace tagged with its bank slot,
 // and nmn_weight_grad_mma (or _simt) sums each slot's entries in (example, step)
@@ -355,22 +361,24 @@ __device__ __forceinline__ int first_step(const int* prog, int T_len) {
   return T_len;
 }
 
-// ---------------------------------------------------------------- K2 / K5
+// ---------------------------------------------------------------- K2 / K5 / K6's replay
+// One example's program (stem features x, tokens prog) on the forward's
+// device code, which K2, K5 and K6's replay phase all run. The out and saved
+// registers live at `out` and `saved` (N elements each); with kTrain the out
+// register at the entry of every executed step goes to otraj (T, N) and the
+// two-conv outputs to atraj (T, 2, N). buf_a and buf_b are the block's shared
+// tiles. Returns whether the program is invalid (an invalid op, or a final
+// register that is not a feature map); `out` then holds what the machine
+// stopped at, which the caller zeroes.
 template <typename T, bool kMma, bool kTrain>
-__global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_argmax;
+__device__ __forceinline__ bool interpret_example(const NmnParams& p, const int* prog,
+                                                  const T* x, T* out, T* saved, T* otraj,
+                                                  T* atraj, T* buf_a, T* buf_b, int& s_argmax) {
   const int H = p.H, W = p.W, C = p.C, HW = H * W, N = HW * C, T_len = p.T, P = C + kRowPad;
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
-  const int b = blockIdx.x, tid = threadIdx.x, nthreads = blockDim.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(b) * N;
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(b) * N;
-  T* saved = static_cast<T*>(p.saved) + static_cast<size_t>(b) * N;
   const T* w1 = static_cast<const T*>(p.w1);
   const T* same_wf = static_cast<const T*>(p.same_wf);
-  const int* prog = p.programs + static_cast<size_t>(b) * T_len;
   const T zero = from_f<T>(0.f), one = from_f<T>(1.f);
 
   for (int c = tid; c < C; c += nthreads) {
@@ -415,9 +423,9 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
     // elements it alone updates below, so no barrier is needed.
     T* resid = nullptr;
     if constexpr (kTrain) {
-      T* entry = static_cast<T*>(p.otraj) + (static_cast<size_t>(b) * T_len + t) * N;
+      T* entry = otraj + static_cast<size_t>(t) * N;
       for (int e = tid; e < N; e += nthreads) entry[e] = out[e];
-      resid = static_cast<T*>(p.atraj) + (static_cast<size_t>(b) * T_len + t) * 2 * N;
+      resid = atraj + static_cast<size_t>(t) * 2 * N;
     }
 
     if (scene_ok) {  // save the output, reset it to an all-ones attention
@@ -506,9 +514,29 @@ __global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnPara
     __syncthreads();
   }
   // The program must end in a feature map, not an attention.
-  if (out_tag != TAG_FEAT) invalid = true;
+  return invalid || out_tag != TAG_FEAT;
+}
+
+template <typename T, bool kMma, bool kTrain>
+__global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_argmax;
+  const int HW = p.H * p.W, N = HW * p.C, T_len = p.T, P = p.C + kRowPad;
+  T* buf_a = reinterpret_cast<T*>(smem_raw);
+  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  T* out = static_cast<T*>(p.out) + static_cast<size_t>(b) * N;
+  T* otraj = nullptr;
+  T* atraj = nullptr;
+  if constexpr (kTrain) {
+    otraj = static_cast<T*>(p.otraj) + static_cast<size_t>(b) * T_len * N;
+    atraj = static_cast<T*>(p.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
+  }
+  const bool invalid = interpret_example<T, kMma, kTrain>(
+      p, p.programs + static_cast<size_t>(b) * T_len, static_cast<const T*>(p.x) + static_cast<size_t>(b) * N,
+      out, static_cast<T*>(p.saved) + static_cast<size_t>(b) * N, otraj, atraj, buf_a, buf_b, s_argmax);
   if (invalid)
-    for (int e = tid; e < N; e += nthreads) out[e] = zero;
+    for (int e = tid; e < N; e += blockDim.x) out[e] = from_f<T>(0.f);
   if (tid == 0) p.invalid[b] = invalid ? 1 : 0;
 }
 
@@ -517,10 +545,11 @@ struct BwdParams {
   NmnParams f;          // the forward's operands (out / saved / otraj unused)
   const int* invalid;   // (B,) the forward's flags
   const float* gfin;    // (B, HW, C) cotangent of the final encoding
-  const void* otraj;    // K5's residuals
+  const void* otraj;    // K5's residuals (no-replay mode)
   const void* atraj;
-  float* scratch;       // (B, 4, HW, C): g_a, g_out, g_saved, dx_acc
-  void* acts;           // (B, 6, HW, C): chain activations of the step
+  void* traj;           // replay mode: (G, T, 3, HW, C), each block's residuals
+  float* scratch;       // (G, 4, HW, C): g_a, g_out, g_saved, dx_acc (G = grid)
+  void* acts;           // (G, 6, HW, C): chain activations of the step
   void* ent_inp;        // (E, HW, C) conv inputs, compute type
   void* ent_g;          // (E, HW, C) their g_z, compute type
   int* ent_tag;         // (E,) weight-gradient target of each entry
@@ -557,31 +586,23 @@ __device__ __forceinline__ void conv_input_grad(const T* tile, float* dst, const
   }
 }
 
+// The reverse sweep over valid example b's steps, reading the out register
+// at each step's entry from otraj (T, N) and the two-conv outputs from atraj
+// (T, 2, N); ga (4 N floats) and acts (6 N) are the block's scratch.
 template <typename T, bool kMma>
-__global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams q) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float s_h[kMaxHW];
-  __shared__ int s_argmax;
+__device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* ga, T* acts,
+                                              const T* otraj, const T* atraj, T* buf_a, T* buf_b,
+                                              float* s_h, int& s_argmax) {
   const NmnParams& p = q.f;
   const int H = p.H, W = p.W, C = p.C, HW = H * W, N = HW * C, T_len = p.T, P = C + kRowPad;
   const PartLayout lay(q.S3, q.S1, q.Ss, q.Sc, C);
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
-  const int b = blockIdx.x, tid = threadIdx.x, nthreads = blockDim.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(b) * N;
   float* dx = q.dx + static_cast<size_t>(b) * N;
-  if (q.invalid[b]) {  // the forward zeroed the output: every gradient is 0
-    for (int e = tid; e < N; e += nthreads) dx[e] = 0.f;
-    return;
-  }
-  float* ga = q.scratch + static_cast<size_t>(b) * 4 * N;
   float* gout = ga + N;
   float* gsaved = ga + 2 * N;
   float* dxacc = ga + 3 * N;
-  T* acts = static_cast<T*>(q.acts) + static_cast<size_t>(b) * 6 * N;
-  const T* otraj = static_cast<const T*>(q.otraj) + static_cast<size_t>(b) * T_len * N;
-  const T* atraj = static_cast<const T*>(q.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
   T* ent_inp = static_cast<T*>(q.ent_inp);
   T* ent_g = static_cast<T*>(q.ent_g);
   float* part = q.part + static_cast<size_t>(b) * lay.size;
@@ -847,6 +868,52 @@ __global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams 
   for (int e = tid; e < N; e += nthreads) dx[e] = dxacc[e] + gout[e];
 }
 
+// K6, one block per example (no-replay: grid = B, K5's residuals) or a
+// co-resident grid of G blocks, block j taking examples j, j + G, ... (with
+// kReplay: each example's program first re-runs on the forward's own device
+// code, interpret_example with K5's stores, into the block's slice of
+// q.traj, (T, 3, N): the out register at each step's entry, then the
+// two-conv outputs; its out and saved registers borrow acts[0] and acts[1]).
+// The sweep then reads that slice where it reads K5's residuals otherwise,
+// so the two modes compute the same bits.
+template <typename T, bool kMma, bool kReplay>
+__global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float s_h[kMaxHW];
+  __shared__ int s_argmax;
+  const NmnParams& p = q.f;
+  const int HW = p.H * p.W, N = HW * p.C, T_len = p.T, P = p.C + kRowPad;
+  T* buf_a = reinterpret_cast<T*>(smem_raw);
+  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
+  const size_t slot = blockIdx.x;
+  float* ga = q.scratch + slot * 4 * N;
+  T* acts = static_cast<T*>(q.acts) + slot * 6 * N;
+  for (int b = blockIdx.x; b < p.batch; b += gridDim.x) {
+    __syncthreads();  // the block's previous example is done with the tiles and the scratch
+    if (q.invalid[b]) {  // the forward zeroed the output: every gradient is 0
+      float* dx = q.dx + static_cast<size_t>(b) * N;
+      for (int e = threadIdx.x; e < N; e += blockDim.x) dx[e] = 0.f;
+      continue;
+    }
+    const T* otraj;
+    const T* atraj;
+    if constexpr (kReplay) {
+      T* traj = static_cast<T*>(q.traj) + slot * T_len * 3 * N;
+      interpret_example<T, kMma, true>(p, p.programs + static_cast<size_t>(b) * T_len,
+                                       static_cast<const T*>(p.x) + static_cast<size_t>(b) * N,
+                                       acts, acts + N, traj, traj + static_cast<size_t>(T_len) * N,
+                                       buf_a, buf_b, s_argmax);
+      __syncthreads();
+      otraj = traj;
+      atraj = traj + static_cast<size_t>(T_len) * N;
+    } else {
+      otraj = static_cast<const T*>(q.otraj) + static_cast<size_t>(b) * T_len * N;
+      atraj = static_cast<const T*>(q.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
+    }
+    sweep_example<T, kMma>(q, b, ga, acts, otraj, atraj, buf_a, buf_b, s_h, s_argmax);
+  }
+}
+
 // ---------------------------------------------------------------- K6: weight gradients
 // Block j < S3 * 9: dw3[j / 9][j % 9] (C_in, C_out) = sum over the entries
 // of slot j / 9 of shift_tap(inp)^T . g_z; block S3 * 9 + k: dwc[k / 2][k % 2]
@@ -1033,16 +1100,41 @@ cudaError_t launch_nmn(const NmnParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kMma>
-cudaError_t launch_backward(const BwdParams& q, cudaStream_t stream) {
-  const size_t bytes = tile_bytes(q.f.H, q.f.W, q.f.C, sizeof(T));
-  if (bytes + sizeof(float) * kMaxHW + sizeof(int) > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(nmn_backward_kernel<T, kMma>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  nmn_backward_kernel<T, kMma><<<q.f.batch, kThreads, bytes, stream>>>(q);
+// Sets K6's dynamic shared memory (the two tiles) and returns its bytes, or 0
+// when they do not fit beside the static arrays.
+template <typename T, bool kMma, bool kReplay>
+size_t backward_smem(int H, int W, int C) {
+  const size_t bytes = tile_bytes(H, W, C, sizeof(T));
+  if (bytes + sizeof(float) * kMaxHW + sizeof(int) > kMaxSmem) return 0;
+  if (cudaFuncSetAttribute(nmn_backward_kernel<T, kMma, kReplay>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes)) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+template <typename T, bool kMma, bool kReplay>
+cudaError_t launch_backward(const BwdParams& q, int grid, cudaStream_t stream) {
+  const size_t bytes = backward_smem<T, kMma, kReplay>(q.f.H, q.f.W, q.f.C);
+  if (bytes == 0) return cudaErrorInvalidValue;
+  nmn_backward_kernel<T, kMma, kReplay><<<grid, kThreads, bytes, stream>>>(q);
   return cudaGetLastError();
+}
+
+// The replay grid: min(batch, the blocks of K6's replay build that fit on the
+// card at once), or -1.
+template <typename T, bool kMma>
+int replay_grid(int batch, int H, int W, int C) {
+  const size_t bytes = backward_smem<T, kMma, true>(H, W, C);
+  int per_sm = 0, device = 0, sms = 0;
+  if (bytes == 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nmn_backward_kernel<T, kMma, true>,
+                                                    kThreads, bytes) != cudaSuccess ||
+      cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      per_sm <= 0)
+    return -1;
+  return per_sm * sms < batch ? per_sm * sms : batch;
 }
 
 bool params_ok(int dtype, const void* w3t, const void* wcmpt, int H, int W, int C) {
@@ -1116,20 +1208,34 @@ extern "C" int probnmn_nmn_interpret(
                                 : launch_nmn<float, false, false>(p, s));
 }
 
-// K6's sweep: one block per example. Fills dx, the workspace entries and
-// the per-example partials (which the caller zeroes); ent_tag must hold the
-// sentinel S3 + 2 * Sc where no entry is written.
+// The grid of K6's replay mode for `batch` examples (its scratch is sized by
+// it), or a negative value when the kernel cannot launch at this shape.
+extern "C" int probnmn_nmn_backward_grid(int dtype, int batch, int H, int W, int C) {
+  if (batch <= 0) return -1;
+  return dtype == 1 ? replay_grid<bf16, true>(batch, H, W, C)
+                    : replay_grid<float, false>(batch, H, W, C);
+}
+
+// K6's sweep. With otraj and atraj (K5's residuals) one block per example
+// (grid == batch); with traj instead, replay mode over `grid` blocks
+// (probnmn_nmn_backward_grid), traj holding (grid, T, 3, HW, C) in the
+// compute type. scratch and acts have `grid` rows. Fills dx, the workspace
+// entries and the per-example partials (which the caller zeroes); ent_tag
+// must hold the sentinel S3 + 2 * Sc where no entry is written.
 extern "C" int probnmn_nmn_backward(
     int dtype, const void* programs, int batch, int num_steps, const void* kind,
     const void* slot3, const void* head_slot, const void* cmp_slot, const void* same_slot,
     const void* x, const void* w3, const void* w3t, const void* b3, const void* w1,
     const void* b1, const void* same_wf, const void* same_wa, const void* same_b,
     const void* wcmp, const void* wcmpt, const void* bcmp, const void* invalid,
-    const void* gfin, const void* otraj, const void* atraj, void* scratch, void* acts,
-    void* ent_inp, void* ent_g, void* ent_tag, void* ent_dil, const void* ent_base, void* part,
-    int S3, int S1, int Ss, int Sc, void* dx, int H, int W, int C, void* stream) {
+    const void* gfin, const void* otraj, const void* atraj, void* traj, int grid, void* scratch,
+    void* acts, void* ent_inp, void* ent_g, void* ent_tag, void* ent_dil, const void* ent_base,
+    void* part, int S3, int S1, int Ss, int Sc, void* dx, int H, int W, int C, void* stream) {
   if (batch <= 0) return 0;
-  if (!params_ok(dtype, w3t, wcmpt, H, W, C) || H * W > kMaxHW)
+  const bool replay = traj != nullptr;
+  if (!params_ok(dtype, w3t, wcmpt, H, W, C) || H * W > kMaxHW || grid <= 0 || grid > batch ||
+      (replay ? otraj != nullptr || atraj != nullptr
+              : otraj == nullptr || atraj == nullptr || grid != batch))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams q = {};
   q.f = make_params(programs, batch, num_steps, kind, slot3, head_slot, cmp_slot, same_slot, x,
@@ -1138,6 +1244,7 @@ extern "C" int probnmn_nmn_backward(
   q.gfin = static_cast<const float*>(gfin);
   q.otraj = otraj;
   q.atraj = atraj;
+  q.traj = traj;
   q.scratch = static_cast<float*>(scratch);
   q.acts = acts;
   q.ent_inp = ent_inp;
@@ -1152,8 +1259,11 @@ extern "C" int probnmn_nmn_backward(
   q.Sc = Sc;
   q.dx = static_cast<float*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 1 ? launch_backward<bf16, true>(q, s)
-                                     : launch_backward<float, false>(q, s));
+  if (dtype == 1)
+    return static_cast<int>(replay ? launch_backward<bf16, true, true>(q, grid, s)
+                                   : launch_backward<bf16, true, false>(q, grid, s));
+  return static_cast<int>(replay ? launch_backward<float, false, true>(q, grid, s)
+                                 : launch_backward<float, false, false>(q, grid, s));
 }
 
 // The floats of one row of probnmn_nmn_backward's partials.

@@ -13,7 +13,7 @@ JAX package and the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -193,6 +193,97 @@ class ModuleTrainingDataset:
             "image": np.asarray(self._features[self._image_indices[indices]], np.float32),
             "program": self._programs[indices].astype(np.int64),
         }
+
+    @property
+    def split(self):
+        return self._split
+
+
+class JointTrainingDataset:
+    r"""The union of the two above (reference ``datasets.py:149-240``): the
+    train and val splits give {"question", "answer", "program", "image",
+    "supervision"}, the test split {"question_index", "question", "image"}.
+    The supervision subset is drawn as :class:`QuestionCodingDataset` draws
+    it, from the global numpy seed."""
+
+    def __init__(
+        self,
+        tokens_h5path: str,
+        features_h5path: str,
+        num_supervision: int = 699989,
+        supervision_question_max_length: int = 30,
+        in_memory: bool = True,
+    ):
+        tokens = ClevrTokensReader(tokens_h5path)
+        test = tokens.split == "test"
+        self._setup(None if test else tokens.programs, tokens.questions,
+                    None if test else tokens.answers, tokens.image_indices,
+                    ClevrImageFeaturesReader(features_h5path, in_memory), tokens.split,
+                    num_supervision, supervision_question_max_length)
+
+    @classmethod
+    def from_arrays(
+        cls,
+        programs: Optional[np.ndarray],
+        questions: np.ndarray,
+        answers: Optional[np.ndarray],
+        image_indices: np.ndarray,
+        features: np.ndarray,
+        split: str = "train",
+        num_supervision: int = 699989,
+        supervision_question_max_length: int = 30,
+    ) -> "JointTrainingDataset":
+        r"""A dataset over in-memory (N, Lp) programs, (N, Lq) questions, (N,)
+        answers and (N,) indices into ``features`` (M, C, H, W); the test
+        split takes None for programs and answers."""
+        dataset = cls.__new__(cls)
+        dataset._setup(None if programs is None else np.asarray(programs), np.asarray(questions),
+                       None if answers is None else np.asarray(answers), np.asarray(image_indices),
+                       np.asarray(features), split, num_supervision,
+                       supervision_question_max_length)
+        return dataset
+
+    def _setup(self, programs, questions, answers, image_indices, features, split,
+               num_supervision, max_length):
+        if split != "test" and not (len(programs) == len(questions) == len(answers)
+                                    == len(image_indices)):
+            raise ValueError("programs, questions, answers and image_indices differ in length")
+        self._programs = programs
+        self._questions = questions
+        self._answers = answers
+        self._image_indices = image_indices
+        self._features = features
+        self._split = split
+        self._supervision_list = _make_supervision_list(questions, split, num_supervision,
+                                                        max_length)
+
+    def check_tokens(self, program_vocab_size: int, question_vocab_size: int) -> None:
+        r"""Raise unless every program and question token id lies in its vocabulary."""
+        if self._programs is not None:
+            check_token_ids(self._programs, program_vocab_size, f"{self._split} program")
+        check_token_ids(self._questions, question_vocab_size, f"{self._split} question")
+
+    def __len__(self):
+        return len(self._questions)
+
+    def get_batch(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        image = np.asarray(self._features[self._image_indices[indices]], np.float32)
+        if self._split == "test":
+            return {
+                "question_index": np.asarray(indices, np.int64),
+                "question": self._questions[indices].astype(np.int64),
+                "image": image,
+            }
+        return {
+            "question": self._questions[indices].astype(np.int64),
+            "answer": self._answers[indices].astype(np.int64),
+            "program": self._programs[indices].astype(np.int64),
+            "image": image,
+            "supervision": self._supervision_list[indices],
+        }
+
+    def get_supervision_list(self) -> np.ndarray:
+        return self._supervision_list
 
     @property
     def split(self):

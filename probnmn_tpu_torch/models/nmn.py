@@ -315,20 +315,24 @@ def nmn_forward_fast(
     programs: torch.Tensor,
     answers: Optional[torch.Tensor] = None,
     tables: Optional[Dict[str, torch.Tensor]] = None,
+    replay: Optional[bool] = None,
 ) -> Dict[str, Any]:
     r"""The training forward, with the output contract of :func:`nmn_forward`
     (counterpart of the JAX package's ``nmn_forward_fast``): the banks are
     built from the live ``params`` each call, the stem runs ``F.conv2d``, the
     interpreter is :func:`execute_programs_diff` (K5 forward and K6 backward
-    on CUDA, their plain versions on the CPU), then the classifier. Fully
-    differentiable in ``params`` and ``features``. ``tables`` (from
-    :func:`build_tables` on the features' device) saves rebuilding them."""
+    on CUDA, or K2 and K6's replay mode with ``replay`` or
+    ``PROBNMN_NMN_REPLAY_BWD=1``; their plain versions on the CPU), then the
+    classifier. Fully differentiable in ``params`` and ``features``.
+    ``tables`` (from :func:`build_tables` on the features' device) saves
+    rebuilding them."""
     dtype = resolve_compute_dtype(spec.compute_dtype, features.device)
     banks = build_banks(params, spec, dtype)
     if tables is None:
         tables = build_tables(spec, features.device)
     stem_feats = apply_stem(cast_params(params["stem"], dtype), features.to(dtype))
-    final, invalid = execute_programs_diff(banks, tables, spec, stem_feats.contiguous(), programs)
+    final, invalid = execute_programs_diff(banks, tables, spec, stem_feats.contiguous(), programs,
+                                           replay=replay)
     logits = apply_classifier(cast_params(params["classifier"], dtype), final).float()
     return _outputs_from_logits(logits, invalid, spec, answers)
 

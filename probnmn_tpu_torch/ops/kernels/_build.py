@@ -140,9 +140,12 @@ def library() -> ctypes.CDLL:
         _VOID_P,                                # stream
     ]
     lib.probnmn_nmn_backward.restype = _INT
+    lib.probnmn_nmn_backward_grid.restype = _INT
+    lib.probnmn_nmn_backward_grid.argtypes = [_INT] * 5  # dtype, B, H, W, C
     lib.probnmn_nmn_backward.argtypes = nmn_operands + [
-        _VOID_P, _VOID_P, _VOID_P, _VOID_P,     # invalid, g_final, otraj, atraj
-        _VOID_P, _VOID_P,                       # scratch (B, 4, HW, C) f32, acts (B, 6, HW, C)
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P,     # invalid, g_final, otraj, atraj (or NULL)
+        _VOID_P, _INT,                          # replay: traj (G, T, 3, HW, C) or NULL; grid G
+        _VOID_P, _VOID_P,                       # scratch (G, 4, HW, C) f32, acts (G, 6, HW, C)
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # entries: inp, g, tag, dilation; bases
         _VOID_P,                                # partials (B, R) f32
         _INT, _INT, _INT, _INT,                 # S3, S1, Ss, Sc

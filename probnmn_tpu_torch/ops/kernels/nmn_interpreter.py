@@ -21,8 +21,16 @@ its backward, in CUDA (``probnmn_tpu_torch/csrc/nmn_interpreter.cu``).
   projection's weight gradients are summed from a workspace of (input,
   g_z) pairs in (example, step) order by a second kernel, the small banks
   from per-example partials in example order; no float atomics.
-- :func:`execute_programs_diff` puts K5 and K6 behind one
-  ``torch.autograd.Function`` (the JAX package's custom VJP ``_execute_diff``).
+- K6's replay mode replaces the same kernel with ``no_replay=False``
+  (``_execute_bwd_pallas`` without residuals): :func:`interpreter_grads_kernel`
+  without ``otraj``/``atraj``. Each block of a grid sized to what fits on the
+  card at once re-runs its examples' programs on K5's device code into its
+  own slice of a scratch, then runs the same sweep, so both modes give the
+  same bits while the residual memory scales with the grid, not the batch.
+- :func:`execute_programs_diff` puts K5 and K6 (or, in replay mode, K2 and
+  K6's replay mode, selected as the JAX package selects it, by
+  ``PROBNMN_NMN_REPLAY_BWD=1``) behind one ``torch.autograd.Function`` (the
+  JAX package's custom VJP ``_execute_diff``).
 
 Each program runs exactly: the tag machine walks the reversed tokens from the
 first non-pad step, runs only the module chain of each step's kind and stops
@@ -57,7 +65,8 @@ plain version).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -493,15 +502,20 @@ def interpreter_grads_kernel(
     programs: torch.Tensor,
     invalid: torch.Tensor,
     g_final: torch.Tensor,
-    otraj: torch.Tensor,
-    atraj: torch.Tensor,
+    otraj: Optional[torch.Tensor] = None,
+    atraj: Optional[torch.Tensor] = None,
     workspace: Dict[str, torch.Tensor] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     r"""K6: (d_banks of :data:`DIFF_BANKS` in each bank's dtype, d_stem in the
-    stem dtype) from K5's ``invalid``, ``otraj`` and ``atraj`` and the
-    cotangent ``g_final`` of the final encodings. A CPU ``stem_feats`` runs
-    :func:`interpreter_grads_plain` (which needs no residuals); a CUDA one
-    launches the kernels (and raises if they cannot).
+    stem dtype) from the forward's ``invalid`` and the cotangent ``g_final``
+    of the final encodings. Given K5's ``otraj`` and ``atraj`` it runs the
+    no-replay mode, one block per example; without them the replay mode
+    (the JAX kernel's ``no_replay=False``): a grid of as many blocks as fit on
+    the card at once, each re-running its examples' programs into a scratch
+    of (grid, T, 3, H*W, C) in the compute dtype before sweeping back, with
+    the same result bit for bit. A CPU ``stem_feats`` runs
+    :func:`interpreter_grads_plain` (which needs no residuals) in both modes;
+    a CUDA one launches the kernels (and raises if they cannot).
 
     On CUDA the workspace is sized from an upper bound of the entries each
     valid example writes (its tokens' chain lengths, plus two per compare),
@@ -509,6 +523,8 @@ def interpreter_grads_kernel(
     and cast to the bank's dtype at the end, as the JAX package does. A
     ``workspace`` dict receives the sweep's entries and the float32 weight
     gradients, for :func:`workspace_errors`."""
+    if (otraj is None) != (atraj is None):
+        raise ValueError("pass both of otraj and atraj (no-replay mode) or neither (replay mode)")
     if stem_feats.device.type == "cpu":
         return interpreter_grads_plain(banks, tables, spec, stem_feats, programs, g_final)
     device, dtype = stem_feats.device, stem_feats.dtype
@@ -519,7 +535,9 @@ def interpreter_grads_kernel(
     if h * w > GRAD_MAX_PIXELS:
         raise ValueError(f"the backward kernel needs H*W <= {GRAD_MAX_PIXELS}, got {h * w}")
     steps = programs.shape[1]
-    if otraj.shape != (batch, steps, h * w, c) or atraj.shape != (batch, steps, 2, h * w, c):
+    replay = otraj is None
+    if not replay and (otraj.shape != (batch, steps, h * w, c)
+                       or atraj.shape != (batch, steps, 2, h * w, c)):
         raise ValueError("otraj / atraj do not match the training forward's layout")
     stem_feats = stem_feats.contiguous()
     args, keep_alive = _operands(banks, tables, stem_feats, programs)
@@ -529,6 +547,14 @@ def interpreter_grads_kernel(
     n_targets = s3 + 2 * sc
     lib = _build.library()
     stream = torch.cuda.current_stream(device).cuda_stream
+    if replay:
+        grid = lib.probnmn_nmn_backward_grid(_DTYPE_CODES[dtype], batch, h, w, c)
+        if grid <= 0:
+            raise RuntimeError(f"the replay backward kernel cannot launch at H={h}, W={w}, C={c}")
+        traj = stem_feats.new_empty(grid, steps, 3, h * w, c)
+    else:
+        grid, traj = batch, None
+        otraj, atraj = otraj.contiguous(), atraj.contiguous()
 
     upper = _entries_per_token(tab)[progs.long()].sum(1) * (~invalid.to(device)).long()
     base = (torch.cumsum(upper, 0) - upper).to(torch.int32)
@@ -539,22 +565,24 @@ def interpreter_grads_kernel(
     ent_dil = torch.zeros(n_entries, dtype=torch.int32, device=device)
     part_floats = lib.probnmn_nmn_partial_floats(s3, s1, ss, sc, c)
     part = torch.zeros(batch, part_floats, dtype=torch.float32, device=device)
-    scratch = torch.empty(batch, 4, h * w, c, dtype=torch.float32, device=device)
-    acts = stem_feats.new_empty(batch, 6, h * w, c)
+    scratch = torch.empty(grid, 4, h * w, c, dtype=torch.float32, device=device)
+    acts = stem_feats.new_empty(grid, 6, h * w, c)
     dx = torch.empty(batch, h * w, c, dtype=torch.float32, device=device)
     inv = invalid.to(device=device, dtype=torch.int32).contiguous()
     gfin = g_final.to(device=device, dtype=torch.float32).contiguous()
-    otraj, atraj = otraj.contiguous(), atraj.contiguous()
     code = lib.probnmn_nmn_backward(
         *args,
-        inv.data_ptr(), gfin.data_ptr(), otraj.data_ptr(), atraj.data_ptr(),
+        inv.data_ptr(), gfin.data_ptr(),
+        None if replay else otraj.data_ptr(), None if replay else atraj.data_ptr(),
+        traj.data_ptr() if replay else None, grid,
         scratch.data_ptr(), acts.data_ptr(),
         ent_inp.data_ptr(), ent_g.data_ptr(), ent_tag.data_ptr(), ent_dil.data_ptr(),
         base.data_ptr(), part.data_ptr(),
         s3, s1, ss, sc, dx.data_ptr(), h, w, c, stream,
     )
-    _build.check(code, "NMN backward kernel")
+    _build.check(code, "NMN replay backward kernel" if replay else "NMN backward kernel")
     interpreter_grads_kernel.launches += 1
+    interpreter_grads_kernel.replay_launches += int(replay)
 
     # Each target's entries in (example, step) order: a stable sort by tag.
     order = torch.argsort(ent_tag, stable=True).to(torch.int32)
@@ -586,7 +614,8 @@ def interpreter_grads_kernel(
     return d_banks, dx.reshape(batch, h, w, c).to(dtype)
 
 
-interpreter_grads_kernel.launches = 0
+interpreter_grads_kernel.launches = 0         # every launch of K6's sweep
+interpreter_grads_kernel.replay_launches = 0  # those in replay mode
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -679,16 +708,21 @@ def workspace_errors(workspace: Dict[str, torch.Tensor], banks: Dict[str, torch.
 
 
 class _InterpreterFunction(torch.autograd.Function):
-    r"""K5 forward, K6 backward (the JAX package's ``_execute_diff``). The
+    r"""The JAX package's ``_execute_diff``: K5 forward and K6 backward, or
+    with ``replay`` K2 forward (no residuals) and K6 in replay mode. The
     differentiable inputs are ``stem_feats`` and the banks of
     :data:`DIFF_BANKS`; ``derived`` (``w3t``/``wcmpt``), the tables and the
     programs take none."""
 
     @staticmethod
-    def forward(ctx, tables, spec, programs, derived, stem_feats, *leaves):
+    def forward(ctx, tables, spec, programs, replay, derived, stem_feats, *leaves):
         banks = dict(zip(DIFF_BANKS, leaves), **derived)
-        final, invalid, otraj, atraj = execute_programs_train_kernel(
-            banks, tables, spec, stem_feats, programs)
+        if replay:
+            final, invalid = execute_programs_kernel(banks, tables, spec, stem_feats, programs)
+            otraj = atraj = None
+        else:
+            final, invalid, otraj, atraj = execute_programs_train_kernel(
+                banks, tables, spec, stem_feats, programs)
         ctx.mark_non_differentiable(invalid)
         ctx.save_for_backward(stem_feats, programs, invalid, otraj, atraj, *leaves)
         ctx.tables, ctx.spec, ctx.derived = tables, spec, derived
@@ -700,7 +734,7 @@ class _InterpreterFunction(torch.autograd.Function):
         banks = dict(zip(DIFF_BANKS, leaves), **ctx.derived)
         d_banks, d_stem = interpreter_grads_kernel(
             banks, ctx.tables, ctx.spec, stem_feats, programs, invalid, g_final, otraj, atraj)
-        return (None, None, None, None, d_stem, *[d_banks[k] for k in DIFF_BANKS])
+        return (None, None, None, None, None, d_stem, *[d_banks[k] for k in DIFF_BANKS])
 
 
 def execute_programs_diff(
@@ -709,13 +743,18 @@ def execute_programs_diff(
     spec,
     stem_feats: torch.Tensor,
     programs: torch.Tensor,
+    replay: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     r"""Differentiable interpreter (counterpart of the JAX package's
-    ``execute_programs_pallas_diff``): K5 forward, K6 backward, through one
-    ``torch.autograd.Function``. Gradients reach ``stem_feats`` and the banks
-    of :data:`DIFF_BANKS`, and through :func:`build_banks` the params; the
-    derived ``w3t``/``wcmpt`` are taken detached. Returns (final encodings,
-    invalid (B,) bool)."""
+    ``execute_programs_pallas_diff``) through one ``torch.autograd.Function``:
+    K5 forward and K6 backward by default; in replay mode (``replay=True``,
+    or ``PROBNMN_NMN_REPLAY_BWD=1`` when ``replay`` is None) K2 forward,
+    which keeps no residuals, and K6 in replay mode, with the same gradients.
+    Gradients reach ``stem_feats`` and the banks of :data:`DIFF_BANKS`, and
+    through :func:`build_banks` the params; the derived ``w3t``/``wcmpt``
+    are taken detached. Returns (final encodings, invalid (B,) bool)."""
+    if replay is None:  # the JAX package's switch, read at each call
+        replay = os.environ.get("PROBNMN_NMN_REPLAY_BWD", "") == "1"
     derived = {k: banks[k].detach() for k in ("w3t", "wcmpt") if k in banks}
-    return _InterpreterFunction.apply(tables, spec, programs, derived, stem_feats,
+    return _InterpreterFunction.apply(tables, spec, programs, bool(replay), derived, stem_feats,
                                       *[banks[k] for k in DIFF_BANKS])

@@ -7,12 +7,11 @@ dispatch and the same loop: ``trainer.step()`` every iteration, evaluate and
     python -m probnmn_tpu_torch.train --phase program_prior \
         --config-yml configs/program_prior.yml --serialization-dir checkpoints/prior
 
-``--device`` is ``cuda`` (the default) or ``cpu``. The ``program_prior``,
-``question_coding`` and ``module_training`` phases are ported;
-``joint_training`` raises ``NotImplementedError`` naming its ROADMAP.md
-item. ``--streaming-features`` reads image features from their H5 file per
+``--device`` is ``cuda`` (the default) or ``cpu``. All four phases are
+ported. ``--streaming-features`` reads image features from their H5 file per
 batch instead of loading the file into host memory (the phases that read
-features).
+features). In ``joint_training``, ``PROBNMN_NMN_REPLAY_BWD=1`` trains the NMN
+without K5's stored residuals (K2 forward, K6's replay-mode backward).
 """
 import argparse
 import logging
@@ -24,9 +23,6 @@ from tqdm import tqdm
 from probnmn_tpu_torch.config import Config
 
 PHASES = ["program_prior", "question_coding", "module_training", "joint_training"]
-NOT_PORTED = {
-    "joint_training": "queue 1: the joint_training slice",
-}
 
 parser = argparse.ArgumentParser(description="Train a specified phase of ProbNMN (PyTorch/CUDA).")
 parser.add_argument("--phase", required=True, choices=PHASES)
@@ -42,7 +38,7 @@ parser.add_argument(
     "--streaming-features",
     action="store_true",
     help="Stream image features from the H5 file instead of loading it into host memory "
-    "(module_training).",
+    "(module_training, joint_training).",
 )
 parser.add_argument("--serialization-dir", default="checkpoints/experiment")
 parser.add_argument("--checkpoint-every", type=int, default=500)
@@ -53,10 +49,14 @@ parser.add_argument("--num-val-batches", type=int, default=256)
 def build(phase: str, config: Config, serialization_dir: str, device: str,
           in_memory_features: bool = True):
     r"""(trainer, evaluator) of ``phase``."""
-    if phase in NOT_PORTED:
-        raise NotImplementedError(
-            f"phase {phase} is not ported to PyTorch yet (ROADMAP.md {NOT_PORTED[phase]})"
-        )
+    if phase == "joint_training":
+        from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
+        from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
+
+        trainer = JointTrainingTrainer(config, serialization_dir, device=device,
+                                       in_memory_features=in_memory_features)
+        return trainer, JointTrainingEvaluator(config, trainer,
+                                               in_memory_features=in_memory_features)
     if phase == "module_training":
         from probnmn_tpu_torch.evaluators.module_training_evaluator import (
             ModuleTrainingEvaluator,

@@ -72,6 +72,17 @@ def load_frozen_prior(path: str, spec: ProgramPriorSpec, device: torch.device) -
     return load_frozen(path, "program_prior", template, device, "ProgramPriorTrainer")
 
 
+def frozen_prior_logprobs(params: Dict[str, Any], packed: Optional[Dict[str, torch.Tensor]],
+                          spec: ProgramPriorSpec, z: torch.Tensor) -> torch.Tensor:
+    r"""log p(z) under the frozen prior: kernel K3f over its ``packed``
+    weights (:func:`pack_lm_weights`) for a CUDA ``z``, the plain loss over
+    ``params`` for a CPU one; no gradient."""
+    with torch.no_grad():
+        if z.device.type == "cuda":
+            return -lm_forward_cuda(packed, spec, z)
+        return -lm_loss_plain(params, spec, z)
+
+
 class QuestionCodingTrainer(_Trainer):
     r"""``dataset``: the training set; None reads ``config.DATA.TRAIN_TOKENS``
     (the supervision subset drawn from the global numpy seed)."""
@@ -128,13 +139,6 @@ class QuestionCodingTrainer(_Trainer):
                                          questions, seed=seed, compute_dtype=torch.bfloat16)
         return out["predictions"]
 
-    def _prior_logprobs(self, z: torch.Tensor) -> torch.Tensor:
-        r"""log p(z) under the frozen prior: kernel K3f on ``cuda``."""
-        with torch.no_grad():
-            if z.device.type == "cuda":
-                return -lm_forward_cuda(self._prior_packed, self.prior_spec, z)
-            return -lm_loss_plain(self._prior_params, self.prior_spec, z)
-
     def question_coding_objective(
         self, params: Dict[str, Any], batch: Dict[str, Any], z: Optional[torch.Tensor],
         baseline: torch.Tensor,
@@ -166,7 +170,8 @@ class QuestionCodingTrainer(_Trainer):
             q_unsup = questions[n_sup:]
             logprobs_generation = -fused_tf_loss(pg, self.pg_spec, q_unsup, z, True)
             logprobs_reconstruction = -fused_tf_loss(qr, self.qr_spec, z, q_unsup)
-            logprobs_prior = self._prior_logprobs(z)
+            logprobs_prior = frozen_prior_logprobs(self._prior_params, self._prior_packed,
+                                                   self.prior_spec, z)
             reward = question_coding_reward(logprobs_reconstruction, logprobs_generation,
                                             logprobs_prior, self._C.BETA)
             diagnostics, new_baseline = elbo_with_reinforce(

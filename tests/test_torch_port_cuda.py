@@ -162,6 +162,63 @@ def test_training_kernels_match_plain_versions(cuda, dtype):
         before[0] + 2, before[1] + 3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_replay_backward_matches_no_replay_bit_for_bit(cuda, dtype):
+    r"""K6 in replay mode (no residuals) against K6 over K5's residuals: the
+    same dx, bank gradients and workspace entries, bit for bit, and the plain
+    version within GRAD_TOL. 300 examples outnumber the replay grid at this
+    size, so blocks take several examples each."""
+    vocab = make_clevr_like_vocabulary()
+    spec = nmn.make_spec(vocab)
+    spec.feature_channels, spec.height, spec.width = 16, 6, 6
+    gen = torch.Generator().manual_seed(7)
+    params = cast_params(nmn.init_nmn_params(gen, spec), torch.float32, cuda)
+    programs = sample_clevr_like_programs(vocab, 300, seed=8)
+    programs[-1] = 0
+    programs[-2, :] = 0
+    programs[-2, 0] = vocab.get_token_index("intersect", "programs")
+    programs = torch.from_numpy(programs).to(cuda)
+    feats = torch.randn(300, 6, 6, 16, generator=gen).to(cuda)
+    tables = build_tables(spec, cuda)
+    stem = nmn.apply_stem(cast_params(params["stem"], dtype), feats.to(dtype)).contiguous()
+    banks = build_banks(params, spec, dtype)
+    final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
+    g = torch.randn(final.shape, generator=gen).to(cuda).to(dtype).float()
+    ws, ws_replay = {}, {}
+    d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                               otraj, atraj, workspace=ws)
+    before = (interpreter_grads_kernel.launches, interpreter_grads_kernel.replay_launches)
+    r_banks, r_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                               workspace=ws_replay)
+    assert (interpreter_grads_kernel.launches, interpreter_grads_kernel.replay_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(d_stem, r_stem)
+    assert all(torch.equal(d_banks[k], r_banks[k]) for k in DIFF_BANKS)
+    assert all(torch.equal(ws[k], ws_replay[k]) for k in ("inp", "g", "tag", "dil", "dw3", "dwc"))
+    again = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g)
+    assert torch.equal(r_stem, again[1]) and all(torch.equal(r_banks[k], again[0][k])
+                                                 for k in DIFF_BANKS)
+    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, g)
+    for name, got, want in [("stem", r_stem, w_stem)] + [(k, r_banks[k], w_banks[k])
+                                                          for k in DIFF_BANKS]:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= GRAD_TOL[dtype] * max(1.0, float(want.float().abs().max())), (name, err)
+
+    # Through autograd with the replay selected: K2 forward, K6 replay backward.
+    leaves = {k: banks[k].detach().clone().requires_grad_(True) for k in DIFF_BANKS}
+    stem_leaf = stem.detach().clone().requires_grad_(True)
+    counts = (execute_programs_kernel.launches, execute_programs_train_kernel.launches,
+              interpreter_grads_kernel.replay_launches)
+    final_d, _ = execute_programs_diff(dict(banks, **leaves), tables, spec, stem_leaf, programs,
+                                       replay=True)
+    assert torch.equal(final_d, final)  # K2's output is K5's
+    (final_d.float() * g).sum().backward()
+    assert torch.equal(stem_leaf.grad, d_stem)
+    assert all(torch.equal(leaves[k].grad, d_banks[k]) for k in DIFF_BANKS)
+    assert (execute_programs_kernel.launches, execute_programs_train_kernel.launches,
+            interpreter_grads_kernel.replay_launches) == (counts[0] + 1, counts[1], counts[2] + 1)
+
+
 @pytest.mark.parametrize("sizes", [
     dict(vocab_size=20, input_size=16, hidden_size=12, num_layers=1, batch=9, length=7),
     dict(vocab_size=44, input_size=64, hidden_size=96, num_layers=2, batch=37, length=26),

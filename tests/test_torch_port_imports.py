@@ -39,6 +39,8 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.evaluators.question_coding_evaluator",
     "probnmn_tpu_torch.training.module_training_trainer",
     "probnmn_tpu_torch.evaluators.module_training_evaluator",
+    "probnmn_tpu_torch.training.joint_training_trainer",
+    "probnmn_tpu_torch.evaluators.joint_training_evaluator",
 )
 
 
@@ -135,3 +137,14 @@ def test_cuda_module_training_trainer_raises_without_a_card(tmp_path):
     config = Config(str(REPO / "configs" / "module_training.yml"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModuleTrainingTrainer(config, str(tmp_path))
+
+
+def test_cuda_joint_training_trainer_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
+
+    config = Config(str(REPO / "configs" / "joint_training_ours.yml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        JointTrainingTrainer(config, str(tmp_path))

@@ -262,5 +262,3 @@ def test_train_cli_runs_on_the_cpu(fixture, tmp_path):
     assert sorted(os.listdir(out))[:3] == ["checkpoint_1.ckpt", "checkpoint_best.ckpt",
                                            "config.yml"]
     assert Config(os.path.join(out, "config.yml")).OPTIM.NUM_ITERATIONS == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build("joint_training", fixture["config"], out, "cpu")

@@ -1,13 +1,13 @@
-r"""K2 (the NMN interpreter kernel) in two checkouts of the repo, on one card
-in one call:
+r"""K2 (the NMN interpreter kernel) and K5 (its training build) in two
+checkouts of the repo, on one card in one call:
 
     python3 tools/k2_ab.py <other checkout> [--sass DIR]
 
-Times K2 in bfloat16 on 256 valid CLEVR programs (chip_smoke.py phase 5's
-batch) with CUDA events over 50 launches, in ``<other checkout>`` and in this
-one, in turns (other, this, this, other), each in its own process that builds
-its checkout's kernels; prints each time and the registers ``ptxas`` gave the
-kernel. With ``--sass DIR`` it also writes the SASS of each checkout's
+Times K2 and K5 in bfloat16 on 256 valid CLEVR programs (chip_smoke.py phase
+5's batch) with CUDA events over 50 launches each, in ``<other checkout>`` and
+in this one, in turns (other, this, this, other), each in its own process that
+builds its checkout's kernels; prints each time and the registers ``ptxas``
+gave the kernels. With ``--sass DIR`` it also writes the SASS of each checkout's
 ``csrc/nmn_interpreter.cu`` (``nvcc -cubin``, then ``cuobjdump -sass``) to
 ``DIR/{other,this}.sass``. Needs a CUDA card and the CUDA toolkit.
 """
@@ -22,7 +22,7 @@ from probnmn_tpu_torch.models import nmn
 from probnmn_tpu_torch.models.nmn import cast_params
 from probnmn_tpu_torch.ops.kernels import _build
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
-    build_banks, build_tables, execute_programs_kernel)
+    build_banks, build_tables, execute_programs_kernel, execute_programs_train_kernel)
 from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
 dev = torch.device("cuda")
 vocab = make_clevr_like_vocabulary()
@@ -33,21 +33,27 @@ programs = torch.from_numpy(sample_clevr_like_programs(vocab, 256, seed=1)).to(d
 feats = torch.randn(256, spec.height, spec.width, spec.feature_channels, generator=gen).to(dev)
 stem = nmn.apply_stem(cast_params(params["stem"], torch.bfloat16), feats.to(torch.bfloat16)).contiguous()
 banks, tables = build_banks(params, spec, torch.bfloat16), build_tables(spec, dev)
-for _ in range(3):
-    execute_programs_kernel(banks, tables, spec, stem, programs)
-torch.cuda.synchronize()
-start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-start.record()
-for _ in range(50):
-    execute_programs_kernel(banks, tables, spec, stem, programs)
-end.record()
-torch.cuda.synchronize()
+
+def ms(kernel):
+    for _ in range(3):
+        kernel(banks, tables, spec, stem, programs)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        kernel(banks, tables, spec, stem, programs)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 50
+
+
+times = [ms(execute_programs_kernel), ms(execute_programs_train_kernel)]
 lines = str(_build.BUILD_INFO["log"]).splitlines()
 for i, line in enumerate(lines):
     if "nmn_interpreter_kernel" in line and "Compiling entry" in line:
         used = next(l for l in lines[i:] if "Used" in l)
         print(line.split("nmn_interpreter_kernel")[1][:30], used.strip())
-print(start.elapsed_time(end) / 50)
+print(*times)
 """
 
 
@@ -78,14 +84,16 @@ def main(argv):
     for name, tree in (("other", other), ("this", here), ("this", here), ("other", other)):
         out = subprocess.run([sys.executable, "-c", TIMING, tree], cwd=tree, capture_output=True,
                              text=True, check=True, timeout=600)
-        *regs, ms = out.stdout.strip().splitlines()
-        times[name].append(float(ms))
+        *regs, last = out.stdout.strip().splitlines()
+        k2, k5 = (float(v) for v in last.split())
+        times[name].append((k2, k5))
         for line in regs:
             print(f"[k2-ab] {name} [ptxas] {line}", flush=True)
-        print(f"[k2-ab] {name}: K2 {float(ms):.4f} ms/batch of 256 valid programs", flush=True)
+        print(f"[k2-ab] {name}: K2 {k2:.4f} ms, K5 {k5:.4f} ms per batch of 256 valid programs",
+              flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"[k2-ab] other {times['other']}, this {times['this']}; card {smi}")
+    print(f"[k2-ab] (K2, K5) ms: other {times['other']}, this {times['this']}; card {smi}")
     return 0
 
 
