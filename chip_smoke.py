@@ -52,8 +52,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    batch (supervised ProgramGenerator and QuestionReconstructor, the
    generator in REINFORCE mode at the z kernel K1 sampled, the
    reconstructor from z): K4f's per-example loss within 1e-4 of its plain
-   version, every K4b gradient leaf within 1e-4 * max(1, max|g|) of
-   autograd under a random positive cotangent, and K4b bitwise repeatable;
+   version and equal to the lean forward's, every K4b gradient leaf (from
+   the residuals K4f kept) within 1e-4 * max(1, max|g|) of autograd under a
+   random positive cotangent, K4f + K4b bitwise repeatable, and under the
+   profiler K4b launching no forward kernel, one encoder sweep a layer and
+   one cell backward a decoder step;
    ``question_coding_objective`` at the card's z against the same call on
    the CPU (total, logs and baseline within 1e-4, every gradient leaf within
    1e-4 * max(1, max|g|)); 20 ``QuestionCodingTrainer.step()``s on ``cuda``
@@ -61,9 +64,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
    a step, K1 and K3f once), finite logs and a baseline that moved; the
    evaluator, a checkpoint and a resume with identical params and baseline;
    two OBJECTIVE ``baseline`` steps (K4f and K4b twice a step, nothing
-   else); then K4f, K4b and their plain versions per pass, cuDNN's LSTM
-   over each pass's encoder (a partial yardstick), and the train step,
-   timed beside their bounds. Its checkpoint is phase 8's frozen generator.
+   else); then K4f (keeping its residuals, and lean), K4b and their plain
+   versions per pass, cuDNN's LSTM over each pass's encoder (forward, and
+   backward alone: a partial yardstick), the memory of a train step, and the
+   step itself, timed beside their bounds, with the step's launches under
+   the profiler (the encoder sweep 8 times; ``lstm_fwd_step`` only K4f's and
+   K3f's). Its checkpoint is phase 8's frozen generator.
 8. The module_training training phase at the shipped width
    (``configs/module_training.yml``: NMN C=128 on 14x14 with 1024 feature
    channels, class projection and classifier 1024, batch 128, lr 1e-4,
@@ -159,11 +165,39 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_each(torch, setup, fn, iters, warmup=1):
+    r"""Mean milliseconds of ``fn(setup())`` over ``iters`` calls, by CUDA
+    events around ``fn`` alone (``setup`` runs outside the timed region)."""
+    for _ in range(warmup):
+        fn(setup())
+    pairs = []
+    for _ in range(iters):
+        arg = setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def transient_mb(torch, fn):
+    r"""Peak memory ``fn`` allocates beyond what was allocated before it, MB."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+
 def trace(torch, fn):
     r"""One traced call of ``fn``: (host-clock ms, device-busy ms summed over
     the kernels and copies that ran on the card, the six largest of them
-    (us, name, count)). Host-side ops are left out: their device time is
-    their kernels' time again."""
+    (us, name, count), and every one's launch count by name). Host-side ops
+    are left out: their device time is their kernels' time again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,7 +217,12 @@ def trace(torch, fn):
         if us > 0:
             rows.append((us, event.key, event.count))
     rows.sort(reverse=True)
-    return wall_ms, sum(r[0] for r in rows) / 1e3, rows[:6]
+    return wall_ms, sum(r[0] for r in rows) / 1e3, rows[:6], {r[1]: r[2] for r in rows}
+
+
+def launches_of(counts, kernel):
+    r"""Launches of the kernel named ``kernel`` in a trace's counts."""
+    return sum(n for name, n in counts.items() if f"{kernel}(" in name)
 
 
 def bound(flops, nbytes, dtype):
@@ -523,7 +562,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     log(f"[time] program_prior train step {step_ms:.3f} ms (host clock, loss fetched each step): "
         f"{batch / step_ms * 1e3:.1f} examples/s; kernel bound {k3f_bound + k3b_bound:.4f} ms; "
         f"card {smi}")
-    wall_ms, busy_ms, top = trace(torch, trainer.step)
+    wall_ms, busy_ms, top, _ = trace(torch, trainer.step)
     if busy_ms > 0:
         log(f"[trace] train step under torch.profiler: {wall_ms:.2f} ms host clock, device busy "
             f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -549,15 +588,16 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     ]
 
 
-def tf_work(spec, src, tgt, reinforce_norm):
+def tf_work(spec, src, tgt, reinforce_norm, residual_bytes):
     r"""FLOPs and bytes K4f and K4b need for one pass over these tokens: the
     encoder over each row's valid source steps (len + 1), the decoder (its
     gates over [attended, embedded, h], attention over the valid source
     positions, the head) over the steps up to each row's last real label
     (len + 1 in cross-entropy mode, the z length in REINFORCE mode). K4b
-    replays the forward and does each product twice more (the data and the
-    weight gradients). Weights and tokens in once, the loss or the gradients
-    out once."""
+    starts from K4f's residuals and does each product twice (the data and
+    the weight gradients). Weights and tokens in once, the loss or the
+    gradients out once; the residuals (``residual_bytes``) out of K4f once
+    and into K4b once."""
     D, H, L = spec.input_size, spec.hidden_size, spec.num_layers
     V, pad = spec.target_vocab_size, spec.pad_index
     src_steps = (src != pad).sum(1) + 1
@@ -569,8 +609,8 @@ def tf_work(spec, src, tgt, reinforce_norm):
     weights = 4 * (spec.source_vocab_size * D + V * D + V * (H + 1) + 4 * H * (H + D + H + 2)
                    + sum(4 * H * ((D if l == 0 else H) + H + 2) for l in range(L)))
     tokens = 4 * (src.size + tgt.size)
-    fwd = (enc + dec + att + head, weights + tokens + 4 * len(src))
-    bwd = (3 * (enc + dec + att + head), 2 * weights + tokens + 4 * len(src))
+    fwd = (enc + dec + att + head, weights + tokens + 4 * len(src) + residual_bytes)
+    bwd = (2 * (enc + dec + att + head), 2 * weights + residual_bytes + 4 * len(src))
     return fwd, bwd
 
 
@@ -599,7 +639,7 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         lm_backward_cuda, lm_forward_cuda, pack_tf_weights, tf_backward_cuda, tf_forward_cuda,
-        tf_grads_plain, tf_loss_plain, tf_param_leaves,
+        tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_sweep_plan,
     )
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
     from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
@@ -654,20 +694,26 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     checked = []
     for name, params, spec, src, tgt, reinforce_norm in passes:
         packed = pack_tf_weights(params, spec)
-        loss_k = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+        lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+        loss_k, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+        residual_bytes = residuals.nbytes
         loss_p = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
         torch.cuda.synchronize()
         err = float((loss_k - loss_p).abs().max())
         log(f"[K4f {name}] B={src.shape[0]} S={src.shape[1] + 1} T={tgt.shape[1] + (0 if reinforce_norm else 1)} "
-            f"V={spec.target_vocab_size}: max |loss err| {err:.3e} (mean loss {float(loss_p.mean()):.4f})")
+            f"V={spec.target_vocab_size}: max |loss err| {err:.3e} (mean loss {float(loss_p.mean()):.4f}); "
+            f"residuals kept for K4b {residual_bytes / 1e6:.1f} MB")
+        check(torch.equal(lean, loss_k), f"K4f {name}: the lean and the keeping forward differ")
         check(bool(torch.isfinite(loss_k).all()), f"K4f {name} loss not finite")
         check(err <= 1e-4, f"K4f {name} error {err}")
         k4f_err = max(k4f_err, err)
         dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
-        got = tf_param_leaves(tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm))
-        again = tf_param_leaves(tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm))
+        got = tf_param_leaves(tf_backward_cuda(residuals, dloss))
+        loss_again, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+        again = tf_param_leaves(tf_backward_cuda(residuals, dloss))
         want = tf_param_leaves(tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm))
-        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K4b {name} is not bitwise repeatable")
+        check(torch.equal(loss_k, loss_again) and all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K4f + K4b {name} are not bitwise repeatable")
         worst = (0.0, 0.0, "")
         for leaf, g, w in zip(leaf_names, got, want):
             e, scale = float((g - w).abs().max()), float(w.abs().max())
@@ -675,8 +721,19 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
             worst = max(worst, (e, scale, leaf))
             k4b_err = max(k4b_err, e)
         log(f"[K4b {name}] every leaf within 1e-4 * max(1, max|g|); worst {worst[2]}: max |err| "
-            f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; bitwise repeatable")
-        checked.append((name, params, spec, src, tgt, reinforce_norm, packed, dloss))
+            f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; K4f + K4b bitwise repeatable")
+        # K4b alone under the profiler: no forward kernel, one sweep a layer.
+        _, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+        _, _, _, counts = trace(torch, lambda: tf_backward_cuda(residuals, dloss))
+        inside = {k: launches_of(counts, k) for k in
+                  ("lstm_fwd_step", "tf_attend", "lstm_bwd_sweep", "lstm_bwd_step")}
+        log(f"[K4b {name}] launches inside one K4b: {inside}; encoder sweep plan "
+            f"{tf_sweep_plan(src.shape[0], spec.hidden_size)}")
+        steps = tgt.shape[1] + (0 if reinforce_norm else 1)
+        check(inside == {"lstm_fwd_step": 0, "tf_attend": 0, "lstm_bwd_sweep": spec.num_layers,
+                         "lstm_bwd_step": steps}, f"K4b {name} launches {inside}")
+        checked.append((name, params, spec, src, tgt, reinforce_norm, packed, dloss,
+                        residual_bytes))
 
     # The objective on the card against the same call on the CPU at the card's z.
     baseline0 = torch.tensor(0.25, device=dev)
@@ -761,15 +818,21 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     check(all(np.isfinite(v) for out in base_logs for g in out.values() for v in g.values()),
           "baseline logs not finite")
 
-    # Times per pass, each beside its bound; cuDNN's LSTM over each pass's
-    # encoder (same lengths) as a partial yardstick.
+    # Times per pass, each beside its bound: K4f keeping its residuals (as
+    # the trainer runs it) and lean, K4b alone from fresh residuals; cuDNN's
+    # LSTM over each pass's encoder (same lengths) as a partial yardstick:
+    # its forward, and its backward alone (forward outside the timed region).
     per_pass = {}
     lstm = torch.nn.LSTM(pg_spec.input_size, pg_spec.hidden_size, pg_spec.num_layers,
                          batch_first=True).to(dev)
-    for name, params, spec, src, tgt, reinforce_norm, packed, dloss in checked:
-        fwd_ms = cuda_ms(torch, lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm), iters=10)
-        bwd_ms = cuda_ms(torch, lambda: tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm),
-                         iters=10)
+    for name, params, spec, src, tgt, reinforce_norm, packed, dloss, residual_bytes in checked:
+        def keep():
+            return tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)[1]
+
+        fwd_ms = cuda_ms(torch, keep, iters=10)
+        lean_ms = cuda_ms(torch, lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm),
+                          iters=10)
+        bwd_ms = cuda_ms_each(torch, keep, lambda res: tf_backward_cuda(res, dloss), iters=10)
         fwd_plain = cuda_ms(torch, lambda: tf_loss_plain(params, spec, src, tgt, reinforce_norm),
                             iters=3, warmup=1)
         bwd_plain = cuda_ms(torch, lambda: tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm),
@@ -781,15 +844,21 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
                                                            enforce_sorted=False)
         with torch.no_grad():
             cudnn_fwd = cuda_ms(torch, lambda: lstm(packed_x), iters=10)
-        cudnn_train = cuda_ms(torch, lambda: lstm(packed_x)[0].data.sum().backward(), iters=10)
-        per_pass[name] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain=fwd_plain, bwd_plain=bwd_plain,
-                              work=tf_work(spec, src_np, tgt_np, reinforce_norm),
-                              cudnn_fwd=cudnn_fwd, cudnn_train=cudnn_train)
+        xg = x.clone().requires_grad_(True)
+        out = lstm(torch.nn.utils.rnn.pack_padded_sequence(xg, lens, batch_first=True,
+                                                           enforce_sorted=False))[0].data.sum()
+        cudnn_bwd = cuda_ms(torch, lambda: out.backward(retain_graph=True), iters=10)
+        del out, xg
+        per_pass[name] = dict(fwd_ms=fwd_ms, lean_ms=lean_ms, bwd_ms=bwd_ms, fwd_plain=fwd_plain,
+                              bwd_plain=bwd_plain,
+                              work=tf_work(spec, src_np, tgt_np, reinforce_norm, residual_bytes),
+                              cudnn_fwd=cudnn_fwd, cudnn_bwd=cudnn_bwd)
         (ff, fb), (bf, bb) = per_pass[name]["work"]
-        log(f"[time] {name}: K4f {fwd_ms:.3f} ms (plain {fwd_plain:.3f}, bound "
-            f"{bound(ff, fb, 'float32')[0]:.4f}: {ff / 1e9:.2f} GFLOP), K4b {bwd_ms:.3f} ms (plain "
-            f"{bwd_plain:.3f}, bound {bound(bf, bb, 'float32')[0]:.4f}: {bf / 1e9:.2f} GFLOP); cuDNN "
-            f"LSTM encoder, recurrence only: {cudnn_fwd:.3f} forward, {cudnn_train:.3f} forward+backward")
+        log(f"[time] {name}: K4f {fwd_ms:.3f} ms keeping its residuals, {lean_ms:.3f} lean (plain "
+            f"{fwd_plain:.3f}, bound {bound(ff, fb, 'float32')[0]:.4f}: {ff / 1e9:.2f} GFLOP), K4b "
+            f"{bwd_ms:.3f} ms (plain {bwd_plain:.3f}, bound {bound(bf, bb, 'float32')[0]:.4f}: "
+            f"{bf / 1e9:.2f} GFLOP, {bb / 1e6:.1f} MB); cuDNN LSTM encoder, recurrence only: "
+            f"{cudnn_fwd:.3f} forward, {cudnn_bwd:.3f} backward alone")
 
     def total_of(key):
         return sum(p[key] for p in per_pass.values())
@@ -808,14 +877,18 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     for _ in range(timed):
         trainer.step()
     step_ms = (time.perf_counter() - t0) / timed * 1e3
-    log(f"[time] K4f, the four passes of a step: {total_of('fwd_ms'):.3f} ms (plain "
-        f"{total_of('fwd_plain'):.3f}, bound {k4f_bound:.4f} by {k4f_by}: {f_flops / 1e9:.2f} GFLOP); "
-        f"K4b {total_of('bwd_ms'):.3f} ms (plain {total_of('bwd_plain'):.3f}, bound {k4b_bound:.4f} "
-        f"by {k4b_by}: {b_flops / 1e9:.2f} GFLOP)")
+    step_mb = transient_mb(torch, trainer.step)
+    log(f"[time] K4f, the four passes of a step: {total_of('fwd_ms'):.3f} ms keeping residuals, "
+        f"{total_of('lean_ms'):.3f} lean (plain {total_of('fwd_plain'):.3f}, bound {k4f_bound:.4f} by "
+        f"{k4f_by}: {f_flops / 1e9:.2f} GFLOP); K4b {total_of('bwd_ms'):.3f} ms (plain "
+        f"{total_of('bwd_plain'):.3f}, bound {k4b_bound:.4f} by {k4b_by}: {b_flops / 1e9:.2f} GFLOP, "
+        f"{b_bytes / 1e6:.1f} MB); cuDNN LSTM over the four encoders: {total_of('cudnn_fwd'):.3f} "
+        f"forward, {total_of('cudnn_bwd'):.3f} backward alone; residuals kept "
+        f"{sum(c[-1] for c in checked) / 1e6:.1f} MB")
     log(f"[time] question_coding train step {step_ms:.3f} ms (host clock, logs fetched each step): "
-        f"{batch_size / step_ms * 1e3:.1f} examples/s; K4 bound {k4f_bound + k4b_bound:.4f} ms; "
-        f"card {smi}")
-    wall_ms, busy_ms, top = trace(torch, trainer.step)
+        f"{batch_size / step_ms * 1e3:.1f} examples/s; peak memory of a step beyond what was "
+        f"allocated before it {step_mb:.1f} MB; K4 bound {k4f_bound + k4b_bound:.4f} ms; card {smi}")
+    wall_ms, busy_ms, top, counts = trace(torch, trainer.step)
     if busy_ms > 0:
         log(f"[trace] question_coding train step under torch.profiler: {wall_ms:.2f} ms host clock, "
             f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -823,23 +896,38 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
             log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
     else:
         log("[trace] the profiler recorded no device time: idle share not measured")
+    step_launches = {k: launches_of(counts, k) for k in
+                     ("lstm_fwd_step", "tf_attend", "lstm_bwd_step", "lstm_bwd_sweep")}
+    # K4f's encoder steps (the four passes' source widths) and K3f's (z), as
+    # the first batch's widths give them; every batch has the same widths.
+    enc_steps = pg_spec.num_layers * sum(c[3].shape[1] + 1 for c in checked)
+    k3f_steps = trainer.prior_spec.num_layers * (z.shape[1] + 1)
+    log(f"[trace] launches in that step: {step_launches} (K4f's encoder steps {enc_steps}, K3f's "
+        f"{k3f_steps})")
+    check(step_launches["lstm_bwd_sweep"] == 4 * pg_spec.num_layers
+          and step_launches["lstm_bwd_step"] == step_launches["tf_attend"]
+          and step_launches["lstm_fwd_step"] == enc_steps + step_launches["tf_attend"] + k3f_steps,
+          f"question_coding step launches {step_launches}")
     shutil.rmtree(work, ignore_errors=True)
 
-    yardstick = "cuDNN LSTM over the four encoders, recurrence only"
-    passes_ms = {name: {"ms": p["fwd_ms"], "backward_ms": p["bwd_ms"]} for name, p in per_pass.items()}
+    passes_ms = {name: {"ms": p["fwd_ms"], "lean_ms": p["lean_ms"], "backward_ms": p["bwd_ms"]}
+                 for name, p in per_pass.items()}
     return [
         {"name": "tf_forward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/tf_train.cu",
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:163",
          "launches": launches["tf_forward_cuda"], "max_abs_err": k4f_err,
-         "ms": total_of("fwd_ms"), "plain_ms": total_of("fwd_plain"), "bound_ms": k4f_bound,
-         "bound_by": k4f_by, "library_ms": None, "yardstick": yardstick,
+         "ms": total_of("fwd_ms"), "lean_ms": total_of("lean_ms"), "plain_ms": total_of("fwd_plain"),
+         "bound_ms": k4f_bound, "bound_by": k4f_by, "library_ms": None,
+         "yardstick": "cuDNN LSTM over the four encoders, forward, recurrence only",
          "yardstick_ms": total_of("cudnn_fwd"), "per_pass": passes_ms},
         {"name": "tf_backward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/tf_train.cu",
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:285",
          "launches": launches["tf_backward_cuda"], "max_abs_err": k4b_err,
          "ms": total_of("bwd_ms"), "plain_ms": total_of("bwd_plain"), "bound_ms": k4b_bound,
-         "bound_by": k4b_by, "library_ms": None, "yardstick": yardstick,
-         "yardstick_ms": total_of("cudnn_train")},
+         "bound_by": k4b_by, "library_ms": None,
+         "yardstick": "cuDNN LSTM over the four encoders, backward alone, recurrence only",
+         "yardstick_ms": total_of("cudnn_bwd"), "step_mb": step_mb,
+         "residual_mb": sum(c[-1] for c in checked) / 1e6, "step_launches": step_launches},
     ]
 
 
@@ -1147,7 +1235,7 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
         log(f"[time] module_training train step, {name}: {step_ms[name]:.3f} ms (host clock, loss "
             f"fetched each step): {batch / step_ms[name] * 1e3:.1f} examples/s; "
             + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f"; card {smi}")
-    wall_ms, busy_ms, top = trace(torch, valid_trainer.step)
+    wall_ms, busy_ms, top, _ = trace(torch, valid_trainer.step)
     if busy_ms > 0:
         log(f"[trace] module_training train step (valid programs) under torch.profiler: {wall_ms:.2f} "
             f"ms host clock, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -1380,15 +1468,7 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
                                          replay=replay)
         (final.float() * g).sum().backward()
 
-    def transient_mb(fn):
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - before) / 1e6
-
-    interp_mb = {mode: transient_mb(lambda: fwd_bwd(mode == "replay"))
+    interp_mb = {mode: transient_mb(torch, lambda: fwd_bwd(mode == "replay"))
                  for mode in ("no_replay", "replay")}
     log(f"[jt] interpreter forward + backward at B={batch}, bf16, memory beyond what was allocated: "
         f"K5 + K6 {interp_mb['no_replay']:.1f} MB, K2 + K6r {interp_mb['replay']:.1f} MB "
@@ -1543,13 +1623,13 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         for _ in range(10):
             tr.step()
         step_ms[name] = (time.perf_counter() - t0) / 10 * 1e3
-        step_mb[name] = transient_mb(tr.step)
+        step_mb[name] = transient_mb(torch, tr.step)
         stage = tr._batch_source.stage_metrics()
         log(f"[time] joint_training train step, {name}: {step_ms[name]:.3f} ms (host clock, logs "
             f"fetched each step): {batch / step_ms[name] * 1e3:.1f} examples/s; peak memory of a "
             f"step beyond what was allocated before it {step_mb[name]:.1f} MB; "
             + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f"; card {smi}")
-        wall_ms, busy_ms, top = trace(torch, tr.step)
+        wall_ms, busy_ms, top, _ = trace(torch, tr.step)
         if busy_ms > 0:
             log(f"[trace] joint_training train step ({name}) under torch.profiler: {wall_ms:.2f} ms "
                 f"host clock, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -1820,7 +1900,7 @@ def main():
         f"assembly and upload): {BATCH / predict_ms * 1e3:.1f} questions/s; device bound "
         f"{predict_bound:.4f} ms (K1 + NMN forward on its {e2e_convs} 3x3 convs, upload "
         f"excluded); card {smi}")
-    wall_ms, busy_ms, top = trace(torch, lambda: engine.predict(questions, images, seed=seed))
+    wall_ms, busy_ms, top, _ = trace(torch, lambda: engine.predict(questions, images, seed=seed))
     if busy_ms > 0:
         log(f"[trace] predict under torch.profiler: {wall_ms:.2f} ms host clock, device busy "
             f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")

@@ -25,17 +25,22 @@
 //   the step kernel, whose recurrent product runs over that 2H-wide row
 //   against [W_ih[:, :H], W_hh] with the cell in its epilogue. The head
 //   (logits, log-sum-exp, CE) runs over all T*B rows at once.
-// - Backward (K4b replays the forward, keeping the encoder's h, c and gates
-//   of every step and layer, and the decoder's h, c, gates, attention
-//   weights and [attended, h_prev] rows). dlogits for every row, and the
-//   head's dh for every step (one GEMM), do not depend on the recurrence.
-//   The decoder is swept back in three launches a step: the cell backward
-//   (dpre over the gates), dpre . [W_ih[:, :H], W_hh] (one GEMM), and the
-//   attention backward (one block per example, so its rows of the encoder
-//   outputs' gradient need no atomics), which hands the gradient reaching
-//   h_prev to the step before. What reaches the initial decoder h enters
-//   the top encoder layer's carry after its last step; then the encoder is
-//   swept as in K3b.
+// - Backward. The JAX kernel replays the forward first, since a TPU's VMEM
+//   holds residuals for one grid step only; K4b does not: a K4f run with
+//   keep writes the residual layout (every encoder layer's h, c, y and
+//   gates, every decoder step's h, c, gates, attention weights and
+//   [attended, h_prev] row, the logits and the token streams: ~110-125 MB
+//   a pass of a question_coding step) and K4b starts from it, consuming it
+//   in place (dpre over the gates, dlogits over the logits). dlogits for
+//   every row, and the head's dh for every step (one GEMM), do not depend
+//   on the recurrence. The decoder is swept back in three launches a step:
+//   the cell backward (dpre over the gates), dpre . [W_ih[:, :H], W_hh]
+//   (one GEMM), and the attention backward (one block per example, so its
+//   rows of the encoder outputs' gradient need no atomics), which hands the
+//   gradient reaching h_prev to the step before. What reaches the initial
+//   decoder h enters the top encoder layer's carry after its last step;
+//   then each encoder layer is swept back in one cluster-resident launch
+//   (lstm_sweep.cuh) and its weight gradients follow, as in K3b.
 // - Every weight gradient is a contraction over rows, split-K with its
 //   partials added in a fixed order; the bias gradients are column sums and
 //   both embeddings' gradients are reduced per token id: no float atomics,
@@ -45,19 +50,20 @@
 // rows (half a batch of 256). At CLEVR lengths the ProgramGenerator pass
 // (S = 46, T = 27 or 26, V = 44) and the QuestionReconstructor pass (S = 27,
 // T = 46, V = 92) each need 7-12 GFLOP forward over their valid row-steps,
-// most of it the encoder, and three times that backward: 0.1-0.2 ms and
-// 0.3-0.6 ms at the 67 TFLOP/s float32 SIMT peak. Bytes in and out are a
-// few MB, so both are bound by operations, and in this first version by
-// their serial launches (L*S + 2*T forward; 2*L*S + 5*T backward with its
-// replay), each too small to fill the card. Later work, as for K3: a
-// persistent kernel over the steps, weights held in shared memory across a
-// cluster, the tensor cores, and skipping row-steps past each row's end.
+// most of it the encoder, and twice that backward: 0.1-0.2 ms and 0.2-0.4
+// ms at the 67 TFLOP/s float32 SIMT peak. Reading the residuals takes
+// about 0.04 ms at 3.35 TB/s, so both are bound by operations, and in
+// this version by their serial launches (L*S + 2*T forward; L + 3*T
+// backward), each too small to fill the card. Later work: K4f's encoder on
+// the same cluster kernel, the decoder's reverse sweep persistent too, the
+// tensor cores, and skipping row-steps past each row's end.
 //
-// Every entry point launches on the caller's stream, allocates nothing (the
-// caller passes a workspace of probnmn_tf_workspace_floats() floats) and
-// returns cudaGetLastError().
+// Every entry point launches on the caller's stream and allocates nothing:
+// the caller passes K4f's workspace (probnmn_tf_workspace_floats() floats)
+// and K4b's scratch (probnmn_tf_scratch_floats()). Each returns
+// cudaGetLastError() or the launch's own error.
 
-#include "train_common.cuh"
+#include "lstm_sweep.cuh"
 
 namespace probnmn {
 namespace {
@@ -190,13 +196,21 @@ struct Weights {
   }
 };
 
+// K4f's arrays. In the lean layout (the loss alone) one encoder layer's
+// arrays and one step's [attended, h_prev] serve every layer and step; in
+// the residual layout (keep) every layer and step has its own, and they are
+// what K4b starts from.
 struct Workspace {
   int *src_id, *dec_in, *label;
   float *src_m, *x0, *gates, *h, *c, *y;  // encoder, per layer
-  float *ex, *dgates, *hdec, *cdec, *cat, *attn_w, *logits, *ce, *dnum;
-  float *dh_head, *dcat, *ext, *dzero, *dh, *dc, *denc, *e0, *e1, *partial;
+  float *ex, *dgates, *hdec, *cdec, *cat, *attn_w, *logits, *ce;
   ll layer_gates, layer_h;  // strides between encoder layers; 0 when they share one buffer
-  ll cat_step;              // stride between the steps' [attended, h_prev] rows; 0 in the forward
+  ll cat_step;              // stride between the steps' [attended, h_prev] rows; 0 when lean
+};
+
+// K4b's own scratch, allocated for the backward alone.
+struct Scratch {
+  float *dnum, *dh_head, *dcat, *ext, *dzero, *dc, *denc, *e0, *e1, *partial;
 };
 
 ll partial_floats(const Dims& d) {
@@ -211,56 +225,67 @@ ll partial_floats(const Dims& d) {
   return n;
 }
 
-// Carves the workspace; returns its size in floats (ints take a float's 4
-// bytes). The forward alone keeps one encoder layer's arrays and one step's
-// [attended, h_prev]; the backward keeps them all.
-ll layout(const Dims& d, bool backward, float* base, Workspace* w) {
-  const ll SB = d.SB, TB = d.TB, bh = static_cast<ll>(d.B) * d.H;
-  const ll layers = backward ? d.L : 1;
+// Hands out 16-byte aligned arrays from `base` (null: only counts floats;
+// ints take a float's 4 bytes).
+struct Carver {
+  float* base;
   ll off = 0;
-  auto take = [&](ll n) {
+  float* take(ll n) {
     float* p = base != nullptr ? base + off : nullptr;
-    off += (n + 3) / 4 * 4;  // keep every array 16-byte aligned
+    off += (n + 3) / 4 * 4;
     return p;
-  };
-  Workspace ws{};
-  ws.src_id = reinterpret_cast<int*>(take(SB));
-  ws.dec_in = reinterpret_cast<int*>(take(TB));
-  ws.label = reinterpret_cast<int*>(take(TB));
-  ws.src_m = take(SB);
-  ws.x0 = take(SB * d.D);
-  ws.layer_gates = backward ? SB * d.G : 0;
-  ws.layer_h = backward ? SB * d.H : 0;
-  ws.gates = take(layers * SB * d.G);
-  ws.h = take(layers * SB * d.H);
-  ws.c = take(layers * SB * d.H);
-  ws.y = take(layers * SB * d.H);
-  ws.ex = take(TB * d.D);
-  ws.dgates = take(TB * d.G);
-  ws.hdec = take(TB * d.H + bh);
-  ws.cdec = take(TB * d.H);
-  ws.cat_step = backward ? 2 * bh : 0;
-  ws.cat = take(backward ? 2 * TB * d.H : 2 * bh);
-  ws.attn_w = take(static_cast<ll>(d.T) * SB);
-  ws.logits = take(TB * d.Vt);
-  ws.ce = take(TB);
-  ws.dnum = take(d.B);
-  if (backward) {
-    const ll rows = SB > TB ? SB : TB;
-    const ll wide = rows * (d.D > d.H ? d.D : d.H);
-    ws.dh_head = take(TB * d.H);
-    ws.dcat = take(2 * bh);
-    ws.ext = take(bh);
-    ws.dzero = take(bh);
-    ws.dh = take(bh);
-    ws.dc = take(bh);
-    ws.denc = take(SB * d.H);
-    ws.e0 = take(wide);
-    ws.e1 = take(wide);
-    ws.partial = take(partial_floats(d));
   }
+};
+
+// Carves K4f's workspace, lean or residual (keep); returns its size in floats.
+ll layout(const Dims& d, bool keep, float* base, Workspace* w) {
+  const ll SB = d.SB, TB = d.TB, bh = static_cast<ll>(d.B) * d.H;
+  const ll layers = keep ? d.L : 1;
+  Carver cv{base};
+  Workspace ws{};
+  ws.src_id = reinterpret_cast<int*>(cv.take(SB));
+  ws.dec_in = reinterpret_cast<int*>(cv.take(TB));
+  ws.label = reinterpret_cast<int*>(cv.take(TB));
+  ws.src_m = cv.take(SB);
+  ws.x0 = cv.take(SB * d.D);
+  ws.layer_gates = keep ? SB * d.G : 0;
+  ws.layer_h = keep ? SB * d.H : 0;
+  ws.gates = cv.take(layers * SB * d.G);
+  ws.h = cv.take(layers * SB * d.H);
+  ws.c = cv.take(layers * SB * d.H);
+  ws.y = cv.take(layers * SB * d.H);
+  ws.ex = cv.take(TB * d.D);
+  ws.dgates = cv.take(TB * d.G);
+  ws.hdec = cv.take(TB * d.H + bh);
+  ws.cdec = cv.take(TB * d.H);
+  ws.cat_step = keep ? 2 * bh : 0;
+  ws.cat = cv.take(keep ? 2 * TB * d.H : 2 * bh);
+  ws.attn_w = cv.take(static_cast<ll>(d.T) * SB);
+  ws.logits = cv.take(TB * d.Vt);
+  ws.ce = cv.take(TB);
   if (w != nullptr) *w = ws;
-  return off;
+  return cv.off;
+}
+
+// Carves K4b's scratch; returns its size in floats.
+ll scratch_layout(const Dims& d, float* base, Scratch* w) {
+  const ll bh = static_cast<ll>(d.B) * d.H;
+  const ll rows = d.SB > d.TB ? d.SB : d.TB;
+  const ll wide = rows * (d.D > d.H ? d.D : d.H);
+  Carver cv{base};
+  Scratch sc{};
+  sc.dnum = cv.take(d.B);
+  sc.dh_head = cv.take(d.TB * d.H);
+  sc.dcat = cv.take(2 * bh);
+  sc.ext = cv.take(bh);
+  sc.dzero = cv.take(bh);
+  sc.dc = cv.take(bh);
+  sc.denc = cv.take(d.SB * d.H);
+  sc.e0 = cv.take(wide);
+  sc.e1 = cv.take(wide);
+  sc.partial = cv.take(partial_floats(d));
+  if (w != nullptr) *w = sc;
+  return cv.off;
 }
 
 LayerArgs encoder_layer(const Dims& d, const Weights& wt, const Workspace& ws, int l) {
@@ -330,79 +355,84 @@ struct Grads {
   float *dec_w, *dec_wx, *dec_bias, *proj_w, *proj_b;
 };
 
+// K4b from K4f's residuals `ws`, which it consumes: dpre overwrites the
+// gates and dlogits the logits.
 cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
-                          const float* dloss, const Grads& gr, cudaStream_t s) {
+                          const Scratch& sc, const float* dloss, const Grads& gr,
+                          cudaStream_t s) {
   const ll bh = static_cast<ll>(d.B) * d.H;
   const int TB = static_cast<int>(d.TB), G = static_cast<int>(d.G), H2 = 2 * d.H;
-  TRAIN_TRY(forward_pass(d, wt, ws, s));
-  loss_rows<<<ceil_div(d.B, 128), 128, 0, s>>>(nullptr, ws.label, dloss, nullptr, ws.dnum, d.B,
+  loss_rows<<<ceil_div(d.B, 128), 128, 0, s>>>(nullptr, ws.label, dloss, nullptr, sc.dnum, d.B,
                                                d.T, wt.pad,
                                                d.reinforce ? kReinforceEps : kCeEps);
   TRAIN_LAUNCHED();
-  ce_head_bwd<<<ceil_div(d.TB * 32, 256), 256, 0, s>>>(ws.logits, ws.label, ws.dnum, TB, d.B,
+  ce_head_bwd<<<ceil_div(d.TB * 32, 256), 256, 0, s>>>(ws.logits, ws.label, sc.dnum, TB, d.B,
                                                        d.Vt, wt.pad);
   TRAIN_LAUNCHED();
   const float* dlogits = ws.logits;
   const float* h_out = ws.hdec + bh;
   // The head: dh for every step, d proj_w = dlogits^T . h, d proj_b.
-  TRAIN_TRY(gemm(s, dlogits, d.Vt, 1, wt.proj_w, d.H, 1, ws.dh_head, d.H, TB, d.H, d.Vt, nullptr,
+  TRAIN_TRY(gemm(s, dlogits, d.Vt, 1, wt.proj_w, d.H, 1, sc.dh_head, d.H, TB, d.H, d.Vt, nullptr,
                  false, nullptr));
   TRAIN_TRY(gemm(s, dlogits, 1, d.Vt, h_out, d.H, 1, gr.proj_w, d.H, d.Vt, d.H, TB, nullptr,
-                 false, ws.partial));
-  TRAIN_TRY(column_sum(s, dlogits, TB, d.Vt, gr.proj_b, false, ws.partial));
+                 false, sc.partial));
+  TRAIN_TRY(column_sum(s, dlogits, TB, d.Vt, gr.proj_b, false, sc.partial));
 
-  // Decoder reverse sweep. ws.ext carries the gradient reaching the step's
+  // Decoder reverse sweep. sc.ext carries the gradient reaching the step's
   // output h from later steps and the head; at the end it holds the gradient
   // reaching the initial h, the top encoder layer's final hidden state.
   const float* enc = ws.y + (d.L - 1) * ws.layer_h;
-  TRAIN_TRY(cudaMemsetAsync(ws.dzero, 0, bh * sizeof(float), s));
-  TRAIN_TRY(cudaMemsetAsync(ws.dc, 0, bh * sizeof(float), s));
-  TRAIN_TRY(cudaMemsetAsync(ws.denc, 0, d.SB * d.H * sizeof(float), s));
+  TRAIN_TRY(cudaMemsetAsync(sc.dzero, 0, bh * sizeof(float), s));
+  TRAIN_TRY(cudaMemsetAsync(sc.dc, 0, bh * sizeof(float), s));
+  TRAIN_TRY(cudaMemsetAsync(sc.denc, 0, d.SB * d.H * sizeof(float), s));
   const dim3 bwd_grid(ceil_div(d.H, kBUnits), ceil_div(d.B, kBRows));
   const size_t attn_smem = static_cast<size_t>(d.S) * sizeof(float);
   for (int t = d.T - 1; t >= 0; --t) {
     float* dpre = ws.dgates + t * d.B * d.G;
     lstm_bwd_step<<<bwd_grid, 256, 0, s>>>(nullptr, nullptr, dpre, ws.cdec + t * bh,
                                            t > 0 ? ws.cdec + (t - 1) * bh : nullptr, nullptr,
-                                           t == d.T - 1 ? ws.dh_head + t * bh : ws.ext, ws.dzero,
-                                           ws.dc, d.B, d.H);
+                                           t == d.T - 1 ? sc.dh_head + t * bh : sc.ext, sc.dzero,
+                                           sc.dc, d.B, d.H);
     TRAIN_LAUNCHED();
-    TRAIN_TRY(gemm(s, dpre, d.G, 1, wt.dec_w, H2, 1, ws.dcat, H2, d.B, H2, G, nullptr, false,
+    TRAIN_TRY(gemm(s, dpre, d.G, 1, wt.dec_w, H2, 1, sc.dcat, H2, d.B, H2, G, nullptr, false,
                    nullptr));
     tf_attend_bwd<<<d.B, kAttnThreads, attn_smem, s>>>(
-        enc, ws.src_m, ws.attn_w + t * d.SB, ws.hdec + t * bh, ws.dcat,
-        t > 0 ? ws.dh_head + (t - 1) * bh : nullptr, ws.ext, ws.denc, d.S, d.B, d.H);
+        enc, ws.src_m, ws.attn_w + t * d.SB, ws.hdec + t * bh, sc.dcat,
+        t > 0 ? sc.dh_head + (t - 1) * bh : nullptr, sc.ext, sc.denc, d.S, d.B, d.H);
     TRAIN_LAUNCHED();
   }
   // Decoder weights: dpre against [attended, h_prev] and against emb(dec_in).
   const float* dpre_all = ws.dgates;
   TRAIN_TRY(gemm(s, dpre_all, 1, d.G, ws.cat, H2, 1, gr.dec_w, H2, G, H2, TB, nullptr, false,
-                 ws.partial));
+                 sc.partial));
   TRAIN_TRY(gemm(s, dpre_all, 1, d.G, ws.ex, d.D, 1, gr.dec_wx, d.D, G, d.D, TB, nullptr, false,
-                 ws.partial));
-  TRAIN_TRY(column_sum(s, dpre_all, TB, G, gr.dec_bias, false, ws.partial));
+                 sc.partial));
+  TRAIN_TRY(column_sum(s, dpre_all, TB, G, gr.dec_bias, false, sc.partial));
   // The target embedding: dpre . W_ih[:, H:] per row, reduced per dec_in id
   // (the target embedding has no pad row: every id counts).
-  TRAIN_TRY(gemm(s, dpre_all, d.G, 1, wt.dec_wx, d.D, 1, ws.e0, d.D, TB, d.D, G, nullptr, false,
+  TRAIN_TRY(gemm(s, dpre_all, d.G, 1, wt.dec_wx, d.D, 1, sc.e0, d.D, TB, d.D, G, nullptr, false,
                  nullptr));
-  TRAIN_TRY(embedding_grad(s, ws.e0, ws.dec_in, TB, d.D, d.Vt, -1, gr.tgt_emb, false,
-                           ws.partial));
+  TRAIN_TRY(embedding_grad(s, sc.e0, ws.dec_in, TB, d.D, d.Vt, -1, gr.tgt_emb, false,
+                           sc.partial));
 
-  // Encoder, top layer first: ext = the encoder outputs' gradient, and the
-  // initial decoder h's gradient enters the carry after the last step.
-  const float* ext = ws.denc;
-  const float* dh_last = ws.ext;
+  // Encoder, top layer first, each layer's reverse sweep in one launch
+  // (lstm_sweep.cuh): ext = the encoder outputs' gradient, and the initial
+  // decoder h's gradient enters the carry after the last step.
+  const float* ext = sc.denc;
+  const float* dh_last = sc.ext;
   for (int l = d.L - 1; l >= 0; --l) {
-    float* dx = (d.L - 1 - l) % 2 == 0 ? ws.e0 : ws.e1;
-    TRAIN_TRY(lstm_layer_backward(s, encoder_layer(d, wt, ws, l), ext, dh_last, ws.dh, ws.dc,
-                                  gr.enc_wih + wt.wih_offset(d, l), gr.enc_whh + l * d.G * d.H,
-                                  gr.enc_bias + l * d.G, dx, ws.partial));
+    float* dx = (d.L - 1 - l) % 2 == 0 ? sc.e0 : sc.e1;
+    const LayerArgs layer = encoder_layer(d, wt, ws, l);
+    TRAIN_TRY(lstm_layer_sweep(s, layer, ext, dh_last));
+    TRAIN_TRY(lstm_layer_grads(s, layer, gr.enc_wih + wt.wih_offset(d, l),
+                               gr.enc_whh + l * d.G * d.H, gr.enc_bias + l * d.G, dx,
+                               sc.partial));
     ext = dx;
     dh_last = nullptr;
   }
   // ext now holds dx0: the source embedding's gradient, per token id (pad skipped).
   return embedding_grad(s, ext, ws.src_id, static_cast<int>(d.SB), d.D, d.Vs, wt.pad,
-                        gr.src_emb, false, ws.partial);
+                        gr.src_emb, false, sc.partial);
 }
 
 Dims make_dims(int B, int Ls, int Lt, int D, int H, int L, int Vs, int Vt, int reinforce) {
@@ -442,30 +472,54 @@ Weights make_weights(const void* src, const void* tgt, const void* const* w, int
 
 using namespace probnmn;
 
-// Floats of workspace the forward (backward = 0) or the backward needs.
+// Floats of K4f's workspace: lean (keep = 0) or the residuals K4b starts
+// from (keep = 1).
 extern "C" long long probnmn_tf_workspace_floats(int batch, int ls, int lt, int input_size,
                                                  int hidden, int layers, int src_vocab,
-                                                 int tgt_vocab, int reinforce, int backward) {
+                                                 int tgt_vocab, int reinforce, int keep) {
   const Dims d = make_dims(batch, ls, lt, input_size, hidden, layers, src_vocab, tgt_vocab,
                            reinforce);
-  return layout(d, backward != 0, nullptr, nullptr);
+  return layout(d, keep != 0, nullptr, nullptr);
+}
+
+// Floats of K4b's scratch.
+extern "C" long long probnmn_tf_scratch_floats(int batch, int ls, int lt, int input_size,
+                                               int hidden, int layers, int src_vocab,
+                                               int tgt_vocab, int reinforce) {
+  const Dims d = make_dims(batch, ls, lt, input_size, hidden, layers, src_vocab, tgt_vocab,
+                           reinforce);
+  return scratch_layout(d, nullptr, nullptr);
+}
+
+// The launch plan of K4b's encoder sweep for B rows of H units: out = {the
+// cluster size, units a CTA, rows a cluster, threads a CTA, clusters,
+// clusters the card runs at once, shared memory bytes a CTA}.
+extern "C" int probnmn_tf_sweep_plan(int batch, int hidden, int* out) {
+  SweepPlan p;
+  const cudaError_t err = sweep_plan(hidden, batch, nullptr, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[] = {p.cluster, p.units, p.rows, p.threads,
+                   p.clusters, p.fit, static_cast<int>(p.smem)};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 // K4f. src (B, Ls) and tgt (B, Lt) int32; `weights` points to the ten packed
 // arrays in the order of struct Weights: src_emb (Vs, D), tgt_emb (Vt, D),
 // enc_wih (the layers' (4H, D_l) one after another), enc_whh (L, 4H, H),
 // enc_bias (L, 4H), dec_w (4H, 2H), dec_wx (4H, D), dec_bias (4H),
-// proj_w (Vt, H), proj_b (Vt). Writes loss (B,).
+// proj_w (Vt, H), proj_b (Vt). Writes loss (B,). With keep, the workspace
+// is in the residual layout and holds, on return, what K4b starts from.
 extern "C" int probnmn_tf_forward(const void* src, const void* tgt, int batch, int ls, int lt,
                                   const void* const* weights, void* workspace, void* loss,
-                                  int input_size, int hidden, int layers, int src_vocab,
-                                  int tgt_vocab, int reinforce, int pad, int start, int end,
-                                  void* stream) {
+                                  int keep, int input_size, int hidden, int layers,
+                                  int src_vocab, int tgt_vocab, int reinforce, int pad,
+                                  int start, int end, void* stream) {
   const Dims d = make_dims(batch, ls, lt, input_size, hidden, layers, src_vocab, tgt_vocab,
                            reinforce);
   if (!valid_dims(d)) return static_cast<int>(cudaErrorInvalidValue);
   Workspace ws;
-  layout(d, false, static_cast<float*>(workspace), &ws);
+  layout(d, keep != 0, static_cast<float*>(workspace), &ws);
   const Weights wt = make_weights(src, tgt, weights, pad, start, end);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = forward_pass(d, wt, ws, s);
@@ -480,23 +534,28 @@ extern "C" int probnmn_tf_forward(const void* src, const void* tgt, int batch, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4b. The forward's inputs plus dloss (B,); `grads` points to ten arrays in
-// the same order and layouts, which receive the gradient of sum(dloss * loss)
-// (enc_bias and dec_bias: the gradient of b_ih and of b_hh alike).
-extern "C" int probnmn_tf_backward(const void* src, const void* tgt, int batch, int ls, int lt,
-                                   const void* const* weights, const void* dloss,
-                                   void* workspace, void* const* grads, int input_size,
-                                   int hidden, int layers, int src_vocab, int tgt_vocab,
-                                   int reinforce, int pad, int start, int end, void* stream) {
+// K4b. The forward's sizes and weights, dloss (B,), the residuals a K4f with
+// keep wrote (consumed: one backward per forward) and a scratch of
+// probnmn_tf_scratch_floats() floats; `grads` points to ten arrays in the
+// weights' order and layouts, which receive the gradient of
+// sum(dloss * loss) (enc_bias and dec_bias: the gradient of b_ih and of
+// b_hh alike).
+extern "C" int probnmn_tf_backward(int batch, int ls, int lt, const void* const* weights,
+                                   const void* dloss, void* residuals, void* scratch,
+                                   void* const* grads, int input_size, int hidden, int layers,
+                                   int src_vocab, int tgt_vocab, int reinforce, int pad,
+                                   int start, int end, void* stream) {
   const Dims d = make_dims(batch, ls, lt, input_size, hidden, layers, src_vocab, tgt_vocab,
                            reinforce);
   if (!valid_dims(d)) return static_cast<int>(cudaErrorInvalidValue);
   Workspace ws;
-  layout(d, true, static_cast<float*>(workspace), &ws);
-  const Weights wt = make_weights(src, tgt, weights, pad, start, end);
+  layout(d, true, static_cast<float*>(residuals), &ws);
+  Scratch sc;
+  scratch_layout(d, static_cast<float*>(scratch), &sc);
+  const Weights wt = make_weights(nullptr, nullptr, weights, pad, start, end);
   auto g = [&](int i) { return static_cast<float*>(grads[i]); };
   const Grads gr{g(0), g(1), g(2), g(3), g(4), g(5), g(6), g(7), g(8), g(9)};
-  const cudaError_t err = backward_pass(d, wt, ws, static_cast<const float*>(dloss), gr,
+  const cudaError_t err = backward_pass(d, wt, ws, sc, static_cast<const float*>(dloss), gr,
                                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -454,17 +454,36 @@ cudaError_t lstm_layer_forward(cudaStream_t s, const LayerArgs& a) {
   return cudaSuccess;
 }
 
+// The weight gradients of a layer whose gates hold dpre (after its reverse
+// sweep), each a contraction over T*B rows added in a fixed order (d_bias
+// serves b_ih and b_hh alike), and dx = dpre . W_ih (T*B, din) when dx is
+// given.
+cudaError_t lstm_layer_grads(cudaStream_t s, const LayerArgs& a, float* d_wih, float* d_whh,
+                             float* d_bias, float* dx, float* partial) {
+  const ll G = 4ll * a.H;
+  const int TB = a.T * a.B;
+  const float* dpre = a.gates;
+  TRAIN_TRY(gemm(s, dpre, 1, G, a.x, a.din, 1, d_wih, a.din, static_cast<int>(G), a.din, TB,
+                 nullptr, false, partial));
+  // d_whh: step t's dpre against h_{t-1} (h_{-1} = 0).
+  TRAIN_TRY(gemm(s, dpre + a.B * G, 1, G, a.h, a.H, 1, d_whh, a.H, static_cast<int>(G), a.H,
+                 (a.T - 1) * a.B, nullptr, false, partial));
+  TRAIN_TRY(column_sum(s, dpre, TB, static_cast<int>(G), d_bias, false, partial));
+  if (dx != nullptr)
+    TRAIN_TRY(gemm(s, dpre, G, 1, a.w_ih, a.din, 1, dx, a.din, TB, a.din, static_cast<int>(G),
+                   nullptr, false, nullptr));
+  return cudaSuccess;
+}
+
 // Its reverse sweep from the stored activated gates (overwritten with dpre),
-// h and c: `ext` (T*B, H) is the gradient reaching y at every step, `dh_last`
-// (B, H, or null) the gradient reaching the final h after the last step.
-// Then the weight gradients, each a contraction over T*B rows added in a
-// fixed order (d_bias serves b_ih and b_hh alike), and dx = dpre . W_ih
-// (T*B, din) when dx is given. dh, dc: (B, H) carries.
+// h and c, one lstm_bwd_step launch a step: `ext` (T*B, H) is the gradient
+// reaching y at every step, `dh_last` (B, H, or null) the gradient reaching
+// the final h after the last step; dh, dc: (B, H) carries. Then
+// lstm_layer_grads.
 cudaError_t lstm_layer_backward(cudaStream_t s, const LayerArgs& a, const float* ext,
                                 const float* dh_last, float* dh, float* dc, float* d_wih,
                                 float* d_whh, float* d_bias, float* dx, float* partial) {
   const ll G = 4ll * a.H, bh = static_cast<ll>(a.B) * a.H;
-  const int TB = a.T * a.B;
   if (dh_last != nullptr) {
     TRAIN_TRY(cudaMemcpyAsync(dh, dh_last, bh * sizeof(float), cudaMemcpyDeviceToDevice, s));
   } else {
@@ -479,17 +498,7 @@ cudaError_t lstm_layer_backward(cudaStream_t s, const LayerArgs& a, const float*
         a.B, a.H);
     TRAIN_LAUNCHED();
   }
-  const float* dpre = a.gates;
-  TRAIN_TRY(gemm(s, dpre, 1, G, a.x, a.din, 1, d_wih, a.din, static_cast<int>(G), a.din, TB,
-                 nullptr, false, partial));
-  // d_whh: step t's dpre against h_{t-1} (h_{-1} = 0).
-  TRAIN_TRY(gemm(s, dpre + a.B * G, 1, G, a.h, a.H, 1, d_whh, a.H, static_cast<int>(G), a.H,
-                 (a.T - 1) * a.B, nullptr, false, partial));
-  TRAIN_TRY(column_sum(s, dpre, TB, static_cast<int>(G), d_bias, false, partial));
-  if (dx != nullptr)
-    TRAIN_TRY(gemm(s, dpre, G, 1, a.w_ih, a.din, 1, dx, a.din, TB, a.din, static_cast<int>(G),
-                   nullptr, false, nullptr));
-  return cudaSuccess;
+  return lstm_layer_grads(s, a, d_wih, d_whh, d_bias, dx, partial);
 }
 
 // Floats of split-K and chunk partials lstm_layer_backward needs.

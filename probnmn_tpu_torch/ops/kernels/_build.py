@@ -184,20 +184,25 @@ def library() -> ctypes.CDLL:
         _VOID_P, _VOID_P,                       # dloss (B,), workspace
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # d_emb, d_proj, d_wih, d_whh, d_bias
     ] + lm_sizes
+    tf_dims = [_INT] * 9                       # B, Ls, Lt, D, H, L, Vs, Vt, reinforce
     lib.probnmn_tf_workspace_floats.restype = ctypes.c_longlong
-    lib.probnmn_tf_workspace_floats.argtypes = [_INT] * 10  # B, Ls, Lt, D, H, L, Vs, Vt, reinforce, backward
-    tf_inputs = [
-        _VOID_P, _VOID_P, _INT, _INT, _INT,     # src (B, Ls), tgt (B, Lt) int32, B, Ls, Lt
-        _VOID_P_ARRAY,                          # the ten packed weights
-    ]
+    lib.probnmn_tf_workspace_floats.argtypes = tf_dims + [_INT]  # keep
+    lib.probnmn_tf_scratch_floats.restype = ctypes.c_longlong
+    lib.probnmn_tf_scratch_floats.argtypes = tf_dims
+    lib.probnmn_tf_sweep_plan.restype = _INT
+    lib.probnmn_tf_sweep_plan.argtypes = [_INT, _INT, ctypes.POINTER(_INT)]  # B, H, out[7]
     tf_sizes = [_INT] * 9 + [_VOID_P]           # D, H, layers, Vs, Vt, reinforce, pad, start, end; stream
     lib.probnmn_tf_forward.restype = _INT
-    lib.probnmn_tf_forward.argtypes = tf_inputs + [
-        _VOID_P, _VOID_P,                       # workspace, loss (B,)
+    lib.probnmn_tf_forward.argtypes = [
+        _VOID_P, _VOID_P, _INT, _INT, _INT,     # src (B, Ls), tgt (B, Lt) int32, B, Ls, Lt
+        _VOID_P_ARRAY,                          # the ten packed weights
+        _VOID_P, _VOID_P, _INT,                 # workspace, loss (B,), keep
     ] + tf_sizes
     lib.probnmn_tf_backward.restype = _INT
-    lib.probnmn_tf_backward.argtypes = tf_inputs + [
-        _VOID_P, _VOID_P,                       # dloss (B,), workspace
+    lib.probnmn_tf_backward.argtypes = [
+        _INT, _INT, _INT,                       # B, Ls, Lt
+        _VOID_P_ARRAY,                          # the ten packed weights
+        _VOID_P, _VOID_P, _VOID_P,              # dloss (B,), K4f's residuals, scratch
         _VOID_P_ARRAY,                          # the ten gradients
     ] + tf_sizes
     return lib

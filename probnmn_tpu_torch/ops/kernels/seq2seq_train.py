@@ -13,12 +13,13 @@ The training kernels of the seq2seq models, each pair bound into one
   cross entropy, and REINFORCE (the length-normalized -log q(z|x) of a
   trimmed sampled z).
 
-Each forward kernel computes the per-example loss; each backward kernel
+Each forward kernel computes the per-example loss, and each backward kernel
+the gradient of ``sum(dloss * loss)`` with respect to every parameter. K3b
 replays the forward, keeping every step's states and gates in a workspace
-taken from the caching allocator, and returns the gradient of
-``sum(dloss * loss)`` with respect to every parameter. All run in float32 on
-the SIMT cores, as the JAX trainers do; the sources say how the work is laid
-out and what bounds it.
+taken from the caching allocator; K4b starts from the residuals K4f kept
+(:class:`TFResiduals`), which :func:`fused_tf_kernels` asks for exactly when
+a gradient will be taken. All run in float32 on the SIMT cores, as the JAX
+trainers do; the sources say how the work is laid out and what bounds it.
 
 CPU tokens run the plain versions (:func:`lm_loss_plain`,
 :func:`tf_loss_plain`, and autograd through them); CUDA tokens launch the
@@ -26,7 +27,9 @@ kernels or raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import ctypes
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -214,6 +217,7 @@ def fused_lm_loss(
 
 
 # ============================================================ K4: teacher-forced seq2seq
+_CUDA_ERROR_INVALID_VALUE = 1
 TF_MAX_SOURCE = 4095  # source tokens the attention kernels take (tf_train.cu kMaxSource - 1)
 _TF_PACKED = ("src_emb", "tgt_emb", "enc_wih", "enc_whh", "enc_bias",
               "dec_w", "dec_wx", "dec_bias", "proj_w", "proj_b")
@@ -332,55 +336,102 @@ def _tf_call_args(spec: Seq2SeqSpec, sizes, reinforce_norm: bool, device):
             torch.cuda.current_stream(device).cuda_stream)
 
 
-def _tf_workspace(batch, ls, lt, sizes, reinforce_norm, backward, device) -> torch.Tensor:
-    n = _build.library().probnmn_tf_workspace_floats(batch, ls, lt, *sizes, int(bool(reinforce_norm)),
-                                                     int(backward))
-    return torch.empty(n, dtype=torch.float32, device=device)
+def tf_sweep_plan(batch: int, hidden: int) -> Dict[str, int]:
+    r"""How K4b sweeps an encoder layer of ``batch`` rows and ``hidden``
+    units back on this card (``csrc/lstm_sweep.cuh``): the cluster size, the
+    units, rows and threads of a CTA, the clusters, how many clusters the
+    card runs at once, and the shared memory of a CTA in bytes. Raises where
+    no cluster holds the layer."""
+    out = (ctypes.c_int * 7)()
+    _build.check(_build.library().probnmn_tf_sweep_plan(batch, hidden, out),
+                 f"K4b's encoder sweep at B={batch}, H={hidden}")
+    keys = ("cluster", "units", "rows", "threads", "clusters", "fit", "smem_bytes")
+    return dict(zip(keys, out))
+
+
+@dataclasses.dataclass
+class TFResiduals:
+    r"""What K4f keeps for K4b (``tf_forward_cuda(..., keep=True)``): its
+    workspace in the residual layout (every encoder layer's gates, h, c and
+    y; every decoder step's [attended, h_prev] row, attention weights,
+    gates, h and c; the logits; the token streams), with the packed weights
+    and the sizes K4b needs. K4b consumes the workspace in place (dpre over
+    the gates, dlogits over the logits) and lets it go, so one forward
+    serves one backward."""
+
+    workspace: Optional[torch.Tensor]
+    packed: Optional[Dict[str, torch.Tensor]]
+    spec: Seq2SeqSpec
+    shape: Tuple[int, int, int]  # (B, Ls, Lt)
+    sizes: Tuple[int, ...]  # (D, H, L, Vs, Vt)
+    reinforce_norm: bool
+
+    @property
+    def nbytes(self) -> int:
+        r"""Bytes held from forward to backward (0 once consumed)."""
+        return 0 if self.workspace is None else self.workspace.numel() * 4
 
 
 def tf_forward_cuda(
     packed: Dict[str, torch.Tensor], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
-    target_tokens: torch.Tensor, reinforce_norm: bool = False,
-) -> torch.Tensor:
-    r"""Launch K4f: per-example loss (B,) float32."""
+    target_tokens: torch.Tensor, reinforce_norm: bool = False, keep: bool = False,
+):
+    r"""Launch K4f: the per-example loss (B,) float32; with ``keep``,
+    ``(loss, residuals)``, the :class:`TFResiduals` K4b starts from."""
     src, tgt, sizes = _tf_kernel_args(packed, spec, source_tokens, target_tokens)
     (batch, ls), lt = src.shape, tgt.shape[1]
-    ws = _tf_workspace(batch, ls, lt, sizes, reinforce_norm, False, src.device)
+    n = _build.library().probnmn_tf_workspace_floats(batch, ls, lt, *sizes,
+                                                     int(bool(reinforce_norm)), int(bool(keep)))
+    ws = torch.empty(n, dtype=torch.float32, device=src.device)
     loss = torch.empty(batch, dtype=torch.float32, device=src.device)
     code = _build.library().probnmn_tf_forward(
         src.data_ptr(), tgt.data_ptr(), batch, ls, lt,
         _build.pointers([packed[name] for name in _TF_PACKED]),
-        ws.data_ptr(), loss.data_ptr(), *_tf_call_args(spec, sizes, reinforce_norm, src.device),
+        ws.data_ptr(), loss.data_ptr(), int(bool(keep)),
+        *_tf_call_args(spec, sizes, reinforce_norm, src.device),
     )
     _build.check(code, "teacher-forced forward kernel")
     tf_forward_cuda.launches += 1
-    return loss
+    if not keep:
+        return loss
+    return loss, TFResiduals(ws, packed, spec, (batch, ls, lt), sizes, bool(reinforce_norm))
 
 
 tf_forward_cuda.launches = 0
 
 
-def tf_backward_cuda(
-    packed: Dict[str, torch.Tensor], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
-    target_tokens: torch.Tensor, dloss: torch.Tensor, reinforce_norm: bool = False,
-) -> Dict[str, Any]:
-    r"""Launch K4b: the gradient of ``sum(dloss * loss)`` as a params dict
-    (``b_ih`` and ``b_hh`` get equal gradients, as separate tensors)."""
-    src, tgt, sizes = _tf_kernel_args(packed, spec, source_tokens, target_tokens)
-    (batch, ls), lt = src.shape, tgt.shape[1]
+def tf_backward_cuda(residuals: TFResiduals, dloss: torch.Tensor) -> Dict[str, Any]:
+    r"""Launch K4b from K4f's ``residuals``, which it consumes: the gradient
+    of ``sum(dloss * loss)`` as a params dict (``b_ih`` and ``b_hh`` get
+    equal gradients, as separate tensors). Raises on residuals already
+    consumed."""
+    if residuals.workspace is None:
+        raise RuntimeError(
+            "K4b has already consumed these residuals: it overwrites K4f's gates and logits "
+            "with their gradients and frees them, so each forward serves one backward")
+    ws, residuals.workspace = residuals.workspace, None
+    packed, spec, sizes = residuals.packed, residuals.spec, residuals.sizes
+    batch, ls, lt = residuals.shape
     if tuple(dloss.shape) != (batch,):
         raise ValueError(f"dloss must be ({batch},), got {tuple(dloss.shape)}")
-    dloss = dloss.to(device=src.device, dtype=torch.float32).contiguous()
-    ws = _tf_workspace(batch, ls, lt, sizes, reinforce_norm, True, src.device)
+    dloss = dloss.to(device=ws.device, dtype=torch.float32).contiguous()
+    flag = int(residuals.reinforce_norm)
+    scratch = torch.empty(_build.library().probnmn_tf_scratch_floats(batch, ls, lt, *sizes, flag),
+                          dtype=torch.float32, device=ws.device)
     g = {name: torch.empty_like(packed[name]) for name in _TF_PACKED}
     code = _build.library().probnmn_tf_backward(
-        src.data_ptr(), tgt.data_ptr(), batch, ls, lt,
-        _build.pointers([packed[name] for name in _TF_PACKED]),
-        dloss.data_ptr(), ws.data_ptr(), _build.pointers([g[name] for name in _TF_PACKED]),
-        *_tf_call_args(spec, sizes, reinforce_norm, src.device),
+        batch, ls, lt, _build.pointers([packed[name] for name in _TF_PACKED]),
+        dloss.data_ptr(), ws.data_ptr(), scratch.data_ptr(),
+        _build.pointers([g[name] for name in _TF_PACKED]),
+        *_tf_call_args(spec, sizes, residuals.reinforce_norm, ws.device),
     )
+    if code == _CUDA_ERROR_INVALID_VALUE:
+        raise RuntimeError(
+            f"teacher-forced backward kernel: cudaErrorInvalidValue at B={batch}, H={sizes[1]}: "
+            f"no thread-block cluster holds the encoder's reverse sweep above H = 256")
     _build.check(code, "teacher-forced backward kernel")
     tf_backward_cuda.launches += 1
+    residuals.packed = None
     D, H, L = sizes[:3]
     encoder, offset = [], 0
     for layer in range(L):
@@ -410,21 +461,29 @@ tf_backward_cuda.launches = 0
 
 
 class _FusedTFLoss(torch.autograd.Function):
-    r"""Forward: K4f. Backward: K4b with the incoming per-example cotangent."""
+    r"""Forward: K4f, keeping its residuals when ``keep``. Backward: K4b from
+    them with the incoming per-example cotangent; a second backward raises."""
 
     @staticmethod
-    def forward(ctx, spec, reinforce_norm, source_tokens, target_tokens, *leaves):
+    def forward(ctx, spec, reinforce_norm, keep, source_tokens, target_tokens, *leaves):
         packed = pack_tf_weights(tf_params_from_leaves(list(leaves)), spec)
-        ctx.spec = spec
-        ctx.reinforce_norm = reinforce_norm
-        ctx.packed = packed
-        ctx.tokens = (source_tokens, target_tokens)
-        return tf_forward_cuda(packed, spec, source_tokens, target_tokens, reinforce_norm)
+        ctx.residuals = None
+        if not keep:
+            return tf_forward_cuda(packed, spec, source_tokens, target_tokens, reinforce_norm)
+        loss, ctx.residuals = tf_forward_cuda(packed, spec, source_tokens, target_tokens,
+                                              reinforce_norm, keep=True)
+        return loss
 
     @staticmethod
     def backward(ctx, dloss):
-        grads = tf_backward_cuda(ctx.packed, ctx.spec, *ctx.tokens, dloss, ctx.reinforce_norm)
-        return (None, None, None, None, *tf_param_leaves(grads))
+        residuals, ctx.residuals = ctx.residuals, None
+        if residuals is None:
+            raise RuntimeError(
+                "Trying to backward through fused_tf_loss a second time (or directly after "
+                "the first backward freed its saved residuals): K4b consumes K4f's residuals "
+                "in place. Call fused_tf_loss again for another backward.")
+        grads = tf_backward_cuda(residuals, dloss)
+        return (None, None, None, None, None, *tf_param_leaves(grads))
 
 
 def fused_tf_loss(
@@ -434,11 +493,24 @@ def fused_tf_loss(
     r"""Per-example teacher-forced seq2seq loss (B,), differentiable with
     respect to every parameter (the tokens carry no gradient). Equals
     :func:`tf_loss_plain` in either mode. CPU tokens: plain version; CUDA
-    tokens: K4f, and K4b in backward."""
+    tokens: :func:`fused_tf_kernels`."""
     check_no_dropout(spec.dropout)
     if source_tokens.device.type == "cpu":
         return tf_loss_plain(params, spec, source_tokens, target_tokens, reinforce_norm)
     if source_tokens.device.type != "cuda":
         raise ValueError(f"unsupported device {source_tokens.device}")
-    return _FusedTFLoss.apply(spec, bool(reinforce_norm), source_tokens, target_tokens,
-                              *tf_param_leaves(params))
+    return fused_tf_kernels(params, spec, source_tokens, target_tokens, reinforce_norm)
+
+
+def fused_tf_kernels(
+    params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
+    target_tokens: torch.Tensor, reinforce_norm: bool = False,
+) -> torch.Tensor:
+    r"""K4f, and K4b in backward. Whether a gradient will be taken is decided
+    here, since grad mode is off inside ``Function.forward``: when grad is
+    enabled and a leaf requires grad, K4f keeps its residuals for K4b;
+    otherwise it runs lean and keeps nothing."""
+    leaves = tf_param_leaves(params)
+    keep = torch.is_grad_enabled() and any(leaf.requires_grad for leaf in leaves)
+    return _FusedTFLoss.apply(spec, bool(reinforce_norm), keep, source_tokens, target_tokens,
+                              *leaves)

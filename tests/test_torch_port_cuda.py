@@ -24,6 +24,7 @@ from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
     fused_lm_loss, fused_tf_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
     pack_lm_weights, pack_tf_weights, param_leaves, params_from_leaves, tf_backward_cuda,
     tf_forward_cuda, tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_params_from_leaves,
+    tf_sweep_plan,
 )
 from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
 
@@ -275,6 +276,9 @@ def _tf_tokens(rs, batch, length, vocab, end_index=3):
          batch=9, ls=7, lt=5),
     dict(source_vocab_size=92, target_vocab_size=44, input_size=64, hidden_size=96, num_layers=2,
          batch=37, ls=45, lt=26),
+    # The shipped width at a batch that needs more sweep clusters than fit at once.
+    dict(source_vocab_size=92, target_vocab_size=44, input_size=256, hidden_size=256,
+         num_layers=2, batch=300, ls=45, lt=26),
 ])
 @pytest.mark.parametrize("reinforce_norm", [False, True])
 def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
@@ -296,24 +300,56 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
     dloss = torch.from_numpy(rs.rand(batch).astype(np.float32) + 0.5).to(cuda)
     packed = pack_tf_weights(params, spec)
 
+    if batch == 300:  # more sweep clusters than the card runs at once
+        plan = tf_sweep_plan(batch, spec.hidden_size)
+        assert plan["clusters"] > plan["fit"], plan
     before = (tf_forward_cuda.launches, tf_backward_cuda.launches)
-    loss = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+    lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+    loss, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    assert torch.equal(lean, loss) and residuals.nbytes > 0
     want_loss = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
     torch.testing.assert_close(loss, want_loss, rtol=0, atol=1e-5)
-    got = tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm)
+    got = tf_backward_cuda(residuals, dloss)
+    assert residuals.nbytes == 0  # consumed
+    with pytest.raises(RuntimeError, match="already consumed"):
+        tf_backward_cuda(residuals, dloss)
     want = tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm)
     for g, w in zip(tf_param_leaves(got), tf_param_leaves(want)):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
-    again = tf_backward_cuda(packed, spec, src, tgt, dloss, reinforce_norm)
+    # No float atomics: K4f + K4b run again give the same bits.
+    loss_again, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    again = tf_backward_cuda(residuals, dloss)
+    assert torch.equal(loss, loss_again)
     for a, b in zip(tf_param_leaves(got), tf_param_leaves(again)):
-        assert torch.equal(a, b)  # no float atomics: the same bits every time
-    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 1, before[1] + 2)
+        assert torch.equal(a, b)
+    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 3, before[1] + 2)
 
-    # Through autograd: K4f forward, K4b backward, once each.
+    # Through autograd: K4f keeping its residuals, K4b from them, once each.
     leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(params)]
     out = fused_tf_loss(tf_params_from_leaves(leaves), spec, src, tgt, reinforce_norm)
-    (out * dloss).sum().backward()
+    total = (out * dloss).sum()
+    total.backward(retain_graph=True)
     for leaf, w in zip(leaves, tf_param_leaves(want)):
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
-    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 2, before[1] + 3)
+    with pytest.raises(RuntimeError, match="second time"):
+        total.backward()
+    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 4, before[1] + 3)
+
+
+def test_tf_backward_refuses_a_layer_no_cluster_holds(cuda):
+    r"""Above H = 256 no cluster holds the encoder's reverse sweep: K4b
+    refuses with cudaErrorInvalidValue and the wrapper raises."""
+    spec = Seq2SeqSpec(source_vocab_size=20, target_vocab_size=15, input_size=16, hidden_size=264,
+                       num_layers=1)
+    params = init_seq2seq_params(torch.Generator().manual_seed(7), spec)
+    params = tf_params_from_leaves([p.to(cuda) for p in tf_param_leaves(params)])
+    rs = np.random.RandomState(7)
+    src = torch.from_numpy(_tf_tokens(rs, 4, 6, spec.source_vocab_size)).to(cuda)
+    tgt = torch.from_numpy(_tf_tokens(rs, 4, 5, spec.target_vocab_size)).to(cuda)
+    _, residuals = tf_forward_cuda(pack_tf_weights(params, spec), spec, src, tgt, keep=True)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        tf_backward_cuda(residuals, torch.ones(4, device=cuda))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tf_sweep_plan(4, 264)
+    assert tf_sweep_plan(4, 256)["cluster"] == 8

@@ -190,16 +190,21 @@ def test_teacher_forced_outputs_match_jax():
 
 def test_fused_tf_loss_function_keeps_the_leaf_order(monkeypatch):
     r"""``_FusedTFLoss`` on CPU tensors with its two launchers swapped for the
-    plain versions: autograd hands every leaf its own gradient."""
+    plain versions (K4f keeping its residuals, K4b starting from them):
+    autograd hands every leaf its own gradient."""
     _, tp = _params(5)
     src, tgt = (torch.from_numpy(a).long() for a in _batch(5, True))
-    monkeypatch.setattr(seq2seq_train, "tf_forward_cuda",
-                        lambda packed, spec, s, t, r: tf_loss_plain(tp, spec, s, t, r).detach())
+
+    def forward(packed, spec, s, t, r, keep=False):
+        loss = tf_loss_plain(tp, spec, s, t, r).detach()
+        return (loss, (spec, s, t, r)) if keep else loss
+
+    monkeypatch.setattr(seq2seq_train, "tf_forward_cuda", forward)
     monkeypatch.setattr(seq2seq_train, "tf_backward_cuda",
-                        lambda packed, spec, s, t, d, r: tf_grads_plain(tp, spec, s, t, d, r))
+                        lambda res, d: tf_grads_plain(tp, res[0], res[1], res[2], d, res[3]))
     leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(tp)]
     dloss = torch.from_numpy(np.random.RandomState(5).rand(BATCH).astype(np.float32))
-    loss = seq2seq_train._FusedTFLoss.apply(SPEC, True, src, tgt, *leaves)
+    loss = seq2seq_train._FusedTFLoss.apply(SPEC, True, True, src, tgt, *leaves)
     (loss * dloss).sum().backward()
     want = tf_param_leaves(tf_grads_plain(tp, SPEC, src, tgt, dloss, True))
     assert len(leaves) == len(want) == 2 + 4 * SPEC.num_layers + 4 + 2

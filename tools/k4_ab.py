@@ -1,0 +1,242 @@
+r"""K4f/K4b (the teacher-forced seq2seq loss and its backward) and K3f/K3b in
+two checkouts of the repo, on one card in one call:
+
+    python3 tools/k4_ab.py <other checkout>
+
+Unpack the other checkout first, e.g. ``git archive <commit> | tar -x -C
+build/parent`` (git ignores ``build/``). Each checkout runs in its own
+process, which builds that checkout's kernels, in turns (other, this, this,
+other). Through the public API both trees share, each process
+
+- builds the question_coding trainer (``configs/question_coding_ours.yml``,
+  batch 256, D = H = 256, 2 layers; a random frozen prior) on 8,192
+  in-memory CLEVR-like programs and random questions, and takes the four
+  passes of its first batch, as ``chip_smoke.py`` phase 7 does: supervised
+  ProgramGenerator and QuestionReconstructor, the generator in REINFORCE
+  mode at the z that K1 sampled, the reconstructor from z;
+- times ``fused_tf_loss`` forward + ``.backward`` on each pass (K4f, K4b),
+  and K4f alone under ``torch.no_grad()``, with CUDA events over 10 calls;
+- saves each pass's ten gradients to a ``.npz`` in a temporary directory;
+- reads the memory the four passes' forwards and backward take beyond what
+  was allocated before them, and that of one trainer step;
+- times the trainer step (host clock over 10 steps that each fetch their
+  logs) and counts the LSTM step kernels of one step under ``torch.profiler``;
+- times K3f and K3b alone on 256 programs.
+
+Prints every time and the max |dev| of each pass's gradients between the
+checkouts' first runs (and between each checkout's two runs), against
+1e-4 * max(1, max|g|). Needs a CUDA card and the CUDA toolkit.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+PASSES = ("pg_sup", "qr_sup", "pg_z", "qr_z")
+KERNELS = ("lstm_fwd_step", "lstm_bwd_step", "lstm_bwd_sweep", "tf_attend", "tf_attend_bwd")
+
+RUN = r"""
+import json, os, sys, tempfile, time
+import numpy as np
+import torch
+tree, out_npz = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tree)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from torch.profiler import ProfilerActivity, profile
+from probnmn_tpu_torch.config import Config
+from probnmn_tpu_torch.data.datasets import QuestionCodingDataset
+from probnmn_tpu_torch.models.program_prior import init_program_prior_params
+from probnmn_tpu_torch.ops.kernels import _build
+from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+    fused_tf_loss, lm_backward_cuda, lm_forward_cuda, pack_lm_weights, tf_param_leaves,
+    tf_params_from_leaves)
+from probnmn_tpu_torch.training._trainer import tree_map
+from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
+from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
+from probnmn_tpu_torch.utils.checkpointing import save_objects
+from probnmn_tpu_torch.utils.clevr import (
+    MAX_QUESTION_LENGTH, make_clevr_like_vocabulary, sample_clevr_like_programs)
+from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+KERNELS = KERNEL_NAMES
+_build.library()
+dev = torch.device("cuda")
+vocab = make_clevr_like_vocabulary()
+work = tempfile.mkdtemp(prefix="k4_ab_")
+vocab.save_to_files(os.path.join(work, "vocab"))
+overrides = ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+             "CHECKPOINTS.PROGRAM_PRIOR", os.path.join(work, "prior.ckpt")]
+config = Config(os.path.join(tree, "configs", "question_coding_ours.yml"), overrides)
+prior_spec = make_prior_spec(config, vocab)
+prior = init_program_prior_params(torch.Generator().manual_seed(1), prior_spec)
+save_objects(os.path.join(work, "prior.ckpt"), {"program_prior": prior})
+
+def data(n, seed):
+    programs = sample_clevr_like_programs(vocab, n, seed=seed)
+    rs = np.random.RandomState(seed)
+    programs[0] = rs.randint(4, vocab.get_vocab_size("programs"), programs.shape[1])
+    programs[1] = 0
+    q = rs.randint(4, vocab.get_vocab_size("questions"), (n, MAX_QUESTION_LENGTH))
+    q = q * (np.arange(MAX_QUESTION_LENGTH)[None, :] < rs.randint(4, MAX_QUESTION_LENGTH + 1, (n, 1)))
+    q[0] = rs.randint(4, vocab.get_vocab_size("questions"), MAX_QUESTION_LENGTH)
+    q[1] = 0
+    return programs.astype(np.int64), q.astype(np.int64)
+
+np.random.seed(config.RANDOM_SEED)
+train_set = QuestionCodingDataset.from_tokens(
+    *data(8192, 7), num_supervision=config.SUPERVISION,
+    supervision_question_max_length=config.SUPERVISION_QUESTION_MAX_LENGTH)
+trainer = QuestionCodingTrainer(config, os.path.join(work, "run"), device="cuda",
+                                writer=RecordingWriter(), dataset=train_set)
+init = tree_map(lambda t: t.detach().clone(), trainer.params)
+batch = next(trainer._batches)
+n_sup = batch[COUNT_KEY]
+questions, programs = batch["question"], batch["program"]
+z = trainer.sample_programs(questions[n_sup:])
+pg, qr = init["program_generator"], init["question_reconstructor"]
+passes = [("pg_sup", pg, trainer.pg_spec, questions[:n_sup], programs[:n_sup], False),
+          ("qr_sup", qr, trainer.qr_spec, programs[:n_sup], questions[:n_sup], False),
+          ("pg_z", pg, trainer.pg_spec, questions[n_sup:], z, True),
+          ("qr_z", qr, trainer.qr_spec, z, questions[n_sup:], False)]
+gen = torch.Generator().manual_seed(3)
+
+def cuda_ms(fn, iters=10, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+def transient_mb(fn):
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+result = {"passes": {}, "n_sup": int(n_sup)}
+grads, runs = {}, []
+for name, params, spec, src, tgt, reinforce in passes:
+    leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(params)]
+    dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
+    def fwd_bwd():
+        for leaf in leaves:
+            leaf.grad = None
+        loss = fused_tf_loss(tf_params_from_leaves(leaves), spec, src, tgt, reinforce)
+        (loss * dloss).sum().backward()
+    def fwd():
+        with torch.no_grad():
+            fused_tf_loss(tf_params_from_leaves(leaves), spec, src, tgt, reinforce)
+    fwd_bwd()
+    torch.cuda.synchronize()
+    for i, leaf in enumerate(leaves):
+        grads[f"{name}.{i}"] = leaf.grad.cpu().numpy()
+    result["passes"][name] = {"B": int(src.shape[0]), "fwd_bwd_ms": cuda_ms(fwd_bwd),
+                              "fwd_ms": cuda_ms(fwd)}
+    runs.append((leaves, spec, src, tgt, reinforce, dloss))
+np.savez(out_npz, **grads)
+
+def all_passes():
+    losses = [fused_tf_loss(tf_params_from_leaves(l), s, a, b, r) for l, s, a, b, r, _ in runs]
+    sum((loss * d).sum() for loss, (_, _, _, _, _, d) in zip(losses, runs)).backward()
+result["four_passes_mb"] = transient_mb(all_passes)
+
+prior_dev = tree_map(lambda t: t.to(dev), prior)
+packed = pack_lm_weights(prior_dev)
+tokens = torch.from_numpy(data(256, 11)[0]).to(dev)
+lm_dloss = (torch.rand(256, generator=gen) + 0.5).to(dev)
+result["k3f_ms"] = cuda_ms(lambda: lm_forward_cuda(packed, prior_spec, tokens))
+result["k3b_ms"] = cuda_ms(lambda: lm_backward_cuda(packed, prior_spec, tokens, lm_dloss))
+
+for _ in range(3):
+    trainer.step()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(10):
+    trainer.step()
+result["step_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+result["step_mb"] = transient_mb(trainer.step)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    trainer.step()
+    torch.cuda.synchronize()
+counts = dict.fromkeys(KERNELS, 0)
+for event in prof.key_averages():
+    for k in KERNELS:
+        if k + "(" in event.key or event.key.endswith(k):
+            counts[k] += event.count
+result["step_launches"] = counts
+print("RESULT " + json.dumps(result))
+"""
+
+
+def run(tree, npz):
+    out = subprocess.run([sys.executable, "-c", RUN.replace("KERNEL_NAMES", repr(KERNELS)), tree, npz], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        print(out.stdout[-4000:], out.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise RuntimeError(f"the run in {tree} failed with code {out.returncode}")
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+def max_dev(a, b):
+    r"""Per pass: (max |a - b| over its leaves, the worst ratio to the
+    tolerance 1e-4 * max(1, max|b|))."""
+    import numpy as np
+
+    out = {}
+    for name in PASSES:
+        keys = sorted(k for k in b.files if k.startswith(name + "."))
+        devs = [(float(np.abs(a[k] - b[k]).max()), 1e-4 * max(1.0, float(np.abs(b[k]).max())))
+                for k in keys]
+        out[name] = (max(d for d, _ in devs), max(d / t for d, t in devs))
+    return out
+
+
+def main(argv):
+    import numpy as np
+
+    other = os.path.abspath(argv[0])
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tmp = tempfile.mkdtemp(prefix="k4_ab_grads_")
+    results = {"other": [], "this": []}
+    for i, (name, tree) in enumerate((("other", other), ("this", here), ("this", here),
+                                      ("other", other))):
+        res = run(tree, os.path.join(tmp, f"{name}{len(results[name])}.npz"))
+        results[name].append(res)
+        per = ", ".join(f"{p} B={v['B']} {v['fwd_bwd_ms']:.3f} (K4f alone {v['fwd_ms']:.3f})"
+                        for p, v in res["passes"].items())
+        total = sum(v["fwd_bwd_ms"] for v in res["passes"].values())
+        total_f = sum(v["fwd_ms"] for v in res["passes"].values())
+        print(f"[k4-ab] {name}: fused_tf_loss forward + backward, ms per pass: {per}; four passes "
+              f"{total:.3f} (K4f alone {total_f:.3f}); memory of the four passes {res['four_passes_mb']:.1f} "
+              f"MB; question_coding step {res['step_ms']:.3f} ms, {res['step_mb']:.1f} MB; K3f "
+              f"{res['k3f_ms']:.4f} ms, K3b {res['k3b_ms']:.4f} ms; launches a step "
+              f"{res['step_launches']}", flush=True)
+    grads = {k: np.load(os.path.join(tmp, f"{k}.npz")) for k in ("other0", "other1", "this0", "this1")}
+    for a, b, what in (("this0", "other0", "this vs other"), ("this0", "this1", "this, run 1 vs 2"),
+                       ("other0", "other1", "other, run 1 vs 2")):
+        devs = max_dev(grads[a], grads[b])
+        print(f"[k4-ab] gradients, {what}: " + ", ".join(
+            f"{p} max |dev| {d:.3e} ({r:.3e} of the tolerance)" for p, (d, r) in devs.items()),
+            flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[k4-ab] card {smi}")
+    print("[k4-ab] " + json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
