@@ -34,7 +34,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    CLEVR-like programs in memory (1,024 for validation), each set with a
    full-length and an all-pad row: K3f's per-example loss within 1e-4 of its
    plain version and every K3b gradient leaf within 1e-4 * max(1, max|g|) of
-   autograd through the plain loss under a random positive cotangent; 20
+   autograd through the plain loss under a random positive cotangent;
+   under the profiler each layer of K3f and of K3b's replay one forward
+   sweep launch (``lstm_fwd_sweep``; the plan printed); 20
    ``ProgramPriorTrainer.step()``s on ``cuda`` with the counters set to 0
    before and read after (K3f and K3b once per step) and a falling loss; the
    first step against the same step on the CPU (loss within 1e-4, every
@@ -42,8 +44,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    evaluator (K3f), ``after_validation``'s checkpoint, and a resume from it
    with identical params; then K3f, K3b, their plain versions, cuDNN's LSTM
    over the same lengths (a partial yardstick: recurrence only) and the
-   train step, timed beside their bounds. Its best checkpoint is phase 7's
-   frozen prior.
+   train step, timed beside their bounds, with the step's launches under
+   the profiler (2 sweeps a layer, no ``lstm_fwd_step``). Its best
+   checkpoint is phase 7's frozen prior.
 7. The question_coding training phase at the shipped width
    (``configs/question_coding_ours.yml``: D=H=256, 2 layers, batch 256,
    ALPHA 100, BETA 0.1, DELTA 0.99) on 8,192 in-memory CLEVR-like programs
@@ -55,8 +58,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    version and equal to the lean forward's, every K4b gradient leaf (from
    the residuals K4f kept) within 1e-4 * max(1, max|g|) of autograd under a
    random positive cotangent, K4f + K4b bitwise repeatable, and under the
-   profiler K4b launching no forward kernel, one encoder sweep a layer and
-   one cell backward a decoder step;
+   profiler K4f launching one forward encoder sweep a layer and one step
+   kernel a decoder step, K4b no forward kernel, one reverse encoder sweep
+   a layer and one cell backward a decoder step (both sweeps' plans, and
+   time = a + b * S fitted to every sweep launch of the four passes);
    ``question_coding_objective`` at the card's z against the same call on
    the CPU (total, logs and baseline within 1e-4, every gradient leaf within
    1e-4 * max(1, max|g|)); 20 ``QuestionCodingTrainer.step()``s on ``cuda``
@@ -68,8 +73,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    versions per pass, cuDNN's LSTM over each pass's encoder (forward, and
    backward alone: a partial yardstick), the memory of a train step, and the
    step itself, timed beside their bounds, with the step's launches under
-   the profiler (the encoder sweep 8 times; ``lstm_fwd_step`` only K4f's and
-   K3f's). Its checkpoint is phase 8's frozen generator.
+   the profiler (the forward sweep 10 times: K4f's encoder layers and K3f's;
+   the reverse sweep 8 times; ``lstm_fwd_step`` only the decoder's). Its
+   checkpoint is phase 8's frozen generator.
 8. The module_training training phase at the shipped width
    (``configs/module_training.yml``: NMN C=128 on 14x14 with 1024 feature
    channels, class projection and classifier 1024, batch 128, lr 1e-4,
@@ -193,20 +199,34 @@ def transient_mb(torch, fn):
     return (torch.cuda.max_memory_allocated() - before) / 1e6
 
 
+def profiled(torch, fn):
+    r"""One call of ``fn`` under ``torch.profiler``, with the card idle for
+    20 ms after the trace starts and before it stops: without that gap the
+    profiler now and then lost the first kernels of a trace, or all of them
+    (a program_prior step once read 2 of its 4 sweeps and 14 of its 18
+    GEMMs). Returns the profiler and the host-clock ms of ``fn`` to its last
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.02)
+    return prof, wall_ms
+
+
 def trace(torch, fn):
     r"""One traced call of ``fn``: (host-clock ms, device-busy ms summed over
     the kernels and copies that ran on the card, the six largest of them
     (us, name, count), and every one's launch count by name). Host-side ops
     are left out: their device time is their kernels' time again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profiled(torch, fn)
     rows = []
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
@@ -221,8 +241,35 @@ def trace(torch, fn):
 
 
 def launches_of(counts, kernel):
-    r"""Launches of the kernel named ``kernel`` in a trace's counts."""
-    return sum(n for name, n in counts.items() if f"{kernel}(" in name)
+    r"""Launches of the kernel named ``kernel`` in a trace's counts (a
+    template kernel's name carries its arguments: ``lstm_fwd_sweep<3>(``)."""
+    return sum(n for name, n in counts.items() if f"{kernel}(" in name or f"{kernel}<" in name)
+
+
+def launch_times(torch, fn, kernels):
+    r"""One traced call of ``fn``: each named kernel's launches, as a list of
+    their device times in µs, in launch order."""
+    from torch.autograd import DeviceType
+
+    prof, _ = profiled(torch, fn)
+    out = {k: [] for k in kernels}
+    for event in prof.events():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        for k in kernels:
+            if f"{k}(" in event.name or f"{k}<" in event.name:
+                out[k].append(event.time_range.elapsed_us())
+    return out
+
+
+def fit_steps(points):
+    r"""Least-squares time = a + b * S over (S, µs) points: (a, b) in µs."""
+    n = len(points)
+    mean_s = sum(p[0] for p in points) / n
+    mean_t = sum(p[1] for p in points) / n
+    var = sum((p[0] - mean_s) ** 2 for p in points)
+    b = sum((p[0] - mean_s) * (p[1] - mean_t) for p in points) / var
+    return mean_t - b * mean_s, b
 
 
 def bound(flops, nbytes, dtype):
@@ -427,7 +474,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain, pack_lm_weights,
-        param_leaves,
+        param_leaves, tf_sweep_plan,
     )
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
     from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
@@ -473,6 +520,21 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
         log(f"[K3b] {name:18s} {tuple(want.shape)}: max |err| {err:.3e}, max |grad| {scale:.3e}")
         check(err <= 1e-4 * max(1.0, scale), f"K3b {name} error {err}")
         k3b_err = max(k3b_err, err)
+
+    # Each layer's recurrence is one forward sweep, in K3f and in K3b's replay.
+    L, T = spec.num_layers, tok_np.shape[1] + 1
+    kernels = ("lstm_fwd_sweep", "lstm_fwd_step", "lstm_bwd_step")
+    k3f_times = launch_times(torch, lambda: lm_forward_cuda(packed, spec, tok), kernels)
+    k3b_times = launch_times(torch, lambda: lm_backward_cuda(packed, spec, tok, dloss), kernels)
+    inside = {"K3f": {k: len(v) for k, v in k3f_times.items()},
+              "K3b": {k: len(v) for k, v in k3b_times.items()}}
+    lm_plan = tf_sweep_plan(batch, spec.hidden_size, forward=True)
+    log(f"[K3f] launches inside one K3f and one K3b: {inside}; the forward sweep's plan at "
+        f"B={batch}: {lm_plan}; a sweep of T={T} steps takes "
+        f"{', '.join(f'{t:.1f}' for t in k3f_times['lstm_fwd_sweep'])} µs")
+    check(inside == {"K3f": {"lstm_fwd_sweep": L, "lstm_fwd_step": 0, "lstm_bwd_step": 0},
+                     "K3b": {"lstm_fwd_sweep": L, "lstm_fwd_step": 0, "lstm_bwd_step": L * T}},
+          f"K3f / K3b launches {inside}")
 
     # The trainer on the card: K3f and K3b once per step.
     steps = 20
@@ -562,7 +624,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     log(f"[time] program_prior train step {step_ms:.3f} ms (host clock, loss fetched each step): "
         f"{batch / step_ms * 1e3:.1f} examples/s; kernel bound {k3f_bound + k3b_bound:.4f} ms; "
         f"card {smi}")
-    wall_ms, busy_ms, top, _ = trace(torch, trainer.step)
+    wall_ms, busy_ms, top, counts = trace(torch, trainer.step)
     if busy_ms > 0:
         log(f"[trace] train step under torch.profiler: {wall_ms:.2f} ms host clock, device busy "
             f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -570,6 +632,11 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
             log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
     else:
         log("[trace] the profiler recorded no device time: idle share not measured")
+    # K3f's sweeps and K3b's replay of them; K3b's reverse keeps a launch a step.
+    step_launches = {k: launches_of(counts, k) for k in kernels}
+    log(f"[trace] launches in that step: {step_launches}")
+    check(step_launches == {"lstm_fwd_sweep": 2 * L, "lstm_fwd_step": 0, "lstm_bwd_step": L * T},
+          f"program_prior step launches {step_launches}")
     shutil.copy(os.path.join(work, "run", "checkpoint_best.ckpt"), prior_out)
     shutil.rmtree(work, ignore_errors=True)
 
@@ -579,7 +646,9 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:917",
          "launches": launches["lm_forward"], "max_abs_err": k3f_err,
          "ms": k3f_ms, "plain_ms": k3f_plain_ms, "bound_ms": k3f_bound, "bound_by": k3f_by,
-         "library_ms": None, "yardstick": yardstick, "yardstick_ms": cudnn_fwd_ms},
+         "library_ms": None, "yardstick": yardstick, "yardstick_ms": cudnn_fwd_ms,
+         "sweep_plan": lm_plan, "sweep_us": k3f_times["lstm_fwd_sweep"],
+         "step_launches": step_launches},
         {"name": "lm_backward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/lm_train.cu",
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:987",
          "launches": launches["lm_backward"], "max_abs_err": k3b_err,
@@ -692,6 +761,9 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     ] + [f"decoder_cell.{n}" for n in ("w_ih", "w_hh", "b_ih", "b_hh")] + ["proj.w", "proj.b"]
     k4f_err = k4b_err = 0.0
     checked = []
+    kernels = ("lstm_fwd_sweep", "lstm_fwd_step", "tf_attend", "lstm_bwd_sweep", "lstm_bwd_step")
+    sweep_points = {"lstm_fwd_sweep": [], "lstm_bwd_sweep": []}  # (S, µs) of each launch
+    plans = {}
     for name, params, spec, src, tgt, reinforce_norm in passes:
         packed = pack_tf_weights(params, spec)
         lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
@@ -722,18 +794,37 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
             k4b_err = max(k4b_err, e)
         log(f"[K4b {name}] every leaf within 1e-4 * max(1, max|g|); worst {worst[2]}: max |err| "
             f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; K4f + K4b bitwise repeatable")
-        # K4b alone under the profiler: no forward kernel, one sweep a layer.
-        _, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
-        _, _, _, counts = trace(torch, lambda: tf_backward_cuda(residuals, dloss))
-        inside = {k: launches_of(counts, k) for k in
-                  ("lstm_fwd_step", "tf_attend", "lstm_bwd_sweep", "lstm_bwd_step")}
-        log(f"[K4b {name}] launches inside one K4b: {inside}; encoder sweep plan "
-            f"{tf_sweep_plan(src.shape[0], spec.hidden_size)}")
+        # K4f and K4b alone under the profiler: one encoder sweep a layer each
+        # way; the decoder a step launch a step, K4b no forward kernel.
+        S, L = src.shape[1] + 1, spec.num_layers
         steps = tgt.shape[1] + (0 if reinforce_norm else 1)
-        check(inside == {"lstm_fwd_step": 0, "tf_attend": 0, "lstm_bwd_sweep": spec.num_layers,
-                         "lstm_bwd_step": steps}, f"K4b {name} launches {inside}")
+        times = {}
+        times["K4f"] = launch_times(
+            torch, lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True), kernels)
+        _, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+        times["K4b"] = launch_times(torch, lambda: tf_backward_cuda(residuals, dloss), kernels)
+        inside = {k: {n: len(v) for n, v in t.items()} for k, t in times.items()}
+        plans[name] = {"forward": tf_sweep_plan(src.shape[0], spec.hidden_size, forward=True),
+                       "reverse": tf_sweep_plan(src.shape[0], spec.hidden_size)}
+        log(f"[K4 {name}] launches inside one K4f and one K4b: {inside}; encoder sweep plans "
+            f"{plans[name]}")
+        check(inside == {"K4f": {"lstm_fwd_sweep": L, "lstm_fwd_step": steps, "tf_attend": steps,
+                                 "lstm_bwd_sweep": 0, "lstm_bwd_step": 0},
+                         "K4b": {"lstm_fwd_sweep": 0, "lstm_fwd_step": 0, "tf_attend": 0,
+                                 "lstm_bwd_sweep": L, "lstm_bwd_step": steps}},
+              f"K4 {name} launches {inside}")
+        sweep_points["lstm_fwd_sweep"] += [(S, us) for us in times["K4f"]["lstm_fwd_sweep"]]
+        sweep_points["lstm_bwd_sweep"] += [(S, us) for us in times["K4b"]["lstm_bwd_sweep"]]
         checked.append((name, params, spec, src, tgt, reinforce_norm, packed, dloss,
                         residual_bytes))
+
+    # A sweep's time against its steps, over the four passes' launches.
+    sweep_fit = {}
+    for kernel, points in sweep_points.items():
+        a, b = fit_steps(points)
+        sweep_fit[kernel] = {"a_us": a, "b_us": b, "points": points}
+        log(f"[sweep] {kernel}: time = a + b * S over {len(points)} launches at S = "
+            f"{sorted({p[0] for p in points})}: a = {a:.2f} µs, b = {b:.3f} µs a step")
 
     # The objective on the card against the same call on the CPU at the card's z.
     baseline0 = torch.tensor(0.25, device=dev)
@@ -896,17 +987,15 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
             log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
     else:
         log("[trace] the profiler recorded no device time: idle share not measured")
-    step_launches = {k: launches_of(counts, k) for k in
-                     ("lstm_fwd_step", "tf_attend", "lstm_bwd_step", "lstm_bwd_sweep")}
-    # K4f's encoder steps (the four passes' source widths) and K3f's (z), as
-    # the first batch's widths give them; every batch has the same widths.
-    enc_steps = pg_spec.num_layers * sum(c[3].shape[1] + 1 for c in checked)
-    k3f_steps = trainer.prior_spec.num_layers * (z.shape[1] + 1)
-    log(f"[trace] launches in that step: {step_launches} (K4f's encoder steps {enc_steps}, K3f's "
-        f"{k3f_steps})")
+    step_launches = {k: launches_of(counts, k) for k in kernels}
+    # Each encoder layer of the four K4f passes, and each layer of K3f, is one
+    # forward sweep; the decoder's steps alone launch lstm_fwd_step.
+    log(f"[trace] launches in that step: {step_launches}")
     check(step_launches["lstm_bwd_sweep"] == 4 * pg_spec.num_layers
           and step_launches["lstm_bwd_step"] == step_launches["tf_attend"]
-          and step_launches["lstm_fwd_step"] == enc_steps + step_launches["tf_attend"] + k3f_steps,
+          and step_launches["lstm_fwd_step"] == step_launches["tf_attend"]
+          and step_launches["lstm_fwd_sweep"] == 4 * pg_spec.num_layers
+          + trainer.prior_spec.num_layers,
           f"question_coding step launches {step_launches}")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -919,7 +1008,9 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
          "ms": total_of("fwd_ms"), "lean_ms": total_of("lean_ms"), "plain_ms": total_of("fwd_plain"),
          "bound_ms": k4f_bound, "bound_by": k4f_by, "library_ms": None,
          "yardstick": "cuDNN LSTM over the four encoders, forward, recurrence only",
-         "yardstick_ms": total_of("cudnn_fwd"), "per_pass": passes_ms},
+         "yardstick_ms": total_of("cudnn_fwd"), "per_pass": passes_ms,
+         "sweep_plans": plans, "sweep_fit": sweep_fit["lstm_fwd_sweep"],
+         "step_launches": {k: step_launches[k] for k in ("lstm_fwd_sweep", "lstm_fwd_step")}},
         {"name": "tf_backward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/tf_train.cu",
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:285",
          "launches": launches["tf_backward_cuda"], "max_abs_err": k4b_err,
@@ -927,7 +1018,8 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
          "bound_by": k4b_by, "library_ms": None,
          "yardstick": "cuDNN LSTM over the four encoders, backward alone, recurrence only",
          "yardstick_ms": total_of("cudnn_bwd"), "step_mb": step_mb,
-         "residual_mb": sum(c[-1] for c in checked) / 1e6, "step_launches": step_launches},
+         "residual_mb": sum(c[-1] for c in checked) / 1e6, "step_launches": step_launches,
+         "sweep_fit": sweep_fit["lstm_bwd_sweep"]},
     ]
 
 

@@ -12,10 +12,14 @@
 // - Forward, layer by layer. A layer's input product x . W_ih^T is known for
 //   all T steps at once, so it is one tiled GEMM over T*B rows (with the
 //   summed bias in its epilogue). Only h . W_hh^T and the cell are serial:
-//   one launch per step, each block owning 32 rows x 16 hidden units (all
-//   four gates of them), so the cell and the pad freeze fuse into the
-//   product's epilogue. The head (projection, logits, log-sum-exp, CE) runs
-//   over all T*B rows at once.
+//   at H <= 256 the whole recurrence of a layer is one persistent launch,
+//   lstm_fwd_sweep (lstm_sweep.cuh): clusters of CTAs that each keep their
+//   units' slice of W_hh in shared memory and exchange h through
+//   distributed shared memory each step; above that, one launch a step, each
+//   block owning 32 rows x 16 hidden units (all four gates of them). Either
+//   way the cell and the pad freeze fuse into the product's epilogue, and
+//   the product sums in one order, so both give the same bits. The head
+//   (projection, logits, log-sum-exp, CE) runs over all T*B rows at once.
 // - Backward (K3b replays the forward first, keeping h, c and the activated
 //   gates of every step in the workspace). The head's gradients are GEMMs
 //   over all rows; then the top layer is swept over all steps (one launch per
@@ -35,18 +39,20 @@
 // What bounds it on an H100: at B=256, T=27, D=H=256, V=44, 2 layers, K3f is
 // ~15.6 GFLOP (0.23 ms at the 67 TFLOP/s float32 SIMT peak) and K3b ~46.8
 // GFLOP (0.70 ms); bytes in and out are a few MB, so both are bound by
-// operations, and in this first version by the 2*T serial launches, each too
-// small to fill the card. Later work, not done here: a persistent kernel with
-// grid sync over the steps, W_hh (1 MB) held in shared memory across a
-// cluster, TF32/bf16 on the tensor cores (wgmma), double-buffered GEMM tiles.
+// operations, and in this version by their serial steps: the forward
+// sweep's per-step latency (one cluster barrier a step, L sweeps), and
+// K3b's L*T reverse step launches, each too small to fill the card. Later
+// work, not done here: K3b's reverse on lstm_bwd_sweep, TF32/bf16 on the
+// tensor cores (wgmma), double-buffered GEMM tiles.
 //
-// The GEMM, the step kernels, the layer sweeps, the head and the reductions
-// live in train_common.cuh, shared with K4 (tf_train.cu). Every entry point
+// The GEMM, the step kernels, the head and the reductions live in
+// train_common.cuh and the persistent sweeps with the layer's forward in
+// lstm_sweep.cuh, both shared with K4 (tf_train.cu). Every entry point
 // launches on the caller's stream, allocates nothing (the caller passes a
 // workspace of probnmn_lm_workspace_floats() floats) and returns
 // cudaGetLastError().
 
-#include "train_common.cuh"
+#include "lstm_sweep.cuh"
 
 namespace probnmn {
 namespace {

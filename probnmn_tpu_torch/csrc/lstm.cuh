@@ -20,7 +20,10 @@ __device__ __forceinline__ LstmGates lstm_activate(float pi, float pf, float pg,
 // (or the head) reads: the post-freeze h times m.
 __device__ __forceinline__ void lstm_cell_forward(const LstmGates& a, float h_prev, float c_prev,
                                                   float m, float& h, float& c, float& y) {
-  const float c_new = a.f * c_prev + a.i * a.g;
+  // The contraction written out: ptxas may fuse either product into the add
+  // and chooses per kernel, so lstm_fwd_step and lstm_fwd_sweep would round
+  // differently. This is the one it chose for lstm_fwd_step.
+  const float c_new = __fmaf_rn(a.i, a.g, __fmul_rn(a.f, c_prev));
   const float h_new = a.o * tanhf(c_new);
   h = m * h_new + (1.f - m) * h_prev;
   c = m * c_new + (1.f - m) * c_prev;

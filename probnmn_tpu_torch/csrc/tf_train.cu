@@ -16,8 +16,10 @@
 // The work is ordered by what depends on what, as K3's (lm_train.cu), and
 // built from the same pieces (train_common.cuh):
 //
-// - Forward. The encoder is K3's masked layer sweep (one GEMM for x . W_ih^T
-//   over all S*B rows, then one step launch per step). The decoder's token
+// - Forward. The encoder is K3's masked layer forward (one GEMM for
+//   x . W_ih^T over all S*B rows, then the layer's whole recurrence in one
+//   cluster-resident launch of lstm_fwd_sweep, lstm_sweep.cuh; one step
+//   launch a step above H = 256). The decoder's token
 //   inputs are known, so emb(dec_in) . W_ih[:, H:]^T + bias is one GEMM over
 //   T*B rows. Each decoder step is two launches: the attention (one block
 //   per example: scores of the previous h over the source, masked softmax,
@@ -53,10 +55,11 @@
 // most of it the encoder, and twice that backward: 0.1-0.2 ms and 0.2-0.4
 // ms at the 67 TFLOP/s float32 SIMT peak. Reading the residuals takes
 // about 0.04 ms at 3.35 TB/s, so both are bound by operations, and in
-// this version by their serial launches (L*S + 2*T forward; L + 3*T
-// backward), each too small to fill the card. Later work: K4f's encoder on
-// the same cluster kernel, the decoder's reverse sweep persistent too, the
-// tensor cores, and skipping row-steps past each row's end.
+// this version by their serial steps (L sweeps and 2*T launches forward;
+// L sweeps and 3*T launches backward), each too small to fill the card.
+// Later work: the decoder's forward and reverse sweeps persistent too, with
+// the attention inside the cluster; the tensor cores; and skipping
+// row-steps past each row's end.
 //
 // Every entry point launches on the caller's stream and allocates nothing:
 // the caller passes K4f's workspace (probnmn_tf_workspace_floats() floats)
@@ -491,16 +494,25 @@ extern "C" long long probnmn_tf_scratch_floats(int batch, int ls, int lt, int in
   return scratch_layout(d, nullptr, nullptr);
 }
 
-// The launch plan of K4b's encoder sweep for B rows of H units: out = {the
+// The launch plan of an encoder layer's sweep for B rows of H units, the
+// forward's (K4f, K3f; forward = 1) or the reverse's (K4b): out = {the
 // cluster size, units a CTA, rows a cluster, threads a CTA, clusters,
-// clusters the card runs at once, shared memory bytes a CTA}.
-extern "C" int probnmn_tf_sweep_plan(int batch, int hidden, int* out) {
+// clusters the card runs at once, shared memory bytes a CTA, registers a
+// thread}.
+extern "C" int probnmn_tf_sweep_plan(int batch, int hidden, int forward, int* out) {
   SweepPlan p;
-  const cudaError_t err = sweep_plan(hidden, batch, nullptr, &p);
+  cudaFuncAttributes attr;
+  cudaError_t err = forward ? fwd_sweep_plan(hidden, batch, nullptr, &p)
+                            : sweep_plan(hidden, batch, nullptr, &p);
+  if (err == cudaSuccess) {
+    err = forward ? cudaFuncGetAttributes(&attr, fwd_sweep_kernel(p.rows))
+                  : cudaFuncGetAttributes(&attr, lstm_bwd_sweep);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int v[] = {p.cluster, p.units, p.rows, p.threads,
-                   p.clusters, p.fit, static_cast<int>(p.smem)};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const int v[] = {p.cluster, p.units,   p.rows,
+                   p.threads, p.clusters, p.fit,
+                   static_cast<int>(p.smem), attr.numRegs};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -2,10 +2,10 @@
 // in tf_train.cu), float32 on the SIMT cores: a tiled GEMM with split-K and a
 // fixed-order reduction of its partials, the token streams of a
 // teacher-forced pass, embedding lookups, the serial LSTM step kernels and a
-// whole layer's forward and reverse sweep, the cross-entropy head, and the
-// deterministic column-sum and per-token-id reductions the weight gradients
-// use. Every host helper launches on the given stream and returns
-// cudaGetLastError().
+// layer's per-step reverse sweep (lstm_sweep.cuh has the persistent sweeps
+// and the layer's forward), the cross-entropy head, and the deterministic
+// column-sum and per-token-id reductions the weight gradients use. Every
+// host helper launches on the given stream and returns cudaGetLastError().
 #pragma once
 
 #include "lstm.cuh"
@@ -179,7 +179,8 @@ __global__ void embed_rows(const float* __restrict__ emb, const int* __restrict_
 }
 
 // ------------------------------------------------------------------ recurrent steps
-// One forward step of one layer. `gates` holds this step's input part
+// One forward step of one layer (the attentive decoder's steps, and an
+// encoder layer's where no cluster holds it). `gates` holds this step's input part
 // (x . W_ih^T + bias, (B, 4H)) and receives the activated gates. The
 // recurrent product is a (B, K) . w^T with w (4H, K) at leading dimension
 // ldw: a = h_prev and K = H in a plain layer; the attentive decoder's
@@ -435,24 +436,6 @@ struct LayerArgs {
   const float* m;                       // (T*B) step mask
   float *gates, *h, *c, *y;             // (T*B, 4H), (T*B, H) x 3
 };
-
-// A masked layer's forward: one GEMM for x . W_ih^T + bias over all steps,
-// then one step launch per step. y = h * m is what the layer above reads.
-cudaError_t lstm_layer_forward(cudaStream_t s, const LayerArgs& a) {
-  const ll G = 4ll * a.H, bh = static_cast<ll>(a.B) * a.H;
-  TRAIN_TRY(gemm(s, a.x, a.din, 1, a.w_ih, 1, a.din, a.gates, G, a.T * a.B, static_cast<int>(G),
-                 a.din, a.bias, false, nullptr));
-  const dim3 grid(ceil_div(a.H, kFUnits), ceil_div(a.B, kFRows));
-  for (int t = 0; t < a.T; ++t) {
-    const float* hp = t > 0 ? a.h + (t - 1) * bh : nullptr;
-    lstm_fwd_step<<<grid, 256, 0, s>>>(hp, a.H, a.w_hh, a.H, hp,
-                                       t > 0 ? a.c + (t - 1) * bh : nullptr, a.gates + t * a.B * G,
-                                       a.m + t * a.B, a.h + t * bh, a.c + t * bh, a.y + t * bh,
-                                       a.B, a.H);
-    TRAIN_LAUNCHED();
-  }
-  return cudaSuccess;
-}
 
 // The weight gradients of a layer whose gates hold dpre (after its reverse
 // sweep), each a contraction over T*B rows added in a fixed order (d_bias

@@ -190,7 +190,7 @@ def library() -> ctypes.CDLL:
     lib.probnmn_tf_scratch_floats.restype = ctypes.c_longlong
     lib.probnmn_tf_scratch_floats.argtypes = tf_dims
     lib.probnmn_tf_sweep_plan.restype = _INT
-    lib.probnmn_tf_sweep_plan.argtypes = [_INT, _INT, ctypes.POINTER(_INT)]  # B, H, out[7]
+    lib.probnmn_tf_sweep_plan.argtypes = [_INT, _INT, _INT, ctypes.POINTER(_INT)]  # B, H, forward, out[8]
     tf_sizes = [_INT] * 9 + [_VOID_P]           # D, H, layers, Vs, Vt, reinforce, pad, start, end; stream
     lib.probnmn_tf_forward.restype = _INT
     lib.probnmn_tf_forward.argtypes = [

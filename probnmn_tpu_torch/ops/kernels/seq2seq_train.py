@@ -18,8 +18,11 @@ the gradient of ``sum(dloss * loss)`` with respect to every parameter. K3b
 replays the forward, keeping every step's states and gates in a workspace
 taken from the caching allocator; K4b starts from the residuals K4f kept
 (:class:`TFResiduals`), which :func:`fused_tf_kernels` asks for exactly when
-a gradient will be taken. All run in float32 on the SIMT cores, as the JAX
-trainers do; the sources say how the work is laid out and what bounds it.
+a gradient will be taken. Each LSTM layer's recurrence (K3f's, K3b's replay,
+K4f's encoder, and K4b's encoder backward) is one cluster-resident launch a
+layer up to H = 256 (:func:`tf_sweep_plan`). All run in float32 on the SIMT
+cores, as the JAX trainers do; the sources say how the work is laid out and
+what bounds it.
 
 CPU tokens run the plain versions (:func:`lm_loss_plain`,
 :func:`tf_loss_plain`, and autograd through them); CUDA tokens launch the
@@ -336,16 +339,19 @@ def _tf_call_args(spec: Seq2SeqSpec, sizes, reinforce_norm: bool, device):
             torch.cuda.current_stream(device).cuda_stream)
 
 
-def tf_sweep_plan(batch: int, hidden: int) -> Dict[str, int]:
-    r"""How K4b sweeps an encoder layer of ``batch`` rows and ``hidden``
-    units back on this card (``csrc/lstm_sweep.cuh``): the cluster size, the
-    units, rows and threads of a CTA, the clusters, how many clusters the
-    card runs at once, and the shared memory of a CTA in bytes. Raises where
-    no cluster holds the layer."""
-    out = (ctypes.c_int * 7)()
-    _build.check(_build.library().probnmn_tf_sweep_plan(batch, hidden, out),
-                 f"K4b's encoder sweep at B={batch}, H={hidden}")
-    keys = ("cluster", "units", "rows", "threads", "clusters", "fit", "smem_bytes")
+def tf_sweep_plan(batch: int, hidden: int, forward: bool = False) -> Dict[str, int]:
+    r"""How a layer of ``batch`` rows and ``hidden`` units is swept on this
+    card (``csrc/lstm_sweep.cuh``): back, as K4b sweeps an encoder layer, or
+    with ``forward``, as K4f's encoder, K3f and K3b's replay run a layer.
+    The cluster size, the units, rows and threads of a CTA, the clusters, how
+    many clusters the card runs at once, the shared memory of a CTA in bytes
+    and the registers of a thread. Raises where no cluster holds the layer
+    (above H = 256, where the forward takes one launch a step)."""
+    out = (ctypes.c_int * 8)()
+    what = "forward" if forward else "reverse"
+    _build.check(_build.library().probnmn_tf_sweep_plan(batch, hidden, int(bool(forward)), out),
+                 f"the {what} layer sweep at B={batch}, H={hidden}")
+    keys = ("cluster", "units", "rows", "threads", "clusters", "fit", "smem_bytes", "registers")
     return dict(zip(keys, out))
 
 

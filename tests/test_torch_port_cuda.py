@@ -4,6 +4,7 @@ machine run them with ``python -m pytest --noconftest tests/test_torch_port_cuda
 (the JAX-free port needs none of tests/conftest.py). chip_smoke.py holds the
 kernels to the same versions at full width."""
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -38,6 +39,28 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches(fn, names=("lstm_fwd_sweep", "lstm_fwd_step", "lstm_bwd_sweep", "lstm_bwd_step")):
+    r"""Launches of each named kernel in one call of ``fn`` under the profiler,
+    with the card idle for 20 ms after the trace starts and before it stops
+    (without that gap the profiler can lose a trace's first kernels; see
+    chip_smoke.py's ``profiled``). A template kernel's name carries its
+    arguments: ``lstm_fwd_sweep<3>``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    counts = dict.fromkeys(names, 0)
+    for event in prof.key_averages():
+        for name in names:
+            if f"{name}(" in event.key or f"{name}<" in event.key:
+                counts[name] += event.count
+    return counts
 
 
 def test_sampling_kernel_matches_plain_version(cuda):
@@ -223,10 +246,20 @@ def test_replay_backward_matches_no_replay_bit_for_bit(cuda, dtype):
 @pytest.mark.parametrize("sizes", [
     dict(vocab_size=20, input_size=16, hidden_size=12, num_layers=1, batch=9, length=7),
     dict(vocab_size=44, input_size=64, hidden_size=96, num_layers=2, batch=37, length=26),
+    # Shapes the forward sweep's plan must handle: one row; one-token programs
+    # and rows padded to nothing; 300 rows (the plan holds them at once); the
+    # shipped width at its batch, and at a batch whose clusters run in waves.
+    dict(vocab_size=20, input_size=16, hidden_size=12, num_layers=2, batch=1, length=7),
+    dict(vocab_size=44, input_size=64, hidden_size=96, num_layers=2, batch=20, length=1,
+         pad_rows=12),
+    dict(vocab_size=44, input_size=64, hidden_size=96, num_layers=2, batch=300, length=26),
+    dict(vocab_size=44, input_size=256, hidden_size=256, num_layers=2, batch=256, length=26),
+    dict(vocab_size=44, input_size=256, hidden_size=256, num_layers=2, batch=800, length=10),
 ])
 def test_lm_kernels_match_plain_versions(cuda, sizes):
     sizes = dict(sizes)
     batch, length = sizes.pop("batch"), sizes.pop("length")
+    pad_rows = sizes.pop("pad_rows", 0)
     spec = program_prior.ProgramPriorSpec(**sizes)
     gen = torch.Generator().manual_seed(3)
     params = program_prior.init_program_prior_params(gen, spec)
@@ -234,12 +267,20 @@ def test_lm_kernels_match_plain_versions(cuda, sizes):
               "encoder": [{k: v.to(cuda) for k, v in layer.items()} for layer in params["encoder"]]}
     rs = np.random.RandomState(4)
     tok = rs.randint(4, spec.vocab_size, (batch, length))
-    tok *= np.arange(length)[None, :] < rs.randint(1, length, (batch, 1))
+    tok *= np.arange(length)[None, :] < rs.randint(1, max(length, 2), (batch, 1))
     tok[0] = rs.randint(4, spec.vocab_size, (length,))
-    tok[1] = 0
+    tok[1:2] = 0
+    if pad_rows:
+        tok[-pad_rows:] = 0
     tok = torch.from_numpy(tok).to(cuda)
     dloss = torch.from_numpy(rs.rand(batch).astype(np.float32) + 0.5).to(cuda)
     packed = pack_lm_weights(params)
+    L, steps = spec.num_layers, length + 1
+    plan = tf_sweep_plan(batch, spec.hidden_size, forward=True)
+    if batch == 800:  # more forward sweep clusters than the card runs at once
+        assert plan["clusters"] > plan["fit"], plan
+    elif batch >= 256:
+        assert plan["clusters"] <= plan["fit"], plan
 
     before = (lm_forward_cuda.launches, lm_backward_cuda.launches)
     loss = lm_forward_cuda(packed, spec, tok)
@@ -251,15 +292,22 @@ def test_lm_kernels_match_plain_versions(cuda, sizes):
     again = lm_backward_cuda(packed, spec, tok, dloss)
     for a, b in zip(param_leaves(got), param_leaves(again)):
         assert torch.equal(a, b)  # no float atomics: the same bits every time
-    assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(loss, lm_forward_cuda(packed, spec, tok))
+    assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 2, before[1] + 2)
+    # Each layer's recurrence is one sweep, in K3f and in K3b's replay alike.
+    assert _launches(lambda: lm_forward_cuda(packed, spec, tok)) == {
+        "lstm_fwd_sweep": L, "lstm_fwd_step": 0, "lstm_bwd_sweep": 0, "lstm_bwd_step": 0}
+    assert _launches(lambda: lm_backward_cuda(packed, spec, tok, dloss)) == {
+        "lstm_fwd_sweep": L, "lstm_fwd_step": 0, "lstm_bwd_sweep": 0, "lstm_bwd_step": L * steps}
 
     # Through autograd: K3f forward, K3b backward, once each.
+    before = (lm_forward_cuda.launches, lm_backward_cuda.launches)
     leaves = [p.detach().clone().requires_grad_(True) for p in param_leaves(params)]
     out = fused_lm_loss(params_from_leaves(leaves), spec, tok)
     (out * dloss).sum().backward()
     for leaf, w in zip(leaves, param_leaves(want)):
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
-    assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 2, before[1] + 3)
+    assert (lm_forward_cuda.launches, lm_backward_cuda.launches) == (before[0] + 1, before[1] + 1)
 
 
 def _tf_tokens(rs, batch, length, vocab, end_index=3):
@@ -267,7 +315,7 @@ def _tf_tokens(rs, batch, length, vocab, end_index=3):
     tok = rs.randint(4, vocab, (batch, length))
     tok *= np.arange(length)[None, :] < rs.randint(1, length + 1, (batch, 1))
     tok[0] = rs.randint(4, vocab, (length,))
-    tok[1] = 0
+    tok[1:2] = 0
     return tok
 
 
@@ -276,14 +324,24 @@ def _tf_tokens(rs, batch, length, vocab, end_index=3):
          batch=9, ls=7, lt=5),
     dict(source_vocab_size=92, target_vocab_size=44, input_size=64, hidden_size=96, num_layers=2,
          batch=37, ls=45, lt=26),
-    # The shipped width at a batch that needs more sweep clusters than fit at once.
+    # The shipped width at a batch that needs more reverse sweep clusters than
+    # fit at once (the forward sweep's plan holds it at once).
     dict(source_vocab_size=92, target_vocab_size=44, input_size=256, hidden_size=256,
          num_layers=2, batch=300, ls=45, lt=26),
+    # One row; a source of one step (its token or none, plus @end@) with rows
+    # padded to nothing on both sides; a question_coding pass at shipped width.
+    dict(source_vocab_size=20, target_vocab_size=15, input_size=16, hidden_size=12, num_layers=2,
+         batch=1, ls=7, lt=5),
+    dict(source_vocab_size=92, target_vocab_size=44, input_size=64, hidden_size=96, num_layers=2,
+         batch=37, ls=1, lt=26, pad_rows=9),
+    dict(source_vocab_size=92, target_vocab_size=44, input_size=256, hidden_size=256,
+         num_layers=2, batch=128, ls=45, lt=26),
 ])
 @pytest.mark.parametrize("reinforce_norm", [False, True])
 def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
     sizes = dict(sizes)
     batch, ls, lt = sizes.pop("batch"), sizes.pop("ls"), sizes.pop("lt")
+    pad_rows = sizes.pop("pad_rows", 0)
     spec = Seq2SeqSpec(**sizes)
     params = init_seq2seq_params(torch.Generator().manual_seed(5), spec)
     params = tf_params_from_leaves([p.to(cuda) for p in tf_param_leaves(params)])
@@ -295,14 +353,19 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
         lens = (tgt != 0).sum(1)
         for b in np.flatnonzero(ends & (lens < lt)):
             tgt[b, lens[b]] = spec.end_index
-        tgt[2] = 0  # @end@ came first: trimmed to all pad
+        tgt[2:3] = 0  # @end@ came first: trimmed to all pad
+    if pad_rows:
+        src[-pad_rows:] = 0
+        tgt[-pad_rows:] = 0
     src, tgt = torch.from_numpy(src).to(cuda), torch.from_numpy(tgt).to(cuda)
     dloss = torch.from_numpy(rs.rand(batch).astype(np.float32) + 0.5).to(cuda)
     packed = pack_tf_weights(params, spec)
 
-    if batch == 300:  # more sweep clusters than the card runs at once
+    if batch == 300:  # more reverse sweep clusters than the card runs at once
         plan = tf_sweep_plan(batch, spec.hidden_size)
         assert plan["clusters"] > plan["fit"], plan
+        plan = tf_sweep_plan(batch, spec.hidden_size, forward=True)
+        assert plan["clusters"] <= plan["fit"], plan
     before = (tf_forward_cuda.launches, tf_backward_cuda.launches)
     lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
     loss, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
@@ -324,6 +387,16 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
     for a, b in zip(tf_param_leaves(got), tf_param_leaves(again)):
         assert torch.equal(a, b)
     assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 3, before[1] + 2)
+    # The encoder: one forward sweep a layer (lean or keeping) and one reverse
+    # sweep a layer; the decoder: a step launch each way a step.
+    steps = lt + (0 if reinforce_norm else 1)
+    L = spec.num_layers
+    assert _launches(lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)) == {
+        "lstm_fwd_sweep": L, "lstm_fwd_step": steps, "lstm_bwd_sweep": 0, "lstm_bwd_step": 0}
+    _, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    assert _launches(lambda: tf_backward_cuda(residuals, dloss)) == {
+        "lstm_fwd_sweep": 0, "lstm_fwd_step": 0, "lstm_bwd_sweep": L, "lstm_bwd_step": steps}
+    before = (tf_forward_cuda.launches, tf_backward_cuda.launches)
 
     # Through autograd: K4f keeping its residuals, K4b from them, once each.
     leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(params)]
@@ -334,7 +407,50 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
     with pytest.raises(RuntimeError, match="second time"):
         total.backward()
-    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 4, before[1] + 3)
+    assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_forward_takes_the_per_step_route_above_a_cluster(cuda):
+    r"""Above H = 256 no cluster holds a layer: K3f, K3b's replay and K4f
+    under ``torch.no_grad()`` run the recurrence one ``lstm_fwd_step`` launch
+    a step, chosen by the shape before any launch, and still match their
+    plain versions."""
+    L, length = 2, 6
+    spec = program_prior.ProgramPriorSpec(vocab_size=20, input_size=16, hidden_size=264,
+                                          num_layers=L)
+    params = program_prior.init_program_prior_params(torch.Generator().manual_seed(8), spec)
+    params = params_from_leaves([p.to(cuda) for p in param_leaves(params)])
+    rs = np.random.RandomState(8)
+    tok = torch.from_numpy(_tf_tokens(rs, 5, length, spec.vocab_size)).to(cuda)
+    dloss = torch.from_numpy(rs.rand(5).astype(np.float32) + 0.5).to(cuda)
+    packed = pack_lm_weights(params)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tf_sweep_plan(5, 264, forward=True)
+    counts = _launches(lambda: lm_forward_cuda(packed, spec, tok))
+    assert counts == {"lstm_fwd_sweep": 0, "lstm_fwd_step": L * (length + 1), "lstm_bwd_sweep": 0,
+                      "lstm_bwd_step": 0}, counts
+    counts = _launches(lambda: lm_backward_cuda(packed, spec, tok, dloss))
+    assert counts == {"lstm_fwd_sweep": 0, "lstm_fwd_step": L * (length + 1), "lstm_bwd_sweep": 0,
+                      "lstm_bwd_step": L * (length + 1)}, counts
+    torch.testing.assert_close(lm_forward_cuda(packed, spec, tok), lm_loss_plain(params, spec, tok),
+                               rtol=0, atol=1e-5)
+    want = lm_grads_plain(params, spec, tok, dloss)
+    for g, w in zip(param_leaves(lm_backward_cuda(packed, spec, tok, dloss)), param_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+
+    tf_spec = Seq2SeqSpec(source_vocab_size=20, target_vocab_size=15, input_size=16,
+                          hidden_size=264, num_layers=L)
+    tf_params = init_seq2seq_params(torch.Generator().manual_seed(9), tf_spec)
+    tf_params = tf_params_from_leaves([p.to(cuda) for p in tf_param_leaves(tf_params)])
+    src = torch.from_numpy(_tf_tokens(rs, 4, 6, tf_spec.source_vocab_size)).to(cuda)
+    tgt = torch.from_numpy(_tf_tokens(rs, 4, 5, tf_spec.target_vocab_size)).to(cuda)
+    with torch.no_grad():
+        got = {}
+        counts = _launches(lambda: got.update(loss=fused_tf_loss(tf_params, tf_spec, src, tgt)))
+    assert counts == {"lstm_fwd_sweep": 0, "lstm_fwd_step": L * 7 + 6, "lstm_bwd_sweep": 0,
+                      "lstm_bwd_step": 0}, counts
+    torch.testing.assert_close(got["loss"], tf_loss_plain(tf_params, tf_spec, src, tgt), rtol=0,
+                               atol=1e-5)
 
 
 def test_tf_backward_refuses_a_layer_no_cluster_holds(cuda):

@@ -15,17 +15,21 @@ other). Through the public API both trees share, each process
   ProgramGenerator and QuestionReconstructor, the generator in REINFORCE
   mode at the z that K1 sampled, the reconstructor from z;
 - times ``fused_tf_loss`` forward + ``.backward`` on each pass (K4f, K4b),
-  and K4f alone under ``torch.no_grad()``, with CUDA events over 10 calls;
-- saves each pass's ten gradients to a ``.npz`` in a temporary directory;
+  K4f alone under ``torch.no_grad()`` (lean), K4f keeping its residuals and
+  K4b alone from fresh residuals, with CUDA events over 10 calls;
+- saves each pass's loss and ten gradients to a ``.npz`` in a temporary
+  directory;
 - reads the memory the four passes' forwards and backward take beyond what
   was allocated before them, and that of one trainer step;
 - times the trainer step (host clock over 10 steps that each fetch their
-  logs) and counts the LSTM step kernels of one step under ``torch.profiler``;
-- times K3f and K3b alone on 256 programs.
+  logs) and counts the LSTM kernels of one step under ``torch.profiler``;
+- times K3f and K3b alone on 256 programs of a random prior and saves
+  K3f's loss and K3b's gradients.
 
-Prints every time and the max |dev| of each pass's gradients between the
-checkouts' first runs (and between each checkout's two runs), against
-1e-4 * max(1, max|g|). Needs a CUDA card and the CUDA toolkit.
+Prints every time and the max |dev| of each pass's loss and gradients, and
+of K3f's loss and K3b's gradients, between the checkouts' first runs (and
+between each checkout's two runs), against 1e-4 * max(1, max|g|). Needs a
+CUDA card and the CUDA toolkit.
 """
 import json
 import os
@@ -35,7 +39,8 @@ import sys
 import tempfile
 
 PASSES = ("pg_sup", "qr_sup", "pg_z", "qr_z")
-KERNELS = ("lstm_fwd_step", "lstm_bwd_step", "lstm_bwd_sweep", "tf_attend", "tf_attend_bwd")
+KERNELS = ("lstm_fwd_step", "lstm_fwd_sweep", "lstm_bwd_step", "lstm_bwd_sweep", "tf_attend",
+           "tf_attend_bwd")
 
 RUN = r"""
 import json, os, sys, tempfile, time
@@ -51,8 +56,8 @@ from probnmn_tpu_torch.data.datasets import QuestionCodingDataset
 from probnmn_tpu_torch.models.program_prior import init_program_prior_params
 from probnmn_tpu_torch.ops.kernels import _build
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
-    fused_tf_loss, lm_backward_cuda, lm_forward_cuda, pack_lm_weights, tf_param_leaves,
-    tf_params_from_leaves)
+    fused_tf_loss, lm_backward_cuda, lm_forward_cuda, pack_lm_weights, pack_tf_weights,
+    param_leaves, tf_backward_cuda, tf_forward_cuda, tf_param_leaves, tf_params_from_leaves)
 from probnmn_tpu_torch.training._trainer import tree_map
 from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
 from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
@@ -140,11 +145,27 @@ for name, params, spec, src, tgt, reinforce in passes:
     torch.cuda.synchronize()
     for i, leaf in enumerate(leaves):
         grads[f"{name}.{i}"] = leaf.grad.cpu().numpy()
+    with torch.no_grad():
+        grads[f"loss.{name}"] = fused_tf_loss(params, spec, src, tgt, reinforce).cpu().numpy()
+    packed = pack_tf_weights(params, spec)
+    def keep():
+        return tf_forward_cuda(packed, spec, src, tgt, reinforce, keep=True)[1]
+    def bwd_ms(iters=10):
+        tf_backward_cuda(keep(), dloss)
+        pairs = []
+        for _ in range(iters):
+            res = keep()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tf_backward_cuda(res, dloss)
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
     result["passes"][name] = {"B": int(src.shape[0]), "fwd_bwd_ms": cuda_ms(fwd_bwd),
-                              "fwd_ms": cuda_ms(fwd)}
+                              "fwd_ms": cuda_ms(fwd), "keep_ms": cuda_ms(keep),
+                              "bwd_ms": bwd_ms()}
     runs.append((leaves, spec, src, tgt, reinforce, dloss))
-np.savez(out_npz, **grads)
-
 def all_passes():
     losses = [fused_tf_loss(tf_params_from_leaves(l), s, a, b, r) for l, s, a, b, r, _ in runs]
     sum((loss * d).sum() for loss, (_, _, _, _, _, d) in zip(losses, runs)).backward()
@@ -156,6 +177,10 @@ tokens = torch.from_numpy(data(256, 11)[0]).to(dev)
 lm_dloss = (torch.rand(256, generator=gen) + 0.5).to(dev)
 result["k3f_ms"] = cuda_ms(lambda: lm_forward_cuda(packed, prior_spec, tokens))
 result["k3b_ms"] = cuda_ms(lambda: lm_backward_cuda(packed, prior_spec, tokens, lm_dloss))
+grads["k3f.loss"] = lm_forward_cuda(packed, prior_spec, tokens).cpu().numpy()
+for i, g in enumerate(param_leaves(lm_backward_cuda(packed, prior_spec, tokens, lm_dloss))):
+    grads[f"k3b.{i}"] = g.cpu().numpy()
+np.savez(out_npz, **grads)
 
 for _ in range(3):
     trainer.step()
@@ -167,12 +192,14 @@ result["step_ms"] = (time.perf_counter() - t0) / 10 * 1e3
 result["step_mb"] = transient_mb(trainer.step)
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    time.sleep(0.02)  # the card idle at both ends: the profiler can lose a trace's first kernels
     trainer.step()
     torch.cuda.synchronize()
+    time.sleep(0.02)
 counts = dict.fromkeys(KERNELS, 0)
 for event in prof.key_averages():
     for k in KERNELS:
-        if k + "(" in event.key or event.key.endswith(k):
+        if k + "(" in event.key or k + "<" in event.key or event.key.endswith(k):
             counts[k] += event.count
 result["step_launches"] = counts
 print("RESULT " + json.dumps(result))
@@ -190,12 +217,12 @@ def run(tree, npz):
 
 
 def max_dev(a, b):
-    r"""Per pass: (max |a - b| over its leaves, the worst ratio to the
-    tolerance 1e-4 * max(1, max|b|))."""
+    r"""Per pass, for the losses, and for K3b: (max |a - b| over its arrays,
+    the worst ratio to the tolerance 1e-4 * max(1, max|b|))."""
     import numpy as np
 
     out = {}
-    for name in PASSES:
+    for name in PASSES + ("loss", "k3f", "k3b"):
         keys = sorted(k for k in b.files if k.startswith(name + "."))
         devs = [(float(np.abs(a[k] - b[k]).max()), 1e-4 * max(1.0, float(np.abs(b[k]).max())))
                 for k in keys]
@@ -214,12 +241,14 @@ def main(argv):
                                       ("other", other))):
         res = run(tree, os.path.join(tmp, f"{name}{len(results[name])}.npz"))
         results[name].append(res)
-        per = ", ".join(f"{p} B={v['B']} {v['fwd_bwd_ms']:.3f} (K4f alone {v['fwd_ms']:.3f})"
+        per = ", ".join(f"{p} B={v['B']} {v['fwd_bwd_ms']:.3f} (K4f lean {v['fwd_ms']:.3f}, "
+                        f"keeping {v['keep_ms']:.3f}; K4b {v['bwd_ms']:.3f})"
                         for p, v in res["passes"].items())
-        total = sum(v["fwd_bwd_ms"] for v in res["passes"].values())
-        total_f = sum(v["fwd_ms"] for v in res["passes"].values())
+        def total(key):
+            return sum(v[key] for v in res["passes"].values())
         print(f"[k4-ab] {name}: fused_tf_loss forward + backward, ms per pass: {per}; four passes "
-              f"{total:.3f} (K4f alone {total_f:.3f}); memory of the four passes {res['four_passes_mb']:.1f} "
+              f"{total('fwd_bwd_ms'):.3f} (K4f lean {total('fwd_ms'):.3f}, keeping "
+              f"{total('keep_ms'):.3f}; K4b {total('bwd_ms'):.3f}); memory of the four passes {res['four_passes_mb']:.1f} "
               f"MB; question_coding step {res['step_ms']:.3f} ms, {res['step_mb']:.1f} MB; K3f "
               f"{res['k3f_ms']:.4f} ms, K3b {res['k3b_ms']:.4f} ms; launches a step "
               f"{res['step_launches']}", flush=True)
@@ -227,7 +256,7 @@ def main(argv):
     for a, b, what in (("this0", "other0", "this vs other"), ("this0", "this1", "this, run 1 vs 2"),
                        ("other0", "other1", "other, run 1 vs 2")):
         devs = max_dev(grads[a], grads[b])
-        print(f"[k4-ab] gradients, {what}: " + ", ".join(
+        print(f"[k4-ab] losses and gradients, {what}: " + ", ".join(
             f"{p} max |dev| {d:.3e} ({r:.3e} of the tolerance)" for p, (d, r) in devs.items()),
             flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
