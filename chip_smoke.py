@@ -88,18 +88,25 @@ Phases (any failure raises, and the script exits non-zero with no result):
    1e-1 (bfloat16) * max(1, max|g|) of autograd through the plain version
    under a random cotangent, bitwise repeatable, with dx 0 on invalid rows;
    its weight-gradient kernel and conv input gradients within 1e-5 of
-   float64 sums over the operands it wrote to its workspace.
+   float64 sums over the operands it wrote to its workspace, and the
+   weight-gradient kernel within 1e-5 of ``weight_grad_plain`` on the same
+   entries (relative to the sum of |products|; targets without entries
+   exactly 0).
    20 ``ModuleTrainingTrainer.step()``s in each of two regimes, the
    generator phase 7's checkpoint (programs mostly abort early) and a
    scripted generator whose program runs nine 3x3 convs, with the counters
-   set to 0 before and read after (K1, K5 and K6 once a step, K2 never) and
+   set to 0 before and read after (K1, K5 and K6 once a step, K6's
+   weight-gradient stage ``weight_grad_kernel`` once a step, K2 never) and
    the 3x3 convs a step counted by a host replay; one float32 step on 16
    rows at the card's K1 programs against the same step on the CPU (loss
    within 1e-4, every gradient leaf within 1e-4 * max(1, max|g|)); the
    evaluator in both decode modes (K2); a checkpoint and a resume; then K5,
    K6, K2 and the plain versions per batch, cuDNN's bf16 conv over as many
    3x3 convs (a partial yardstick), and the train step in both regimes,
-   timed beside their bounds, with a profiler trace. Its checkpoint (the
+   timed beside their bounds, with a profiler trace; K6 split into parts
+   under the profiler (``[K6 parts]``: the sweep, the weight-gradient stage
+   beside its own bound, the row sums and the glue, with the partials' MB).
+   Its checkpoint (the
    valid-programs run) is phase 9's NMN.
 9. The joint_training training phase at the shipped width
    (``configs/joint_training_ours.yml``: batch 256, ALPHA 100, BETA 0.1,
@@ -110,17 +117,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
    plus invalid and all-pad rows, in both dtypes: dx, every bank gradient
    and the workspace entries equal K6's over K5's residuals bit for bit;
    K6r bitwise repeatable, within K6's tolerances of the plain version, and
-   within 1e-5 of float64 sums over its own workspace. The interpreter's
+   within 1e-5 of float64 sums over its own workspace and (its weight
+   gradients) of ``weight_grad_plain``. The interpreter's
    memory for a forward and backward at B=256 in each mode; the float32
    objective on 32 rows (16 supervised) at the card's K1 z against the same
    call on the CPU (total, logs and baseline within 1e-4, every gradient
    leaf within 1e-4 * max(1, max|g|)); 20 ``JointTrainingTrainer.step()``s
-   (K1 1, K3f 1, K4f 4, K4b 4, K5 1, K6 1, K2 0 a step), 5 with the replay
+   (K1 1, K3f 1, K4f 4, K4b 4, K5 1, K6 1 and its weight-gradient stage 1,
+   K2 0 a step), 5 with the replay
    selected (K2 1, K5 0, K6 1 in replay mode) and 2 with OBJECTIVE baseline
    (K1 1, K4f 1, K4b 1, K5 1, K6 1, K3f 0), the counters set to 0 before
    and read after each; the evaluator in both decode modes (K2), a
    checkpoint and a resume; then K6r, K6 and the plain version timed beside
-   their bounds, and the train step in both modes (host clock, examples/s,
+   their bounds, both split into parts (``[K6 parts]``), and the train step
+   in both modes (host clock, examples/s,
    the memory a step takes), each with a profiler trace.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
@@ -399,10 +409,36 @@ def nmn_replay(tables, programs):
     return dict(total, valid=valid_total, used={k: len(v) for k, v in used.items()})
 
 
+def tap_pixels(h, w, d):
+    r"""Products a conv needs per (C_in, C_out) pair on an H x W image, summed
+    over its taps: (H - |dy|)(W - |dx|) for each tap of a 3x3 conv at
+    dilation d (a tap's other pixels read only the zero padding), H * W for
+    a 1x1 (d = 0)."""
+    if d == 0:
+        return h * w
+    return sum(max(h - abs(dy), 0) for dy in (-d, 0, d)) * sum(max(w - abs(dx), 0) for dx in (-d, 0, d))
+
+
+def relate_pixels(spec):
+    r""":func:`tap_pixels` summed over relate's chain of 3x3 convs."""
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import RELATE_DILATIONS
+
+    return sum(tap_pixels(spec.height, spec.width, d) for d in RELATE_DILATIONS)
+
+
+def conv_pixels(spec, work):
+    r""":func:`tap_pixels` summed over the 3x3 convs of a :func:`nmn_replay`
+    count: relate's chain at its dilations, every other conv at 1."""
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import RELATE_DILATIONS
+
+    plain = work["convs"] - len(RELATE_DILATIONS) * work["relates"]
+    return plain * tap_pixels(spec.height, spec.width, 1) + work["relates"] * relate_pixels(spec)
+
+
 def module_flops(spec, work):
     r"""FLOPs of the module work of a :func:`nmn_replay` count."""
     C, HW = spec.module_channels, spec.height * spec.width
-    return float(work["convs"] * 2 * HW * 9 * C * C + work["proj"] * 2 * HW * 2 * C * C
+    return float(2 * C * C * conv_pixels(spec, work) + work["proj"] * 2 * HW * 2 * C * C
                  + work["heads"] * 2 * HW * C + work["sames"] * 3 * HW * C)
 
 
@@ -1069,12 +1105,92 @@ def k5_k6_work(tables, spec, programs, itemsize, bank_floats):
     N, B = HW * C, len(programs)
     k2_flops, k2_bytes, convs = k2_work(tables, spec, programs, itemsize)
     resid = lambda w: (w["steps"] + 2 * w["two_conv"]) * N * itemsize  # noqa: E731
-    conv = 2.0 * HW * 9 * C * C
-    flops6 = (2 * valid["convs"] * conv + 5 * valid["relates"] * conv
+    mac = 2.0 * C * C
+    flops6 = (2 * mac * conv_pixels(spec, valid) + mac * valid["relates"] * relate_pixels(spec)
               + 3 * valid["proj"] * 2 * HW * 2 * C * C + 2 * valid["heads"] * 2 * HW * C
               + valid["sames"] * 8 * HW * C)
     bytes6 = 2 * B * N * itemsize + B * N * 4 + resid(valid) + bank_floats * itemsize
     return (k2_flops, k2_bytes + resid(run)), (flops6, bytes6), convs, run
+
+
+def weight_grad_check(torch, ws, banks, spec):
+    r"""K6's weight-gradient kernel (the float32 dw3 / dwc in its workspace
+    ``ws``) against ``weight_grad_plain`` on the same entries: the largest
+    difference over a target over the largest sum of |products| there (the
+    plain version on |inp| and |g_z|), held to ``WS_TOL``; a target without
+    entries must be exactly 0. Returns (error, empty targets)."""
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import weight_grad_plain
+
+    s3, sc = banks["w3"].shape[0], banks["wcmp"].shape[0]
+    args = (ws["tag"], ws["dil"], s3, sc, spec.height, spec.width)
+    want = weight_grad_plain(ws["inp"], ws["g"], *args)
+    scale = weight_grad_plain(ws["inp"].abs(), ws["g"].abs(), *args)
+    got = (ws["dw3"].flatten(1), ws["dwc"].flatten(2).flatten(0, 1))
+    want = (want[0].flatten(1), want[1].flatten(2).flatten(0, 1))
+    scale = (scale[0].flatten(1), scale[1].flatten(2).flatten(0, 1))
+    err, empty = 0.0, 0
+    for a, b, top in zip(got, want, scale):
+        top = top.amax(1)
+        err = max(err, float(((a - b).abs().amax(1) / top.clamp_min(1e-30)).max()))
+        empty += int((top == 0).sum())
+        check(not bool(a[top == 0].any()), "K6's weight gradient of a target without entries is not 0")
+    check(err <= WS_TOL, f"K6's weight-gradient kernel against weight_grad_plain: {err}")
+    return err, empty
+
+
+def weight_grad_work(ws, banks, spec, itemsize):
+    r"""FLOPs and bytes K6's weight-gradient stage needs for the entries in
+    its workspace ``ws``: 2 * C * C for each pixel a tap of an entry reads
+    inside the image (:func:`tap_pixels` at the entry's dilation, 0 for a
+    1x1 entry); the entries' inputs and g_z read once, dw3 and dwc written
+    once in float32."""
+    s3, sc = banks["w3"].shape[0], banks["wcmp"].shape[0]
+    c, hw = spec.module_channels, spec.height * spec.width
+    live = ws["tag"] < s3 + 2 * sc
+    dils, counts = ws["dil"][live].unique(return_counts=True)
+    pixels = sum(tap_pixels(spec.height, spec.width, int(d)) * int(n) for d, n in zip(dils, counts))
+    flops = 2.0 * c * c * pixels
+    nbytes = 2 * int(live.sum()) * hw * c * itemsize + (9 * s3 + 2 * sc) * c * c * 4
+    return flops, nbytes
+
+
+def k6_parts(torch, fn, calls=3):
+    r"""K6's parts by device time under ``torch.profiler`` over ``calls``
+    calls of ``fn``, in ms a call: the sweep (``nmn_backward_kernel``), the
+    weight-gradient stage (every ``nmn_weight_grad*`` kernel), the small
+    banks' row sums (``nmn_sum_rows_kernel``) and the glue (every other
+    device op: the plan's sort and counts, the host read's copy, fills,
+    casts). Returns the parts and, by kernel name, (ms, launches) a call."""
+    from torch.autograd import DeviceType
+
+    fn()
+    prof, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
+    parts = dict.fromkeys(("sweep", "weight_grad", "row_sums", "glue"), 0.0)
+    kernels = {}
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = getattr(event, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        name = event.key
+        part = ("sweep" if "nmn_backward_kernel" in name else
+                "weight_grad" if "nmn_weight_grad" in name else
+                "row_sums" if "nmn_sum_rows" in name else "glue")
+        parts[part] += us / 1e3 / calls
+        kernels[name[:70]] = (round(us / 1e3 / calls, 4), event.count // calls)
+    return parts, kernels
+
+
+def weight_grad_memory(ws, channels):
+    r"""The weight-gradient kernel's chunk (entries) and its partials' bytes
+    for the workspace ``ws``: both follow from the workspace's entry count."""
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import weight_grad_chunk, weight_grad_slots
+
+    n = ws["tag"].numel()
+    return weight_grad_chunk(n), weight_grad_slots(n) * 9 * channels * channels * 4
 
 
 def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
@@ -1097,7 +1213,7 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
         execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
-        workspace_errors,
+        weight_grad_kernel, workspace_errors,
     )
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
@@ -1186,7 +1302,9 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
         tight = workspace_errors(ws, banks, tables, spec)
         check(tight["weight_grad"] <= WS_TOL and tight["input_grad"] <= WS_TOL,
               f"K6 {name} against float64 sums over its own workspace: {tight}")
-        errs[name] = (err, worst[1], tight)
+        wg_err, wg_empty = weight_grad_check(torch, ws, banks, spec)
+        chunk, partial = weight_grad_memory(ws, spec.module_channels)
+        errs[name] = (err, worst[1], tight, wg_err)
         log(f"[K5 {name}] B={batch}: equal to K2 bit for bit; invalid {int(invalid.sum())}/{batch} "
             f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e})")
         log(f"[K6 {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
@@ -1196,11 +1314,16 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
             f"(error over the sum of |products|, limit {WS_TOL}): weight-gradient kernel "
             f"{tight['weight_grad']:.3e}; conv input gradients of {tight['chained']} chained "
             f"entries {tight['input_grad']:.3e}")
+        log(f"[K6 {name}] weight-gradient kernel against weight_grad_plain on the same entries "
+            f"(error over the sum of |products|, limit {WS_TOL}): {wg_err:.3e}; {wg_empty} targets "
+            f"without entries exactly 0; chunks of {chunk} entries, partials {partial / 1e6:.1f} MB")
         timed[name] = (banks, stem, invalid, otraj, atraj, g)
+        wg_work = (weight_grad_work(ws, banks, spec, stem.element_size()), partial)
 
-    # The trainer on the card in two regimes: K1, K5 and K6 once a step, K2 never.
+    # The trainer on the card in two regimes: K1, K5 and K6 (its sweep and its
+    # weight-gradient stage) once a step, K2 never.
     counters = (fused_sampling_forward, execute_programs_train_kernel, interpreter_grads_kernel,
-                execute_programs_kernel)
+                weight_grad_kernel, execute_programs_kernel)
     steps = 20
 
     def run_regime(tr, name):
@@ -1225,7 +1348,8 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
             f"{losses[-1]:.4f}; invalid programs {batch * steps - run['valid']['rows']}/{batch * steps}"
             f"; 3x3 convs per step {run['convs'] / steps:.1f}")
         check(launches == {"fused_sampling_forward": steps, "execute_programs_train_kernel": steps,
-                           "interpreter_grads_kernel": steps, "execute_programs_kernel": 0},
+                           "interpreter_grads_kernel": steps, "weight_grad_kernel": steps,
+                           "execute_programs_kernel": 0},
               f"launches {launches}")
         check(all(np.isfinite(losses)), f"{name} loss not finite")
         return dict(launches=launches, run=run, losses=losses)
@@ -1313,6 +1437,14 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     log(f"[time] K6 {k6_ms:.3f} ms/batch (plain {k6_plain:.3f}; bound {k6_bound:.4f} by {k6_by}: "
         f"{run['valid']['rows']} valid rows, {f6 / 1e9:.1f} GFLOP, {b6 / 1e6:.1f} MB; cuDNN bf16 conv "
         f"forward + both gradients over {n_convs} convs {cudnn_train:.3f})")
+    k6_split, _ = k6_parts(torch, lambda: interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                                invalid, g, otraj, atraj))
+    (wg_flops, wg_bytes), wg_partial = wg_work
+    wg_bound, wg_by = bound(wg_flops, wg_bytes, "bfloat16")
+    log(f"[K6 parts] B={batch}, bf16, ms a call under torch.profiler: sweep {k6_split['sweep']:.4f}, "
+        f"weight gradient {k6_split['weight_grad']:.4f} (bound {wg_bound:.4f} by {wg_by}: "
+        f"{wg_flops / 1e9:.1f} GFLOP, {wg_bytes / 1e6:.1f} MB), row sums {k6_split['row_sums']:.4f}, "
+        f"glue {k6_split['glue']:.4f}; partials {wg_partial / 1e6:.1f} MB; card {smi}")
 
     step_ms = {}
     for name, tr in (("early abort", trainer), ("valid programs", valid_trainer)):
@@ -1358,6 +1490,9 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
          "library_ms": None,
          "workspace_err": {k: {e: v[2][e] for e in ("weight_grad", "input_grad")}
                            for k, v in errs.items()},
+         "weight_grad_plain_err": {k: v[3] for k, v in errs.items()},
+         "parts_ms": k6_split, "weight_grad_bound_ms": wg_bound, "weight_grad_bound_by": wg_by,
+         "partial_mb": wg_partial / 1e6,
          "yardstick": "cuDNN bf16 conv2d forward and both gradients over the same 3x3 convs",
          "yardstick_ms": cudnn_train},
     ]
@@ -1438,7 +1573,7 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         DIFF_BANKS, build_banks, execute_programs_diff, execute_programs_kernel,
         execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
-        workspace_errors,
+        weight_grad_kernel, workspace_errors,
     )
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
@@ -1534,7 +1669,9 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         tight = workspace_errors(ws_replay, banks, tables, spec)
         check(tight["weight_grad"] <= WS_TOL and tight["input_grad"] <= WS_TOL,
               f"K6r {name} against float64 sums over its own workspace: {tight}")
-        errs[name] = (worst[1], tight)
+        wg_err, wg_empty = weight_grad_check(torch, ws_replay, banks, spec)
+        chunk, partial = weight_grad_memory(ws_replay, spec.module_channels)
+        errs[name] = (worst[1], tight, wg_err)
         log(f"[K6r {name}] B={batch}, replay grid {grid}: dx, every bank gradient and the "
             f"{tight['entries']} workspace entries equal K6's bit for bit; bitwise repeatable; "
             f"invalid {int(invalid.sum())}/{batch}, dx 0 there")
@@ -1545,8 +1682,13 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
             f"{worst[2]:.3e} (ratio {worst[0]:.3e}); against float64 sums over its own workspace "
             f"(limit {WS_TOL}): weight-gradient kernel {tight['weight_grad']:.3e}, conv input "
             f"gradients of {tight['chained']} chained entries {tight['input_grad']:.3e}")
+        log(f"[K6r {name}] weight-gradient kernel against weight_grad_plain on the same entries "
+            f"(limit {WS_TOL}): {wg_err:.3e}; {wg_empty} targets without entries exactly 0; chunks "
+            f"of {chunk} entries, partials {partial / 1e6:.1f} MB")
         if dtype == torch.bfloat16:
-            timed = dict(banks=banks, stem=stem, invalid=invalid, otraj=otraj, atraj=atraj, g=g)
+            timed = dict(banks=banks, stem=stem, invalid=invalid, otraj=otraj, atraj=atraj, g=g,
+                         wg_work=weight_grad_work(ws_replay, banks, spec, stem.element_size()),
+                         wg_partial=partial)
         del otraj, atraj, ws, ws_replay
 
     # The interpreter's training forward and backward at B = 256, bf16, in
@@ -1607,7 +1749,8 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
     # The trainer on the card, with the launch counters set to 0 before and
     # read after: OBJECTIVE ours in both NMN modes, then OBJECTIVE baseline.
     counters = (fused_sampling_forward, lm_forward_cuda, tf_forward_cuda, tf_backward_cuda,
-                execute_programs_train_kernel, interpreter_grads_kernel, execute_programs_kernel)
+                execute_programs_train_kernel, interpreter_grads_kernel, weight_grad_kernel,
+                execute_programs_kernel)
 
     def run_steps(tr, n):
         for fn in counters:
@@ -1625,7 +1768,8 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         return {"fused_sampling_forward": k1 * n, "lm_forward_cuda": k3f * n,
                 "tf_forward_cuda": k4 * n, "tf_backward_cuda": k4 * n,
                 "execute_programs_train_kernel": k5 * n, "interpreter_grads_kernel": k6 * n,
-                "execute_programs_kernel": k2 * n, "replay": replay * n}
+                "weight_grad_kernel": k6 * n, "execute_programs_kernel": k2 * n,
+                "replay": replay * n}
 
     steps = 20
     step_logs, launches = run_steps(trainer, steps)
@@ -1702,6 +1846,19 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         f"bound {k6r_bound:.4f} by {k6r_by}: {run['valid']['rows']} valid rows, {n_convs} 3x3 "
         f"convs, {f6r / 1e9:.1f} GFLOP, {b6r / 1e6:.1f} MB; cuDNN bf16 conv forward over "
         f"{n_convs} convs {cudnn_fwd:.3f}, forward + both gradients {cudnn_train:.3f}); card {smi}")
+    wg_flops, wg_bytes = timed["wg_work"]
+    wg_bound, wg_by = bound(wg_flops, wg_bytes, "bfloat16")
+    k6_split = {}
+    for mode, fn in (("K6", lambda: interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                             invalid, g, otraj, atraj)),
+                     ("K6r", lambda: interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                              invalid, g))):
+        k6_split[mode], _ = k6_parts(torch, fn)
+        log(f"[K6 parts] {mode} B={batch}, bf16, ms a call under torch.profiler: sweep "
+            f"{k6_split[mode]['sweep']:.4f}, weight gradient {k6_split[mode]['weight_grad']:.4f} "
+            f"(bound {wg_bound:.4f} by {wg_by}: {wg_flops / 1e9:.1f} GFLOP, {wg_bytes / 1e6:.1f} "
+            f"MB), row sums {k6_split[mode]['row_sums']:.4f}, glue {k6_split[mode]['glue']:.4f}; "
+            f"partials {timed['wg_partial'] / 1e6:.1f} MB; card {smi}")
 
     # The train step in each mode: host clock over steps that each fetch
     # their logs, the memory a step takes beyond what was allocated before
@@ -1742,7 +1899,10 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
          "k6_ms_same_batch": k6_ms, "k6_bound_ms_same_batch": k6_bound,
          "workspace_err": {k: {e: v[1][e] for e in ("weight_grad", "input_grad")}
                            for k, v in errs.items()},
-         "interpreter_mb": interp_mb, "step_ms": step_ms, "step_mb": step_mb,
+         "weight_grad_plain_err": {k: v[2] for k, v in errs.items()},
+         "parts_ms": k6_split["K6r"], "k6_parts_ms_same_batch": k6_split["K6"],
+         "weight_grad_bound_ms": wg_bound, "weight_grad_bound_by": wg_by,
+         "partial_mb": timed["wg_partial"] / 1e6, "interpreter_mb": interp_mb, "step_ms": step_ms, "step_mb": step_mb,
          "yardstick": "cuDNN bf16 conv2d forward, then forward and both gradients, over the same "
                       "3x3 convs", "yardstick_ms": cudnn_fwd + cudnn_train},
     ]

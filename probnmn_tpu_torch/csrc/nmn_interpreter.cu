@@ -34,10 +34,12 @@
 // C_in, C_out) layout, on the same conv code as the forward. The weight gradients are
 // deterministic without float atomics: the sweep writes each conv's (input,
 // g_z) pair in the compute type to a workspace tagged with its bank slot,
-// and nmn_weight_grad_mma (or _simt) sums each slot's entries in (example, step)
-// order, one block per (slot, tap); the small banks (biases, heads, same)
-// take per-example float32 partials that nmn_sum_rows_kernel adds in example
-// order.
+// and the weight-gradient kernels sum each slot's entries in (example, step)
+// order in two fixed-order passes: chunks of a slot's entries spread over the
+// SMs (nmn_weight_grad_tma in bf16: TMA into a two-stage ring, wgmma; _simt in
+// float32), then nmn_weight_grad_reduce adds each slot's chunks in order; the
+// small banks (biases, heads, same) take per-example float32 partials that
+// nmn_sum_rows_kernel adds in example order.
 //
 // Bound on an H100: compute (3x3 convs, 57.8 MFLOP each, ~15 per valid CLEVR
 // program; K6 does about twice K5's conv work). Design: one block per
@@ -59,6 +61,8 @@
 // thread keeps 4 output channels x kPix pixels of float32 sums. The out and
 // saved registers live in a per-example global scratch, in the compute type,
 // attentions broadcast over all C channels.
+
+#include <cuda.h>  // CUtensorMap (TMA descriptors); libcuda's encoder is looked up at run time
 
 #include "common.cuh"
 
@@ -915,40 +919,70 @@ __global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams 
 }
 
 // ---------------------------------------------------------------- K6: weight gradients
-// Block j < S3 * 9: dw3[j / 9][j % 9] (C_in, C_out) = sum over the entries
-// of slot j / 9 of shift_tap(inp)^T . g_z; block S3 * 9 + k: dwc[k / 2][k % 2]
-// = sum over its entries of inp^T . g. Entries are summed in the order
-// `order` lists them (example, then step), so the result repeats bit for bit.
+// dw3[t][tap] (C_in, C_out) = sum over the entries of 3x3 target t of
+// shift_tap(inp)^T . g_z, and dwc[k][half] likewise over compare's 1x1
+// entries (target S3 + 2k + half, one tap, no shift). The JAX kernel
+// (probnmn_tpu/ops/pallas/nmn_interpreter.py::_interpreter_bwd_kernel) adds
+// each entry into a VMEM-resident bank across its sequential grid; blocks
+// here run in parallel, so the sum is split in two fixed-order passes.
+// Bound on an H100: operations, 2 * H*W * C * C a tap of an entry (57.8
+// MFLOP a 3x3 entry at C = 128 on 14 x 14) against 100 KB of the entry read
+// once; the chunk kernel reads an entry once a tap, from L2.
+//
+// 1. Work items of (target, tap, chunk): each target's entries, in the
+//    (example, step) order `order` lists them, are cut into chunks of
+//    `chunk` consecutive entries (a function of the workspace's size alone,
+//    never of the card), and block 9 j + tap sums chunk j's entries for one
+//    tap in entry order into a float32 (C_in, C_out) tile: the target's own
+//    tile when the chunk is its only one, else partial slot chunk_slot[j].
+//    The nine taps of a chunk are neighbouring blocks, so they run together
+//    and read the chunk's entries from L2 at about the same time.
+// 2. nmn_weight_grad_reduce sums each several-chunk target's partials in
+//    chunk order and writes 0 to each target without entries.
+//
+// No float atomics: the result repeats bit for bit, and it does not depend
+// on the SM count. The work list is built on the card from the entries' tags
+// (ops/kernels/nmn_interpreter.py::weight_grad_plan).
 struct GradParams {
-  const void* ent_inp;
-  const void* ent_g;
-  const int* ent_dil;
-  const int* order;
-  const int* seg_start;
-  const int* seg_count;
+  const void* ent_inp;       // (E, HW, C) conv inputs
+  const void* ent_g;         // (E, HW, C) their g_z
+  const int* ent_dil;        // (E,) dilation, 0 for a 1x1 entry
+  const int* order;          // entries grouped by target, (example, step) order within
+  const int* chunk_target;   // (J,) target of chunk j; S3 + 2 Sc past the last chunk
+  const int* chunk_first;    // (J,) its first position in order
+  const int* chunk_count;    // (J,) its entries
+  const int* chunk_slot;     // (J,) its partial slot, or -1: the target's only chunk
+  const int* target_chunks;  // (S3 + 2 Sc,) chunks of each target
+  const int* target_slot;    // (S3 + 2 Sc,) partial slot of each target's first chunk
   int S3, Sc;
-  float* dw3;
-  float* dwc;
+  float* dw3;                // (S3, 9, C, C)
+  float* dwc;                // (Sc, 2, C, C)
+  float* partial;            // (P, 9, C, C)
   int H, W, C;
 };
 
-struct GradBlock {
-  int target, tap, taps;
+// Block blockIdx.x's item: chunk blockIdx.x / 9, tap blockIdx.x % 9. A block
+// past the last chunk, or at a tap a 1x1 target does not have, is not live.
+struct GradItem {
+  int target, tap, taps, first, count;
   float* out;
-  __device__ GradBlock(const GradParams& g) {
-    const int j = blockIdx.x;
+  bool live;
+  __device__ GradItem(const GradParams& g) {
+    const int j = blockIdx.x / 9;
+    tap = blockIdx.x % 9;
+    target = g.chunk_target[j];
+    taps = target < g.S3 ? 9 : 1;
+    live = target < g.S3 + 2 * g.Sc && tap < taps;
+    first = count = 0;
+    out = nullptr;
+    if (!live) return;
+    first = g.chunk_first[j];
+    count = g.chunk_count[j];
     const size_t cc = static_cast<size_t>(g.C) * g.C;
-    if (j < g.S3 * 9) {
-      target = j / 9;
-      tap = j % 9;
-      taps = 9;
-      out = g.dw3 + static_cast<size_t>(j) * cc;
-    } else {
-      target = g.S3 + (j - g.S3 * 9);
-      tap = 0;
-      taps = 1;
-      out = g.dwc + static_cast<size_t>(j - g.S3 * 9) * cc;
-    }
+    const int slot = g.chunk_slot[j];
+    if (slot >= 0) out = g.partial + (static_cast<size_t>(slot) * 9 + tap) * cc;
+    else if (target < g.S3) out = g.dw3 + (static_cast<size_t>(target) * 9 + tap) * cc;
+    else out = g.dwc + static_cast<size_t>(target - g.S3) * cc;
   }
 };
 
@@ -959,16 +993,16 @@ __device__ __forceinline__ int tap_source(int pix, int tap, int taps, int d, int
   return (y >= 0 && y < H && x >= 0 && x < W) ? y * W + x : -1;
 }
 
-// SIMT: each thread owns an 8 x 8 block of (C_in, C_out); pixels are staged
-// kGradChunk at a time as float32.
+// SIMT (float32): each thread owns an 8 x 8 block of (C_in, C_out) and sums
+// its item's entries with float32 FMAs; pixels are staged kGradChunk at a time.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) nmn_weight_grad_simt(const GradParams g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GradItem it(g);
+  if (!it.live) return;
   const int C = g.C, HW = g.H * g.W, N = HW * C, tid = threadIdx.x;
   float* s_in = reinterpret_cast<float*>(smem_raw);
   float* s_g = s_in + kGradChunk * C;
-  const GradBlock blk(g);
-  const int count = g.seg_count[blk.target], first = g.seg_start[blk.target];
   const int groups = C / 8, ntile = groups * groups;
   for (int round = 0; round * kThreads < ntile; ++round) {
     const int tile = round * kThreads + tid;
@@ -979,8 +1013,8 @@ __global__ void __launch_bounds__(kThreads) nmn_weight_grad_simt(const GradParam
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < count; ++k) {
-      const int e = g.order[first + k];
+    for (int k = 0; k < it.count; ++k) {
+      const int e = g.order[it.first + k];
       const int d = g.ent_dil[e];
       const T* inp = static_cast<const T*>(g.ent_inp) + static_cast<size_t>(e) * N;
       const T* gz = static_cast<const T*>(g.ent_g) + static_cast<size_t>(e) * N;
@@ -989,7 +1023,7 @@ __global__ void __launch_bounds__(kThreads) nmn_weight_grad_simt(const GradParam
         __syncthreads();
         for (int idx = tid; idx < np * C; idx += blockDim.x) {
           const int pp = idx / C, c = idx % C;
-          const int src = tap_source(p0 + pp, blk.tap, blk.taps, d, g.H, g.W);
+          const int src = tap_source(p0 + pp, it.tap, it.taps, d, g.H, g.W);
           s_in[idx] = src >= 0 ? to_f(inp[src * C + c]) : 0.f;
           s_g[idx] = to_f(gz[(p0 + pp) * C + c]);
         }
@@ -1014,63 +1048,201 @@ __global__ void __launch_bounds__(kThreads) nmn_weight_grad_simt(const GradParam
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) blk.out[(ci0 + i) * C + co0 + j] = acc[i][j];
+        for (int j = 0; j < 8; ++j) it.out[(ci0 + i) * C + co0 + j] = acc[i][j];
   }
 }
 
-// Tensor cores (bf16, C == 128): M = C_in (warp w owns rows 16w .. 16w+15),
-// N = C_out (16 tiles of 8), K = pixels. Both operands are staged transposed,
-// channel-major with pixels contiguous, so every fragment is a 32-bit load.
-constexpr int kGradPixPad = 16 * ((kMmaTiles * 32 + 15) / 16);  // pixels padded to the K chunk
+// Tensor cores (bf16, C == 128, H * W <= 224): one item a block, two
+// warpgroups, warpgroup w owning C_in rows 64 w .. 64 w + 63 of the
+// (C_in, C_out) tile as 64 float32 accumulators a thread (m64n128k16,
+// M = C_in, N = C_out, K = pixels). Thread 0 stages each entry by TMA into a
+// ring of two stages, one entry ahead of the products: in each stage four
+// boxes of (H, W, 64 channels) at 128 bytes a pixel row, 128-byte swizzled,
+// the input's two channel halves placed at the tap's shift (dy, dx) so that
+// TMA's zero fill of out-of-range rows and columns (negative starts
+// included) is the conv's zero padding, then g_z's two halves unshifted.
+// Both operands lie pixel-major, which is the MN-major (transposed) layout
+// `wgmma` takes from shared memory for 16-bit types, so neither is
+// transposed or touched by a thread; the rows from H * W up to the next
+// multiple of 16 (the K step) are zeroed once per stage buffer. g_z is
+// staged once per entry for the block's one tap: a block holding more taps
+// would need 64 more accumulators a thread for each, and a tap's input box
+// takes 53 KB of the 227 KB a block may use, so the reuse across taps is
+// left to L2 (the nine taps of a chunk run side by side).
+//
+// wgmma over mma.sync with ldmatrix.trans: wgmma reads both operands from
+// shared memory asynchronously, issues 64 x 128 x 16 per warpgroup per
+// instruction, and needs no fragment registers.
+constexpr int kWgStages = 2;
+constexpr int kWgBox = 64;  // channels in a TMA box: one 128-byte swizzle row
 
-__global__ void __launch_bounds__(kThreads) nmn_weight_grad_mma(const GradParams g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int C = kMmaC;
-  const int HW = g.H * g.W, N = HW * C, tid = threadIdx.x;
-  const int kpad = (HW + 15) / 16 * 16, KP = kpad + 8;  // pixel pitch of a channel row
-  bf16* s_in = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_g = s_in + C * KP;
-  const GradBlock blk(g);
-  const int count = g.seg_count[blk.target], first = g.seg_start[blk.target];
-  const int lane = tid & 31, warp = tid >> 5, gq = lane >> 2, t4 = lane & 3;
-  const int m0 = warp * 16;
-  float acc[16][4];
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int k = 0; k < count; ++k) {
-    const int e = g.order[first + k];
-    const int d = g.ent_dil[e];
-    const bf16* inp = static_cast<const bf16*>(g.ent_inp) + static_cast<size_t>(e) * N;
-    const bf16* gz = static_cast<const bf16*>(g.ent_g) + static_cast<size_t>(e) * N;
-    __syncthreads();
-    for (int idx = tid; idx < kpad * C; idx += blockDim.x) {
-      const int pix = idx / C, c = idx % C;
-      const int src = pix < HW ? tap_source(pix, blk.tap, blk.taps, d, g.H, g.W) : -1;
-      s_in[c * KP + pix] = src >= 0 ? inp[src * C + c] : zero;
-      s_g[c * KP + pix] = pix < HW ? gz[pix * C + c] : zero;
-    }
-    __syncthreads();
-    for (int kc = 0; kc < kpad; kc += 16) {
-      const bf16* ar = s_in + (m0 + gq) * KP + kc + 2 * t4;
-      const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * KP);
-      const uint32_t a2 = ld32(ar + 8), a3 = ld32(ar + 8 * KP + 8);
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const bf16* br = s_g + (nt * 8 + gq) * KP + kc + 2 * t4;
-        mma_bf16(acc[nt], a0, a1, a2, a3, ld32(br), ld32(br + 8));
-      }
-    }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: 128-byte swizzle, MN-major. LBO is the
+// stride between 64-element column blocks along M / N, SBO between groups of
+// eight K rows (1024 bytes); all in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16) . B (16 x 128, bf16), both
+// operands MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(2 * 128, 1)
+    nmn_weight_grad_tma(const GradParams g, const __grid_constant__ CUtensorMap map_inp,
+                        const __grid_constant__ CUtensorMap map_g) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWgStages];
+  const GradItem it(g);
+  if (!it.live) return;
+  const int HW = g.H * g.W, kp = (HW + 15) / 16 * 16, tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t tile = static_cast<uint32_t>(kp) * 128;  // one box: kp rows of 128 bytes
+  const uint32_t stage_bytes = 4 * tile;                  // input halves 0, 1; g_z halves 0, 1
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled tiles start on 1024-byte boundaries
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  const int pad16 = (kp - HW) * 8;  // 16-byte pieces of one box's zero rows
+  for (int i = tid; i < kWgStages * 4 * pad16; i += blockDim.x) {
+    const int box = i / pad16, piece = i % pad16;
+    *reinterpret_cast<uint4*>(base_ptr + box * tile + HW * 128 + piece * 16) = make_uint4(0, 0, 0, 0);
   }
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) mbar_init(smem_u32(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the zero rows, for wgmma
+  __syncthreads();
+
+  const uint32_t tx = 4u * HW * 128;
+  const CUtensorMap* mi = &map_inp;
+  const CUtensorMap* mg = &map_g;
+  auto stage_in = [&](int k) {  // entry k of the item into stage k % kWgStages
+    const int e = g.order[it.first + k];
+    const int d = it.taps == 9 ? g.ent_dil[e] : 0;
+    const int dy = (it.tap / 3 - 1) * d, dx = (it.tap % 3 - 1) * d;
+    const uint32_t bar = smem_u32(&full[k % kWgStages]);
+    const uint32_t dst = base + (k % kWgStages) * stage_bytes;
+    mbar_expect_tx(bar, tx);
+    tma_load_4d(dst, mi, bar, 0, dx, dy, e);
+    tma_load_4d(dst + tile, mi, bar, kWgBox, dx, dy, e);
+    tma_load_4d(dst + 2 * tile, mg, bar, 0, 0, 0, e);
+    tma_load_4d(dst + 3 * tile, mg, bar, kWgBox, 0, 0, e);
+  };
+  if (tid == 0)
+    for (int k = 0; k < kWgStages && k < it.count; ++k) stage_in(k);
+
+  float acc[64];
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-    const int co = nt * 8 + 2 * t4;
-    float* r0 = blk.out + (m0 + gq) * C + co;
-    float* r1 = r0 + 8 * C;
-    r0[0] = acc[nt][0];
-    r0[1] = acc[nt][1];
-    r1[0] = acc[nt][2];
-    r1[1] = acc[nt][3];
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k = 0; k < it.count; ++k) {
+    const int s = k % kWgStages;
+    mbar_wait(smem_u32(&full[s]), (k / kWgStages) & 1);
+    __syncwarp();  // wgmma is .aligned: the warp converges after the spin
+    const uint32_t st = base + s * stage_bytes;
+    const uint64_t da = wgmma_desc(st + wg * tile, tile, 1024);
+    const uint64_t db = wgmma_desc(st + 2 * tile, tile, 1024);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    for (int kk = 0; kk < kp / 16; ++kk)  // 16 pixel rows = 2048 bytes = 128 descriptor units
+      wgmma_m64n128k16(acc, da + 128 * kk, db + 128 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    __syncthreads();  // both warpgroups are done with stage s
+    if (tid == 0 && k + kWgStages < it.count) stage_in(k + kWgStages);
+  }
+  // The accumulator layout of m64nNk16: warp q of the warpgroup holds rows
+  // 16 q + lane / 4 and + 8, columns 8 j + 2 (lane % 4) and + 1.
+  const int lane = tid & 31, row = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(it.out + row * kMmaC + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(it.out + (row + 8) * kMmaC + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The second pass: blockIdx.x = target * 9 + tap. A target with several
+// chunks gets the sum of its partials in chunk order, one without entries 0;
+// a target with one chunk was written in place.
+__global__ void __launch_bounds__(kThreads) nmn_weight_grad_reduce(const GradParams g) {
+  const int t = blockIdx.x / 9, tap = blockIdx.x % 9;
+  if (tap >= (t < g.S3 ? 9 : 1)) return;
+  const int n = g.target_chunks[t];
+  if (n == 1) return;
+  const size_t cc4 = static_cast<size_t>(g.C) * g.C / 4;
+  float4* out = reinterpret_cast<float4*>(
+      t < g.S3 ? g.dw3 + (static_cast<size_t>(t) * 9 + tap) * cc4 * 4
+               : g.dwc + static_cast<size_t>(t - g.S3) * cc4 * 4);
+  const float4* src = reinterpret_cast<const float4*>(g.partial) +
+                      (static_cast<size_t>(n > 0 ? g.target_slot[t] : 0) * 9 + tap) * cc4;
+  for (size_t i = static_cast<size_t>(blockIdx.y) * blockDim.x + threadIdx.x; i < cc4;
+       i += static_cast<size_t>(gridDim.y) * blockDim.x) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < n; ++q) {
+      const float4 v = src[static_cast<size_t>(q) * 9 * cc4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
   }
 }
 
@@ -1176,6 +1348,41 @@ NmnParams make_params(const void* programs, int batch, int num_steps, const void
   return p;
 }
 
+// cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime, so
+// the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(entry);
+  }
+  return fn;
+}
+
+// A TMA map over n bf16 entries of (H, W, C), boxes of one entry's (H, W, 64
+// channels), 128-byte swizzle; rows and columns outside the entry read 0.
+bool entry_map(CUtensorMap* map, const void* entries, int n, int H, int W, int C) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {2ull * C, 2ull * W * C, 2ull * H * W * C};
+  const cuuint32_t box[4] = {kWgBox, static_cast<cuuint32_t>(W), static_cast<cuuint32_t>(H), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(entries), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 // dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores: needs w3t / wcmpt, the
@@ -1272,39 +1479,56 @@ extern "C" int probnmn_nmn_partial_floats(int S3, int S1, int Ss, int Sc, int C)
 }
 
 // K6's weight gradients of the 3x3 bank (dw3 (S3, 9, C, C)) and of compare's
-// projection (dwc (Sc, 2, C, C)) from the sweep's entries; order lists the
-// entries grouped by target (seg_start / seg_count per target).
-extern "C" int probnmn_nmn_weight_grad(int dtype, const void* ent_inp, const void* ent_g,
-                                       const void* ent_dil, const void* order,
-                                       const void* seg_start, const void* seg_count, int S3,
-                                       int Sc, void* dw3, void* dwc, int H, int W, int C,
-                                       void* stream) {
-  const int blocks = S3 * 9 + Sc * 2;
-  if (blocks <= 0) return 0;
-  GradParams g = {ent_inp, ent_g, static_cast<const int*>(ent_dil),
-                  static_cast<const int*>(order), static_cast<const int*>(seg_start),
-                  static_cast<const int*>(seg_count), S3, Sc, static_cast<float*>(dw3),
-                  static_cast<float*>(dwc), H, W, C};
+// projection (dwc (Sc, 2, C, C)) from the sweep's n_entries entries: the work
+// list (order, the n_chunks chunks and each target's chunks and first partial
+// slot, ops/kernels/nmn_interpreter.py::weight_grad_plan) over the chunk
+// kernel (9 blocks a chunk), then the second pass into dw3 / dwc through
+// `partial` (P, 9, C, C). bf16 needs C == 128 and H * W <= 224.
+extern "C" int probnmn_nmn_weight_grad(
+    int dtype, const void* ent_inp, const void* ent_g, const void* ent_dil, int n_entries,
+    const void* order, const void* chunk_target, const void* chunk_first, const void* chunk_count,
+    const void* chunk_slot, int n_chunks, const void* target_chunks, const void* target_slot,
+    int S3, int Sc, void* dw3, void* dwc, void* partial, int H, int W, int C, void* stream) {
+  const int targets = S3 + 2 * Sc;
+  if (targets <= 0) return 0;
+  if (C % 8 != 0 || n_chunks < 0 || (n_chunks > 0 && n_entries <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GradParams g = {ent_inp, ent_g, static_cast<const int*>(ent_dil), static_cast<const int*>(order),
+                  static_cast<const int*>(chunk_target), static_cast<const int*>(chunk_first),
+                  static_cast<const int*>(chunk_count), static_cast<const int*>(chunk_slot),
+                  static_cast<const int*>(target_chunks), static_cast<const int*>(target_slot),
+                  S3, Sc, static_cast<float*>(dw3), static_cast<float*>(dwc),
+                  static_cast<float*>(partial), H, W, C};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {
-    if (C != kMmaC || H * W > kGradPixPad) return static_cast<int>(cudaErrorInvalidValue);
-    const int KP = (H * W + 15) / 16 * 16 + 8;
-    const size_t bytes = 2ull * C * KP * sizeof(bf16);
-    err = cudaFuncSetAttribute(nmn_weight_grad_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    nmn_weight_grad_mma<<<blocks, kThreads, bytes, s>>>(g);
+    if (C != kMmaC || H * W > 2 * kMmaTiles * 16) return static_cast<int>(cudaErrorInvalidValue);
+    if (n_chunks > 0) {
+      CUtensorMap map_inp, map_g;
+      if (!entry_map(&map_inp, ent_inp, n_entries, H, W, C) ||
+          !entry_map(&map_g, ent_g, n_entries, H, W, C))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const size_t bytes = kWgStages * 4ull * ((H * W + 15) / 16 * 16) * 128 + 1024;
+      err = cudaFuncSetAttribute(nmn_weight_grad_tma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      nmn_weight_grad_tma<<<9 * n_chunks, 2 * 128, bytes, s>>>(g, map_inp, map_g);
+    }
   } else if (dtype == 0) {
-    if (C % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t bytes = 2ull * kGradChunk * C * sizeof(float);
-    err = cudaFuncSetAttribute(nmn_weight_grad_simt<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    nmn_weight_grad_simt<float><<<blocks, kThreads, bytes, s>>>(g);
+    if (n_chunks > 0) {
+      const size_t bytes = 2ull * kGradChunk * C * sizeof(float);
+      err = cudaFuncSetAttribute(nmn_weight_grad_simt<float>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      nmn_weight_grad_simt<float><<<9 * n_chunks, kThreads, bytes, s>>>(g);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(targets * 9, (C * C / 4 + kThreads - 1) / kThreads);
+  nmn_weight_grad_reduce<<<grid, kThreads, 0, s>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

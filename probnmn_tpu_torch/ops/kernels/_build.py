@@ -158,10 +158,12 @@ def library() -> ctypes.CDLL:
     lib.probnmn_nmn_weight_grad.restype = _INT
     lib.probnmn_nmn_weight_grad.argtypes = [
         _INT,                                   # dtype
-        _VOID_P, _VOID_P, _VOID_P,              # entries: inp, g, dilation
-        _VOID_P, _VOID_P, _VOID_P,              # order, seg_start, seg_count (int32)
+        _VOID_P, _VOID_P, _VOID_P, _INT,        # entries: inp, g, dilation; their number E
+        _VOID_P,                                # order (E,) int32
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT,  # chunks: target, first, count, slot; J
+        _VOID_P, _VOID_P,                       # per target: chunks, first partial slot
         _INT, _INT,                             # S3, Sc
-        _VOID_P, _VOID_P,                       # dw3 (S3, 9, C, C), dwc (Sc, 2, C, C) f32
+        _VOID_P, _VOID_P, _VOID_P,              # dw3 (S3, 9, C, C), dwc (Sc, 2, C, C), partials f32
         _INT, _INT, _INT,                       # H, W, C
         _VOID_P,                                # stream
     ]

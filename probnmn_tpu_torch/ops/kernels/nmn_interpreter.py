@@ -19,8 +19,10 @@ its backward, in CUDA (``probnmn_tpu_torch/csrc/nmn_interpreter.cu``).
   d(stem features) and the gradients of every bank. Invalid examples get
   zero gradients. It is deterministic: the 3x3 bank's and compare
   projection's weight gradients are summed from a workspace of (input,
-  g_z) pairs in (example, step) order by a second kernel, the small banks
-  from per-example partials in example order; no float atomics.
+  g_z) pairs by :func:`weight_grad_kernel`, each target's entries cut into
+  chunks in (example, step) order that run side by side on the SMs, then
+  each target's chunks added in chunk order (:func:`weight_grad_plan`); the
+  small banks from per-example partials in example order; no float atomics.
 - K6's replay mode replaces the same kernel with ``no_replay=False``
   (``_execute_bwd_pallas`` without residuals): :func:`interpreter_grads_kernel`
   without ``otraj``/``atraj``. Each block of a grid sized to what fits on the
@@ -49,8 +51,9 @@ training paths) each conv is an implicit GEMM on the tensor cores
 transposed to (tap, C_out, C_in) (``w3t``/``wcmpt`` from :func:`build_banks`),
 the input gradient reading them as stored; bfloat16 at other widths raises.
 float32 runs float32 FMAs on the SIMT cores: the reference that checks the
-kernels' arithmetic at a tight tolerance. None uses ``wgmma`` or TMA yet:
-making them fast is later work.
+kernels' arithmetic at a tight tolerance. K6's weight-gradient stage in
+bfloat16 stages its operands by TMA into a two-stage ring and multiplies on
+``wgmma``; the interpreter kernels use neither yet.
 
 The registers ``out`` and ``saved`` live in a per-example global scratch, in
 the compute type. Attentions are stored broadcast over all C channels so
@@ -60,8 +63,8 @@ Beside the kernels: :func:`build_tables` / :func:`build_banks` (the dispatch
 tables and unified weight banks, in the JAX package's slot order; the banks
 are differentiable in the params), :func:`execute_programs_plain` (the
 batched register machine K2 and K5 are held against, and that runs for CPU
-tensors) and :func:`interpreter_grads_plain` (autograd through it, K6's
-plain version).
+tensors), :func:`interpreter_grads_plain` (autograd through it, K6's
+plain version) and :func:`weight_grad_plain` (K6's weight-gradient stage).
 """
 from __future__ import annotations
 
@@ -520,9 +523,10 @@ def interpreter_grads_kernel(
     On CUDA the workspace is sized from an upper bound of the entries each
     valid example writes (its tokens' chain lengths, plus two per compare),
     read back to the host once; the weight gradients are summed in float32
-    and cast to the bank's dtype at the end, as the JAX package does. A
-    ``workspace`` dict receives the sweep's entries and the float32 weight
-    gradients, for :func:`workspace_errors`."""
+    by :func:`weight_grad_kernel` and cast to the bank's dtype at the end, as
+    the JAX package does. A ``workspace`` dict receives the sweep's entries,
+    the float32 weight gradients (for :func:`workspace_errors` and
+    :func:`weight_grad_plain`), the chunk size and the partials' bytes."""
     if (otraj is None) != (atraj is None):
         raise ValueError("pass both of otraj and atraj (no-replay mode) or neither (replay mode)")
     if stem_feats.device.type == "cpu":
@@ -584,19 +588,7 @@ def interpreter_grads_kernel(
     interpreter_grads_kernel.launches += 1
     interpreter_grads_kernel.replay_launches += int(replay)
 
-    # Each target's entries in (example, step) order: a stable sort by tag.
-    order = torch.argsort(ent_tag, stable=True).to(torch.int32)
-    counts = torch.bincount(ent_tag, minlength=n_targets + 1)[:n_targets]
-    seg_start = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-    seg_count = counts.to(torch.int32)
-    dw3 = torch.empty(s3, 9, c, c, dtype=torch.float32, device=device)
-    dwc = torch.empty(sc, 2, c, c, dtype=torch.float32, device=device)
-    code = lib.probnmn_nmn_weight_grad(
-        _DTYPE_CODES[dtype], ent_inp.data_ptr(), ent_g.data_ptr(), ent_dil.data_ptr(),
-        order.data_ptr(), seg_start.data_ptr(), seg_count.data_ptr(), s3, sc,
-        dw3.data_ptr(), dwc.data_ptr(), h, w, c, stream,
-    )
-    _build.check(code, "NMN weight-gradient kernel")
+    dw3, dwc = weight_grad_kernel(ent_inp, ent_g, ent_tag, ent_dil, s3, sc, h, w)
     small = torch.empty(part_floats, dtype=torch.float32, device=device)
     code = lib.probnmn_nmn_sum_rows(part.data_ptr(), batch, part_floats, small.data_ptr(), stream)
     _build.check(code, "NMN partial-sum kernel")
@@ -633,6 +625,160 @@ def _taps(d: int):
     if d == 0:
         return [(0, 0, 0)]
     return [(tap, (tap // 3 - 1) * d, (tap % 3 - 1) * d) for tap in range(9)]
+
+
+# ------------------------------------------------------------------ weight gradients ---
+# Chunks of a target's entries: at least WEIGHT_GRAD_MIN_CHUNK, and few enough
+# that a workspace of E entries has at most WEIGHT_GRAD_CHUNKS of them (so at
+# most 2 * WEIGHT_GRAD_CHUNKS partial slots: 75.5 MB at C = 128).
+WEIGHT_GRAD_MIN_CHUNK = 16
+WEIGHT_GRAD_CHUNKS = 64
+
+
+def weight_grad_chunk(n_entries: int) -> int:
+    r"""Entries a chunk holds for a workspace of ``n_entries``: a function of
+    the workspace's size alone, so the sums' order never depends on the card."""
+    return max(WEIGHT_GRAD_MIN_CHUNK, -(-n_entries // WEIGHT_GRAD_CHUNKS))
+
+
+def weight_grad_slots(n_entries: int) -> int:
+    r"""Partial slots, each (9, C, C) in float32, that the weight-gradient
+    kernel allocates for a workspace of ``n_entries``: 2 E // chunk, at
+    least 1 (a target that needs slots has two chunks or more)."""
+    return max(1, 2 * n_entries // weight_grad_chunk(n_entries))
+
+
+def weight_grad_plan(ent_tag: torch.Tensor, n_targets: int) -> Dict[str, Any]:
+    r"""The weight-gradient kernel's work list, built on the tags' device with
+    no read back to the host. Entries of target t (tag t < ``n_targets``; any
+    other tag is no entry) keep the (example, step) order the sweep wrote
+    them in (``order``, a stable sort by tag) and are cut into chunks of
+    ``chunk`` consecutive entries. Chunk j belongs to ``chunk_target[j]``
+    (``n_targets`` past the last chunk), starts at ``order[chunk_first[j]]``
+    and holds ``chunk_count[j]`` entries; its sum goes to partial slot
+    ``chunk_slot[j]``, or straight to the target's gradient (-1) when it is
+    the target's only chunk. A target's chunks are consecutive, in entry
+    order, and so are its slots (``target_slot``, ``target_chunks``).
+    ``n_chunks`` and ``n_slots`` bound the chunks and slots from the
+    workspace's size: J = E // chunk + min(E, n_targets) and 2 E // chunk."""
+    device = ent_tag.device
+    n_entries = ent_tag.numel()
+    chunk = weight_grad_chunk(n_entries)
+    tag = ent_tag.long().clamp(max=n_targets)
+    order = torch.argsort(tag, stable=True)
+    # bincount would read its largest tag back to the host: count by index_add_.
+    counts = torch.zeros(n_targets + 1, dtype=torch.long, device=device).index_add_(
+        0, tag, torch.ones_like(tag))[:n_targets]
+    seg_start = torch.cumsum(counts, 0) - counts
+    chunks = (counts + chunk - 1) // chunk
+    chunk_end = torch.cumsum(chunks, 0)
+    n_chunks = n_entries // chunk + min(n_entries, n_targets)
+    j = torch.arange(n_chunks, device=device)
+    target = torch.searchsorted(chunk_end, j, right=True)
+    live = target < n_targets
+    t = target.clamp(max=n_targets - 1)
+    q = j - (chunk_end - chunks)[t]
+    multi = chunks > 1
+    slots = torch.where(multi, chunks, torch.zeros_like(chunks))
+    target_slot = torch.cumsum(slots, 0) - slots
+    i32 = torch.int32
+    return {
+        "chunk": chunk, "n_chunks": n_chunks, "n_slots": weight_grad_slots(n_entries),
+        "order": order.to(i32),
+        "chunk_target": torch.where(live, target, torch.full_like(target, n_targets)).to(i32),
+        "chunk_first": torch.where(live, seg_start[t] + q * chunk, torch.zeros_like(q)).to(i32),
+        "chunk_count": torch.where(live, (counts[t] - q * chunk).clamp(max=chunk),
+                                   torch.zeros_like(q)).to(i32),
+        "chunk_slot": torch.where(live & multi[t], target_slot[t] + q, torch.full_like(q, -1)).to(i32),
+        "target_chunks": chunks.to(i32), "target_slot": target_slot.to(i32),
+    }
+
+
+def weight_grad_plain(ent_inp: torch.Tensor, ent_g: torch.Tensor, ent_tag: torch.Tensor,
+                      ent_dil: torch.Tensor, S3: int, Sc: int, height: int, width: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""Plain PyTorch version of K6's weight-gradient stage: (dw3 (S3, 9, C, C),
+    dwc (Sc, 2, C, C)) in float32 from the sweep's workspace, entries (E,
+    H*W, C) of conv inputs and their g_z, each entry's target (tag; S3 + 2k
+    + half for compare k's two 1x1 halves, S3 + 2 Sc for no entry) and
+    dilation (0 for a 1x1). dw3[t][tap] is the sum over target t's entries
+    of shift_tap(inp)^T . g_z, zero padded; dwc[k][half] the sum of inp^T .
+    g_z. It sums in the kernel's order (:func:`weight_grad_plan`): each
+    chunk's entries in entry order, then each target's chunks in chunk
+    order; a target without entries is exactly 0."""
+    n_targets = S3 + 2 * Sc
+    plan = weight_grad_plan(ent_tag, n_targets)
+    c = ent_inp.shape[-1]
+    inp = ent_inp.float().reshape(-1, height, width, c)
+    gz = ent_g.float().reshape(-1, height, width, c)
+    dil = ent_dil.long()
+    live = (plan["chunk_target"] < n_targets).nonzero()[:, 0]
+    first, count = plan["chunk_first"].long()[live], plan["chunk_count"].long()[live]
+    order = plan["order"].long()
+    acc = torch.zeros(live.numel(), 9, c, c, dtype=torch.float32, device=inp.device)
+    for k in range(int(count.max()) if live.numel() else 0):
+        rows = (count > k).nonzero()[:, 0]
+        entries = order[first[rows] + k]
+        for d in dil[entries].unique().tolist():
+            sel = dil[entries] == d
+            r, e = rows[sel], entries[sel]
+            for tap, dy, dx in _taps(d):
+                acc[r, tap] += torch.einsum("nhwi,nhwo->nio", _shift(inp[e], dy, dx), gz[e])
+    # A target's chunks are consecutive: add its q-th chunk at step q.
+    chunks = plan["target_chunks"].long()
+    first_chunk = torch.cumsum(chunks, 0) - chunks
+    dw = torch.zeros(n_targets, 9, c, c, dtype=torch.float32, device=inp.device)
+    for q in range(int(chunks.max())):
+        ts = (chunks > q).nonzero()[:, 0]
+        dw[ts] += acc[first_chunk[ts] + q]
+    return dw[:S3].contiguous(), dw[S3:, 0].reshape(Sc, 2, c, c).contiguous()
+
+
+def weight_grad_kernel(ent_inp: torch.Tensor, ent_g: torch.Tensor, ent_tag: torch.Tensor,
+                       ent_dil: torch.Tensor, S3: int, Sc: int, height: int, width: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""K6's weight-gradient stage, a drop-in for :func:`weight_grad_plain`: a
+    CPU workspace runs the plain version, a CUDA one launches the chunk
+    kernel (bf16: TMA and ``wgmma``, C = 128 and H*W <= 224 only; float32:
+    SIMT FMAs) over :func:`weight_grad_plan`'s work list and the second pass
+    that adds each target's partials in chunk order (and raises if they
+    cannot launch)."""
+    if ent_inp.device.type == "cpu":
+        return weight_grad_plain(ent_inp, ent_g, ent_tag, ent_dil, S3, Sc, height, width)
+    device, dtype = ent_inp.device, ent_inp.dtype
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported compute dtype {dtype}")
+    n_entries, c = ent_inp.shape[0], ent_inp.shape[-1]
+    if (ent_inp.shape != (n_entries, height * width, c) or ent_g.shape != ent_inp.shape
+            or ent_tag.shape != (n_entries,) or ent_dil.shape != (n_entries,)):
+        raise ValueError("the entries must be (E, H*W, C), their tags and dilations (E,)")
+    if dtype == torch.bfloat16 and (c != MMA_CHANNELS or height * width > MMA_MAX_PIXELS):
+        raise ValueError(f"bfloat16 runs on the tensor cores only: it needs C={MMA_CHANNELS} and "
+                         f"H*W <= {MMA_MAX_PIXELS}; got C={c}, H*W={height * width}")
+    if c % 8:
+        raise ValueError(f"the weight-gradient kernels need C % 8 == 0; got C={c}")
+    plan = weight_grad_plan(ent_tag, S3 + 2 * Sc)
+    ent_inp, ent_g = ent_inp.contiguous(), ent_g.contiguous()
+    dil = ent_dil.to(device=device, dtype=torch.int32).contiguous()
+    dw3 = torch.empty(S3, 9, c, c, dtype=torch.float32, device=device)
+    dwc = torch.empty(Sc, 2, c, c, dtype=torch.float32, device=device)
+    partial = torch.empty(plan["n_slots"], 9, c, c, dtype=torch.float32, device=device)
+    code = _build.library().probnmn_nmn_weight_grad(
+        _DTYPE_CODES[dtype], ent_inp.data_ptr(), ent_g.data_ptr(), dil.data_ptr(), n_entries,
+        plan["order"].data_ptr(), plan["chunk_target"].data_ptr(), plan["chunk_first"].data_ptr(),
+        plan["chunk_count"].data_ptr(), plan["chunk_slot"].data_ptr(), plan["n_chunks"],
+        plan["target_chunks"].data_ptr(), plan["target_slot"].data_ptr(), S3, Sc,
+        dw3.data_ptr(), dwc.data_ptr(), partial.data_ptr(), height, width, c,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(code, "NMN weight-gradient kernel")
+    weight_grad_kernel.launches += 1
+    return dw3, dwc
+
+
+weight_grad_kernel.launches = 0
 
 
 def workspace_errors(workspace: Dict[str, torch.Tensor], banks: Dict[str, torch.Tensor],

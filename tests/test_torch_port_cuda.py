@@ -16,7 +16,8 @@ from probnmn_tpu_torch.models.nmn import cast_params
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     DIFF_BANKS, build_banks, build_tables, execute_programs_diff, execute_programs_kernel,
     execute_programs_plain, execute_programs_train_kernel, interpreter_grads_kernel,
-    interpreter_grads_plain, workspace_errors,
+    interpreter_grads_plain, weight_grad_kernel, weight_grad_plain, weight_grad_plan,
+    workspace_errors,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
     fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
@@ -241,6 +242,43 @@ def test_replay_backward_matches_no_replay_bit_for_bit(cuda, dtype):
     assert all(torch.equal(leaves[k].grad, d_banks[k]) for k in DIFF_BANKS)
     assert (execute_programs_kernel.launches, execute_programs_train_kernel.launches,
             interpreter_grads_kernel.replay_launches) == (counts[0] + 1, counts[1], counts[2] + 1)
+
+
+@pytest.mark.parametrize("dtype, hw", [(torch.bfloat16, (6, 6)), (torch.bfloat16, (14, 14)),
+                                       (torch.bfloat16, (16, 14)), (torch.float32, (6, 6)),
+                                       (torch.float32, (14, 14))])
+def test_weight_grad_kernel_matches_plain_version(cuda, dtype, hw):
+    r"""K6's weight-gradient stage alone on skewed tags (one target with 150
+    entries over several chunks, targets with one, targets with none,
+    unwritten entries between) at C = 128: within WS_TOL of the plain
+    version (relative to the sum of |products|), empty targets exactly 0,
+    the same bits twice, one launch counted a call. bf16 runs TMA and wgmma
+    (up to 224 pixels: 16 x 14 fills the last K step), float32 the SIMT
+    FMAs."""
+    h, w = hw
+    s3, sc, c = 9, 2, 128
+    n_targets = s3 + 2 * sc
+    rs = np.random.RandomState(h * w)
+    tags = np.array([3] * 150 + [0, 7, s3, s3 + 3] + list(rs.randint(0, 3, 40)) + [n_targets] * 9,
+                    np.int32)
+    rs.shuffle(tags)
+    dil = np.where(tags < s3, rs.choice([1, 2, 4, 8], tags.size), 0).astype(np.int32)
+    tag, dil = torch.from_numpy(tags).to(cuda), torch.from_numpy(dil).to(cuda)
+    inp = torch.randn(tags.size, h * w, c, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    g = torch.randn(tags.size, h * w, c, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    assert int(weight_grad_plan(tag, n_targets)["target_chunks"][3]) > 1
+    before = weight_grad_kernel.launches
+    got = weight_grad_kernel(inp, g, tag, dil, s3, sc, h, w)
+    again = weight_grad_kernel(inp, g, tag, dil, s3, sc, h, w)
+    assert weight_grad_kernel.launches == before + 2
+    want = weight_grad_plain(inp, g, tag, dil, s3, sc, h, w)
+    scale = weight_grad_plain(inp.abs(), g.abs(), tag, dil, s3, sc, h, w)
+    for a, b, ref, top in zip(got, again, want, scale):  # dw3, then dwc: per (target, tap)
+        assert torch.equal(a, b)
+        err = (a - ref).flatten(0, 1).flatten(1).abs().amax(1)
+        top = top.flatten(0, 1).flatten(1).amax(1)
+        assert float((err / top.clamp_min(1e-30)).max()) <= WS_TOL
+        assert not a.flatten(0, 1)[top == 0].any()  # no products there: exactly 0
 
 
 @pytest.mark.parametrize("sizes", [
