@@ -12,7 +12,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
    T=26) on explicit Gumbel noise: float32 predictions identical on >= 99% of
    rows with logprobs within 1e-4 there; bfloat16 tokens >= 95% identical;
    the Philox stream never samples pad/unk/start, repeats for a fixed seed
-   and matches the host's copy of the stream.
+   and matches the host's copy of the stream. Its encoder sweeps alone
+   (``sampling_encode``) against the plain encoder on the card: outputs and
+   final hidden state within 1e-5 of max(1, max|x|) in float32 and within
+   2e-2 of max|x| in bfloat16; each layer's sweep plan printed; under the
+   profiler K1 is one ``k1_encoder_sweep`` launch a layer and one
+   ``seq2seq_sample_kernel`` launch.
 3. K2, the NMN interpreter, against its plain version at full NMN width
    (C=128, 14x14, B=256) on valid CLEVR programs of every module kind plus
    invalid and all-pad rows: float32 invalid flags equal, outputs within
@@ -27,8 +32,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    generator whose programs run: the same answers, none @@UNKNOWN@@.
 5. Times with CUDA events after warm-up: each kernel and its plain version
    per batch (the timed K2 batch is checked against the plain version too),
-   the NMN forward and ``predict`` per batch and questions/s, each beside its
-   bound (operations and bytes of this run's inputs).
+   K1's encoder sweeps alone and K1's two parts under the profiler, the NMN
+   forward and ``predict`` per batch and questions/s, each beside its bound
+   (operations and bytes of this run's inputs).
 6. The program_prior training phase at the shipped width
    (``configs/program_prior.yml``: D=H=256, 2 layers, batch 256) on 8,192
    CLEVR-like programs in memory (1,024 for validation), each set with a
@@ -338,6 +344,30 @@ def k1_work(spec, questions, weight_bytes):
     flops = float(enc_step * lens.sum() + dec_step * T * len(lens) + 2 * 2 * H * T * lens.sum())
     nbytes = weight_bytes + questions.size * 4 + len(lens) * (T * 8 + 4)
     return flops, nbytes
+
+
+def k1_parts_work(spec, questions, packed):
+    r"""FLOPs and bytes of K1's two parts for these questions, each counted as
+    a function of its own: the encoder (tokens, the source embedding and the
+    encoder's weights in; its outputs (B, L+1, H) and final hidden state out)
+    and the decoder (tokens, the encoder's outputs and final state, the
+    decoder's weights in; predictions, logprobs and loss out). The encoder's
+    outputs count in both, so the two bounds add up to more than K1's."""
+    D, H, V, T = spec.input_size, spec.hidden_size, spec.target_vocab_size, spec.max_decoding_steps
+    B, raw_len = questions.shape
+    lens = (questions != spec.pad_index).sum(1) + 1
+    itemsize = packed["src_emb"].element_size()
+    enc_step = sum(2 * 4 * H * ((D if l == 0 else H) + H) for l in range(spec.num_layers))
+    dec_step = 2 * 4 * H * (H + D + H) + 2 * H * V
+    enc_weights = sum(packed[k].numel() * packed[k].element_size()
+                      for k in ("src_emb", "enc_wih", "enc_whh", "enc_bias"))
+    dec_weights = sum(v.numel() * v.element_size() for v in packed.values()) - enc_weights
+    tokens = questions.size * 4
+    memory = B * (raw_len + 1) * H * itemsize + B * H * 4
+    encoder = (float(enc_step * lens.sum()), enc_weights + tokens + memory)
+    decoder = (float(dec_step * T * B + 2 * 2 * H * T * lens.sum()),
+               dec_weights + tokens + memory + B * (T * 8 + 4))
+    return encoder, decoder
 
 
 def nmn_replay(tables, programs):
@@ -1922,8 +1952,10 @@ def main():
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
     )
+    from probnmn_tpu_torch.models.seq2seq import _encode
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
-        fused_sampling_forward, pack_weights, philox_gumbel, sampling_forward_with_noise,
+        encoder_plan, fused_sampling_forward, pack_weights, philox_gumbel, sampling_encode,
+        sampling_forward_with_noise,
     )
     from probnmn_tpu_torch.serving import InferenceEngine
     from probnmn_tpu_torch.utils.clevr import (
@@ -1998,6 +2030,39 @@ def main():
     log(f"[K1 philox] repeats for a fixed seed; no pad/unk/start sampled; float32 rows equal to "
         f"the host's Philox stream: {philox_rows:.4f}")
     check(philox_rows >= 0.99, "K1 Philox stream differs from the host's")
+    # K1's encoder sweeps alone against the plain encoder on the card.
+    L, H = pg_spec.num_layers, pg_spec.hidden_size
+    k1_enc, k1_plans = {}, {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        out, final = sampling_encode(pg_dev, pg_spec, q_dev, compute_dtype=dtype)
+        want_out, _, want_final, _ = _encode(pg_dev, pg_spec, q_dev, dtype)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (BATCH, MAX_QUESTION_LENGTH + 1, H) and out.dtype == dtype
+              and final.dtype == torch.float32, "K1 encoder output shapes")
+        errs = []
+        for got, want, what in ((out.float(), want_out, "outputs"), (final, want_final, "final h")):
+            check(torch.isfinite(got).all(), f"K1 encoder {what} not finite")
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+            check(err <= tol, f"K1 encoder {name} {what} error {err} above {tol}")
+            errs.append(f"{what} max |err| {err:.3e} (max |x| {scale:.3e}, limit {tol:.3e})")
+        k1_enc[name] = float((out.float() - want_out).abs().max())
+        k1_plans[name] = [encoder_plan(BATCH, pg_spec.input_size if l == 0 else H, H, dtype)
+                          for l in range(L)]
+        log(f"[K1 encoder {name}] sweeps vs plain encoder: " + "; ".join(errs))
+        for l, pl in enumerate(k1_plans[name]):
+            log(f"[K1 encoder {name}] layer {l} plan: n {pl['cluster']}, U {pl['units']}, R "
+                f"{pl['rows']}, {pl['threads']} threads, {pl['clusters']} clusters ({pl['fit']} at "
+                f"once), {pl['smem']} B shared, W_hh "
+                f"{'resident' if pl['w_hh_resident'] else 'streamed'}, W_ih "
+                f"{'resident' if pl['w_ih_resident'] else 'streamed'}, {pl['registers']} registers")
+    _, _, _, counts = trace(torch, lambda: fused_sampling_forward(
+        pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=torch.bfloat16))
+    k1_route = {k: launches_of(counts, k) for k in ("k1_encoder_sweep", "seq2seq_sample_kernel")}
+    log(f"[K1 route] one K1 under the profiler: {k1_route}")
+    check(k1_route == {"k1_encoder_sweep": L, "seq2seq_sample_kernel": 1},
+          f"K1 is not one sweep a layer and one decoder launch: {k1_route}")
 
     # ---------------------------------------------------------------- 3. K2 vs plain
     tables = build_tables(nmn_spec, dev)
@@ -2042,10 +2107,12 @@ def main():
         BATCH, nmn_spec.feature_channels, nmn_spec.height, nmn_spec.width).astype(np.float32)
     engine.warmup()
     fused_sampling_forward.launches = 0
+    sampling_encode.launches = 0
     execute_programs_kernel.launches = 0
     answers = engine.predict(questions, images, seed=seed)
     torch.cuda.synchronize()
     launches = {"seq2seq_decode": fused_sampling_forward.launches,
+                "k1_encoder_sweep": sampling_encode.launches,
                 "nmn_interpreter": execute_programs_kernel.launches}
     # The programs predict sampled (same seed, same kernel): what its NMN ran.
     e2e_programs = fused_sampling_forward(
@@ -2104,6 +2171,29 @@ def main():
     weight_bytes = sum(v.numel() * v.element_size() for v in packed.values())
     k1_flops, k1_bytes = k1_work(pg_spec, questions, weight_bytes)
     k1_bound, k1_by = bound(k1_flops, k1_bytes, "bfloat16")
+    # K1's encoder sweeps alone, and K1's two parts under the profiler.
+    enc_ms = cuda_ms(torch, lambda: sampling_encode(
+        pg_dev, pg_spec, q_dev, compute_dtype=dt, packed=packed), iters=10)
+    enc_plain_ms = cuda_ms(torch, lambda: _encode(pg_dev, pg_spec, q_dev, dt), iters=3, warmup=1)
+    k1_parts = launch_times(torch, lambda: fused_sampling_forward(
+        pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=dt, packed=packed),
+        ("k1_encoder_sweep", "seq2seq_sample_kernel"))
+    sweep_us = k1_parts["k1_encoder_sweep"]
+    dec_ms = sum(k1_parts["seq2seq_sample_kernel"]) / 1e3
+    (enc_flops, enc_bytes), (dec_flops, dec_bytes) = k1_parts_work(pg_spec, questions, packed)
+    enc_bound, enc_by = bound(enc_flops, enc_bytes, "bfloat16")
+    dec_bound, dec_by = bound(dec_flops, dec_bytes, "bfloat16")
+    # Yardstick: cuDNN's float32 LSTM over the same lengths, recurrence only.
+    # Its input comes from a generator of its own: the later phases draw
+    # their weights and data from ``gen``.
+    lstm = torch.nn.LSTM(pg_spec.input_size, H, L, batch_first=True).to(dev)
+    enc_lens = torch.from_numpy((questions != pg_spec.pad_index).sum(1) + 1)
+    x_enc = torch.randn(BATCH, MAX_QUESTION_LENGTH + 1, pg_spec.input_size,
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    packed_x = torch.nn.utils.rnn.pack_padded_sequence(x_enc, enc_lens, batch_first=True,
+                                                       enforce_sorted=False)
+    with torch.no_grad():
+        cudnn_enc_ms = cuda_ms(torch, lambda: lstm(packed_x), iters=10)
 
     banks16 = build_banks(nmn_dev, nmn_spec, dt)
     stem16 = nmn.apply_stem(cast_params(nmn_dev["stem"], dt), feats_nhwc.to(dt)).contiguous()
@@ -2142,6 +2232,13 @@ def main():
     predict_ms = (time.perf_counter() - t0) / reps * 1e3
     log(f"[time] K1 {k1_ms:.3f} ms/batch (plain {k1_plain_ms:.3f}, bound {k1_bound:.4f} by "
         f"{k1_by}: {k1_flops / 1e9:.2f} GFLOP, {k1_bytes / 1e6:.2f} MB)")
+    log(f"[time] K1 parts under the profiler: encoder {sum(sweep_us) / 1e3:.3f} ms in "
+        f"{len(sweep_us)} sweeps ({', '.join(f'{u:.1f}' for u in sweep_us)} us; bound "
+        f"{enc_bound:.4f} by {enc_by}: {enc_flops / 1e9:.2f} GFLOP, {enc_bytes / 1e6:.2f} MB), "
+        f"decoder {dec_ms:.3f} ms (bound {dec_bound:.4f} by {dec_by}: {dec_flops / 1e9:.2f} GFLOP, "
+        f"{dec_bytes / 1e6:.2f} MB)")
+    log(f"[time] K1 encoder sweeps alone {enc_ms:.3f} ms/batch (plain {enc_plain_ms:.3f}; cuDNN "
+        f"float32 LSTM, recurrence only, {cudnn_enc_ms:.3f})")
     log(f"[time] K2 {k2_ms:.3f} ms/batch of {BATCH} valid programs (plain {k2_plain_ms:.3f}, "
         f"bound {k2_bound:.4f} by {k2_by}: {n_convs} 3x3 convs, {k2_flops / 1e9:.1f} GFLOP, "
         f"{k2_bytes / 1e6:.1f} MB)")
@@ -2183,8 +2280,9 @@ def main():
     shutil.rmtree(shared, ignore_errors=True)
 
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
-    # on rows with identical tokens; K2: outputs, both 256-row comparisons);
-    # the float32 build's error stands beside it.
+    # on rows with identical tokens; its encoder sweeps: outputs; K2:
+    # outputs, all 256-row comparisons); the float32 build's error stands
+    # beside it.
     kernels = [
         {"name": "seq2seq_decode", "route": "cuda",
          "source": "probnmn_tpu_torch/csrc/seq2seq_decode.cu",
@@ -2192,7 +2290,17 @@ def main():
          "launches": launches["seq2seq_decode"], "max_abs_err": k1["bfloat16"],
          "max_abs_err_float32": k1["float32"],
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "library_ms": None, "route_launches": k1_route,
+         "parts": {"encoder_ms": sum(sweep_us) / 1e3, "encoder_bound_ms": enc_bound,
+                   "decoder_ms": dec_ms, "decoder_bound_ms": dec_bound}},
+        {"name": "k1_encoder_sweep", "route": "cuda",
+         "source": "probnmn_tpu_torch/csrc/seq2seq_decode.cu",
+         "replaces": "probnmn_tpu/ops/pallas/seq2seq_decode.py:137",
+         "launches": launches["k1_encoder_sweep"], "max_abs_err": k1_enc["bfloat16"],
+         "max_abs_err_float32": k1_enc["float32"],
+         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": enc_bound, "bound_by": enc_by,
+         "library_ms": None, "yardstick": "cuDNN LSTM, float32, recurrence only",
+         "yardstick_ms": cudnn_enc_ms, "sweep_plan": k1_plans, "sweep_us": sweep_us},
         {"name": "nmn_interpreter", "route": "cuda",
          "source": "probnmn_tpu_torch/csrc/nmn_interpreter.cu",
          "replaces": "probnmn_tpu/ops/pallas/nmn_interpreter.py:284",

@@ -33,6 +33,17 @@ __device__ __forceinline__ void load4(const bf16* p, float out[4]) {
   out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
 }
 
+// Two consecutive elements as float32: one 8-byte (float) or 4-byte (bf16)
+// load; the pointer must be aligned to two elements.
+__device__ __forceinline__ void load2(const float* p, float out[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  out[0] = v.x; out[1] = v.y;
+}
+__device__ __forceinline__ void load2(const bf16* p, float out[2]) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  out[0] = v.x; out[1] = v.y;
+}
+
 // Butterfly reductions: every lane ends with the same result.
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -46,17 +46,16 @@
 // order.
 // float32 on the SIMT cores, as the trainers; every sum runs in a fixed
 // order independent of R, n and the card, with no atomics, so a sweep gives
-// the same bits on every run.
+// the same bits on every run. The copies, the push into the cluster, the
+// split barrier and the launch plan are cluster_sweep.cuh's, shared with
+// K1's encoder sweep (seq2seq_decode.cu).
 #pragma once
 
-#include <cooperative_groups.h>
-
+#include "cluster_sweep.cuh"
 #include "train_common.cuh"
 
 namespace probnmn {
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kSweepWarps = 8;       // the warps that split the product's 4H-deep sum
 constexpr int kSweepMaxRows = 10;    // rows a cluster owns at most (the lanes' accumulators)
@@ -64,18 +63,6 @@ constexpr int kSweepMaxUnits = 32;   // units a CTA owns at most: one a lane
 // A CTA has a thread for each of its (row, unit) pairs, and at least the
 // product's warps.
 constexpr int kSweepMaxThreads = kSweepMaxRows * kSweepMaxUnits;
-constexpr int kSweepMaxCluster = 8;  // the portable cluster size
-constexpr size_t kSweepMaxSmem = 232448;  // the H100's shared memory a block can use
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Shared memory: W_hh's columns as ws[j][u][q] = W_hh[q * H + j][j0 + u]
 // (H * U * 4 floats); two dpre buffers buf[p][r][4 * j + q] = dpre_q[row0 +
@@ -119,7 +106,7 @@ lstm_bwd_sweep(const float* __restrict__ w_hh, float* gates, const float* __rest
     cp_async4(ws + (static_cast<ll>(j) * U + u) * 4 + q,
               w_hh + static_cast<ll>(k) * H + (col < H ? col : 0), col < H);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 
   // The (row, unit) pair this thread owns in the cell backward.
   const bool owner = tid < R * U;
@@ -205,8 +192,7 @@ lstm_bwd_sweep(const float* __restrict__ w_hh, float* gates, const float* __rest
       if (owner && j < H) {
         const float4 v = make_float4(dpre[0], dpre[1], dpre[2], dpre[3]);
         float* slot = buf + (t & 1) * R * G + r * G + 4 * j;
-        for (int p = 0; p < n; ++p)
-          *reinterpret_cast<float4*>(cluster.map_shared_rank(slot, p)) = v;
+        push_to_cluster(cluster, reinterpret_cast<float4*>(slot), v, n);
       }
       cluster.sync();
     }
@@ -278,7 +264,7 @@ lstm_fwd_sweep(const float* __restrict__ w_hh, float* gates, const float* __rest
     cp_async4(ws + static_cast<ll>(qu) * hs + k,
               w_hh + (valid ? (static_cast<ll>(q) * H + col) * H + k : 0), valid);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
   for (int e = tid; e < 2 * R * hs; e += blockDim.x) hb[e] = 0.f;  // h_{-1} = 0, and the padding
 
   // This thread's unit u and row group g: lanes run over 4 groups, then units.
@@ -361,8 +347,8 @@ lstm_fwd_sweep(const float* __restrict__ w_hh, float* gates, const float* __rest
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
         if (live[i])
-          for (int p = 0; p < n; ++p) *cluster.map_shared_rank(slot + r[i] * hs, p) = h_state[i];
-      asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+          push_to_cluster(cluster, slot + r[i] * hs, h_state[i], n);
+      cluster_arrive();
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -379,29 +365,21 @@ lstm_fwd_sweep(const float* __restrict__ w_hh, float* gates, const float* __rest
     }
     if (more) {
       cur = load(t + 1);  // in flight through the wait and the next step's product
-      asm volatile("barrier.cluster.wait;\n" ::: "memory");
+      cluster_wait();
     }
   }
   cp_async_wait_all();  // a one-step sweep never waited for W_hh
 }
 
 // ------------------------------------------------------------------ launch plans
-// A sweep's launch plan: the cluster size n (the smallest of 1, 2, 4, 8 with
-// at most kSweepMaxUnits units a CTA), the units a CTA, the rows R a
-// cluster owns (the fewest that let every cluster run at once, up to what
-// threads and shared memory allow), the threads a CTA, the clusters, how
-// many clusters the card runs at once, and the shared memory of a CTA.
-struct SweepPlan {
-  int cluster, units, rows, threads, clusters, fit;
-  size_t smem;
-};
-
 // Whether a cluster holds a layer of H units: the shape that picks the
 // sweep, decided on the host before any launch.
 bool sweep_holds(int H) {
   return H > 0 && (H + kSweepMaxCluster - 1) / kSweepMaxCluster <= kSweepMaxUnits;
 }
 
+// The cluster size: the smallest of 1, 2, 4, 8 with at most kSweepMaxUnits
+// units a CTA.
 int sweep_cluster(int H) {
   int n = 1;
   while ((H + n - 1) / n > kSweepMaxUnits) n *= 2;
@@ -415,55 +393,23 @@ int sweep_threads(int R, int U) {
 
 int fwd_sweep_threads(int R, int U) { return (U * fwd_groups(R) + 31) / 32 * 32; }
 
-void sweep_config(int n, int threads, size_t smem, int clusters, cudaStream_t s,
-                  cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(static_cast<unsigned>(clusters * n));
-  cfg->blockDim = dim3(static_cast<unsigned>(threads));
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = s;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(n);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
-// The plan of `kernel` for B rows of H units, with `smem_bytes(H, U, R)`,
-// `threads(R, U)` and at most `r_cap` rows a cluster. cudaErrorInvalidValue
-// where no cluster holds the layer (H > 256).
-template <typename Kernel, typename Smem, typename Threads>
-cudaError_t plan_for(Kernel kernel, Smem smem_bytes, Threads threads, int r_cap, int H, int B,
-                     cudaStream_t s, SweepPlan* plan) {
-  if (!sweep_holds(H) || B < 1) return cudaErrorInvalidValue;
-  const int n = sweep_cluster(H), U = (H + n - 1) / n;
-  int r_max = r_cap;
-  while (r_max > 0 && smem_bytes(H, U, r_max) > kSweepMaxSmem) --r_max;
-  if (r_max == 0) return cudaErrorInvalidValue;
-  const size_t smem_max = smem_bytes(H, U, r_max);
-  TRAIN_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem_max)));
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  sweep_config(n, threads(r_max, U), smem_max, ceil_div(B, r_max), s, &cfg, &attr);
-  int fit = 0;
-  TRAIN_TRY(cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg));
-  if (fit < 1) return cudaErrorInvalidValue;
-  const int R = ceil_div(B, fit) < r_max ? ceil_div(B, fit) : r_max;
-  *plan = SweepPlan{n, U, R, threads(R, U), ceil_div(B, R), fit, smem_bytes(H, U, R)};
-  return cudaSuccess;
-}
-
+// cudaErrorInvalidValue where no cluster holds the layer (H > 256).
 cudaError_t sweep_plan(int H, int B, cudaStream_t s, SweepPlan* plan) {
-  return plan_for(lstm_bwd_sweep, sweep_smem_bytes, sweep_threads, kSweepMaxRows, H, B, s, plan);
+  if (!sweep_holds(H)) return cudaErrorInvalidValue;
+  const int n = sweep_cluster(H), U = (H + n - 1) / n;
+  return plan_for(
+      lstm_bwd_sweep, [=](int R) { return sweep_smem_bytes(H, U, R); },
+      [=](int R) { return sweep_threads(R, U); }, kSweepMaxRows, n, U, B, s, plan);
 }
 
 // The forward's plan; the occupancy is read at the widest instance, and the
 // launch sets the shared memory of the one it takes.
 cudaError_t fwd_sweep_plan(int H, int B, cudaStream_t s, SweepPlan* plan) {
-  return plan_for(lstm_fwd_sweep<kFwdMaxRpt>, fwd_sweep_smem_bytes, fwd_sweep_threads,
-                  kFwdMaxRows, H, B, s, plan);
+  if (!sweep_holds(H)) return cudaErrorInvalidValue;
+  const int n = sweep_cluster(H), U = (H + n - 1) / n;
+  return plan_for(
+      lstm_fwd_sweep<kFwdMaxRpt>, [=](int R) { return fwd_sweep_smem_bytes(H, U, R); },
+      [=](int R) { return fwd_sweep_threads(R, U); }, kFwdMaxRows, n, U, B, s, plan);
 }
 
 // ------------------------------------------------------------------ layers

@@ -107,18 +107,30 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     r"""The loaded kernel library (built at first use) with its C signatures."""
     lib = ctypes.CDLL(str(build()))
-    lib.probnmn_seq2seq_sample.restype = _INT
-    lib.probnmn_seq2seq_sample.argtypes = [
+    lib.probnmn_k1_encode.restype = _INT
+    lib.probnmn_k1_encode.argtypes = [
+        _INT,                                   # dtype: 0 float32, 1 bfloat16
+        _VOID_P, _INT, _INT,                    # src (B, L) int32, B, L
+        _VOID_P,                                # source embedding
+        _VOID_P, _VOID_P, _VOID_P,              # encoder w_ih^T (flat), w_hh^T, bias
+        _VOID_P, _VOID_P, _VOID_P,              # outputs (B, L+1, H), the layers below (or NULL), final h (B, H)
+        _INT, _INT, _INT,                       # D, H, layers
+        _INT, _INT,                             # pad, end
+        _VOID_P,                                # stream
+    ]
+    lib.probnmn_k1_encoder_plan.restype = _INT
+    lib.probnmn_k1_encoder_plan.argtypes = [_INT] * 4 + [ctypes.POINTER(_INT)]  # dtype, B, in, H; out[12]
+    lib.probnmn_k1_decode.restype = _INT
+    lib.probnmn_k1_decode.argtypes = [
         _INT,                                   # dtype: 0 float32, 1 bfloat16
         _VOID_P, _INT, _INT,                    # src (B, L) int32, B, L
         _VOID_P, _INT, ctypes.c_uint64,         # noise (T, B, stride) f32 or NULL, stride, seed
-        _VOID_P, _VOID_P,                       # source / target embeddings
-        _VOID_P, _VOID_P, _VOID_P,              # encoder w_ih^T (flat), w_hh^T, bias
+        _VOID_P,                                # target embedding
         _VOID_P, _VOID_P, _VOID_P,              # decoder w_ih^T, w_hh^T, bias
         _VOID_P, _VOID_P,                       # projection w^T, bias
-        _VOID_P,                                # encoder-output scratch (B, L+1, H)
+        _VOID_P, _VOID_P,                       # encoder outputs (B, L+1, H), final h (B, H) f32
         _VOID_P, _VOID_P, _VOID_P,              # predictions, loss, logprobs
-        _INT, _INT, _INT, _INT, _INT,           # D, H, layers, target vocab, steps
+        _INT, _INT, _INT, _INT,                 # D, H, target vocab, steps
         _INT, _INT, _INT, _INT,                 # pad, unk, start, end
         _VOID_P,                                # stream
     ]

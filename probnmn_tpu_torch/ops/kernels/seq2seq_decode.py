@@ -1,25 +1,28 @@
 r"""
-Kernel K1: the whole ProgramGenerator sampling forward in one CUDA launch
-(``probnmn_tpu_torch/csrc/seq2seq_decode.cu``).
+Kernel K1: the ProgramGenerator sampling forward on the card
+(``probnmn_tpu_torch/csrc/seq2seq_decode.cu``), in L + 1 launches: one
+encoder sweep a layer (:func:`sampling_encode`), then the decoder.
 
 Replaces ``probnmn_tpu/ops/pallas/seq2seq_decode.py::_sampling_kernel`` (entry
-``fused_sampling_forward``). One launch computes: boundary add, the
-zeroed-pad source embedding, the masked 2-layer LSTM encoder over L+1 steps,
-the decoder initialized from the top-layer final state, 26 attentive decode
-steps with Gumbel-max sampling (pad, unk and start blocked; logprob from the
-unblocked log-softmax), the @end@ trim quirk and the length-normalized loss.
+``fused_sampling_forward``): boundary add, the zeroed-pad source embedding,
+the masked 2-layer LSTM encoder over L+1 steps, the decoder initialized from
+the top layer's final state, 26 attentive decode steps with Gumbel-max
+sampling (pad, unk and start blocked; logprob from the unblocked
+log-softmax), the @end@ trim quirk and the length-normalized loss.
 
 What bounds it on an H100: not the 35.6 GFLOP of a batch of 256 (36 µs at the
 bf16 tensor peak) but latency, since the 46 + 26 steps depend on each other.
-Design: rows are independent across the whole recurrence, so each block owns
-2 rows and runs every step itself with no inter-block sync (128 blocks
-for a batch of 256, about one per SM); thread u owns
-hidden unit u of all four gates, so a gate update needs no exchange; the
-~3.6 MB of bf16 weights are streamed from L2 each step, coalesced across
-threads; the encoder outputs (46 x 256 x 256, 6 MB bf16) live in a global
-scratch that stays in the 50 MB L2 (the TPU kept them in VMEM, over a block's
-227 KB of shared memory here). Matmul operands are rounded to the compute
-type and summed in float32, as the TPU kernel did.
+The encoder: each layer is one persistent launch of thread-block clusters
+(8 CTAs at H = 256) that own a few rows each for all steps, keep the
+layer's weights in shared memory and exchange h through distributed shared
+memory (:func:`encoder_plan` gives the plan). The decoder: each block owns
+2 rows and runs every decode step itself with no inter-block sync (128
+blocks for a batch of 256); thread u owns hidden unit u of all four gates;
+the ~1.5 MB of bf16 decoder weights are streamed from L2 each step. The
+encoder outputs (46 x 256 x 256, 6 MB bf16) stay in the 50 MB L2 (the TPU
+kept them in VMEM, over a block's 227 KB of shared memory here). Matmul
+operands are rounded to the compute type and summed in float32, as the TPU
+kernel did.
 
 The TPU's hardware PRNG becomes Philox4x32-10 with counter (v // 4, step,
 row, 0) and key ``seed``, so draws do not depend on the block layout, and
@@ -29,12 +32,13 @@ explicit noise instead, for token-for-token comparisons.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import ctypes
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from probnmn_tpu_torch.models.seq2seq import SAMPLING, Seq2SeqSpec, seq2seq_forward
+from probnmn_tpu_torch.models.seq2seq import SAMPLING, Seq2SeqSpec, _encode, seq2seq_forward
 from probnmn_tpu_torch.ops.kernels import _build
 
 _PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
@@ -117,6 +121,87 @@ def pack_weights(
     }
 
 
+_PLAN_KEYS = ("cluster", "units", "rows", "threads", "clusters", "fit", "smem", "w_hh_resident",
+              "w_ih_resident", "groups", "rows_per_thread", "registers")
+
+
+def encoder_plan(batch: int, input_size: int, hidden: int,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    r"""The launch plan of an encoder layer's sweep with ``input_size``
+    inputs (the first layer: the embedding width; above it: ``hidden``):
+    cluster size, units a CTA, rows a cluster, threads a CTA, clusters, the
+    clusters the card runs at once, shared memory bytes a CTA, whether W_hh
+    and W_ih stay in shared memory (1) or are read from L2 (0), row groups,
+    rows a thread and registers a thread. Needs the card."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    code = _build.library().probnmn_k1_encoder_plan(
+        _DTYPE_CODES[compute_dtype], batch, input_size, hidden, out)
+    _build.check(code, "K1 encoder sweep plan")
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def _check_kernel_shapes(spec: Seq2SeqSpec, compute_dtype: torch.dtype) -> None:
+    if compute_dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported compute dtype {compute_dtype}")
+    hidden = spec.hidden_size
+    if hidden % 32 or not 128 <= hidden <= 512:
+        raise ValueError(f"the kernel needs 128 <= hidden_size <= 512, a multiple of 32; got {hidden}")
+
+
+def _packed(params, spec, compute_dtype, device, packed):
+    if packed is None:
+        packed = pack_weights(params, spec, compute_dtype, device)
+    if packed["dec_wih"].dtype != compute_dtype:
+        raise ValueError("packed weights are in another compute dtype")
+    return packed
+
+
+def sampling_encode(
+    params: Dict[str, Any],
+    spec: Seq2SeqSpec,
+    source_tokens: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    packed: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""K1's encoder: ``(outputs (B, L+1, H) in compute_dtype, the top
+    layer's final hidden state (B, H) float32, not rounded)``, the decoder's
+    attention memory and initial state.
+
+    A CPU ``source_tokens`` runs the plain version, ``models/seq2seq.py``'s
+    ``_encode``; a CUDA one launches one encoder sweep a layer (and raises if
+    it cannot plan or launch one).
+    """
+    device = source_tokens.device
+    if device.type == "cpu":
+        outputs, _, hidden, _ = _encode(params, spec, source_tokens, compute_dtype)
+        return outputs.to(compute_dtype), hidden
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    _check_kernel_shapes(spec, compute_dtype)
+    p = _packed(params, spec, compute_dtype, device, packed)
+    batch, raw_len = source_tokens.shape
+    hidden = spec.hidden_size
+    src = source_tokens.to(torch.int32).contiguous()
+    outputs = torch.empty(batch, raw_len + 1, hidden, dtype=compute_dtype, device=device)
+    below = torch.empty_like(outputs) if spec.num_layers > 1 else None
+    final = torch.empty(batch, hidden, dtype=torch.float32, device=device)
+    code = _build.library().probnmn_k1_encode(
+        _DTYPE_CODES[compute_dtype], src.data_ptr(), batch, raw_len,
+        p["src_emb"].data_ptr(), p["enc_wih"].data_ptr(), p["enc_whh"].data_ptr(),
+        p["enc_bias"].data_ptr(), outputs.data_ptr(),
+        below.data_ptr() if below is not None else None, final.data_ptr(),
+        spec.input_size, hidden, spec.num_layers, spec.pad_index, spec.end_index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(code, "K1 encoder sweep")
+    sampling_encode.launches += 1
+    return outputs, final
+
+
+sampling_encode.launches = 0
+
+
 def fused_sampling_forward(
     params: Dict[str, Any],
     spec: Seq2SeqSpec,
@@ -134,7 +219,8 @@ def fused_sampling_forward(
 
     Noise comes from ``noise`` (T, B, >=V) float32 when given, else from the
     Philox stream of ``seed``. A CPU ``source_tokens`` runs the plain version;
-    a CUDA one launches the kernel (and raises if it cannot).
+    a CUDA one runs :func:`sampling_encode`'s sweeps, then the decoder kernel
+    (and raises if it cannot).
     """
     if noise is None and seed is None:
         raise ValueError("pass a Philox seed or explicit noise")
@@ -148,42 +234,33 @@ def fused_sampling_forward(
         return sampling_forward_with_noise(params, spec, source_tokens, noise, compute_dtype)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    if compute_dtype not in _DTYPE_CODES:
-        raise ValueError(f"unsupported compute dtype {compute_dtype}")
-    hidden = spec.hidden_size
-    if hidden % 32 or not 128 <= hidden <= 512:
-        raise ValueError(f"the kernel needs 128 <= hidden_size <= 512, a multiple of 32; got {hidden}")
-    if packed is None:
-        packed = pack_weights(params, spec, compute_dtype, device)
-    if packed["dec_wih"].dtype != compute_dtype:
-        raise ValueError("packed weights are in another compute dtype")
+    _check_kernel_shapes(spec, compute_dtype)
+    p = _packed(params, spec, compute_dtype, device, packed)
     if noise is not None:
         if noise.shape[:2] != (num_steps, batch) or noise.shape[2] < vocab:
             raise ValueError(f"noise must be ({num_steps}, {batch}, >={vocab}), got {tuple(noise.shape)}")
         noise = noise.to(device=device, dtype=torch.float32).contiguous()
 
+    outputs, final = sampling_encode(params, spec, source_tokens, compute_dtype=compute_dtype,
+                                     packed=p)
     src = source_tokens.to(torch.int32).contiguous()
-    enc_scratch = torch.empty(batch, raw_len + 1, hidden, dtype=compute_dtype, device=device)
     preds = torch.empty(batch, num_steps, dtype=torch.int32, device=device)
     loss = torch.empty(batch, dtype=torch.float32, device=device)
     logprobs = torch.empty(batch, num_steps, dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    p = packed
-    code = _build.library().probnmn_seq2seq_sample(
+    code = _build.library().probnmn_k1_decode(
         _DTYPE_CODES[compute_dtype],
         src.data_ptr(), batch, raw_len,
         noise.data_ptr() if noise is not None else None,
         noise.shape[2] if noise is not None else 0,
         (seed or 0) & 0xFFFFFFFFFFFFFFFF,
-        p["src_emb"].data_ptr(), p["tgt_emb"].data_ptr(),
-        p["enc_wih"].data_ptr(), p["enc_whh"].data_ptr(), p["enc_bias"].data_ptr(),
+        p["tgt_emb"].data_ptr(),
         p["dec_wih"].data_ptr(), p["dec_whh"].data_ptr(), p["dec_bias"].data_ptr(),
         p["proj_w"].data_ptr(), p["proj_b"].data_ptr(),
-        enc_scratch.data_ptr(),
+        outputs.data_ptr(), final.data_ptr(),
         preds.data_ptr(), loss.data_ptr(), logprobs.data_ptr(),
-        spec.input_size, hidden, spec.num_layers, vocab, num_steps,
+        spec.input_size, spec.hidden_size, vocab, num_steps,
         spec.pad_index, spec.unk_index, spec.start_index, spec.end_index,
-        stream,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "seq2seq sampling kernel")
     fused_sampling_forward.launches += 1

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from probnmn_tpu_torch.models import nmn, program_generator, program_prior
-from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec, init_seq2seq_params
+from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec, _encode, init_seq2seq_params
 from probnmn_tpu_torch.models.nmn import cast_params
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     DIFF_BANKS, build_banks, build_tables, execute_programs_diff, execute_programs_kernel,
@@ -20,7 +20,8 @@ from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     workspace_errors,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
-    fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
+    encoder_plan, fused_sampling_forward, philox_gumbel, sampling_encode,
+    sampling_forward_with_noise,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
     fused_lm_loss, fused_tf_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
@@ -82,6 +83,88 @@ def test_sampling_kernel_matches_plain_version(cuda):
     torch.testing.assert_close(got["loss"], want["loss"], rtol=0, atol=1e-4)
     philox = fused_sampling_forward(params, spec, src, seed=7, compute_dtype=torch.float32)
     torch.testing.assert_close(philox["predictions"], want["predictions"], rtol=0, atol=0)
+
+
+# Which of a K1 encoder layer's matrices stay in shared memory at D = H, as
+# the header comment of csrc/seq2seq_decode.cu states: (W_hh, W_ih).
+K1_RESIDENT = {
+    (128, torch.bfloat16): (1, 1), (128, torch.float32): (1, 1),
+    (256, torch.bfloat16): (1, 1), (256, torch.float32): (1, 0),
+    (512, torch.bfloat16): (1, 0), (512, torch.float32): (0, 0),
+}
+
+
+def _k1_batches(rs, vocab_size, length=45):
+    r"""Batches of 37 and 256 rows, each with a full-length, an all-pad and a
+    one-token row among random lengths, and the three as batches of one."""
+    def batch(n):
+        src = rs.randint(4, vocab_size, (n, length))
+        src = src * (np.arange(length)[None, :] < rs.randint(1, length + 1, (n, 1)))
+        src[0] = rs.randint(4, vocab_size, length)
+        src[1] = 0
+        src[2, 1:] = 0
+        return src
+    full = batch(3)
+    return [batch(37), batch(256), full[0:1], full[1:2], full[2:3]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [128, 256, 512])
+def test_encoder_sweep_and_k1_match_plain_versions(cuda, hidden, dtype):
+    r"""K1's encoder sweeps against the plain encoder (float32 within 1e-5 of
+    max(1, max|x|), bfloat16 within 2e-2 of max|x|), and K1 against its plain
+    version on explicit noise (float32: >= 99% identical rows, logprobs
+    within 1e-4 there; bfloat16: >= 95% identical tokens), at D = H."""
+    vocab = make_clevr_like_vocabulary()
+    spec = dataclasses.replace(program_generator.make_spec(vocab), input_size=hidden,
+                               hidden_size=hidden)
+    params = cast_params(program_generator.init_params(torch.Generator().manual_seed(hidden), spec),
+                         torch.float32, cuda)
+    plans = [encoder_plan(256, hidden, hidden, dtype), encoder_plan(1, hidden, hidden, dtype)]
+    for plan in plans:
+        assert (plan["w_hh_resident"], plan["w_ih_resident"]) == K1_RESIDENT[hidden, dtype], plan
+        assert plan["units"] * plan["cluster"] == hidden and plan["units"] <= 32
+    rs = np.random.RandomState(hidden)
+    T, V = spec.max_decoding_steps, spec.target_vocab_size
+    for src_np in _k1_batches(rs, spec.source_vocab_size):
+        src = torch.from_numpy(src_np).to(cuda)
+        out, final = sampling_encode(params, spec, src, compute_dtype=dtype)
+        want_out, _, want_final, _ = _encode(params, spec, src, dtype)
+        assert out.dtype == dtype and final.dtype == torch.float32
+        for got, want in ((out.float(), want_out), (final, want_final)):
+            scale = float(want.abs().max())
+            tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+            assert float((got - want).abs().max()) <= tol, (src_np.shape, scale)
+        noise = torch.from_numpy(rs.gumbel(size=(T, src.shape[0], V)).astype(np.float32)).to(cuda)
+        got = fused_sampling_forward(params, spec, src, noise=noise, compute_dtype=dtype)
+        want = sampling_forward_with_noise(params, spec, src, noise, compute_dtype=dtype)
+        same = (got["predictions"] == want["predictions"]).all(dim=1)
+        if dtype == torch.float32:
+            assert float(same.float().mean()) >= 0.99
+            assert float((got["logprobs"] - want["logprobs"])[same].abs().max()) <= 1e-4
+        else:
+            assert float((got["predictions"] == want["predictions"]).float().mean()) >= 0.95
+        assert torch.isfinite(got["loss"]).all()
+
+
+def test_k1_is_one_sweep_a_layer_and_one_decoder_launch(cuda):
+    r"""Under the profiler K1 is one encoder sweep a layer (three here) and one
+    decoder launch, with the sweeps' counter one a call."""
+    vocab = make_clevr_like_vocabulary()
+    spec = dataclasses.replace(program_generator.make_spec(vocab), num_layers=3)
+    params = cast_params(program_generator.init_params(torch.Generator().manual_seed(3), spec),
+                         torch.float32, cuda)
+    src = torch.from_numpy(_k1_batches(np.random.RandomState(3), spec.source_vocab_size)[0]).to(cuda)
+    before = (sampling_encode.launches, fused_sampling_forward.launches)
+    counts = _launches(lambda: fused_sampling_forward(params, spec, src, seed=5),
+                       names=("k1_encoder_sweep", "seq2seq_sample_kernel"))
+    assert counts == {"k1_encoder_sweep": 3, "seq2seq_sample_kernel": 1}, counts
+    assert (sampling_encode.launches, fused_sampling_forward.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    out, final = sampling_encode(params, spec, src, compute_dtype=torch.float32)
+    want_out, _, want_final, _ = _encode(params, spec, src)
+    assert float((out - want_out).abs().max()) <= 1e-5
+    assert float((final - want_final).abs().max()) <= 1e-5
 
 
 def test_interpreter_kernel_matches_plain_version(cuda):
