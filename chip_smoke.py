@@ -21,8 +21,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
 3. K2, the NMN interpreter, against its plain version at full NMN width
    (C=128, 14x14, B=256) on valid CLEVR programs of every module kind plus
    invalid and all-pad rows: float32 invalid flags equal, outputs within
-   1e-4 (of max(1, max|out|)); bfloat16 (the tensor-core build predict runs)
-   flags equal, outputs within 2e-2 of max|out|.
+   1e-4 (of max(1, max|out|)); bfloat16 (the tensor-core build predict runs:
+   each conv on wgmma, its taps' weights staged by TMA in a shared-memory
+   ring; a persistent grid taking the examples longest program first) flags
+   equal, outputs within 2e-2 of max|out|.
 4. End to end: ``InferenceEngine(batch_size=256, device="cuda").predict``
    on 256 random questions and (1024, 14, 14) features, with every launch
    counter set to 0 before and read after (each kernel must have run); the
@@ -34,7 +36,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    per batch (the timed K2 batch is checked against the plain version too),
    K1's encoder sweeps alone and K1's two parts under the profiler, the NMN
    forward and ``predict`` per batch and questions/s, each beside its bound
-   (operations and bytes of this run's inputs).
+   (operations and bytes of this run's inputs). On K2's timed batch
+   (``[K2 plan]``): the plan kernel's conv counts and order equal to its
+   plain version's, the longest chain, the persistent grid and the weight
+   ring's stages, the makespan the order predicts (longest first, batch
+   order, block-index waves), and K2 under the profiler as one
+   ``nmn_plan_kernel`` and one ``nmn_interpreter_kernel``; cuDNN's bf16 conv
+   forward over as many 3x3 convs beside K2 (a partial yardstick).
 6. The program_prior training phase at the shipped width
    (``configs/program_prior.yml``: D=H=256, 2 layers, batch 256) on 8,192
    CLEVR-like programs in memory (1,024 for validation), each set with a
@@ -92,7 +100,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    final and flags equal K2's bit for bit and the plain version's within
    K2's tolerances, in both dtypes; every K6 leaf within 1e-4 (float32) or
    1e-1 (bfloat16) * max(1, max|g|) of autograd through the plain version
-   under a random cotangent, bitwise repeatable, with dx 0 on invalid rows;
+   under a random cotangent (``interpreter_grads_plain_by_row``: the rows
+   whose d(stem) stands off recomputed alone, since a float32 ReLU input
+   within rounding of 0 falls on either side in the batched plain forward;
+   the flipped ReLU outputs printed), bitwise repeatable, with dx 0 on
+   invalid rows;
    its weight-gradient kernel and conv input gradients within 1e-5 of
    float64 sums over the operands it wrote to its workspace, and the
    weight-gradient kernel within 1e-5 of ``weight_grad_plain`` on the same
@@ -122,7 +134,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    1,024 for validation). K6's replay mode (K6r) at B=256 on CLEVR programs
    plus invalid and all-pad rows, in both dtypes: dx, every bank gradient
    and the workspace entries equal K6's over K5's residuals bit for bit;
-   K6r bitwise repeatable, within K6's tolerances of the plain version, and
+   K6r bitwise repeatable, within K6's tolerances of the plain version (rows
+   held alone as in phase 8), and
    within 1e-5 of float64 sums over its own workspace and (its weight
    gradients) of ``weight_grad_plain``. The interpreter's
    memory for a forward and backward at B=256 in each mode; the float32
@@ -437,6 +450,18 @@ def nmn_replay(tables, programs):
             for key in keys:
                 valid_total[key] += work[key]
     return dict(total, valid=valid_total, used={k: len(v) for k, v in used.items()})
+
+
+def makespan(convs, order, blocks):
+    r"""The 3x3 convs the busiest of ``blocks`` persistent blocks runs when
+    each free block takes the next example in ``order`` (the shared counter
+    of K2 and K5), every conv taking the same time."""
+    import heapq
+
+    free = [0] * blocks
+    for i in order:
+        heapq.heappush(free, heapq.heappop(free) + convs[i])
+    return max(free)
 
 
 def tap_pixels(h, w, d):
@@ -1243,7 +1268,7 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
         execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
-        weight_grad_kernel, workspace_errors,
+        interpreter_grads_plain_by_row, weight_grad_kernel, workspace_errors,
     )
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
@@ -1318,7 +1343,8 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
                                                    otraj, atraj, workspace=ws)
         again_banks, again_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs,
                                                            invalid, g, otraj, atraj)
-        w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, g)
+        w_banks, w_stem, alone = interpreter_grads_plain_by_row(banks, tables, spec, stem, programs,
+                                                                g, d_stem, K6_TOL[name])
         torch.cuda.synchronize()
         check(torch.equal(d_stem, again_stem) and all(
             torch.equal(d_banks[k], again_banks[k]) for k in DIFF_BANKS), f"K6 {name} bits differ")
@@ -1337,6 +1363,8 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
         errs[name] = (err, worst[1], tight, wg_err)
         log(f"[K5 {name}] B={batch}: equal to K2 bit for bit; invalid {int(invalid.sum())}/{batch} "
             f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e})")
+        log(f"[K6 {name}] rows held to the plain version run alone, with the ReLU outputs whose "
+            f"sign the batched plain forward flips against K5's: {alone or 'none'}")
         log(f"[K6 {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
             f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
             f"{worst[2]:.3e} (ratio {worst[0]:.3e}); bitwise repeatable; dx 0 on invalid rows")
@@ -1528,46 +1556,6 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     ]
 
 
-def plain_grads_by_row(torch, banks, tables, spec, stem, programs, g, d_stem, tol):
-    r"""K6's plain version as phase 9's reference: autograd through the plain
-    machine over the batch, except for the rows whose d(stem) stands off the
-    kernel's ``d_stem`` by more than ``tol`` of its scale. Those rows are
-    recomputed alone, and their bank gradients replace their share of the
-    batch's (the batch again under a cotangent zeroed on them: gradients are
-    linear in it). A ReLU input within float32 rounding of 0 takes one side
-    in the batched plain forward and the other in K5's and in the row's own
-    plain forward, which flips that element's gradient; the returned counts
-    say how many ReLU outputs of the two-conv chains differ in sign between
-    the batched plain forward and K5's, per such row.
-    Returns (d_banks, d_stem, {row: flips})."""
-    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
-        DIFF_BANKS, execute_programs_plain, execute_programs_train_kernel, interpreter_grads_plain,
-    )
-
-    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, g)
-    err = (d_stem.float() - w_stem.float()).abs().reshape(len(programs), -1).amax(1)
-    rows = (err > tol * max(1.0, float(w_stem.float().abs().max()))).nonzero().flatten().tolist()
-    if not rows:
-        return w_banks, w_stem, {}
-    _, _, _, atraj = execute_programs_train_kernel(banks, tables, spec, stem[rows], programs[rows])
-    _, _, _, plain_atraj = execute_programs_plain(banks, tables, spec, stem, programs, record=True)
-    # Flips count only on the steps that ran a two-conv chain: K5 leaves the
-    # others unwritten.
-    plain_atraj = plain_atraj[rows]
-    ran = plain_atraj.flatten(2).abs().amax(2) > 0
-    flips = (((plain_atraj > 0) != (atraj > 0)).flatten(2).sum(2) * ran).sum(1).tolist()
-    others = g.clone()
-    others[rows] = 0
-    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem, programs, others)
-    w_stem = w_stem.clone()
-    for row in rows:
-        one = slice(row, row + 1)
-        row_banks, w_stem[one] = interpreter_grads_plain(banks, tables, spec, stem[one],
-                                                         programs[one], g[one])
-        w_banks = {k: w_banks[k] + row_banks[k] for k in DIFF_BANKS}
-    return w_banks, w_stem, dict(zip(rows, flips))
-
-
 def k6r_work(tables, spec, programs, itemsize, bank_floats):
     r"""FLOPs and bytes K6's replay mode needs for these programs: K6's work
     (:func:`k5_k6_work`) plus the forward re-run over the valid rows; the
@@ -1603,7 +1591,7 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         DIFF_BANKS, build_banks, execute_programs_diff, execute_programs_kernel,
         execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
-        weight_grad_kernel, workspace_errors,
+        interpreter_grads_plain_by_row, weight_grad_kernel, workspace_errors,
     )
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
@@ -1679,8 +1667,8 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         r_banks, r_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
                                                    workspace=ws_replay)
         a_banks, a_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g)
-        w_banks, w_stem, alone = plain_grads_by_row(torch, banks, tables, spec, stem, programs, g,
-                                                    r_stem, K6_TOL[name])
+        w_banks, w_stem, alone = interpreter_grads_plain_by_row(banks, tables, spec, stem, programs,
+                                                                g, r_stem, K6_TOL[name])
         torch.cuda.synchronize()
         check(torch.equal(d_stem, r_stem) and all(torch.equal(d_banks[k], r_banks[k])
                                                   for k in DIFF_BANKS),
@@ -1949,8 +1937,11 @@ def main():
     from probnmn_tpu_torch.models import nmn, program_generator
     from probnmn_tpu_torch.models.nmn import cast_params
     from probnmn_tpu_torch.ops.kernels import _build
+    import torch.nn.functional as F
+
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
+        interpreter_launch, interpreter_plan, interpreter_plan_plain,
     )
     from probnmn_tpu_torch.models.seq2seq import _encode
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
@@ -2109,11 +2100,13 @@ def main():
     fused_sampling_forward.launches = 0
     sampling_encode.launches = 0
     execute_programs_kernel.launches = 0
+    interpreter_plan.launches = 0
     answers = engine.predict(questions, images, seed=seed)
     torch.cuda.synchronize()
     launches = {"seq2seq_decode": fused_sampling_forward.launches,
                 "k1_encoder_sweep": sampling_encode.launches,
-                "nmn_interpreter": execute_programs_kernel.launches}
+                "nmn_interpreter": execute_programs_kernel.launches,
+                "nmn_plan": interpreter_plan.launches}
     # The programs predict sampled (same seed, same kernel): what its NMN ran.
     e2e_programs = fused_sampling_forward(
         pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=engine.compute_dtype,
@@ -2213,6 +2206,44 @@ def main():
     k2["bfloat16"] = max(k2["bfloat16"], err)
     k2_flops, k2_bytes, n_convs = k2_work(tables, nmn_spec, valid_np, 2)
     k2_bound, k2_by = bound(k2_flops, k2_bytes, "bfloat16")
+    # The plan K2 takes the timed batch in (each program's convs, counted on
+    # the card, longest first) against its plain version, the makespan it
+    # predicts for the persistent grid, and K2's route under the profiler.
+    plan_convs, plan_order = interpreter_plan(tables, valid)
+    want_convs, want_order = interpreter_plan_plain(tables, valid.cpu())
+    plan_err = float((plan_convs.cpu() - want_convs).abs().max())
+    check(plan_err == 0 and torch.equal(plan_order.cpu(), want_order),
+          "the plan kernel differs from its plain version")
+    check(int(want_convs.sum()) == n_convs, "the plan's convs differ from the host replay's")
+    plan_ms = cuda_ms(torch, lambda: interpreter_plan(tables, valid), iters=20)
+    plan_plain_ms = cuda_ms(torch, lambda: interpreter_plan_plain(tables, valid), iters=3, warmup=1)
+    plan_bound, plan_by = bound(0.0, valid_np.size * 4 + 2 * BATCH * 4, "bfloat16")
+    h, w, C = nmn_spec.height, nmn_spec.width, nmn_spec.module_channels
+    launch = interpreter_launch(dt, BATCH, h, w, C)
+    counts = want_convs.long().tolist()
+    grid = launch["grid"]
+    waves = max(sum(counts[j::grid]) for j in range(grid))
+    log(f"[K2 plan] {BATCH} valid programs, {n_convs} 3x3 convs: longest chain {max(counts)} convs "
+        f"(p90 {int(np.percentile(counts, 90))}, mean {np.mean(counts):.1f}); persistent grid "
+        f"{grid} blocks, weight ring of {launch['stages']} stages; predicted makespan "
+        f"{makespan(counts, want_order.long().tolist(), grid)} convs longest first, "
+        f"{makespan(counts, range(BATCH), grid)} in batch order, {waves} in block-index waves")
+    _, _, _, k2_counts = trace(torch, lambda: execute_programs_kernel(
+        banks16, tables, nmn_spec, stem16, valid))
+    k2_route = {k: launches_of(k2_counts, k) for k in ("nmn_plan_kernel", "nmn_interpreter_kernel")}
+    log(f"[K2 plan] route under the profiler, one K2 (bf16: wgmma m64n128k16 with each tap's "
+        f"weights staged by TMA): {k2_route}; the plan {plan_ms:.4f} ms (plain "
+        f"{plan_plain_ms:.4f}, bound {plan_bound:.6f} by {plan_by})")
+    check(k2_route == {"nmn_plan_kernel": 1, "nmn_interpreter_kernel": 1},
+          f"K2 is not one plan and one interpreter launch: {k2_route}")
+    # Yardstick: cuDNN's bf16 conv forward over as many 3x3 convs, from a
+    # generator of its own.
+    ygen = torch.Generator(device=dev).manual_seed(6)
+    xk = torch.randn(n_convs, C, h, w, device=dev, generator=ygen, dtype=dt)
+    wk = (0.05 * torch.randn(C, C, 3, 3, device=dev, generator=ygen)).to(dt)
+    with torch.no_grad():
+        cudnn_k2_ms = cuda_ms(torch, lambda: F.conv2d(xk, wk, padding=1), iters=10)
+    del xk
     nmn_ms = cuda_ms(torch, lambda: nmn_fast(feats_nhwc, valid), iters=5)
     dense_flops, dense_bytes = stem_classifier_work(nmn_spec, BATCH, 4, 2)
     nmn_bound, nmn_by = bound(k2_flops + dense_flops, dense_bytes + k2_bytes, "bfloat16")
@@ -2241,7 +2272,7 @@ def main():
         f"float32 LSTM, recurrence only, {cudnn_enc_ms:.3f})")
     log(f"[time] K2 {k2_ms:.3f} ms/batch of {BATCH} valid programs (plain {k2_plain_ms:.3f}, "
         f"bound {k2_bound:.4f} by {k2_by}: {n_convs} 3x3 convs, {k2_flops / 1e9:.1f} GFLOP, "
-        f"{k2_bytes / 1e6:.1f} MB)")
+        f"{k2_bytes / 1e6:.1f} MB; cuDNN bf16 conv forward over {n_convs} convs {cudnn_k2_ms:.3f})")
     log(f"[time] NMN forward (stem + K2 + classifier) {nmn_ms:.3f} ms/batch, valid programs "
         f"(bound {nmn_bound:.4f} by {nmn_by}: {(k2_flops + dense_flops) / 1e9:.1f} GFLOP)")
     log(f"[time] feature upload (float32, {images.nbytes / 1e6:.0f} MB, host clock) {upload_ms:.2f} ms/batch")
@@ -2307,6 +2338,14 @@ def main():
          "launches": launches["nmn_interpreter"], "max_abs_err": k2["bfloat16"],
          "max_abs_err_float32": k2["float32"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None, "yardstick": "cuDNN bf16 conv2d forward over the same 3x3 convs",
+         "yardstick_ms": cudnn_k2_ms, "route_launches": k2_route, "grid": launch["grid"],
+         "ring_stages": launch["stages"]},
+        {"name": "nmn_plan", "route": "cuda",
+         "source": "probnmn_tpu_torch/csrc/nmn_interpreter.cu",
+         "replaces": "probnmn_tpu/ops/pallas/nmn_interpreter.py:284",
+         "launches": launches["nmn_plan"], "max_abs_err": plan_err,
+         "ms": plan_ms, "plain_ms": plan_plain_ms, "bound_ms": plan_bound, "bound_by": plan_by,
          "library_ms": None},
         *prior,
         *question_coding,

@@ -17,21 +17,22 @@
 // which also stores what K6 reads back: the out register at the entry of every
 // executed step (otraj, (B, T, HW, C)) and the outputs of the two 3x3 convs of
 // every attention, query and compare step (atraj, (B, T, 2, HW, C)), both in
-// the compute type, the JAX package's layout. The atraj stores leave the conv
-// epilogue straight for global memory; final and flags are K2's bit for bit.
+// the compute type, the JAX package's layout, copied in 16-byte pieces (the
+// conv outputs from the shared tile after the conv's barrier); final and
+// flags are K2's bit for bit.
 //
-// K6 replaces _interpreter_bwd_kernel: one block per example sweeps its
-// executed steps in reverse, reading K5's residuals (no-replay mode);
-// relate's chain is recomputed from its entry register. Invalid examples get
-// zero gradients. In replay mode (kReplay, the JAX kernel's no_replay=False)
-// K5 never stored the residuals: a co-resident grid of G blocks takes the
-// examples in turn, and each first re-runs its example's program on the
-// forward's own device code (interpret_example, K5's stores) into the block's
-// slice of a (G, T, 3, HW, C) scratch, which the unchanged sweep then reads.
-// The replay is K5's instruction sequence, so both modes give the same bits;
-// the scratch is sized by G, not B. Each conv's backward runs its input
+// K6 replaces _interpreter_bwd_kernel: a block sweeps an example's executed
+// steps in reverse, reading K5's residuals (no-replay mode); relate's chain
+// and compare's projection are recomputed from the step's entry registers on
+// the forward's conv code. Invalid examples get zero gradients. In replay
+// mode (kReplay, the JAX kernel's no_replay=False) K5 never stored the
+// residuals: each block first re-runs its example's program on the forward's
+// own device code (interpret_example, K5's stores) into the block's slice of
+// a (G, T, 3, HW, C) scratch, which the unchanged sweep then reads. The
+// replay is K5's instruction sequence, so both modes give the same bits; the
+// scratch is sized by the grid G, not B. Each conv's backward runs its input
 // gradient as a tap-flipped conv of g_z over the bank in its stored (tap,
-// C_in, C_out) layout, on the same conv code as the forward. The weight gradients are
+// C_in, C_out) layout (mma.sync m16n8k16 in bf16). The weight gradients are
 // deterministic without float atomics: the sweep writes each conv's (input,
 // g_z) pair in the compute type to a workspace tagged with its bank slot,
 // and the weight-gradient kernels sum each slot's entries in (example, step)
@@ -42,25 +43,38 @@
 // nmn_sum_rows_kernel adds in example order.
 //
 // Bound on an H100: compute (3x3 convs, 57.8 MFLOP each, ~15 per valid CLEVR
-// program; K6 does about twice K5's conv work). Design: one block per
-// example, so the scalar tag machine is uniform within the block. The conv
+// program; K6 does about twice K5's conv work), and within a batch the
+// longest program's chain of convs (35 in a CLEVR batch of 256), which one
+// block runs in series. Design: a block runs an example, so the scalar tag
+// machine is uniform within the block; the grid is persistent, at most one
+// block an SM, and the blocks take the examples longest program first
+// (nmn_plan_kernel counts each program's convs; the wrapper sorts them) from
+// a shared counter, so the batch takes about its longest chain. The conv
 // input and output tiles (H*W rows of C channels, unpadded, plus one zero row
 // that out-of-range taps read instead of being predicated) live in shared
-// memory, rows pitched at C + 8 elements so the eight rows a tensor-core
-// fragment reads fall in distinct banks: 2 x 197 x 136 x 4 B = 214 KB in
-// float32, half that in bf16. Weights stream tap by tap from the unified
-// bank, which stays in L2; the per-example scratch of K6 (gradient registers,
-// relate's activations) lives in global memory.
+// memory, rows pitched at C + 8 elements so the eight rows an ldmatrix or
+// tensor-core fragment reads fall in distinct banks: 2 x 197 x 136 x 4 B =
+// 214 KB in float32, half that in bf16. The per-example scratch of K6
+// (gradient registers, relate's activations) lives in global memory.
 //
-// bf16 with C == 128 runs each conv as an implicit GEMM on the tensor cores
-// (mma.sync m16n8k16, float32 accumulate): warp w owns output channels
-// 32 * (w % 4) .. + 31 and every other 16-pixel tile, A fragments come from
-// the shared tile at the tap's shifted rows, B fragments from a bank laid out
-// (tap, N, K); bf16 takes no other path. float32 runs the SIMT path, the
-// reference that holds the kernels' arithmetic to a tight tolerance: each
-// thread keeps 4 output channels x kPix pixels of float32 sums. The out and
-// saved registers live in a per-example global scratch, in the compute type,
-// attentions broadcast over all C channels.
+// bf16 with C == 128 (H * W <= 256) runs each forward conv on wgmma
+// m64n128k16 (float32 accumulate; conv_wgmma): the weights of each tap (a
+// (C_in, C_out) matrix of w3, or a half of wcmp) arrive by TMA in a ring of
+// two or three 32 KB shared-memory stages, 128-byte swizzled, which thread 0
+// fills in the order the example's program will read them, a tap or more
+// ahead of the products and across conv boundaries; every warpgroup reads
+// the one staged copy as B. A goes through registers, loaded by ldmatrix at
+// each lane's shifted source row; M = H * W pads to four 64-pixel tiles, one
+// a warpgroup in K2 and K5 (512 threads: while one warpgroup loads a tap's A
+// the other three keep the tensor cores busy), two in K6. With the ring the
+// bf16 kernels hold one block an SM. bf16 takes no other path. float32 runs
+// the SIMT path, the reference that holds the kernels' arithmetic to a tight
+// tolerance: each thread keeps 4 output channels x kPix pixels of float32
+// sums. The out and saved registers live in a per-example global scratch, in
+// the compute type, attentions broadcast over all C channels; the forward's
+// updates of them, and its copies between them and the tiles, move 16-byte
+// pieces (an example's steps run in series, so their latency is the
+// chain's).
 
 #include <cuda.h>  // CUtensorMap (TMA descriptors); libcuda's encoder is looked up at run time
 
@@ -74,14 +88,20 @@ enum Kind { NOP = 0, SCENE, AND, OR, ATTENTION, QUERY, RELATE, SAME, COMPARE };
 enum Tag { TAG_NONE = 0, TAG_ATTN = 1, TAG_FEAT = 2 };
 
 constexpr int kThreads = 256;
+constexpr int kFwdThreads = 512;  // K2 / K5 in bf16: four warpgroups, a 64-pixel tile each
+constexpr int kFwdTiles = 4 * 128 / kFwdThreads;  // their 64-pixel tiles a warpgroup
 constexpr int kMaxChain = 5;
 constexpr int kPix = 25;       // SIMT: pixels per thread per pass (8 groups x 25 >= 196)
 constexpr int kRowPad = 8;     // shared-tile row pitch is C + kRowPad elements
 constexpr int kMmaC = 128;     // channels of the tensor-core path
-constexpr int kMmaTiles = 7;   // 16-pixel tiles per warp: HW <= 2 * 7 * 16
+constexpr int kMmaTiles = 7;   // K6's input gradients (mma.sync): 16-pixel tiles a warp, HW <= 224
+constexpr int kFwdMaxHW = 256; // the forward's wgmma core: four 64-pixel tiles
 constexpr int kMaxHW = 256;    // K6: pixels of the per-pixel head gradients
 constexpr int kGradChunk = 32; // weight-gradient SIMT path: pixels staged per pass
+constexpr uint32_t kTapBytes = kMmaC * kMmaC * 2;  // one staged (C_in, C_out) bf16 weight matrix
+constexpr int kMaxStages = 3;  // the forward's weight ring
 constexpr size_t kMaxSmem = 232448;
+constexpr size_t kStaticSmem = 2048;  // a kernel's static shared memory, at most
 
 struct NmnParams {
   const int* programs;
@@ -93,7 +113,6 @@ struct NmnParams {
   const int* same_slot;
   const void* x;
   const void* w3;     // (S3, 9, C_in, C_out)
-  const void* w3t;    // (S3, 9, C_out, C_in), tensor-core path only
   const float* b3;
   const void* w1;
   const float* b1;
@@ -101,8 +120,10 @@ struct NmnParams {
   const float* same_wa;
   const float* same_b;
   const void* wcmp;   // (Sc, 2C, C)
-  const void* wcmpt;  // (Sc, 2, C_out, C_in), tensor-core path only
   const float* bcmp;
+  const int* order;   // (B,) the examples in the order the blocks take them
+  int* next;          // the blocks' example counter, zeroed before the launch
+  int stages;         // bf16: stages of the weight ring
   void* out;
   void* saved;
   int* invalid;
@@ -110,6 +131,110 @@ struct NmnParams {
   void* atraj;        // K5: (B, T, 2, HW, C) outputs of the two-conv chains
   int H, W, C;
 };
+
+// ---------------------------------------------------------------- Hopper pieces
+// mbarriers, TMA loads and wgmma (sm_90a).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: 128-byte swizzle, MN-major. LBO is the
+// stride between 64-element column blocks along M / N, SBO between groups of
+// eight K rows (1024 bytes); all in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7 giving
+// matrix i's row addresses: the A fragment of a 16 x 16 tile (mma.sync's
+// m16n8k16 layout, which wgmma takes for A in registers).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16, in registers: warp q of the
+// warpgroup holds rows 16 q .. 16 q + 15) . B (16 x 128, bf16, MN-major in
+// shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // ---------------------------------------------------------------- epilogues
 // A conv hands its float32 sums to an epilogue two output channels at a time.
@@ -228,7 +353,7 @@ __device__ void conv_simt(const T* __restrict__ in0, const T* __restrict__ in1,
   }
 }
 
-// ---------------------------------------------------------------- tensor-core path (bf16)
+// ---------------------------------------------------------------- K6's input gradients (bf16): mma.sync
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -242,13 +367,14 @@ __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, u
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// The sums of conv_simt as an implicit GEMM: M = pixels (16-row tiles), N =
-// kMmaC output channels, K = taps x kMmaC. wt is laid out (tap, N, K), K
-// contiguous: the forward reads the banks transposed (w3t, wcmpt), the input
-// gradient reads them as stored (w3, wcmp), its taps flipped (kFlip).
-template <bool kFlip, class Epi>
-__device__ void conv_mma(const bf16* in0, const bf16* in1, const bf16* __restrict__ wt, int taps,
-                         int d, int H, int W, const Epi epi) {
+// A conv's input gradient as an implicit GEMM on mma.sync: M = pixels
+// (16-row tiles), N = kMmaC input channels, K = taps x kMmaC output
+// channels, taps flipped. wt is the bank as stored, (tap, C_in, C_out):
+// for the input gradient that is (tap, N, K), K contiguous. Warp w owns
+// N columns 32 (w % 4) .. + 31 and every other 16-pixel tile.
+template <class Epi>
+__device__ void conv_mma(const bf16* in0, const bf16* __restrict__ wt, int taps, int d, int H,
+                         int W, const Epi epi) {
   constexpr int C = kMmaC, P = kMmaC + kRowPad;
   const int HW = H * W, tiles = (HW + 15) / 16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -261,9 +387,8 @@ __device__ void conv_mma(const bf16* in0, const bf16* in1, const bf16* __restric
     for (int nt = 0; nt < 4; ++nt) acc[i][nt][0] = acc[i][nt][1] = acc[i][nt][2] = acc[i][nt][3] = 0.f;
 
   for (int tap = 0; tap < taps; ++tap) {
-    const bf16* src = tap == 1 && taps == 2 ? in1 : in0;
     const int dy = taps == 9 ? (tap / 3 - 1) * d : 0, dx = taps == 9 ? (tap % 3 - 1) * d : 0;
-    const int tw = kFlip && taps == 9 ? 8 - tap : tap;
+    const int tw = taps == 9 ? 8 - tap : tap;
     int off[kMmaTiles][2];  // element offsets of this lane's two A rows per tile
 #pragma unroll
     for (int i = 0; i < kMmaTiles; ++i)
@@ -286,8 +411,8 @@ __device__ void conv_mma(const bf16* in0, const bf16* in1, const bf16* __restric
 #pragma unroll
       for (int i = 0; i < kMmaTiles; ++i) {
         if (m_first + 2 * i < tiles) {
-          const uint32_t a0 = ld32(src + off[i][0] + kc), a1 = ld32(src + off[i][1] + kc);
-          const uint32_t a2 = ld32(src + off[i][0] + kc + 8), a3 = ld32(src + off[i][1] + kc + 8);
+          const uint32_t a0 = ld32(in0 + off[i][0] + kc), a1 = ld32(in0 + off[i][1] + kc);
+          const uint32_t a2 = ld32(in0 + off[i][0] + kc + 8), a3 = ld32(in0 + off[i][1] + kc + 8);
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[i][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
         }
@@ -307,6 +432,230 @@ __device__ void conv_mma(const bf16* in0, const bf16* in1, const bf16* __restric
     }
 }
 
+// ---------------------------------------------------------------- the tag machine
+// What one token does to the registers' tags: which module runs, whether
+// the program turns invalid here (the machine then stops), and the new tags.
+struct Step {
+  int kind;
+  bool scene_ok, binop_ok, do_chain, do_cmp, do_same, invalid;
+};
+
+__device__ __forceinline__ Step tag_step(int kind, bool has_head, int& out_tag, int& saved_tag) {
+  Step s;
+  s.kind = kind;
+  const bool is_binop = kind == AND || kind == OR;
+  const bool is_chain = kind == ATTENTION || kind == QUERY || kind == RELATE;
+  s.scene_ok = kind == SCENE;
+  s.binop_ok = is_binop && saved_tag != TAG_NONE;
+  s.do_chain = is_chain && out_tag == TAG_ATTN;
+  s.do_cmp = kind == COMPARE && out_tag == TAG_FEAT && saved_tag == TAG_FEAT;
+  s.do_same = kind == SAME && out_tag == TAG_ATTN;
+  s.invalid = (is_binop && !s.binop_ok) || (is_chain && !s.do_chain) ||
+              (kind == COMPARE && !s.do_cmp) || (kind == SAME && !s.do_same);
+  const bool both_attn = out_tag == TAG_ATTN && saved_tag == TAG_ATTN;
+  const int new_out_tag = s.scene_ok    ? TAG_ATTN
+                          : s.binop_ok  ? (both_attn ? TAG_ATTN : TAG_FEAT)
+                          : s.do_chain  ? (has_head ? TAG_ATTN : TAG_FEAT)
+                          : s.do_cmp    ? TAG_FEAT
+                          : s.do_same   ? TAG_ATTN
+                                        : out_tag;
+  if (s.scene_ok) saved_tag = out_tag;
+  out_tag = new_out_tag;
+  return s;
+}
+
+// First non-pad step of an example in reversed (execution) order.
+__device__ __forceinline__ int first_step(const int* prog, int T_len) {
+  for (int t = 0; t < T_len; ++t)
+    if (prog[T_len - 1 - t] != 0) return t;
+  return T_len;
+}
+
+// ---------------------------------------------------------------- the weight ring (bf16)
+// The bf16 forward's convs read their weights from a ring of shared-memory
+// stages, one (C_in, C_out) matrix a stage: a 3x3 conv's nine taps of w3,
+// compare's two halves of wcmp. The program alone decides which matrices an
+// example's convs read, and in what order, so thread 0 walks it ahead of
+// them (TileStream: the tag machine's convs for the forward; relate's chains
+// and compare's projections, steps in reverse, for K6's recomputes) and
+// loads each by TMA into the next free stage. A stage holds two boxes of
+// (128 C_in rows, 64 C_out columns) at 128 bytes a row, 128-byte swizzled:
+// B's MN-major layout for wgmma, as the banks lie (C_out contiguous).
+struct TileStream {
+  const int* prog;
+  int T_len, t, start, out_tag, saved_tag, tok, kind, unit, units;
+  bool forward;
+};
+
+__device__ __forceinline__ void stream_begin(TileStream& s, const int* prog, int T_len,
+                                             bool forward) {
+  s.prog = prog;
+  s.T_len = T_len;
+  s.start = first_step(prog, T_len);
+  s.t = forward ? s.start : T_len - 1;
+  s.out_tag = TAG_FEAT;
+  s.saved_tag = TAG_NONE;
+  s.tok = 0;
+  s.kind = NOP;
+  s.unit = s.units = 0;
+  s.forward = forward;
+}
+
+// The stream's next matrix: index into wcmp's halves (cmp) or w3's taps;
+// false past the last.
+__device__ __forceinline__ bool stream_next(TileStream& s, const NmnParams& p, bool& cmp,
+                                            int& index) {
+  while (s.unit == s.units) {
+    if (s.forward ? s.t >= s.T_len : s.t < s.start) return false;
+    const int tok = s.prog[s.T_len - 1 - s.t];
+    s.tok = tok;
+    s.unit = 0;
+    if (s.forward) {
+      ++s.t;
+      const Step st = tag_step(p.kind[tok], p.head_slot[tok] >= 0, s.out_tag, s.saved_tag);
+      if (st.invalid) {  // the machine stops at the first invalid op
+        s.t = s.T_len;
+        return false;
+      }
+      s.kind = st.do_chain || st.do_cmp ? st.kind : NOP;
+      s.units = st.do_chain ? 9 * (st.kind == RELATE ? 5 : 2) : st.do_cmp ? 2 + 9 * 2 : 0;
+    } else {
+      --s.t;
+      s.kind = p.kind[tok];
+      s.units = s.kind == RELATE ? 9 * 5 : s.kind == COMPARE ? 2 : 0;
+    }
+  }
+  const int u = s.unit++;
+  cmp = s.kind == COMPARE && u < 2;
+  if (cmp) {
+    index = p.cmp_slot[s.tok] * 2 + u;
+  } else {
+    const int v = s.kind == COMPARE ? u - 2 : u;
+    index = p.slot3[s.tok * kMaxChain + v / 9] * 9 + v % 9;
+  }
+  return true;
+}
+
+struct Ring {
+  uint32_t base;         // stage 0, 1024-byte aligned
+  uint32_t full, empty;  // barriers: full[s] counts the stage's TMA bytes, empty[s] one arrival a warp
+  uint32_t stages;
+  uint32_t next;         // matrices consumed so far, the same in every thread
+  uint32_t issued;       // thread 0: matrices loaded so far
+  TileStream stream;     // thread 0: what comes next
+  const CUtensorMap* w3;
+  const CUtensorMap* wc;
+};
+
+// Thread 0: load the stream's next matrices, up to `stages` ahead of the
+// released ones. A stage is loaded again once all eight warps have
+// released the matrix it held.
+__device__ __forceinline__ void ring_fill(Ring& r, const NmnParams& p) {
+  bool cmp;
+  int index;
+  while (r.issued < r.next + r.stages && stream_next(r.stream, p, cmp, index)) {
+    const uint32_t n = r.issued, s = n % r.stages;
+    if (n >= r.stages) mbar_wait(r.empty + 8 * s, (n / r.stages - 1) & 1);
+    const uint32_t bar = r.full + 8 * s, dst = r.base + s * kTapBytes;
+    const CUtensorMap* map = cmp ? r.wc : r.w3;
+    mbar_expect_tx(bar, kTapBytes);
+    tma_load_3d(dst, map, bar, 0, 0, index);
+    tma_load_3d(dst + kTapBytes / 2, map, bar, kMmaC / 2, 0, index);
+    ++r.issued;
+  }
+}
+
+// The warp is done with matrix r.next - 1; thread 0 refills the ring.
+__device__ __forceinline__ void ring_release(Ring& r, const NmnParams& p) {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * ((r.next - 1) % r.stages));
+  if (threadIdx.x == 0) ring_fill(r, p);
+  __syncwarp();
+}
+
+// Thread 0 starts the ring on an example's stream (every earlier matrix was
+// consumed).
+__device__ __forceinline__ void ring_begin(Ring& r, const NmnParams& p, const int* prog,
+                                           bool forward) {
+  if (threadIdx.x == 0) {
+    stream_begin(r.stream, prog, p.T, forward);
+    ring_fill(r, p);
+  }
+  __syncwarp();
+}
+
+// The sums of conv_simt on wgmma, for the forward's 3x3 convs (taps == 9,
+// dilation d, over in0) and compare's projection (taps == 2: in0 against
+// wcmp's first half, in1 against its second), C == kMmaC: M = pixels in
+// four 64-row tiles, kTiles a warpgroup (warpgroup w owns tiles kTiles w ..,
+// 64 float32 accumulators a thread a tile: one tile in K2 / K5's four
+// warpgroups, two in K6's two), N = kMmaC output channels, K = taps x
+// kMmaC. B is the ring's next stage, one a tap, read by wgmma from shared
+// memory; A goes through registers: ldmatrix reads each lane's source row
+// of the shared tile (pitch kMmaC + kRowPad: the eight rows of a matrix
+// fall in distinct banks), the tile's zero row HW for a pixel outside the
+// image or past H * W. A tap's A fragments (its eight k-steps, 64
+// registers a thread) are loaded before its 16 products issue, and the
+// products are done before the next tap's fragments load: ptxas serialises
+// every wgmma whose A registers another instruction writes while products
+// are in flight. The two warpgroups alternate on the tensor cores, one
+// loading while the other multiplies. A tap's stage is released once its
+// products are done.
+
+template <int kTiles, class Epi>
+__device__ void conv_wgmma(const bf16* in0, const bf16* in1, int taps, int d, int H, int W,
+                           Ring& r, const NmnParams& p, const Epi epi) {
+  constexpr int P = kMmaC + kRowPad;
+  const int HW = H * W, tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, q = (tid >> 5) & 3;
+  // This lane's ldmatrix row in its warp's 16 rows of a tile, and its K half.
+  const int row = 16 * q + ((lane >> 3) & 1) * 8 + (lane & 7), k8 = (lane >> 4) * 8;
+  float acc[kTiles][64];
+#pragma unroll
+  for (int m = 0; m < kTiles; ++m)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+  uint32_t a[kMmaC / 16][kTiles][4];
+  for (int tap = 0; tap < taps; ++tap) {
+    const bf16* src = taps == 2 && tap == 1 ? in1 : in0;
+    const int dy = taps == 9 ? (tap / 3 - 1) * d : 0, dx = taps == 9 ? (tap % 3 - 1) * d : 0;
+    uint32_t addr[kTiles];
+#pragma unroll
+    for (int m = 0; m < kTiles; ++m) {
+      const int pix = 64 * (kTiles * wg + m) + row, y = pix / W + dy, x = pix % W + dx;
+      const bool ok = pix < HW && y >= 0 && y < H && x >= 0 && x < W;
+      addr[m] = smem_u32(src + (ok ? y * W + x : HW) * P + k8);
+    }
+    const uint32_t s = r.next % r.stages;
+    mbar_wait(r.full + 8 * s, (r.next / r.stages) & 1);
+    __syncwarp();  // wgmma is .aligned: the warp converges after the spin
+    const uint64_t db = wgmma_desc(r.base + s * kTapBytes, kTapBytes / 2, 1024);
+#pragma unroll
+    for (int k = 0; k < kMmaC / 16; ++k)  // 16 channels of the tile row: 32 bytes
+#pragma unroll
+      for (int m = 0; m < kTiles; ++m) ldsm_x4(a[k][m], addr[m] + 32 * k);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kMmaC / 16; ++k)  // 16 K rows of B: 2048 bytes, 128 units
+#pragma unroll
+      for (int m = 0; m < kTiles; ++m) wgmma_rs(acc[m], a[k][m], db + 128 * k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ++r.next;
+    ring_release(r, p);
+  }
+  // The accumulator layout of m64nNk16: warp q holds rows 16 q + lane / 4
+  // and + 8 of each tile, columns 8 j + 2 (lane % 4) and + 1.
+  const int r0 = 16 * q + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < kTiles; ++m) {
+    const int pix = 64 * (kTiles * wg + m) + r0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (pix < HW) epi(pix, 8 * j + c0, acc[m][4 * j], acc[m][4 * j + 1]);
+      if (pix + 8 < HW) epi(pix + 8, 8 * j + c0, acc[m][4 * j + 2], acc[m][4 * j + 3]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- shared pieces
 // out[p, :] = sigmoid(act[p, :] . w1 + b1), broadcast over all channels; one
 // warp per pixel; act is a shared tile at pitch P.
@@ -323,46 +672,105 @@ __device__ void head_to_out(const T* act, int P, T* out, const T* w1, float b1, 
 }
 
 // dst (shared, pitch P) = relu(conv3x3_d(in) + b3[slot]), and with kResid
-// the same to `resid` (global, pitch C).
-template <typename T, bool kMma, bool kResid>
+// the same to `resid` (global, pitch C). bf16 reads the weights from the
+// ring, whose stream holds slot's nine taps next.
+template <typename T, bool kMma, bool kResid, int kTiles>
 __device__ __forceinline__ void conv3x3(const T* in, T* dst, T* resid, const NmnParams& p,
-                                        int slot, int d, int P) {
-  const size_t w_off = static_cast<size_t>(slot) * 9 * p.C * p.C;
+                                        int slot, int d, int P, Ring& ring) {
   const StoreRelu<T, kResid> epi{dst, P, resid, p.C, p.b3 + static_cast<size_t>(slot) * p.C};
   if constexpr (kMma) {
-    conv_mma<false>(in, nullptr, static_cast<const bf16*>(p.w3t) + w_off, 9, d, p.H, p.W, epi);
+    conv_wgmma<kTiles>(in, nullptr, 9, d, p.H, p.W, ring, p, epi);
   } else {
+    const size_t w_off = static_cast<size_t>(slot) * 9 * p.C * p.C;
     conv_simt<T, false>(in, nullptr, static_cast<const T*>(p.w3) + w_off, 9, d, false, p.H, p.W,
                         p.C, P, epi);
   }
 }
 
 // dst (global, pitch C) = relu(concat(a, b) @ wcmp[cs] + bcmp[cs]): compare's
-// 1x1 projection; a and b are shared tiles at pitch P.
-template <typename T, bool kMma>
+// 1x1 projection; a and b are shared tiles at pitch P. bf16 reads the
+// weights from the ring, whose stream holds wcmp[cs]'s two halves next.
+template <typename T, bool kMma, int kTiles>
 __device__ __forceinline__ void compare_projection(const T* a, const T* b, T* dst,
-                                                   const NmnParams& p, int cs, int P) {
-  const size_t w_off = static_cast<size_t>(cs) * 2 * p.C * p.C;
+                                                   const NmnParams& p, int cs, int P, Ring& ring) {
   const StoreRelu<T, false> epi{dst, p.C, nullptr, p.C, p.bcmp + static_cast<size_t>(cs) * p.C};
   if constexpr (kMma) {
-    conv_mma<false>(a, b, static_cast<const bf16*>(p.wcmpt) + w_off, 2, 1, p.H, p.W, epi);
+    conv_wgmma<kTiles>(a, b, 2, 1, p.H, p.W, ring, p, epi);
   } else {
+    const size_t w_off = static_cast<size_t>(cs) * 2 * p.C * p.C;
     conv_simt<T, false>(a, b, static_cast<const T*>(p.wcmp) + w_off, 2, 1, false, p.H, p.W, p.C,
                         P, epi);
   }
 }
 
-// Copies a (HW, C) register into a shared tile at pitch P.
+// HW rows of C elements from src (row pitch sp) to dst (row pitch dp), in
+// 16-byte pieces: C * sizeof(T), both pitches and both bases are multiples
+// of 16 bytes.
 template <typename T>
-__device__ __forceinline__ void to_tile(T* tile, const T* src, int N, int C, int P) {
-  for (int e = threadIdx.x; e < N; e += blockDim.x) tile[(e / C) * P + e % C] = src[e];
+__device__ __forceinline__ void copy_rows(T* dst, int dp, const T* src, int sp, int HW, int C) {
+  const int per_row = C * static_cast<int>(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < HW * per_row; i += blockDim.x) {
+    const int row = i / per_row, v = i % per_row;
+    reinterpret_cast<uint4*>(dst + static_cast<size_t>(row) * dp)[v] =
+        reinterpret_cast<const uint4*>(src + static_cast<size_t>(row) * sp)[v];
+  }
 }
 
-// First non-pad step of an example in reversed (execution) order.
-__device__ __forceinline__ int first_step(const int* prog, int T_len) {
-  for (int t = 0; t < T_len; ++t)
-    if (prog[T_len - 1 - t] != 0) return t;
-  return T_len;
+// The first pixel whose channel 0 holds the largest value of a (HW, C)
+// register (the attention `same` gathers at), the same in every thread:
+// each thread scans its pixels in order, then the warps and the block keep
+// the larger value, a tie going to the smaller pixel; pixel 0 when no value
+// exceeds -inf (all NaN), as a scan from pixel 0 would give.
+template <typename T>
+__device__ __forceinline__ int first_argmax(const T* reg, int HW, int C) {
+  __shared__ float s_val[32];
+  __shared__ int s_pix[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  float best = -INFINITY;
+  int best_pix = HW;
+  for (int pix = threadIdx.x; pix < HW; pix += blockDim.x) {
+    const float v = to_f(reg[static_cast<size_t>(pix) * C]);
+    if (v > best) {
+      best = v;
+      best_pix = pix;
+    }
+  }
+  warp_argmax(best, best_pix);
+  if (lane == 0) {
+    s_val[warp] = best;
+    s_pix[warp] = best_pix;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < nwarps ? s_val[lane] : -INFINITY;
+    best_pix = lane < nwarps ? s_pix[lane] : HW;
+    warp_argmax(best, best_pix);
+    if (lane == 0) s_pix[0] = best_pix;
+  }
+  __syncthreads();
+  const int am = s_pix[0];
+  __syncthreads();  // every thread has read it before the next call writes
+  return am < HW ? am : 0;
+}
+
+// tile (pitch P) = x * out rounded to T, over HW rows of C elements, in
+// 16-byte pieces (the chain's input: the features under the attention).
+template <typename T>
+__device__ __forceinline__ void mul_rows(T* tile, int P, const T* x, const T* out, int HW, int C) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_row = C / V;
+  for (int i = threadIdx.x; i < HW * per_row; i += blockDim.x) {
+    const int row = i / per_row, v = i % per_row;
+    const uint4 xa = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * C)[v];
+    const uint4 oa = reinterpret_cast<const uint4*>(out + static_cast<size_t>(row) * C)[v];
+    const T* xv = reinterpret_cast<const T*>(&xa);
+    const T* ov = reinterpret_cast<const T*>(&oa);
+    uint4 r;
+    T* rv = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) rv[j] = from_f<T>(to_f(xv[j]) * to_f(ov[j]));
+    reinterpret_cast<uint4*>(tile + row * P)[v] = r;
+  }
 }
 
 // ---------------------------------------------------------------- K2 / K5 / K6's replay
@@ -370,14 +778,18 @@ __device__ __forceinline__ int first_step(const int* prog, int T_len) {
 // device code, which K2, K5 and K6's replay phase all run. The out and saved
 // registers live at `out` and `saved` (N elements each); with kTrain the out
 // register at the entry of every executed step goes to otraj (T, N) and the
-// two-conv outputs to atraj (T, 2, N). buf_a and buf_b are the block's shared
-// tiles. Returns whether the program is invalid (an invalid op, or a final
-// register that is not a feature map); `out` then holds what the machine
-// stopped at, which the caller zeroes.
-template <typename T, bool kMma, bool kTrain>
+// two-conv outputs to atraj (T, 2, N), each copied in 16-byte pieces (the
+// conv outputs from the shared tile that holds them, after the conv's
+// barrier). buf_a and buf_b are the block's shared tiles; kTiles is the
+// conv core's 64-pixel tiles a warpgroup, which the block's threads set.
+// Returns whether the program is invalid (an invalid op, or a final register
+// that is not a feature map); `out` then holds what the machine stopped at,
+// which the caller zeroes.
+template <typename T, bool kMma, bool kTrain, int kTiles>
 __device__ __forceinline__ bool interpret_example(const NmnParams& p, const int* prog,
                                                   const T* x, T* out, T* saved, T* otraj,
-                                                  T* atraj, T* buf_a, T* buf_b, int& s_argmax) {
+                                                  T* atraj, T* buf_a, T* buf_b,
+                                                  Ring& ring) {
   const int H = p.H, W = p.W, C = p.C, HW = H * W, N = HW * C, T_len = p.T, P = C + kRowPad;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
@@ -385,14 +797,14 @@ __device__ __forceinline__ bool interpret_example(const NmnParams& p, const int*
   const T* same_wf = static_cast<const T*>(p.same_wf);
   const T zero = from_f<T>(0.f), one = from_f<T>(1.f);
 
+  if constexpr (kMma) ring_begin(ring, p, prog, true);
   for (int c = tid; c < C; c += nthreads) {
     buf_a[HW * P + c] = zero;
     buf_b[HW * P + c] = zero;
   }
-  for (int e = tid; e < N; e += nthreads) {
-    out[e] = x[e];
-    saved[e] = zero;
-  }
+  copy_rows(out, C, x, C, HW, C);
+  for (int i = tid; i < N * static_cast<int>(sizeof(T)) / 16; i += nthreads)
+    reinterpret_cast<uint4*>(saved)[i] = make_uint4(0, 0, 0, 0);
   // Reversed prefix order: the last token runs first; the reversed order's
   // leading pads are no-ops and are skipped.
   const int start = first_step(prog, T_len);
@@ -402,49 +814,46 @@ __device__ __forceinline__ bool interpret_example(const NmnParams& p, const int*
 
   for (int t = start; t < T_len && !invalid; ++t) {
     const int tok = prog[T_len - 1 - t];
-    const int kind = p.kind[tok];
     const int hs = p.head_slot[tok];
-    const bool is_binop = kind == AND || kind == OR;
-    const bool is_chain = kind == ATTENTION || kind == QUERY || kind == RELATE;
-    const bool scene_ok = kind == SCENE;
-    const bool binop_ok = is_binop && saved_tag != TAG_NONE;
-    const bool do_chain = is_chain && out_tag == TAG_ATTN;
-    const bool do_cmp = kind == COMPARE && out_tag == TAG_FEAT && saved_tag == TAG_FEAT;
-    const bool do_same = kind == SAME && out_tag == TAG_ATTN;
-    const bool has_head = hs >= 0;
-    invalid = (is_binop && !binop_ok) || (is_chain && !do_chain) || (kind == COMPARE && !do_cmp) ||
-              (kind == SAME && !do_same);
-    const bool both_attn = out_tag == TAG_ATTN && saved_tag == TAG_ATTN;
-    const int new_out_tag = scene_ok    ? TAG_ATTN
-                            : binop_ok  ? (both_attn ? TAG_ATTN : TAG_FEAT)
-                            : do_chain  ? (has_head ? TAG_ATTN : TAG_FEAT)
-                            : do_cmp    ? TAG_FEAT
-                            : do_same   ? TAG_ATTN
-                                        : out_tag;
-    if (scene_ok) saved_tag = out_tag;
-    out_tag = new_out_tag;
-    // K5: the out register at the step's entry. Each thread copies the
-    // elements it alone updates below, so no barrier is needed.
+    const Step st = tag_step(p.kind[tok], hs >= 0, out_tag, saved_tag);
+    const int kind = st.kind;
+    invalid = st.invalid;
+    // K5: the out register at the step's entry. The copy's 16-byte pieces
+    // are not the elements a thread updates below, so scene and and/or,
+    // which write the register before any barrier, wait for it.
     T* resid = nullptr;
     if constexpr (kTrain) {
-      T* entry = otraj + static_cast<size_t>(t) * N;
-      for (int e = tid; e < N; e += nthreads) entry[e] = out[e];
+      copy_rows(otraj + static_cast<size_t>(t) * N, C, out, C, HW, C);
+      if (st.scene_ok || st.binop_ok) __syncthreads();
       resid = atraj + static_cast<size_t>(t) * 2 * N;
     }
 
-    if (scene_ok) {  // save the output, reset it to an all-ones attention
-      for (int e = tid; e < N; e += nthreads) {
-        saved[e] = out[e];
-        out[e] = one;
+    // Registers in 16-byte pieces of V elements.
+    constexpr int V = 16 / sizeof(T);
+    uint4* out4 = reinterpret_cast<uint4*>(out);
+    uint4* saved4 = reinterpret_cast<uint4*>(saved);
+    if (st.scene_ok) {  // save the output, reset it to an all-ones attention
+      uint4 ones;
+#pragma unroll
+      for (int j = 0; j < V; ++j) reinterpret_cast<T*>(&ones)[j] = one;
+      for (int i = tid; i < N / V; i += nthreads) {
+        saved4[i] = out4[i];
+        out4[i] = ones;
       }
-    } else if (binop_ok) {  // intersect / union
-      for (int e = tid; e < N; e += nthreads) {
-        const float o = to_f(out[e]), s = to_f(saved[e]);
-        out[e] = from_f<T>(kind == AND ? fminf(o, s) : fmaxf(o, s));
+    } else if (st.binop_ok) {  // intersect / union
+      for (int i = tid; i < N / V; i += nthreads) {
+        const uint4 oa = out4[i], sa = saved4[i];
+        uint4 r;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float o = to_f(reinterpret_cast<const T*>(&oa)[j]);
+          const float s = to_f(reinterpret_cast<const T*>(&sa)[j]);
+          reinterpret_cast<T*>(&r)[j] = from_f<T>(kind == AND ? fminf(o, s) : fmaxf(o, s));
+        }
+        out4[i] = r;
       }
-    } else if (do_chain) {
-      for (int e = tid; e < N; e += nthreads)
-        buf_a[(e / C) * P + e % C] = from_f<T>(to_f(x[e]) * to_f(out[e]));
+    } else if (st.do_chain) {
+      mul_rows(buf_a, P, x, out, HW, C);
       __syncthreads();
       const bool relate = kind == RELATE;
       const int layers = relate ? 5 : 2;
@@ -452,57 +861,39 @@ __device__ __forceinline__ bool interpret_example(const NmnParams& p, const int*
       T* dst = buf_b;
       for (int l = 0; l < layers; ++l) {
         const int d = relate ? (l == 4 ? 1 : 1 << l) : 1;
-        const int slot = p.slot3[tok * kMaxChain + l];
-        if (kTrain && !relate) {  // K5: the outputs of a two-conv chain
-          conv3x3<T, kMma, kTrain>(src, dst, resid + static_cast<size_t>(l) * N, p, slot, d, P);
-        } else {
-          conv3x3<T, kMma, false>(src, dst, nullptr, p, slot, d, P);
-        }
+        conv3x3<T, kMma, false, kTiles>(src, dst, nullptr, p, p.slot3[tok * kMaxChain + l], d, P,
+                                        ring);
         __syncthreads();
+        if (kTrain && !relate) copy_rows(resid + static_cast<size_t>(l) * N, C, dst, P, HW, C);
         T* tmp = src;
         src = dst;
         dst = tmp;
       }
-      if (has_head) {
+      if (hs >= 0) {
         head_to_out<T>(src, P, out, w1 + static_cast<size_t>(hs) * C, p.b1[hs], HW, C);
       } else {
-        for (int e = tid; e < N; e += nthreads) out[e] = src[(e / C) * P + e % C];
+        copy_rows(out, C, src, P, HW, C);
       }
-    } else if (do_cmp) {
-      // Copies written out here, not through to_tile: nvcc unrolls these
-      // loops, which hides the loads' latency (to_tile's loop stays rolled).
-      for (int e = tid; e < N; e += nthreads) {
-        buf_a[(e / C) * P + e % C] = out[e];
-        buf_b[(e / C) * P + e % C] = saved[e];
-      }
+    } else if (st.do_cmp) {
+      copy_rows(buf_a, P, out, C, HW, C);
+      copy_rows(buf_b, P, saved, C, HW, C);
       __syncthreads();
-      compare_projection<T, kMma>(buf_a, buf_b, out, p, p.cmp_slot[tok], P);
+      compare_projection<T, kMma, kTiles>(buf_a, buf_b, out, p, p.cmp_slot[tok], P, ring);
       __syncthreads();
-      for (int e = tid; e < N; e += nthreads) buf_a[(e / C) * P + e % C] = out[e];
+      copy_rows(buf_a, P, out, C, HW, C);
       __syncthreads();
-      conv3x3<T, kMma, kTrain>(buf_a, buf_b, resid, p, p.slot3[tok * kMaxChain], 1, P);
+      conv3x3<T, kMma, false, kTiles>(buf_a, buf_b, nullptr, p, p.slot3[tok * kMaxChain], 1, P,
+                                      ring);
       __syncthreads();
-      conv3x3<T, kMma, kTrain>(buf_b, buf_a, kTrain ? resid + N : nullptr, p,
-                               p.slot3[tok * kMaxChain + 1], 1, P);
+      if (kTrain) copy_rows(resid, C, buf_b, P, HW, C);
+      conv3x3<T, kMma, false, kTiles>(buf_b, buf_a, nullptr, p, p.slot3[tok * kMaxChain + 1], 1,
+                                      P, ring);
       __syncthreads();
-      for (int e = tid; e < N; e += nthreads) out[e] = buf_a[(e / C) * P + e % C];
-    } else if (do_same) {
-      // Argmax (first occurrence) of the attention held in channel 0.
-      if (tid == 0) {
-        float best = to_f(out[0]);
-        int best_p = 0;
-        for (int pix = 1; pix < HW; ++pix) {
-          const float v = to_f(out[pix * C]);
-          if (v > best) {
-            best = v;
-            best_p = pix;
-          }
-        }
-        s_argmax = best_p;
-      }
-      __syncthreads();
+      if (kTrain) copy_rows(resid + N, C, buf_a, P, HW, C);
+      copy_rows(out, C, buf_a, P, HW, C);
+    } else if (st.do_same) {
       const int ss = p.same_slot[tok];
-      const T* vec = x + static_cast<size_t>(s_argmax) * C;
+      const T* vec = x + static_cast<size_t>(first_argmax(out, HW, C)) * C;
       const T* wf = same_wf + static_cast<size_t>(ss) * C;
       const float wa = p.same_wa[ss], bias = p.same_b[ss];
       for (int pix = warp; pix < HW; pix += nwarps) {
@@ -521,27 +912,97 @@ __device__ __forceinline__ bool interpret_example(const NmnParams& p, const int*
   return invalid || out_tag != TAG_FEAT;
 }
 
-template <typename T, bool kMma, bool kTrain>
-__global__ void __launch_bounds__(kThreads) nmn_interpreter_kernel(const NmnParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_argmax;
-  const int HW = p.H * p.W, N = HW * p.C, T_len = p.T, P = p.C + kRowPad;
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(b) * N;
-  T* otraj = nullptr;
-  T* atraj = nullptr;
-  if constexpr (kTrain) {
-    otraj = static_cast<T*>(p.otraj) + static_cast<size_t>(b) * T_len * N;
-    atraj = static_cast<T*>(p.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
+// The kernels' dynamic shared memory: in bf16 the ring's stages first
+// (1024-byte aligned, for the swizzle), thread 0 initialising their
+// barriers; then the two tiles. Returns the first tile.
+template <typename T, bool kMma>
+__device__ __forceinline__ T* smem_setup(Ring& r, const NmnParams& p, unsigned char* raw,
+                                         uint64_t* bars, const CUtensorMap* w3,
+                                         const CUtensorMap* wc) {
+  if constexpr (!kMma) {
+    return reinterpret_cast<T*>(raw);
+  } else {
+    const uint32_t start = smem_u32(raw), base = (start + 1023) & ~1023u;
+    r.base = base;
+    r.full = smem_u32(bars);
+    r.empty = r.full + 8 * kMaxStages;
+    r.stages = p.stages;
+    r.next = r.issued = 0;
+    r.w3 = w3;
+    r.wc = wc;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < p.stages; ++s) {
+        mbar_init(r.full + 8 * s, 1);
+        mbar_init(r.empty + 8 * s, blockDim.x / 32);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    return reinterpret_cast<T*>(raw + (base - start) + p.stages * kTapBytes);
   }
-  const bool invalid = interpret_example<T, kMma, kTrain>(
-      p, p.programs + static_cast<size_t>(b) * T_len, static_cast<const T*>(p.x) + static_cast<size_t>(b) * N,
-      out, static_cast<T*>(p.saved) + static_cast<size_t>(b) * N, otraj, atraj, buf_a, buf_b, s_argmax);
-  if (invalid)
-    for (int e = tid; e < N; e += blockDim.x) out[e] = from_f<T>(0.f);
-  if (tid == 0) p.invalid[b] = invalid ? 1 : 0;
+}
+
+// The block's next example, in p.order, from the shared counter; -1 when
+// none is left.
+__device__ __forceinline__ int next_example(const NmnParams& p, int& s_example) {
+  if (threadIdx.x == 0) s_example = atomicAdd(p.next, 1);
+  __syncthreads();
+  const int i = s_example;
+  __syncthreads();  // every thread has read it before thread 0 writes the next
+  return i < p.batch ? p.order[i] : -1;
+}
+
+// K2 / K5: a persistent grid of one block an SM takes the examples in
+// p.order (longest program first), each block one at a time. An example's
+// results go to its own rows, so the order moves no bit. bf16 blocks run
+// kFwdThreads threads, a 64-pixel tile a warpgroup, so that while one
+// warpgroup loads a tap's A the others keep the tensor cores busy.
+template <typename T, bool kMma, bool kTrain>
+__global__ void __launch_bounds__(kMma ? kFwdThreads : kThreads)
+    nmn_interpreter_kernel(const NmnParams p, const __grid_constant__ CUtensorMap map_w3,
+                           const __grid_constant__ CUtensorMap map_wc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
+  __shared__ int s_example;
+  const int HW = p.H * p.W, N = HW * p.C, T_len = p.T, P = p.C + kRowPad, tid = threadIdx.x;
+  Ring ring;
+  T* buf_a = smem_setup<T, kMma>(ring, p, smem_raw, bars, &map_w3, &map_wc);
+  T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
+  for (int b; (b = next_example(p, s_example)) >= 0;) {
+    T* out = static_cast<T*>(p.out) + static_cast<size_t>(b) * N;
+    T* otraj = nullptr;
+    T* atraj = nullptr;
+    if constexpr (kTrain) {
+      otraj = static_cast<T*>(p.otraj) + static_cast<size_t>(b) * T_len * N;
+      atraj = static_cast<T*>(p.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
+    }
+    const bool invalid = interpret_example<T, kMma, kTrain, kFwdTiles>(
+        p, p.programs + static_cast<size_t>(b) * T_len,
+        static_cast<const T*>(p.x) + static_cast<size_t>(b) * N, out,
+        static_cast<T*>(p.saved) + static_cast<size_t>(b) * N, otraj, atraj, buf_a, buf_b,
+        ring);
+    if (invalid)
+      for (int e = tid; e < N; e += blockDim.x) out[e] = from_f<T>(0.f);
+    if (tid == 0) p.invalid[b] = invalid ? 1 : 0;
+  }
+}
+
+// The plan of the persistent kernels: convs[b] = the 3x3 convs example b's
+// program runs (the tag machine walked one thread a row up to its first
+// invalid op); the wrapper sorts the examples by it, longest first.
+__global__ void nmn_plan_kernel(const int* programs, int batch, int T_len, const int* kind,
+                                const int* head_slot, int* convs) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  const int* prog = programs + static_cast<size_t>(b) * T_len;
+  int out_tag = TAG_FEAT, saved_tag = TAG_NONE, n = 0;
+  for (int t = first_step(prog, T_len); t < T_len; ++t) {
+    const int tok = prog[T_len - 1 - t];
+    const Step st = tag_step(kind[tok], head_slot[tok] >= 0, out_tag, saved_tag);
+    if (st.invalid) break;
+    n += st.do_chain ? (st.kind == RELATE ? 5 : 2) : st.do_cmp ? 2 : 0;
+  }
+  convs[b] = n;
 }
 
 // ---------------------------------------------------------------- K6
@@ -584,7 +1045,7 @@ __device__ __forceinline__ void conv_input_grad(const T* tile, float* dst, const
                                                 int d, int H, int W, int C, int P) {
   const StoreF32<false> epi{dst, C};
   if constexpr (kMma) {
-    conv_mma<true>(tile, nullptr, w, taps, d, H, W, epi);
+    conv_mma(tile, w, taps, d, H, W, epi);
   } else {
     conv_simt<T, true>(tile, nullptr, w, taps, d, true, H, W, C, P, epi);
   }
@@ -592,11 +1053,13 @@ __device__ __forceinline__ void conv_input_grad(const T* tile, float* dst, const
 
 // The reverse sweep over valid example b's steps, reading the out register
 // at each step's entry from otraj (T, N) and the two-conv outputs from atraj
-// (T, 2, N); ga (4 N floats) and acts (6 N) are the block's scratch.
+// (T, 2, N); ga (4 N floats) and acts (6 N) are the block's scratch. It
+// recomputes relate's chains and compare's projections on the forward's
+// conv code (bf16: the wgmma core, the ring streaming their weights).
 template <typename T, bool kMma>
 __device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* ga, T* acts,
                                               const T* otraj, const T* atraj, T* buf_a, T* buf_b,
-                                              float* s_h, int& s_argmax) {
+                                              float* s_h, Ring& ring) {
   const NmnParams& p = q.f;
   const int H = p.H, W = p.W, C = p.C, HW = H * W, N = HW * C, T_len = p.T, P = C + kRowPad;
   const PartLayout lay(q.S3, q.S1, q.Ss, q.Sc, C);
@@ -615,6 +1078,7 @@ __device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* 
   const T zero = from_f<T>(0.f);
   int entry = q.ent_base[b];
 
+  if constexpr (kMma) ring_begin(ring, p, prog, false);
   for (int c = tid; c < C; c += nthreads) {
     buf_a[HW * P + c] = zero;
     buf_b[HW * P + c] = zero;
@@ -736,8 +1200,8 @@ __device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* 
         T* dst = buf_b;
         for (int l = 0; l < 5; ++l) {
           const int d = l == 4 ? 1 : 1 << l;
-          conv3x3<T, kMma, true>(src, dst, acts + static_cast<size_t>(l + 1) * N, p,
-                                 p.slot3[tok * kMaxChain + l], d, P);
+          conv3x3<T, kMma, true, 2>(src, dst, acts + static_cast<size_t>(l + 1) * N, p,
+                                    p.slot3[tok * kMaxChain + l], d, P, ring);
           __syncthreads();
           T* tmp = src;
           src = dst;
@@ -766,14 +1230,14 @@ __device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* 
       }
     } else if (kind == COMPARE) {
       const int cs = p.cmp_slot[tok];
-      to_tile(buf_a, out_in, N, C, P);
+      copy_rows(buf_a, P, out_in, C, HW, C);
       if (saved_in) {
-        to_tile(buf_b, saved_in, N, C, P);
+        copy_rows(buf_b, P, saved_in, C, HW, C);
       } else {
         for (int e = tid; e < N; e += nthreads) buf_b[(e / C) * P + e % C] = zero;
       }
       __syncthreads();
-      compare_projection<T, kMma>(buf_a, buf_b, acts, p, cs, P);  // acts[0], recomputed
+      compare_projection<T, kMma, 2>(buf_a, buf_b, acts, p, cs, P, ring);  // acts[0], recomputed
       const T* act1 = atraj + static_cast<size_t>(t) * 2 * N;
       for (int e = tid; e < N; e += nthreads) ga[e] = gout[e];
       __syncthreads();
@@ -807,26 +1271,13 @@ __device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* 
       const T* wc = static_cast<const T*>(p.wcmp) + static_cast<size_t>(cs) * 2 * C * C;
       conv_input_grad<T, kMma>(buf_a, gout, wc, 1, 1, H, W, C, P);
       if constexpr (kMma) {
-        conv_mma<true>(buf_a, nullptr, wc + C * C, 1, 1, H, W, StoreF32<true>{gsaved, C});
+        conv_mma(buf_a, wc + C * C, 1, 1, H, W, StoreF32<true>{gsaved, C});
       } else {
         conv_simt<T, true>(buf_a, nullptr, wc + C * C, 1, 1, true, H, W, C, P,
                            StoreF32<true>{gsaved, C});
       }
     } else if (kind == SAME) {
-      if (tid == 0) {
-        float best = to_f(out_in[0]);
-        int best_p = 0;
-        for (int pix = 1; pix < HW; ++pix) {
-          const float v = to_f(out_in[pix * C]);
-          if (v > best) {
-            best = v;
-            best_p = pix;
-          }
-        }
-        s_argmax = best_p;
-      }
-      __syncthreads();
-      const int ss = p.same_slot[tok], am = s_argmax;
+      const int ss = p.same_slot[tok], am = first_argmax(out_in, HW, C);
       const T* vec = x + static_cast<size_t>(am) * C;
       const T* wf = static_cast<const T*>(p.same_wf) + static_cast<size_t>(ss) * C;
       const float wa = p.same_wa[ss], bias = p.same_b[ss];
@@ -872,28 +1323,32 @@ __device__ __forceinline__ void sweep_example(const BwdParams& q, int b, float* 
   for (int e = tid; e < N; e += nthreads) dx[e] = dxacc[e] + gout[e];
 }
 
-// K6, one block per example (no-replay: grid = B, K5's residuals) or a
-// co-resident grid of G blocks, block j taking examples j, j + G, ... (with
-// kReplay: each example's program first re-runs on the forward's own device
-// code, interpret_example with K5's stores, into the block's slice of
-// q.traj, (T, 3, N): the out register at each step's entry, then the
-// two-conv outputs; its out and saved registers borrow acts[0] and acts[1]).
-// The sweep then reads that slice where it reads K5's residuals otherwise,
-// so the two modes compute the same bits.
+// K6: a persistent grid of one block an SM takes the examples in p.order
+// (longest program first), as K2 does; block j works in slice j of the
+// scratch. Without kReplay it reads K5's residuals; with kReplay each
+// example's program first re-runs on the forward's own device code
+// (interpret_example with K5's stores) into the block's slice of q.traj,
+// (T, 3, N): the out register at each step's entry, then the two-conv
+// outputs; its out and saved registers borrow acts[0] and acts[1]. The
+// sweep then reads that slice where it reads K5's residuals otherwise, so
+// the two modes compute the same bits.
 template <typename T, bool kMma, bool kReplay>
-__global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams q) {
+__global__ void __launch_bounds__(kThreads)
+    nmn_backward_kernel(const BwdParams q, const __grid_constant__ CUtensorMap map_w3,
+                        const __grid_constant__ CUtensorMap map_wc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
   __shared__ float s_h[kMaxHW];
-  __shared__ int s_argmax;
+  __shared__ int s_example;
   const NmnParams& p = q.f;
   const int HW = p.H * p.W, N = HW * p.C, T_len = p.T, P = p.C + kRowPad;
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
+  Ring ring;
+  T* buf_a = smem_setup<T, kMma>(ring, p, smem_raw, bars, &map_w3, &map_wc);
   T* buf_b = buf_a + static_cast<size_t>(HW + 1) * P;
   const size_t slot = blockIdx.x;
   float* ga = q.scratch + slot * 4 * N;
   T* acts = static_cast<T*>(q.acts) + slot * 6 * N;
-  for (int b = blockIdx.x; b < p.batch; b += gridDim.x) {
-    __syncthreads();  // the block's previous example is done with the tiles and the scratch
+  for (int b; (b = next_example(p, s_example)) >= 0;) {
     if (q.invalid[b]) {  // the forward zeroed the output: every gradient is 0
       float* dx = q.dx + static_cast<size_t>(b) * N;
       for (int e = threadIdx.x; e < N; e += blockDim.x) dx[e] = 0.f;
@@ -903,10 +1358,10 @@ __global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams 
     const T* atraj;
     if constexpr (kReplay) {
       T* traj = static_cast<T*>(q.traj) + slot * T_len * 3 * N;
-      interpret_example<T, kMma, true>(p, p.programs + static_cast<size_t>(b) * T_len,
+      interpret_example<T, kMma, true, 2>(p, p.programs + static_cast<size_t>(b) * T_len,
                                        static_cast<const T*>(p.x) + static_cast<size_t>(b) * N,
                                        acts, acts + N, traj, traj + static_cast<size_t>(T_len) * N,
-                                       buf_a, buf_b, s_argmax);
+                                       buf_a, buf_b, ring);
       __syncthreads();
       otraj = traj;
       atraj = traj + static_cast<size_t>(T_len) * N;
@@ -914,7 +1369,7 @@ __global__ void __launch_bounds__(kThreads) nmn_backward_kernel(const BwdParams 
       otraj = static_cast<const T*>(q.otraj) + static_cast<size_t>(b) * T_len * N;
       atraj = static_cast<const T*>(q.atraj) + static_cast<size_t>(b) * T_len * 2 * N;
     }
-    sweep_example<T, kMma>(q, b, ga, acts, otraj, atraj, buf_a, buf_b, s_h, s_argmax);
+    sweep_example<T, kMma>(q, b, ga, acts, otraj, atraj, buf_a, buf_b, s_h, ring);
   }
 }
 
@@ -1076,50 +1531,6 @@ __global__ void __launch_bounds__(kThreads) nmn_weight_grad_simt(const GradParam
 constexpr int kWgStages = 2;
 constexpr int kWgBox = 64;  // channels in a TMA box: one 128-byte swizzle row
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor: 128-byte swizzle, MN-major. LBO is the
-// stride between 64-element column blocks along M / N, SBO between groups of
-// eight K rows (1024 bytes); all in 16-byte units.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
 // d (64 x 128, float32) += A (64 x 16, bf16) . B (16 x 128, bf16), both
 // operands MN-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
@@ -1260,92 +1671,39 @@ size_t tile_bytes(int H, int W, int C, size_t elem) {
   return 2ull * (static_cast<size_t>(H) * W + 1) * (C + kRowPad) * elem;
 }
 
-template <typename T, bool kMma, bool kTrain>
-cudaError_t launch_nmn(const NmnParams& p, cudaStream_t stream) {
-  const size_t bytes = tile_bytes(p.H, p.W, p.C, sizeof(T));
-  if (bytes + sizeof(int) > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(nmn_interpreter_kernel<T, kMma, kTrain>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  nmn_interpreter_kernel<T, kMma, kTrain><<<p.batch, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
+// The interpreter kernels' dynamic shared memory: the two tiles, and in bf16
+// the weight ring before them (1024 bytes of alignment, then three stages
+// where they fit beside the tiles, else two). Sets p.stages; 0 when nothing
+// fits.
+size_t interpreter_smem(NmnParams& p, size_t elem) {
+  const size_t tiles = tile_bytes(p.H, p.W, p.C, elem), room = kMaxSmem - kStaticSmem;
+  p.stages = 0;
+  if (elem != 2) return tiles <= room ? tiles : 0;
+  for (int s = kMaxStages; s >= 2; --s) {
+    const size_t bytes = 1024 + s * static_cast<size_t>(kTapBytes) + tiles;
+    if (bytes <= room) {
+      p.stages = s;
+      return bytes;
+    }
+  }
+  return 0;
 }
 
-// Sets K6's dynamic shared memory (the two tiles) and returns its bytes, or 0
-// when they do not fit beside the static arrays.
-template <typename T, bool kMma, bool kReplay>
-size_t backward_smem(int H, int W, int C) {
-  const size_t bytes = tile_bytes(H, W, C, sizeof(T));
-  if (bytes + sizeof(float) * kMaxHW + sizeof(int) > kMaxSmem) return 0;
-  if (cudaFuncSetAttribute(nmn_backward_kernel<T, kMma, kReplay>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes)) != cudaSuccess)
-    return 0;
-  return bytes;
-}
-
-template <typename T, bool kMma, bool kReplay>
-cudaError_t launch_backward(const BwdParams& q, int grid, cudaStream_t stream) {
-  const size_t bytes = backward_smem<T, kMma, kReplay>(q.f.H, q.f.W, q.f.C);
-  if (bytes == 0) return cudaErrorInvalidValue;
-  nmn_backward_kernel<T, kMma, kReplay><<<grid, kThreads, bytes, stream>>>(q);
-  return cudaGetLastError();
-}
-
-// The replay grid: min(batch, the blocks of K6's replay build that fit on the
-// card at once), or -1.
-template <typename T, bool kMma>
-int replay_grid(int batch, int H, int W, int C) {
-  const size_t bytes = backward_smem<T, kMma, true>(H, W, C);
+// Sets `kernel`'s dynamic shared memory to `bytes` and returns the
+// persistent grid: min(batch, the blocks that fit on the card at once), or
+// -1 when none fits.
+template <class Kernel>
+int persistent_grid(Kernel kernel, size_t bytes, int batch, int threads = kThreads) {
   int per_sm = 0, device = 0, sms = 0;
   if (bytes == 0 ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nmn_backward_kernel<T, kMma, true>,
-                                                    kThreads, bytes) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes) != cudaSuccess ||
       cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
       per_sm <= 0)
     return -1;
   return per_sm * sms < batch ? per_sm * sms : batch;
-}
-
-bool params_ok(int dtype, const void* w3t, const void* wcmpt, int H, int W, int C) {
-  if (C % 4 != 0 || kThreads % (C / 4) != 0) return false;
-  if (dtype == 1) return w3t != nullptr && wcmpt != nullptr && C == kMmaC && H * W <= 2 * kMmaTiles * 16;
-  return dtype == 0;
-}
-
-NmnParams make_params(const void* programs, int batch, int num_steps, const void* kind,
-                      const void* slot3, const void* head_slot, const void* cmp_slot,
-                      const void* same_slot, const void* x, const void* w3, const void* w3t,
-                      const void* b3, const void* w1, const void* b1, const void* same_wf,
-                      const void* same_wa, const void* same_b, const void* wcmp,
-                      const void* wcmpt, const void* bcmp, int H, int W, int C) {
-  NmnParams p = {};
-  p.programs = static_cast<const int*>(programs);
-  p.batch = batch;
-  p.T = num_steps;
-  p.kind = static_cast<const int*>(kind);
-  p.slot3 = static_cast<const int*>(slot3);
-  p.head_slot = static_cast<const int*>(head_slot);
-  p.cmp_slot = static_cast<const int*>(cmp_slot);
-  p.same_slot = static_cast<const int*>(same_slot);
-  p.x = x;
-  p.w3 = w3;
-  p.w3t = w3t;
-  p.b3 = static_cast<const float*>(b3);
-  p.w1 = w1;
-  p.b1 = static_cast<const float*>(b1);
-  p.same_wf = same_wf;
-  p.same_wa = static_cast<const float*>(same_wa);
-  p.same_b = static_cast<const float*>(same_b);
-  p.wcmp = wcmp;
-  p.wcmpt = wcmpt;
-  p.bcmp = static_cast<const float*>(bcmp);
-  p.H = H;
-  p.W = W;
-  p.C = C;
-  return p;
 }
 
 // cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime, so
@@ -1383,25 +1741,135 @@ bool entry_map(CUtensorMap* map, const void* entries, int n, int H, int W, int C
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A TMA map over n bf16 (kMmaC, kMmaC) matrices (C_out contiguous), boxes of
+// one matrix's (kMmaC rows, 64 columns), 128-byte swizzle: the ring's
+// stages, two boxes each.
+bool weight_map(CUtensorMap* map, const void* bank, int n) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || bank == nullptr || n <= 0) return false;
+  const cuuint64_t dims[3] = {kMmaC, kMmaC, static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {2ull * kMmaC, 2ull * kMmaC * kMmaC};
+  const cuuint32_t box[3] = {kWgBox, kMmaC, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(bank), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The ring's maps over w3 (S3 * 9 matrices) and wcmp (Sc * 2). A bank
+// without slots is never read: its map stands over w3.
+bool weight_maps(const NmnParams& p, int S3, int Sc, CUtensorMap* m3, CUtensorMap* mc) {
+  return weight_map(m3, p.w3, 9 * S3) &&
+         (Sc > 0 ? weight_map(mc, p.wcmp, 2 * Sc) : weight_map(mc, p.w3, 9 * S3));
+}
+
+template <typename T, bool kMma, bool kTrain>
+cudaError_t launch_nmn(NmnParams& p, const CUtensorMap& m3, const CUtensorMap& mc,
+                       cudaStream_t stream) {
+  constexpr int threads = kMma ? kFwdThreads : kThreads;
+  const size_t bytes = interpreter_smem(p, sizeof(T));
+  const int grid = persistent_grid(nmn_interpreter_kernel<T, kMma, kTrain>, bytes, p.batch, threads);
+  if (grid <= 0) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaMemsetAsync(p.next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  nmn_interpreter_kernel<T, kMma, kTrain><<<grid, threads, bytes, stream>>>(p, m3, mc);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kMma, bool kReplay>
+cudaError_t launch_backward(BwdParams& q, int grid, const CUtensorMap& m3, const CUtensorMap& mc,
+                            cudaStream_t stream) {
+  const size_t bytes = interpreter_smem(q.f, sizeof(T));
+  if (persistent_grid(nmn_backward_kernel<T, kMma, kReplay>, bytes, q.f.batch) <= 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaMemsetAsync(q.f.next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  nmn_backward_kernel<T, kMma, kReplay><<<grid, kThreads, bytes, stream>>>(q, m3, mc);
+  return cudaGetLastError();
+}
+
+// K6's grid: min(batch, the blocks that fit at once), or -1.
+template <typename T, bool kMma>
+int backward_grid(int batch, int H, int W, int C) {
+  NmnParams p = {};
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  return persistent_grid(nmn_backward_kernel<T, kMma, true>, interpreter_smem(p, sizeof(T)), batch);
+}
+
+// What the kernels take: float32 with C / 4 dividing the block; bf16 at C ==
+// kMmaC and H * W <= max_hw.
+bool params_ok(int dtype, int H, int W, int C, int max_hw) {
+  if (C % 4 != 0 || kThreads % (C / 4) != 0) return false;
+  if (dtype == 1) return C == kMmaC && H * W <= max_hw;
+  return dtype == 0;
+}
+
+NmnParams make_params(const void* programs, int batch, int num_steps, const void* kind,
+                      const void* slot3, const void* head_slot, const void* cmp_slot,
+                      const void* same_slot, const void* x, const void* w3, const void* b3,
+                      const void* w1, const void* b1, const void* same_wf, const void* same_wa,
+                      const void* same_b, const void* wcmp, const void* bcmp, const void* order,
+                      void* next, int H, int W, int C) {
+  NmnParams p = {};
+  p.programs = static_cast<const int*>(programs);
+  p.batch = batch;
+  p.T = num_steps;
+  p.kind = static_cast<const int*>(kind);
+  p.slot3 = static_cast<const int*>(slot3);
+  p.head_slot = static_cast<const int*>(head_slot);
+  p.cmp_slot = static_cast<const int*>(cmp_slot);
+  p.same_slot = static_cast<const int*>(same_slot);
+  p.x = x;
+  p.w3 = w3;
+  p.b3 = static_cast<const float*>(b3);
+  p.w1 = w1;
+  p.b1 = static_cast<const float*>(b1);
+  p.same_wf = same_wf;
+  p.same_wa = static_cast<const float*>(same_wa);
+  p.same_b = static_cast<const float*>(same_b);
+  p.wcmp = wcmp;
+  p.bcmp = static_cast<const float*>(bcmp);
+  p.order = static_cast<const int*>(order);
+  p.next = static_cast<int*>(next);
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  return p;
+}
+
 }  // namespace
 
-// dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores: needs w3t / wcmpt, the
-// banks transposed to (.., C_out, C_in), C == 128 and H * W <= 224). With
-// otraj and atraj set this is K5, else K2. Launches on `stream`; returns
-// cudaGetLastError().
+// The plan of the interpreter kernels: convs (B,) int32, the 3x3 convs each
+// example's program runs (nmn_plan_kernel). Launches on `stream`.
+extern "C" int probnmn_nmn_plan(const void* programs, int batch, int num_steps, const void* kind,
+                                const void* head_slot, void* convs, void* stream) {
+  if (batch <= 0) return 0;
+  nmn_plan_kernel<<<(batch + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(programs), batch, num_steps, static_cast<const int*>(kind),
+      static_cast<const int*>(head_slot), static_cast<int*>(convs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: 0 float32 (SIMT), 1 bfloat16 (wgmma: C == 128 and H * W <= 256;
+// the banks' S3 and Sc slots give the ring's TMA maps). A persistent grid
+// takes the examples in `order` (B,) int32 through the counter `next` (one
+// int32, zeroed here). With otraj and atraj set this is K5, else K2.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int probnmn_nmn_interpret(
     int dtype, const void* programs, int batch, int num_steps, const void* kind,
     const void* slot3, const void* head_slot, const void* cmp_slot, const void* same_slot,
-    const void* x, const void* w3, const void* w3t, const void* b3, const void* w1,
-    const void* b1, const void* same_wf, const void* same_wa, const void* same_b,
-    const void* wcmp, const void* wcmpt, const void* bcmp, void* out, void* saved,
+    const void* x, const void* w3, const void* b3, const void* w1, const void* b1,
+    const void* same_wf, const void* same_wa, const void* same_b, const void* wcmp,
+    const void* bcmp, int S3, int Sc, const void* order, void* next, void* out, void* saved,
     void* invalid, void* otraj, void* atraj, int H, int W, int C, void* stream) {
   if (batch <= 0) return 0;
-  if (!params_ok(dtype, w3t, wcmpt, H, W, C) || (otraj == nullptr) != (atraj == nullptr))
+  if (!params_ok(dtype, H, W, C, kFwdMaxHW) || (otraj == nullptr) != (atraj == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   NmnParams p = make_params(programs, batch, num_steps, kind, slot3, head_slot, cmp_slot,
-                            same_slot, x, w3, w3t, b3, w1, b1, same_wf, same_wa, same_b, wcmp,
-                            wcmpt, bcmp, H, W, C);
+                            same_slot, x, w3, b3, w1, b1, same_wf, same_wa, same_b, wcmp, bcmp,
+                            order, next, H, W, C);
   p.out = out;
   p.saved = saved;
   p.invalid = static_cast<int*>(invalid);
@@ -1409,44 +1877,66 @@ extern "C" int probnmn_nmn_interpret(
   p.atraj = atraj;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = otraj != nullptr;
-  if (dtype == 1) return static_cast<int>(train ? launch_nmn<bf16, true, true>(p, s)
-                                                : launch_nmn<bf16, true, false>(p, s));
-  return static_cast<int>(train ? launch_nmn<float, false, true>(p, s)
-                                : launch_nmn<float, false, false>(p, s));
+  CUtensorMap m3 = {}, mc = {};
+  if (dtype == 1) {
+    if (!weight_maps(p, S3, Sc, &m3, &mc)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(train ? launch_nmn<bf16, true, true>(p, m3, mc, s)
+                                  : launch_nmn<bf16, true, false>(p, m3, mc, s));
+  }
+  return static_cast<int>(train ? launch_nmn<float, false, true>(p, m3, mc, s)
+                                : launch_nmn<float, false, false>(p, m3, mc, s));
 }
 
-// The grid of K6's replay mode for `batch` examples (its scratch is sized by
-// it), or a negative value when the kernel cannot launch at this shape.
+// K2's and K5's launch at this shape: returns the persistent grid (or a
+// negative value when the kernel cannot launch) and sets *stages to the
+// weight ring's stages (0 in float32).
+extern "C" int probnmn_nmn_interpret_grid(int dtype, int batch, int H, int W, int C, int* stages) {
+  NmnParams p = {};
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  if (batch <= 0 || !params_ok(dtype, H, W, C, kFwdMaxHW)) return -1;
+  const int grid = dtype == 1 ? persistent_grid(nmn_interpreter_kernel<bf16, true, false>,
+                                                interpreter_smem(p, 2), batch, kFwdThreads)
+                              : persistent_grid(nmn_interpreter_kernel<float, false, false>,
+                                                interpreter_smem(p, 4), batch);
+  *stages = p.stages;
+  return grid;
+}
+
+// K6's grid for `batch` examples (its scratch is sized by it), or a negative
+// value when the kernel cannot launch at this shape.
 extern "C" int probnmn_nmn_backward_grid(int dtype, int batch, int H, int W, int C) {
   if (batch <= 0) return -1;
-  return dtype == 1 ? replay_grid<bf16, true>(batch, H, W, C)
-                    : replay_grid<float, false>(batch, H, W, C);
+  return dtype == 1 ? backward_grid<bf16, true>(batch, H, W, C)
+                    : backward_grid<float, false>(batch, H, W, C);
 }
 
-// K6's sweep. With otraj and atraj (K5's residuals) one block per example
-// (grid == batch); with traj instead, replay mode over `grid` blocks
-// (probnmn_nmn_backward_grid), traj holding (grid, T, 3, HW, C) in the
-// compute type. scratch and acts have `grid` rows. Fills dx, the workspace
-// entries and the per-example partials (which the caller zeroes); ent_tag
-// must hold the sentinel S3 + 2 * Sc where no entry is written.
+// K6's sweep over `grid` blocks (probnmn_nmn_backward_grid), which take the
+// examples in `order` through the counter `next`. With otraj and atraj
+// (K5's residuals) the no-replay mode; with traj instead the replay mode,
+// traj holding (grid, T, 3, HW, C) in the compute type. scratch and acts
+// have `grid` rows. Fills dx, the workspace entries and the per-example
+// partials (which the caller zeroes); ent_tag must hold the sentinel S3 + 2
+// * Sc where no entry is written. bf16 needs C == 128 and H * W <= 224.
 extern "C" int probnmn_nmn_backward(
     int dtype, const void* programs, int batch, int num_steps, const void* kind,
     const void* slot3, const void* head_slot, const void* cmp_slot, const void* same_slot,
-    const void* x, const void* w3, const void* w3t, const void* b3, const void* w1,
-    const void* b1, const void* same_wf, const void* same_wa, const void* same_b,
-    const void* wcmp, const void* wcmpt, const void* bcmp, const void* invalid,
+    const void* x, const void* w3, const void* b3, const void* w1, const void* b1,
+    const void* same_wf, const void* same_wa, const void* same_b, const void* wcmp,
+    const void* bcmp, int S3, int Sc, const void* order, void* next, const void* invalid,
     const void* gfin, const void* otraj, const void* atraj, void* traj, int grid, void* scratch,
     void* acts, void* ent_inp, void* ent_g, void* ent_tag, void* ent_dil, const void* ent_base,
-    void* part, int S3, int S1, int Ss, int Sc, void* dx, int H, int W, int C, void* stream) {
+    void* part, int S1, int Ss, void* dx, int H, int W, int C, void* stream) {
   if (batch <= 0) return 0;
   const bool replay = traj != nullptr;
-  if (!params_ok(dtype, w3t, wcmpt, H, W, C) || H * W > kMaxHW || grid <= 0 || grid > batch ||
-      (replay ? otraj != nullptr || atraj != nullptr
-              : otraj == nullptr || atraj == nullptr || grid != batch))
+  if (!params_ok(dtype, H, W, C, 2 * kMmaTiles * 16) || H * W > kMaxHW || grid <= 0 ||
+      grid > batch ||
+      (replay ? otraj != nullptr || atraj != nullptr : otraj == nullptr || atraj == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams q = {};
   q.f = make_params(programs, batch, num_steps, kind, slot3, head_slot, cmp_slot, same_slot, x,
-                    w3, w3t, b3, w1, b1, same_wf, same_wa, same_b, wcmp, wcmpt, bcmp, H, W, C);
+                    w3, b3, w1, b1, same_wf, same_wa, same_b, wcmp, bcmp, order, next, H, W, C);
   q.invalid = static_cast<const int*>(invalid);
   q.gfin = static_cast<const float*>(gfin);
   q.otraj = otraj;
@@ -1466,11 +1956,14 @@ extern "C" int probnmn_nmn_backward(
   q.Sc = Sc;
   q.dx = static_cast<float*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return static_cast<int>(replay ? launch_backward<bf16, true, true>(q, grid, s)
-                                   : launch_backward<bf16, true, false>(q, grid, s));
-  return static_cast<int>(replay ? launch_backward<float, false, true>(q, grid, s)
-                                 : launch_backward<float, false, false>(q, grid, s));
+  CUtensorMap m3 = {}, mc = {};
+  if (dtype == 1) {
+    if (!weight_maps(q.f, S3, Sc, &m3, &mc)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(replay ? launch_backward<bf16, true, true>(q, grid, m3, mc, s)
+                                   : launch_backward<bf16, true, false>(q, grid, m3, mc, s));
+  }
+  return static_cast<int>(replay ? launch_backward<float, false, true>(q, grid, m3, mc, s)
+                                 : launch_backward<float, false, false>(q, grid, m3, mc, s));
 }
 
 // The floats of one row of probnmn_nmn_backward's partials.

@@ -139,10 +139,18 @@ def library() -> ctypes.CDLL:
         _VOID_P, _INT, _INT,                    # programs (B, T) int32, B, T
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # kind, slot3, head, cmp, same tables
         _VOID_P,                                # stem features (B, H, W, C)
-        _VOID_P, _VOID_P, _VOID_P,              # w3, w3t (or NULL), b3
+        _VOID_P, _VOID_P,                       # w3, b3
         _VOID_P, _VOID_P,                       # w1, b1
         _VOID_P, _VOID_P, _VOID_P,              # same_wf, same_wa, same_b
-        _VOID_P, _VOID_P, _VOID_P,              # wcmp, wcmpt (or NULL), bcmp
+        _VOID_P, _VOID_P,                       # wcmp, bcmp
+        _INT, _INT,                             # S3, Sc: slots of w3 and wcmp
+        _VOID_P, _VOID_P,                       # order (B,) int32, example counter (1,) int32
+    ]
+    lib.probnmn_nmn_plan.restype = _INT
+    lib.probnmn_nmn_plan.argtypes = [
+        _VOID_P, _INT, _INT,                    # programs (B, T) int32, B, T
+        _VOID_P, _VOID_P,                       # kind, head tables
+        _VOID_P, _VOID_P,                       # convs (B,) int32, stream
     ]
     lib.probnmn_nmn_interpret.restype = _INT
     lib.probnmn_nmn_interpret.argtypes = nmn_operands + [
@@ -151,6 +159,8 @@ def library() -> ctypes.CDLL:
         _INT, _INT, _INT,                       # H, W, C
         _VOID_P,                                # stream
     ]
+    lib.probnmn_nmn_interpret_grid.restype = _INT
+    lib.probnmn_nmn_interpret_grid.argtypes = [_INT] * 5 + [ctypes.POINTER(_INT)]  # dtype, B, H, W, C; stages
     lib.probnmn_nmn_backward.restype = _INT
     lib.probnmn_nmn_backward_grid.restype = _INT
     lib.probnmn_nmn_backward_grid.argtypes = [_INT] * 5  # dtype, B, H, W, C
@@ -160,7 +170,7 @@ def library() -> ctypes.CDLL:
         _VOID_P, _VOID_P,                       # scratch (G, 4, HW, C) f32, acts (G, 6, HW, C)
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # entries: inp, g, tag, dilation; bases
         _VOID_P,                                # partials (B, R) f32
-        _INT, _INT, _INT, _INT,                 # S3, S1, Ss, Sc
+        _INT, _INT,                             # S1, Ss
         _VOID_P,                                # dx (B, HW, C) f32
         _INT, _INT, _INT,                       # H, W, C
         _VOID_P,                                # stream

@@ -40,20 +40,26 @@ at the first invalid op.
 
 What bounds them on an H100: the 3x3 convs, 57.8 MFLOP each (15.1 per valid
 CLEVR program: 224 GFLOP per batch of 256, 0.23 ms at the bf16 tensor peak,
-against ~48 MB of bytes, 14 µs); K6 runs each conv's two gradient products,
-about twice K5's work. Design: one block per example, so the scalar tag
-machine is uniform within a block and never diverges; the conv input and
-output tiles (14 x 14 x 128, unpadded, plus one zero row that out-of-range
-taps read) live in shared memory; weights stream tap by tap from the 22 MB
-unified bank, which stays in L2. In bfloat16 at C = 128 (the serving and
-training paths) each conv is an implicit GEMM on the tensor cores
-(``mma.sync`` m16n8k16, float32 accumulate), the forward reading the banks
-transposed to (tap, C_out, C_in) (``w3t``/``wcmpt`` from :func:`build_banks`),
-the input gradient reading them as stored; bfloat16 at other widths raises.
-float32 runs float32 FMAs on the SIMT cores: the reference that checks the
-kernels' arithmetic at a tight tolerance. K6's weight-gradient stage in
-bfloat16 stages its operands by TMA into a two-stage ring and multiplies on
-``wgmma``; the interpreter kernels use neither yet.
+against ~48 MB of bytes, 14 µs), and the longest program's chain of convs,
+which one block runs in series; K6 runs each conv's two gradient products,
+about twice K5's work. Design: a block runs an example, so the scalar tag
+machine is uniform within a block and never diverges; the grid is
+persistent, at most one block an SM, taking the examples longest program
+first (:func:`interpreter_plan`: the convs each program runs, counted on the
+card, and a stable descending sort; no host read) from a shared counter;
+each example's results go to its own rows, so the order moves no bit. The
+conv input and output tiles (14 x 14 x 128, unpadded, plus one zero row that
+out-of-range taps read) live in shared memory. In bfloat16 at C = 128 (the
+serving and training paths) each forward conv (K2, K5, K6's replay and its
+recomputes of relate's chain and compare's projection) runs on ``wgmma``
+m64n128k16 with float32 sums: the weights of each tap arrive by TMA in a
+ring of shared-memory stages that thread 0 fills in the order the program
+will read them, A comes from the shared tile through ``ldmatrix``; K6's
+input gradients stay on ``mma.sync`` m16n8k16, reading the banks as stored.
+bfloat16 at other widths raises. float32 runs float32 FMAs on the SIMT
+cores: the reference that checks the kernels' arithmetic at a tight
+tolerance. K6's weight-gradient stage in bfloat16 stages its operands by TMA
+into a two-stage ring and multiplies on ``wgmma`` too.
 
 The registers ``out`` and ``saved`` live in a per-example global scratch, in
 the compute type. Attentions are stored broadcast over all C channels so
@@ -64,10 +70,14 @@ tables and unified weight banks, in the JAX package's slot order; the banks
 are differentiable in the params), :func:`execute_programs_plain` (the
 batched register machine K2 and K5 are held against, and that runs for CPU
 tensors), :func:`interpreter_grads_plain` (autograd through it, K6's
-plain version) and :func:`weight_grad_plain` (K6's weight-gradient stage).
+plain version; :func:`interpreter_grads_plain_by_row` recomputes the rows
+whose float32 ReLU inputs sit on a kink alone), :func:`interpreter_plan_plain`
+(the persistent kernels' order) and :func:`weight_grad_plain` (K6's
+weight-gradient stage).
 """
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -84,8 +94,9 @@ TAG_NONE, TAG_ATTN, TAG_FEAT = 0, 1, 2
 
 MAX_CHAIN = 5  # relate has 5 3x3 convs; attention/query/compare use 2
 RELATE_DILATIONS = (1, 2, 4, 8, 1)
-MMA_CHANNELS = 128      # the tensor-core path: bf16, C == 128, H * W <= 224
-MMA_MAX_PIXELS = 224
+MMA_CHANNELS = 128      # the tensor-core path: bf16, C == 128
+FORWARD_MAX_PIXELS = 256  # K2 / K5 in bf16: four 64-pixel wgmma tiles
+MMA_MAX_PIXELS = 224    # K6 and its weight-gradient stage in bf16
 GRAD_MAX_PIXELS = 256   # K6 keeps one float per pixel in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The banks that take gradients, in the order execute_programs_diff passes them.
@@ -152,9 +163,7 @@ def build_banks(params: Dict[str, Any], spec, dtype: torch.dtype) -> Dict[str, t
     attention-channel weight split out as ``same_wa`` (Ss,) float32; ``wcmp``
     (Sc, 2C, C). Weights are in ``dtype``; biases are float32 holding
     ``dtype``-rounded values, as the TPU kernel's bias planes did. Every bank
-    of :data:`DIFF_BANKS` is differentiable in ``params``; the tensor-core
-    copies ``w3t``/``wcmpt`` are derived from the detached banks and carry no
-    gradient.
+    is differentiable in ``params``.
     """
     C = spec.module_channels
     p = params
@@ -188,10 +197,6 @@ def build_banks(params: Dict[str, Any], spec, dtype: torch.dtype) -> Dict[str, t
         "wcmp": weight(p["compare"]["projection"]["w"]),
         "bcmp": bias(p["compare"]["projection"]["b"]),
     }
-    if dtype == torch.bfloat16 and C == MMA_CHANNELS:
-        # The kernel's tensor-core path reads B fragments along C_in.
-        banks["w3t"] = banks["w3"].detach().transpose(-1, -2).contiguous()
-        banks["wcmpt"] = banks["wcmp"].detach().reshape(-1, 2, C, C).transpose(-1, -2).contiguous()
     return banks
 
 
@@ -374,19 +379,151 @@ def interpreter_grads_plain(
     return dict(zip(DIFF_BANKS, grads[1:])), grads[0]
 
 
+def interpreter_grads_plain_by_row(banks, tables, spec, stem_feats, programs, g_final, d_stem,
+                                   tol: float):
+    r"""K6's float32 reference where a ReLU input lies within float32
+    rounding of 0: :func:`interpreter_grads_plain` over the batch, except for
+    the rows where such an input sits. Such an input can take one side in
+    the batched plain forward and the other in K5's (and in the row's own
+    plain forward, whose sums run in the row's own order), which flips that
+    element's gradient: it moves the row's d(stem) far above the rounding
+    of the rest (one such row of a float32 batch of 128 stood at 0.89 of
+    its limit, the others at 0.0065 or less) and a bank's gradient by up to
+    that element's g. The rows taken alone are those whose d(stem) stands
+    off the kernel's ``d_stem`` by more than a tenth of ``tol`` of its scale
+    (max(1, max |d(stem)|)), and those with a ReLU output of a two-conv
+    chain whose sign differs between the batched plain forward and K5's
+    (relate's chains keep no residual to compare). They are recomputed
+    alone, and their bank gradients replace their share of the batch's (the
+    batch again under a cotangent zeroed on them: gradients are linear in
+    it). Returns (d_banks, d_stem, {row: flipped ReLU outputs of its two-conv
+    chains})."""
+    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem_feats, programs, g_final)
+    err = (d_stem.float() - w_stem.float()).abs().reshape(len(programs), -1).amax(1)
+    off = err > tol / 10 * max(1.0, float(w_stem.float().abs().max()))
+    _, _, _, atraj = execute_programs_train_kernel(banks, tables, spec, stem_feats, programs)
+    _, _, _, plain_atraj = execute_programs_plain(banks, tables, spec, stem_feats, programs,
+                                                  record=True)
+    # Flips count only on the steps that ran a two-conv chain: K5 leaves the
+    # others unwritten.
+    ran = plain_atraj.flatten(2).abs().amax(2) > 0
+    flips = (((plain_atraj > 0) != (atraj > 0)).flatten(2).sum(2) * ran).sum(1)
+    rows = (off | (flips > 0)).nonzero().flatten().tolist()
+    if not rows:
+        return w_banks, w_stem, {}
+    others = g_final.clone()
+    others[rows] = 0
+    w_banks, w_stem = interpreter_grads_plain(banks, tables, spec, stem_feats, programs, others)
+    w_stem = w_stem.clone()
+    for row in rows:
+        one = slice(row, row + 1)
+        row_banks, w_stem[one] = interpreter_grads_plain(banks, tables, spec, stem_feats[one],
+                                                         programs[one], g_final[one])
+        w_banks = {k: w_banks[k] + row_banks[k] for k in DIFF_BANKS}
+    return w_banks, w_stem, {row: int(flips[row]) for row in rows}
+
+
+def interpreter_plan_plain(tables: Dict[str, torch.Tensor], programs: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""Plain PyTorch version of the interpreter kernels' plan: (convs (B,)
+    int32, the 3x3 convs each program runs, counted by the tag machine up to
+    its first invalid op: two a run attention, query or compare, five a run
+    relate; order (B,) int32, a stable sort of the rows by convs, longest
+    first). Rows are walked together, step by step, as in
+    :func:`execute_programs_plain`: a pad is a no-op."""
+    device = programs.device
+    tab = {k: tables[k].to(device=device, dtype=torch.long) for k in ("kind", "head_slot")}
+    tokens_rev = programs.to(dtype=torch.long).flip(1)
+    batch = programs.shape[0]
+    out_tag = torch.full((batch,), TAG_FEAT, dtype=torch.long, device=device)
+    saved_tag = torch.full((batch,), TAG_NONE, dtype=torch.long, device=device)
+    stopped = torch.zeros(batch, dtype=torch.bool, device=device)
+    convs = torch.zeros(batch, dtype=torch.long, device=device)
+    for t in range(tokens_rev.shape[1]):
+        tok = tokens_rev[:, t]
+        kind = tab["kind"][tok]
+        run = ~stopped
+        is_binop = (kind == AND) | (kind == OR)
+        is_chain = (kind == ATTENTION) | (kind == QUERY) | (kind == RELATE)
+        scene_ok = run & (kind == SCENE)
+        binop_ok = run & is_binop & (saved_tag != TAG_NONE)
+        do_chain = run & is_chain & (out_tag == TAG_ATTN)
+        do_cmp = run & (kind == COMPARE) & (out_tag == TAG_FEAT) & (saved_tag == TAG_FEAT)
+        do_same = run & (kind == SAME) & (out_tag == TAG_ATTN)
+        invalid = run & ((is_binop & (saved_tag == TAG_NONE))
+                         | (is_chain & (out_tag != TAG_ATTN))
+                         | ((kind == COMPARE) & ((out_tag != TAG_FEAT) | (saved_tag != TAG_FEAT)))
+                         | ((kind == SAME) & (out_tag != TAG_ATTN)))
+        convs += torch.where(do_chain, torch.where(kind == RELATE, 5, 2), 0) + 2 * do_cmp.long()
+        both_attn = (out_tag == TAG_ATTN) & (saved_tag == TAG_ATTN)
+        new_out = torch.where(scene_ok | do_same, TAG_ATTN, out_tag)
+        new_out = torch.where(binop_ok, torch.where(both_attn, TAG_ATTN, TAG_FEAT), new_out)
+        new_out = torch.where(
+            do_chain, torch.where(tab["head_slot"][tok] >= 0, TAG_ATTN, TAG_FEAT), new_out)
+        new_out = torch.where(do_cmp, TAG_FEAT, new_out)
+        saved_tag = torch.where(scene_ok, out_tag, saved_tag)
+        out_tag = new_out
+        stopped = stopped | invalid
+    order = torch.argsort(convs, descending=True, stable=True)
+    return convs.to(torch.int32), order.to(torch.int32)
+
+
 # ------------------------------------------------------------------ kernel wrappers ---
-def _check_operands(banks, stem_feats, programs) -> None:
-    r"""Raise on what the CUDA kernels do not take."""
+def interpreter_plan(tables: Dict[str, torch.Tensor], programs: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    r"""The order in which the persistent interpreter kernels (K2, K5, K6)
+    take the examples, a drop-in for :func:`interpreter_plan_plain`: CPU
+    ``programs`` run the plain version; CUDA ones launch ``nmn_plan_kernel``
+    (the tag machine, one thread a row, counting each program's 3x3 convs)
+    and sort on the card, with no read back to the host. Returns (convs (B,)
+    int32, order (B,) int32, longest program first, ties in batch order)."""
+    if programs.device.type == "cpu":
+        return interpreter_plan_plain(tables, programs)
+    if programs.device.type != "cuda":
+        raise ValueError(f"unsupported device {programs.device}")
+    progs = programs.to(dtype=torch.int32).contiguous()
+    kind = tables["kind"].to(device=progs.device, dtype=torch.int32).contiguous()
+    head = tables["head_slot"].to(device=progs.device, dtype=torch.int32).contiguous()
+    convs = torch.empty(progs.shape[0], dtype=torch.int32, device=progs.device)
+    code = _build.library().probnmn_nmn_plan(
+        progs.data_ptr(), progs.shape[0], progs.shape[1], kind.data_ptr(), head.data_ptr(),
+        convs.data_ptr(), torch.cuda.current_stream(progs.device).cuda_stream)
+    _build.check(code, "NMN plan kernel")
+    interpreter_plan.launches += 1
+    order = torch.argsort(convs, descending=True, stable=True).to(torch.int32)
+    return convs, order
+
+
+interpreter_plan.launches = 0
+
+
+def interpreter_launch(dtype: torch.dtype, batch: int, height: int, width: int,
+                       channels: int) -> Dict[str, int]:
+    r"""How K2 and K5 launch at this shape on the current card: the
+    persistent ``grid`` (blocks) and the bf16 weight ring's ``stages`` (0 in
+    float32). Needs the CUDA library; raises where the kernel cannot launch."""
+    stages = ctypes.c_int(0)
+    grid = _build.library().probnmn_nmn_interpret_grid(
+        _DTYPE_CODES[dtype], batch, height, width, channels, ctypes.byref(stages))
+    if grid <= 0:
+        raise RuntimeError(f"the interpreter kernel cannot launch at H={height}, W={width}, "
+                           f"C={channels} in {dtype}")
+    return {"grid": grid, "stages": stages.value}
+
+
+def _check_operands(banks, stem_feats, programs, max_pixels) -> None:
+    r"""Raise on what the CUDA kernels do not take (bf16: at most
+    ``max_pixels`` pixels)."""
     device = stem_feats.device
     dtype = stem_feats.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported compute dtype {dtype}")
     batch, h, w, c = stem_feats.shape
     if dtype == torch.bfloat16:
-        if c != MMA_CHANNELS or h * w > MMA_MAX_PIXELS or "w3t" not in banks:
+        if c != MMA_CHANNELS or h * w > max_pixels:
             raise ValueError(
-                f"bfloat16 runs on the tensor cores only: it needs C={MMA_CHANNELS}, "
-                f"H*W <= {MMA_MAX_PIXELS} and banks from build_banks; got C={c}, H*W={h * w}")
+                f"bfloat16 runs on the tensor cores only: it needs C={MMA_CHANNELS} and "
+                f"H*W <= {max_pixels}; got C={c}, H*W={h * w}")
     elif c % 4 or 256 % (c // 4):
         raise ValueError(f"the float32 kernel needs C/4 to divide 256; got C={c}")
     if programs.dim() != 2 or programs.shape[0] != batch:
@@ -400,32 +537,35 @@ def _check_operands(banks, stem_feats, programs) -> None:
 
 def _operands(banks, tables, stem_feats, programs):
     r"""The leading C arguments every interpreter entry point takes (dtype,
-    programs, tables, stem features, banks), and the tensors behind them."""
+    programs, tables, stem features, banks, the banks' slots, the examples'
+    order from :func:`interpreter_plan` and the blocks' counter), and the
+    tensors behind them."""
     device = stem_feats.device
-    use_mma = stem_feats.dtype == torch.bfloat16
     progs = programs.to(device=device, dtype=torch.int32).contiguous()
     tab = {k: v.to(device=device, dtype=torch.int32).contiguous() for k, v in tables.items()}
+    _, order = interpreter_plan(tab, progs)
+    counter = torch.empty(1, dtype=torch.int32, device=device)
     args = [
         _DTYPE_CODES[stem_feats.dtype],
         progs.data_ptr(), progs.shape[0], progs.shape[1],
         tab["kind"].data_ptr(), tab["slot3"].data_ptr(), tab["head_slot"].data_ptr(),
         tab["cmp_slot"].data_ptr(), tab["same_slot"].data_ptr(),
         stem_feats.data_ptr(),
-        banks["w3"].data_ptr(), banks["w3t"].data_ptr() if use_mma else None,
-        banks["b3"].data_ptr(),
+        banks["w3"].data_ptr(), banks["b3"].data_ptr(),
         banks["w1"].data_ptr(), banks["b1"].data_ptr(),
         banks["same_wf"].data_ptr(), banks["same_wa"].data_ptr(), banks["same_b"].data_ptr(),
-        banks["wcmp"].data_ptr(), banks["wcmpt"].data_ptr() if use_mma else None,
-        banks["bcmp"].data_ptr(),
+        banks["wcmp"].data_ptr(), banks["bcmp"].data_ptr(),
+        banks["w3"].shape[0], banks["wcmp"].shape[0],
+        order.data_ptr(), counter.data_ptr(),
     ]
-    return args, (progs, tab)
+    return args, (progs, tab, order, counter)
 
 
 def _interpret(banks, tables, stem_feats, programs, train: bool):
     r"""Launch K2 (``train`` False) or K5 on CUDA tensors."""
     if stem_feats.device.type != "cuda":
         raise ValueError(f"unsupported device {stem_feats.device}")
-    _check_operands(banks, stem_feats, programs)
+    _check_operands(banks, stem_feats, programs, FORWARD_MAX_PIXELS)
     stem_feats = stem_feats.contiguous()
     batch, h, w, c = stem_feats.shape
     args, keep_alive = _operands(banks, tables, stem_feats, programs)
@@ -511,12 +651,13 @@ def interpreter_grads_kernel(
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     r"""K6: (d_banks of :data:`DIFF_BANKS` in each bank's dtype, d_stem in the
     stem dtype) from the forward's ``invalid`` and the cotangent ``g_final``
-    of the final encodings. Given K5's ``otraj`` and ``atraj`` it runs the
-    no-replay mode, one block per example; without them the replay mode
-    (the JAX kernel's ``no_replay=False``): a grid of as many blocks as fit on
-    the card at once, each re-running its examples' programs into a scratch
-    of (grid, T, 3, H*W, C) in the compute dtype before sweeping back, with
-    the same result bit for bit. A CPU ``stem_feats`` runs
+    of the final encodings, over a persistent grid of as many blocks as fit
+    on the card at once, which take the examples longest program first
+    (:func:`interpreter_plan`). Given K5's ``otraj`` and ``atraj`` it runs
+    the no-replay mode; without them the replay mode (the JAX kernel's
+    ``no_replay=False``): each block re-runs its examples' programs into a
+    scratch of (grid, T, 3, H*W, C) in the compute dtype before sweeping
+    back, with the same result bit for bit. A CPU ``stem_feats`` runs
     :func:`interpreter_grads_plain` (which needs no residuals) in both modes;
     a CUDA one launches the kernels (and raises if they cannot).
 
@@ -534,7 +675,7 @@ def interpreter_grads_kernel(
     device, dtype = stem_feats.device, stem_feats.dtype
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    _check_operands(banks, stem_feats, programs)
+    _check_operands(banks, stem_feats, programs, MMA_MAX_PIXELS)
     batch, h, w, c = stem_feats.shape
     if h * w > GRAD_MAX_PIXELS:
         raise ValueError(f"the backward kernel needs H*W <= {GRAD_MAX_PIXELS}, got {h * w}")
@@ -545,19 +686,19 @@ def interpreter_grads_kernel(
         raise ValueError("otraj / atraj do not match the training forward's layout")
     stem_feats = stem_feats.contiguous()
     args, keep_alive = _operands(banks, tables, stem_feats, programs)
-    progs, tab = keep_alive
+    progs, tab = keep_alive[:2]
     s3, s1 = banks["w3"].shape[0], banks["w1"].shape[0]
     ss, sc = banks["same_wf"].shape[0], banks["wcmp"].shape[0]
     n_targets = s3 + 2 * sc
     lib = _build.library()
     stream = torch.cuda.current_stream(device).cuda_stream
+    grid = lib.probnmn_nmn_backward_grid(_DTYPE_CODES[dtype], batch, h, w, c)
+    if grid <= 0:
+        raise RuntimeError(f"the backward kernel cannot launch at H={h}, W={w}, C={c}")
     if replay:
-        grid = lib.probnmn_nmn_backward_grid(_DTYPE_CODES[dtype], batch, h, w, c)
-        if grid <= 0:
-            raise RuntimeError(f"the replay backward kernel cannot launch at H={h}, W={w}, C={c}")
         traj = stem_feats.new_empty(grid, steps, 3, h * w, c)
     else:
-        grid, traj = batch, None
+        traj = None
         otraj, atraj = otraj.contiguous(), atraj.contiguous()
 
     upper = _entries_per_token(tab)[progs.long()].sum(1) * (~invalid.to(device)).long()
@@ -582,7 +723,7 @@ def interpreter_grads_kernel(
         scratch.data_ptr(), acts.data_ptr(),
         ent_inp.data_ptr(), ent_g.data_ptr(), ent_tag.data_ptr(), ent_dil.data_ptr(),
         base.data_ptr(), part.data_ptr(),
-        s3, s1, ss, sc, dx.data_ptr(), h, w, c, stream,
+        s1, ss, dx.data_ptr(), h, w, c, stream,
     )
     _build.check(code, "NMN replay backward kernel" if replay else "NMN backward kernel")
     interpreter_grads_kernel.launches += 1
@@ -857,12 +998,11 @@ class _InterpreterFunction(torch.autograd.Function):
     r"""The JAX package's ``_execute_diff``: K5 forward and K6 backward, or
     with ``replay`` K2 forward (no residuals) and K6 in replay mode. The
     differentiable inputs are ``stem_feats`` and the banks of
-    :data:`DIFF_BANKS`; ``derived`` (``w3t``/``wcmpt``), the tables and the
-    programs take none."""
+    :data:`DIFF_BANKS`; the tables and the programs take none."""
 
     @staticmethod
-    def forward(ctx, tables, spec, programs, replay, derived, stem_feats, *leaves):
-        banks = dict(zip(DIFF_BANKS, leaves), **derived)
+    def forward(ctx, tables, spec, programs, replay, stem_feats, *leaves):
+        banks = dict(zip(DIFF_BANKS, leaves))
         if replay:
             final, invalid = execute_programs_kernel(banks, tables, spec, stem_feats, programs)
             otraj = atraj = None
@@ -871,16 +1011,16 @@ class _InterpreterFunction(torch.autograd.Function):
                 banks, tables, spec, stem_feats, programs)
         ctx.mark_non_differentiable(invalid)
         ctx.save_for_backward(stem_feats, programs, invalid, otraj, atraj, *leaves)
-        ctx.tables, ctx.spec, ctx.derived = tables, spec, derived
+        ctx.tables, ctx.spec = tables, spec
         return final, invalid
 
     @staticmethod
     def backward(ctx, g_final, _g_invalid):
         stem_feats, programs, invalid, otraj, atraj, *leaves = ctx.saved_tensors
-        banks = dict(zip(DIFF_BANKS, leaves), **ctx.derived)
+        banks = dict(zip(DIFF_BANKS, leaves))
         d_banks, d_stem = interpreter_grads_kernel(
             banks, ctx.tables, ctx.spec, stem_feats, programs, invalid, g_final, otraj, atraj)
-        return (None, None, None, None, None, d_stem, *[d_banks[k] for k in DIFF_BANKS])
+        return (None, None, None, None, d_stem, *[d_banks[k] for k in DIFF_BANKS])
 
 
 def execute_programs_diff(
@@ -897,10 +1037,9 @@ def execute_programs_diff(
     or ``PROBNMN_NMN_REPLAY_BWD=1`` when ``replay`` is None) K2 forward,
     which keeps no residuals, and K6 in replay mode, with the same gradients.
     Gradients reach ``stem_feats`` and the banks of :data:`DIFF_BANKS`, and
-    through :func:`build_banks` the params; the derived ``w3t``/``wcmpt``
-    are taken detached. Returns (final encodings, invalid (B,) bool)."""
+    through :func:`build_banks` the params. Returns (final encodings,
+    invalid (B,) bool)."""
     if replay is None:  # the JAX package's switch, read at each call
         replay = os.environ.get("PROBNMN_NMN_REPLAY_BWD", "") == "1"
-    derived = {k: banks[k].detach() for k in ("w3t", "wcmpt") if k in banks}
-    return _InterpreterFunction.apply(tables, spec, programs, bool(replay), derived, stem_feats,
+    return _InterpreterFunction.apply(tables, spec, programs, bool(replay), stem_feats,
                                       *[banks[k] for k in DIFF_BANKS])

@@ -269,7 +269,7 @@ def test_gradient_fuzz_against_the_xla_machine(small):
 
 def test_differentiable_interpreter_routes_every_gradient(small):
     r"""Through ``execute_programs_diff`` the params get what autograd through
-    the plain machine gives them; the derived ``w3t``/``wcmpt`` take none."""
+    the plain machine gives them."""
     s = small
     programs = torch.from_numpy(s["programs"])
     g = torch.from_numpy(np.random.RandomState(5).randn(len(s["programs"]), 6, 6, 8)
