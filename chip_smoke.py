@@ -151,6 +151,29 @@ Phases (any failure raises, and the script exits non-zero with no result):
    their bounds, both split into parts (``[K6 parts]``), and the train step
    in both modes (host clock, examples/s,
    the memory a step takes), each with a profiler trace.
+10. The mini-CLEVR chain through its own entry point
+   (``probnmn_tpu_torch.mini_clevr_run``) on ``cuda`` at production geometry
+   (D=H=256, 2 layers; NMN C=128 on 14x14 over the task's 16 feature
+   channels): 400 train and 160 val images made from seed 0, 200 supervised
+   questions, ``--iters 40 40 40 40 --checkpoint-every 20
+   --resume-split-phase module_training --hparam ALPHA 500.0``, with every
+   launch counter set to 0 before and read after (each kernel of the path
+   must have run; K6's replay mode is not on it): finite train logs at every
+   step, every phase's best metrics on the whole val split (no bars at 40
+   steps), each phase's frozen models read from the earlier phases'
+   ``checkpoint_best.ckpt`` (that file's iteration the phase's best),
+   module_training's second leg resumed from ``checkpoint_19.ckpt`` at
+   iteration 20, and ``[mini-clevr]`` lines with each phase's train seconds
+   and steps/s. Then the path's kernels against their plain versions on the
+   card, on what the runner feeds them, from its best checkpoints: on a
+   question_coding batch K1 and its encoder sweeps (the unsupervised
+   questions, explicit Gumbel noise), the four K4 passes at the z K1
+   sampled, K3f and K3b on that z under the frozen prior, and the objective
+   against the CPU's; on a module_training batch (half the rows at the
+   trained generator's programs, half at the task's own) the plan, K2, K5
+   and K6 in both dtypes over the 16-channel features; each at the
+   tolerances of phases 2, 6, 7 and 8. The kernels' JSON line gains each
+   kernel's ``launches_mini_clevr`` and ``max_abs_err_mini_clevr``.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -344,6 +367,76 @@ def scripted_generator(torch, params, spec, vocab, program):
                       "b_hh": torch.zeros(4 * H)},
         output_projection={"w": proj, "b": torch.zeros(V)},
     )
+
+
+def k1_against_plain(torch, params, spec, questions, noise, tag="K1"):
+    r"""K1 against its plain version on the card on the same ``questions`` and
+    explicit Gumbel ``noise``, in float32 and bfloat16: float32 predictions
+    identical on >= 99% of rows with logprobs within 1e-4 there, bfloat16
+    tokens >= 95% identical, finite losses. Returns each dtype's largest
+    logprob error over the identical rows."""
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, sampling_forward_with_noise,
+    )
+
+    errs = {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        got = fused_sampling_forward(params, spec, questions, noise=noise, compute_dtype=dtype)
+        want = sampling_forward_with_noise(params, spec, questions, noise, compute_dtype=dtype)
+        if questions.is_cuda:  # tools/qc_card_check.py --device cpu rehearses on the CPU
+            torch.cuda.synchronize()
+        same_rows = (got["predictions"] == want["predictions"]).all(dim=1)
+        token_agree = float((got["predictions"] == want["predictions"]).float().mean())
+        err = float((got["logprobs"] - want["logprobs"])[same_rows].abs().max())
+        loss_err = float((got["loss"] - want["loss"])[same_rows].abs().max())
+        log(f"[{tag} {name}] identical rows {int(same_rows.sum())}/{len(questions)}, token "
+            f"agreement {token_agree:.4f}, max |logprob err| {err:.3e}, max |loss err| "
+            f"{loss_err:.3e}")
+        check(torch.isfinite(got["loss"]).all(), f"{tag} loss not finite")
+        errs[name] = err
+        if dtype == torch.float32:
+            check(float(same_rows.float().mean()) >= 0.99, f"{tag} float32 rows differ")
+            check(err <= 1e-4, f"{tag} float32 logprob error {err}")
+        else:
+            check(token_agree >= 0.95, f"{tag} bfloat16 token agreement {token_agree}")
+    return errs
+
+
+def k1_encoder_against_plain(torch, params, spec, questions, tag="K1 encoder"):
+    r"""K1's encoder sweeps alone (``sampling_encode``) against the plain
+    encoder on the card: outputs and final hidden state within 1e-5 of
+    max(1, max|x|) in float32 and within 2e-2 of max|x| in bfloat16. Returns
+    each dtype's output error and each layer's sweep plan."""
+    from probnmn_tpu_torch.models.seq2seq import _encode
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import encoder_plan, sampling_encode
+
+    n, L, H = len(questions), spec.num_layers, spec.hidden_size
+    errs, plans = {}, {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        out, final = sampling_encode(params, spec, questions, compute_dtype=dtype)
+        want_out, _, want_final, _ = _encode(params, spec, questions, dtype)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (n, questions.shape[1] + 1, H) and out.dtype == dtype
+              and final.dtype == torch.float32, f"{tag} output shapes")
+        parts = []
+        for got, want, what in ((out.float(), want_out, "outputs"), (final, want_final, "final h")):
+            check(torch.isfinite(got).all(), f"{tag} {what} not finite")
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+            check(err <= tol, f"{tag} {name} {what} error {err} above {tol}")
+            parts.append(f"{what} max |err| {err:.3e} (max |x| {scale:.3e}, limit {tol:.3e})")
+        errs[name] = float((out.float() - want_out).abs().max())
+        plans[name] = [encoder_plan(n, spec.input_size if l == 0 else H, H, dtype)
+                       for l in range(L)]
+        log(f"[{tag} {name}] sweeps vs plain encoder: " + "; ".join(parts))
+        for l, pl in enumerate(plans[name]):
+            log(f"[{tag} {name}] layer {l} plan: n {pl['cluster']}, U {pl['units']}, R "
+                f"{pl['rows']}, {pl['threads']} threads, {pl['clusters']} clusters ({pl['fit']} at "
+                f"once), {pl['smem']} B shared, W_hh "
+                f"{'resident' if pl['w_hh_resident'] else 'streamed'}, W_ih "
+                f"{'resident' if pl['w_ih_resident'] else 'streamed'}, {pl['registers']} registers")
+    return errs, plans
 
 
 def k1_work(spec, questions, weight_bytes):
@@ -551,6 +644,39 @@ def lm_work(spec, programs):
     return fwd, bwd
 
 
+def k3_against_plain(torch, params, spec, tok, dloss, tag=""):
+    r"""K3f's per-example loss within 1e-4 of its plain version and every K3b
+    gradient leaf within 1e-4 * max(1, max|g|) of autograd through the plain
+    loss under the cotangent ``dloss``, on the programs ``tok``. Returns both
+    errors."""
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain, pack_lm_weights,
+        param_leaves,
+    )
+
+    packed = pack_lm_weights(params)
+    loss_k = lm_forward_cuda(packed, spec, tok)
+    loss_p = lm_loss_plain(params, spec, tok)
+    torch.cuda.synchronize()
+    k3f_err = float((loss_k - loss_p).abs().max())
+    pad_row = f"; all-pad row {float(loss_k[1]):.4f}" if not bool(tok[1].any()) else ""
+    log(f"[K3f{tag}] per-example loss vs plain: max |err| {k3f_err:.3e} (mean loss "
+        f"{float(loss_p.mean()):.4f}{pad_row})")
+    check(bool(torch.isfinite(loss_k).all()), f"K3f{tag} loss not finite")
+    check(k3f_err <= 1e-4, f"K3f{tag} error {k3f_err}")
+    names = ["embedding", "projection"] + [
+        f"encoder[{l}].{n}" for l in range(spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    k3b_err = 0.0
+    for name, got, want in zip(names, param_leaves(lm_backward_cuda(packed, spec, tok, dloss)),
+                               param_leaves(lm_grads_plain(params, spec, tok, dloss))):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        log(f"[K3b{tag}] {name:18s} {tuple(want.shape)}: max |err| {err:.3e}, max |grad| "
+            f"{scale:.3e}")
+        check(err <= 1e-4 * max(1.0, scale), f"K3b{tag} {name} error {err}")
+        k3b_err = max(k3b_err, err)
+    return k3f_err, k3b_err
+
+
 def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     r"""Phase 6: kernels K3f and K3b against their plain versions at full
     program_prior width, the trainer on the card (launch counts, falling
@@ -565,7 +691,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain, pack_lm_weights,
-        param_leaves, tf_sweep_plan,
+        tf_sweep_plan,
     )
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
     from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
@@ -593,24 +719,8 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     tok_np = train_set.get_batch(np.arange(batch))["program"]
     tok = torch.from_numpy(tok_np).to(dev)
     packed = pack_lm_weights(init)
-    loss_k = lm_forward_cuda(packed, spec, tok)
-    loss_p = lm_loss_plain(init, spec, tok)
-    torch.cuda.synchronize()
-    k3f_err = float((loss_k - loss_p).abs().max())
-    log(f"[K3f] per-example loss vs plain: max |err| {k3f_err:.3e} (mean loss "
-        f"{float(loss_p.mean()):.4f}; all-pad row {float(loss_k[1]):.4f})")
-    check(bool(torch.isfinite(loss_k).all()), "K3f loss not finite")
-    check(k3f_err <= 1e-4, f"K3f error {k3f_err}")
     dloss = (torch.rand(batch, generator=gen) + 0.5).to(dev)
-    names = ["embedding", "projection"] + [
-        f"encoder[{l}].{n}" for l in range(spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")]
-    k3b_err = 0.0
-    for name, got, want in zip(names, param_leaves(lm_backward_cuda(packed, spec, tok, dloss)),
-                               param_leaves(lm_grads_plain(init, spec, tok, dloss))):
-        err, scale = float((got - want).abs().max()), float(want.abs().max())
-        log(f"[K3b] {name:18s} {tuple(want.shape)}: max |err| {err:.3e}, max |grad| {scale:.3e}")
-        check(err <= 1e-4 * max(1.0, scale), f"K3b {name} error {err}")
-        k3b_err = max(k3b_err, err)
+    k3f_err, k3b_err = k3_against_plain(torch, init, spec, tok, dloss)
 
     # Each layer's recurrence is one forward sweep, in K3f and in K3b's replay.
     L, T = spec.num_layers, tok_np.shape[1] + 1
@@ -748,6 +858,103 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     ]
 
 
+def qc_passes(params, pg_spec, qr_spec, questions, programs, n_sup, z):
+    r"""The four K4 passes of a question_coding step on a batch whose first
+    ``n_sup`` rows are supervised: supervised ProgramGenerator and
+    QuestionReconstructor, the generator in REINFORCE mode at the sampled
+    ``z``, the reconstructor from ``z``."""
+    pg, qr = params["program_generator"], params["question_reconstructor"]
+    return [
+        ("pg_sup", pg, pg_spec, questions[:n_sup], programs[:n_sup], False),
+        ("qr_sup", qr, qr_spec, programs[:n_sup], questions[:n_sup], False),
+        ("pg_z", pg, pg_spec, questions[n_sup:], z, True),
+        ("qr_z", qr, qr_spec, z, questions[n_sup:], False),
+    ]
+
+
+def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, dloss):
+    r"""One K4 pass against its plain version: K4f's per-example loss within
+    1e-4 and equal to the lean forward's, every K4b gradient leaf (from the
+    residuals K4f kept) within 1e-4 * max(1, max|g|) of autograd under the
+    cotangent ``dloss``, K4f + K4b bitwise repeatable. Returns K4f's error,
+    K4b's largest leaf error, the packed weights and the residuals' bytes."""
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        pack_tf_weights, tf_backward_cuda, tf_forward_cuda, tf_grads_plain, tf_loss_plain,
+        tf_param_leaves,
+    )
+
+    leaf_names = ["source_embedding", "target_embedding"] + [
+        f"encoder[{l}].{n}" for l in range(spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")
+    ] + [f"decoder_cell.{n}" for n in ("w_ih", "w_hh", "b_ih", "b_hh")] + ["proj.w", "proj.b"]
+    packed = pack_tf_weights(params, spec)
+    lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
+    loss_k, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    residual_bytes = residuals.nbytes
+    loss_p = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
+    torch.cuda.synchronize()
+    err = float((loss_k - loss_p).abs().max())
+    log(f"[K4f {name}] B={src.shape[0]} S={src.shape[1] + 1} T={tgt.shape[1] + (0 if reinforce_norm else 1)} "
+        f"V={spec.target_vocab_size}: max |loss err| {err:.3e} (mean loss {float(loss_p.mean()):.4f}); "
+        f"residuals kept for K4b {residual_bytes / 1e6:.1f} MB")
+    check(torch.equal(lean, loss_k), f"K4f {name}: the lean and the keeping forward differ")
+    check(bool(torch.isfinite(loss_k).all()), f"K4f {name} loss not finite")
+    check(err <= 1e-4, f"K4f {name} error {err}")
+    got = tf_param_leaves(tf_backward_cuda(residuals, dloss))
+    loss_again, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    again = tf_param_leaves(tf_backward_cuda(residuals, dloss))
+    want = tf_param_leaves(tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm))
+    check(torch.equal(loss_k, loss_again) and all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K4f + K4b {name} are not bitwise repeatable")
+    worst = (0.0, 0.0, "")
+    for leaf, g, w in zip(leaf_names, got, want):
+        e, scale = float((g - w).abs().max()), float(w.abs().max())
+        check(e <= 1e-4 * max(1.0, scale), f"K4b {name} {leaf} error {e} (max |g| {scale})")
+        worst = max(worst, (e, scale, leaf))
+    log(f"[K4b {name}] every leaf within 1e-4 * max(1, max|g|); worst {worst[2]}: max |err| "
+        f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; K4f + K4b bitwise repeatable")
+    return err, worst[0], packed, residual_bytes
+
+
+def objective_against_cpu(torch, card, cpu, batch, z, baseline0, tag="qc"):
+    r"""``question_coding_objective`` of the trainer ``card`` against the same
+    call of ``cpu`` (the plain versions, from the same parameters) on
+    ``batch`` at the card's sampled ``z``: total, logs and baseline within
+    1e-4 (of max(1, |value|)), every gradient leaf within 1e-4 * max(1,
+    max|g|). Leaves both trainers' gradients at zero. Returns the total's
+    difference and the worst leaf's ratio."""
+    from probnmn_tpu_torch.training._trainer import tree_leaves
+
+    out = []
+    for trainer in (card, cpu):
+        trainer._optimizer.zero_grad()
+        on = {k: v.to(trainer.device) if isinstance(v, torch.Tensor) else v
+              for k, v in batch.items()}
+        total, baseline, logs = trainer.question_coding_objective(
+            trainer.params, on, z.to(trainer.device), baseline0.to(trainer.device))
+        total.backward()
+        out.append((float(total.detach()), float(baseline), logs,
+                    [p.grad.detach().cpu().clone() for p in tree_leaves(trainer.params)]))
+        trainer._optimizer.zero_grad()
+    (total, new_baseline, logs, card_grads), (total_c, baseline_c, logs_c, cpu_grads) = out
+    loss_diff = abs(total - total_c)
+    log(f"[{tag}] objective at the card's z, card vs CPU: total {total:.6f} / {total_c:.6f} "
+        f"(|diff| {loss_diff:.2e}), baseline {new_baseline:.6f} / {baseline_c:.6f}")
+    check(loss_diff <= 1e-4 * max(1.0, abs(total_c)), f"{tag}: card vs CPU objective")
+    check(abs(new_baseline - baseline_c) <= 1e-4, f"{tag}: card vs CPU baseline")
+    for group, values in logs_c.items():
+        for key, value in values.items():
+            check(abs(float(logs[group][key]) - float(value)) <= 1e-4 * max(1.0, abs(float(value))),
+                  f"{tag}: card vs CPU log {group}/{key}")
+    grad_err = 0.0
+    for index, (g, want) in enumerate(zip(card_grads, cpu_grads)):
+        err, scale = float((g - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-4 * max(1.0, scale), f"{tag}: card vs CPU gradient of leaf {index}: {err}")
+        grad_err = max(grad_err, err / max(1.0, scale))
+    log(f"[{tag}]   every log within 1e-4; every gradient leaf within 1e-4 * max(1, max|g|) "
+        f"(worst ratio {grad_err:.3e})")
+    return loss_diff, grad_err
+
+
 def tf_work(spec, src, tgt, reinforce_norm, residual_bytes):
     r"""FLOPs and bytes K4f and K4b need for one pass over these tokens: the
     encoder over each row's valid source steps (len + 1), the decoder (its
@@ -798,8 +1005,8 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     from probnmn_tpu_torch.evaluators.question_coding_evaluator import QuestionCodingEvaluator
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
-        lm_backward_cuda, lm_forward_cuda, pack_tf_weights, tf_backward_cuda, tf_forward_cuda,
-        tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_sweep_plan,
+        lm_backward_cuda, lm_forward_cuda, tf_backward_cuda, tf_forward_cuda, tf_grads_plain,
+        tf_loss_plain, tf_sweep_plan,
     )
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
     from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
@@ -840,51 +1047,17 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
         f"{int((z_np != 0).sum(1).min())}-{int((z_np != 0).sum(1).max())}, "
         f"{int((z_np == 0).all(1).sum())} all pad, {int((z_np == pg_spec.end_index).any(1).sum())} "
         f"with @end@")
-    pg, qr = init["program_generator"], init["question_reconstructor"]
-    passes = [
-        ("pg_sup", pg, pg_spec, questions[:n_sup], programs[:n_sup], False),
-        ("qr_sup", qr, qr_spec, programs[:n_sup], questions[:n_sup], False),
-        ("pg_z", pg, pg_spec, questions[n_sup:], z, True),
-        ("qr_z", qr, qr_spec, z, questions[n_sup:], False),
-    ]
-    leaf_names = ["source_embedding", "target_embedding"] + [
-        f"encoder[{l}].{n}" for l in range(pg_spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")
-    ] + [f"decoder_cell.{n}" for n in ("w_ih", "w_hh", "b_ih", "b_hh")] + ["proj.w", "proj.b"]
+    passes = qc_passes(init, pg_spec, qr_spec, questions, programs, n_sup, z)
     k4f_err = k4b_err = 0.0
     checked = []
     kernels = ("lstm_fwd_sweep", "lstm_fwd_step", "tf_attend", "lstm_bwd_sweep", "lstm_bwd_step")
     sweep_points = {"lstm_fwd_sweep": [], "lstm_bwd_sweep": []}  # (S, µs) of each launch
     plans = {}
     for name, params, spec, src, tgt, reinforce_norm in passes:
-        packed = pack_tf_weights(params, spec)
-        lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
-        loss_k, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
-        residual_bytes = residuals.nbytes
-        loss_p = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
-        torch.cuda.synchronize()
-        err = float((loss_k - loss_p).abs().max())
-        log(f"[K4f {name}] B={src.shape[0]} S={src.shape[1] + 1} T={tgt.shape[1] + (0 if reinforce_norm else 1)} "
-            f"V={spec.target_vocab_size}: max |loss err| {err:.3e} (mean loss {float(loss_p.mean()):.4f}); "
-            f"residuals kept for K4b {residual_bytes / 1e6:.1f} MB")
-        check(torch.equal(lean, loss_k), f"K4f {name}: the lean and the keeping forward differ")
-        check(bool(torch.isfinite(loss_k).all()), f"K4f {name} loss not finite")
-        check(err <= 1e-4, f"K4f {name} error {err}")
-        k4f_err = max(k4f_err, err)
         dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
-        got = tf_param_leaves(tf_backward_cuda(residuals, dloss))
-        loss_again, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
-        again = tf_param_leaves(tf_backward_cuda(residuals, dloss))
-        want = tf_param_leaves(tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm))
-        check(torch.equal(loss_k, loss_again) and all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"K4f + K4b {name} are not bitwise repeatable")
-        worst = (0.0, 0.0, "")
-        for leaf, g, w in zip(leaf_names, got, want):
-            e, scale = float((g - w).abs().max()), float(w.abs().max())
-            check(e <= 1e-4 * max(1.0, scale), f"K4b {name} {leaf} error {e} (max |g| {scale})")
-            worst = max(worst, (e, scale, leaf))
-            k4b_err = max(k4b_err, e)
-        log(f"[K4b {name}] every leaf within 1e-4 * max(1, max|g|); worst {worst[2]}: max |err| "
-            f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; K4f + K4b bitwise repeatable")
+        err, e, packed, residual_bytes = k4_pass_against_plain(torch, name, params, spec, src, tgt,
+                                                               reinforce_norm, dloss)
+        k4f_err, k4b_err = max(k4f_err, err), max(k4b_err, e)
         # K4f and K4b alone under the profiler: one encoder sweep a layer each
         # way; the decoder a step launch a step, K4b no forward kernel.
         S, L = src.shape[1] + 1, spec.num_layers
@@ -918,34 +1091,9 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
             f"{sorted({p[0] for p in points})}: a = {a:.2f} µs, b = {b:.3f} µs a step")
 
     # The objective on the card against the same call on the CPU at the card's z.
-    baseline0 = torch.tensor(0.25, device=dev)
-    total, new_baseline, logs = trainer.question_coding_objective(trainer.params, batch, z, baseline0)
-    total.backward()
-    card_grads = [p.grad.detach().clone() for p in tree_leaves(trainer.params)]
-    trainer._optimizer.zero_grad()
     cpu = make_trainer("cpu", "cpu_run")
     copy_into(cpu.params, init)
-    cpu_batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
-    total_c, baseline_c, logs_c = cpu.question_coding_objective(cpu.params, cpu_batch, z.cpu(),
-                                                                baseline0.cpu())
-    total_c.backward()
-    loss_diff = abs(float(total.detach()) - float(total_c.detach()))
-    log(f"[qc] objective at the card's z, card vs CPU: total {float(total.detach()):.6f} / "
-        f"{float(total_c.detach()):.6f} (|diff| {loss_diff:.2e}), baseline {float(new_baseline):.6f} / "
-        f"{float(baseline_c):.6f}")
-    check(loss_diff <= 1e-4 * max(1.0, abs(float(total_c.detach()))), "card vs CPU objective")
-    check(abs(float(new_baseline) - float(baseline_c)) <= 1e-4, "card vs CPU baseline")
-    for group, values in logs_c.items():
-        for key, value in values.items():
-            check(abs(float(logs[group][key]) - float(value)) <= 1e-4 * max(1.0, abs(float(value))),
-                  f"card vs CPU log {group}/{key}")
-    grad_err = 0.0
-    for index, (g, leaf) in enumerate(zip(card_grads, tree_leaves(cpu.params))):
-        err, scale = float((g.cpu() - leaf.grad).abs().max()), float(leaf.grad.abs().max())
-        check(err <= 1e-4 * max(1.0, scale), f"card vs CPU gradient of leaf {index}: {err}")
-        grad_err = max(grad_err, err / max(1.0, scale))
-    log(f"[qc]   every log within 1e-4; every gradient leaf within 1e-4 * max(1, max|g|) (worst "
-        f"ratio {grad_err:.3e})")
+    objective_against_cpu(torch, trainer, cpu, batch, z, torch.tensor(0.25, device=dev))
 
     # The trainer on the card: K4f and K4b four times a step, K1 and K3f once.
     steps = 20
@@ -1193,6 +1341,78 @@ def weight_grad_check(torch, ws, banks, spec):
     return err, empty
 
 
+def k5_k6_against_plain(torch, gen, name, dtype, params, spec, tables, feats, programs,
+                        tag=""):
+    r"""K5 and K6 in ``dtype`` on the NMN ``params`` over ``feats`` (through
+    the stem) and ``programs``: K5's final and flags equal K2's bit for bit
+    and the plain version's within K2's tolerances; every K6 leaf within
+    ``K6_TOL`` * max(1, max|g|) of autograd through the plain version under a
+    random cotangent drawn from ``gen`` (``interpreter_grads_plain_by_row``),
+    bitwise repeatable, dx 0 on invalid rows; its weight-gradient kernel and
+    conv input gradients within ``WS_TOL`` of float64 sums over its
+    workspace, and of ``weight_grad_plain``. Returns what it ran and found."""
+    from probnmn_tpu_torch.models import nmn
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
+        execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain_by_row,
+        workspace_errors,
+    )
+
+    batch = len(programs)
+    stem = nmn.apply_stem(cast_params(params["stem"], dtype), feats.to(dtype)).contiguous()
+    banks = build_banks(params, spec, dtype)
+    final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
+    out2, inv2 = execute_programs_kernel(banks, tables, spec, stem, programs)
+    want, want_inv = execute_programs_plain(banks, tables, spec, stem, programs)
+    torch.cuda.synchronize()
+    check(torch.equal(final, out2) and torch.equal(invalid, inv2), f"K5{tag} {name} differs from K2")
+    check(torch.equal(invalid, want_inv), f"K5{tag} {name} invalid flags differ")
+    err = float((final.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale),
+          f"K5{tag} {name} error {err}")
+    g = torch.randn(final.shape, generator=gen).to(final.device).to(dtype).float()
+    ws = {}
+    d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                               otraj, atraj, workspace=ws)
+    again_banks, again_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs,
+                                                       invalid, g, otraj, atraj)
+    w_banks, w_stem, alone = interpreter_grads_plain_by_row(banks, tables, spec, stem, programs,
+                                                            g, d_stem, K6_TOL[name])
+    torch.cuda.synchronize()
+    check(torch.equal(d_stem, again_stem) and all(
+        torch.equal(d_banks[k], again_banks[k]) for k in DIFF_BANKS), f"K6{tag} {name} bits differ")
+    check(not bool(invalid.any()) or float(d_stem[invalid].float().abs().max()) == 0.0,
+          f"K6{tag} {name} dx on invalid rows")
+    worst = (0.0, 0.0, 0.0, "")
+    for leaf, got, ref in [("stem", d_stem, w_stem)] + [(k, d_banks[k], w_banks[k])
+                                                         for k in DIFF_BANKS]:
+        e, sc = float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+        worst = max(worst, (e / max(1.0, sc), e, sc, leaf))
+        check(e <= K6_TOL[name] * max(1.0, sc), f"K6{tag} {name} {leaf} error {e} (max |g| {sc})")
+    tight = workspace_errors(ws, banks, tables, spec)
+    check(tight["weight_grad"] <= WS_TOL and tight["input_grad"] <= WS_TOL,
+          f"K6{tag} {name} against float64 sums over its own workspace: {tight}")
+    wg_err, wg_empty = weight_grad_check(torch, ws, banks, spec)
+    log(f"[K5{tag} {name}] B={batch}: equal to K2 bit for bit; invalid {int(invalid.sum())}/{batch} "
+        f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e})")
+    log(f"[K6{tag} {name}] rows held to the plain version run alone, with the ReLU outputs whose "
+        f"sign the batched plain forward flips against K5's: {alone or 'none'}")
+    log(f"[K6{tag} {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
+        f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
+        f"{worst[2]:.3e} (ratio {worst[0]:.3e}); bitwise repeatable; dx 0 on invalid rows")
+    log(f"[K6{tag} {name}] against float64 sums over its own {tight['entries']} workspace entries "
+        f"(error over the sum of |products|, limit {WS_TOL}): weight-gradient kernel "
+        f"{tight['weight_grad']:.3e}; conv input gradients of {tight['chained']} chained "
+        f"entries {tight['input_grad']:.3e}")
+    log(f"[K6{tag} {name}] weight-gradient kernel against weight_grad_plain on the same entries "
+        f"(error over the sum of |products|, limit {WS_TOL}): {wg_err:.3e}; {wg_empty} targets "
+        f"without entries exactly 0")
+    return dict(banks=banks, stem=stem, invalid=invalid, otraj=otraj, atraj=atraj, g=g, ws=ws,
+                err=err, worst=worst[1], tight=tight, wg_err=wg_err)
+
+
 def weight_grad_work(ws, banks, spec, itemsize):
     r"""FLOPs and bytes K6's weight-gradient stage needs for the entries in
     its workspace ``ws``: 2 * C * C for each pixel a tap of an entry reads
@@ -1263,12 +1483,11 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     from probnmn_tpu_torch.config import Config
     from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset
     from probnmn_tpu_torch.evaluators.module_training_evaluator import ModuleTrainingEvaluator
-    from probnmn_tpu_torch.models import nmn, program_generator
-    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.models import program_generator
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
-        DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
+        DIFF_BANKS, execute_programs_kernel, execute_programs_plain,
         execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
-        interpreter_grads_plain_by_row, weight_grad_kernel, workspace_errors,
+        weight_grad_kernel,
     )
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
@@ -1323,60 +1542,16 @@ def train_module_training(np, torch, dev, gen, vocab, smi, qc_ckpt, mt_out):
     feats = torch.randn(batch, spec.height, spec.width, spec.feature_channels, generator=gen).to(dev)
     errs, timed = {}, {}
     for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        stem = nmn.apply_stem(cast_params(init["stem"], dtype), feats.to(dtype)).contiguous()
-        banks = build_banks(init, spec, dtype)
-        final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
-        out2, inv2 = execute_programs_kernel(banks, tables, spec, stem, programs)
-        want, want_inv = execute_programs_plain(banks, tables, spec, stem, programs)
-        torch.cuda.synchronize()
-        check(torch.equal(final, out2) and torch.equal(invalid, inv2), f"K5 {name} differs from K2")
-        check(torch.equal(invalid, want_inv), f"K5 {name} invalid flags differ")
+        checked = k5_k6_against_plain(torch, gen, name, dtype, init, spec, tables, feats, programs)
+        invalid, ws = checked["invalid"], checked["ws"]
         check(not bool(invalid[:batch - 8].any()) and bool(invalid[-2]) and not bool(invalid[-1]),
               f"K5 {name} invalid/all-pad rows")
-        err = float((final.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        check(err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale),
-              f"K5 {name} error {err}")
-        g = torch.randn(final.shape, generator=gen).to(dev).to(dtype).float()
-        ws = {}
-        d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
-                                                   otraj, atraj, workspace=ws)
-        again_banks, again_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs,
-                                                           invalid, g, otraj, atraj)
-        w_banks, w_stem, alone = interpreter_grads_plain_by_row(banks, tables, spec, stem, programs,
-                                                                g, d_stem, K6_TOL[name])
-        torch.cuda.synchronize()
-        check(torch.equal(d_stem, again_stem) and all(
-            torch.equal(d_banks[k], again_banks[k]) for k in DIFF_BANKS), f"K6 {name} bits differ")
-        check(float(d_stem[invalid].float().abs().max()) == 0.0, f"K6 {name} dx on invalid rows")
-        worst = (0.0, 0.0, 0.0, "")
-        for leaf, got, ref in [("stem", d_stem, w_stem)] + [(k, d_banks[k], w_banks[k])
-                                                             for k in DIFF_BANKS]:
-            e, sc = float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
-            worst = max(worst, (e / max(1.0, sc), e, sc, leaf))
-            check(e <= K6_TOL[name] * max(1.0, sc), f"K6 {name} {leaf} error {e} (max |g| {sc})")
-        tight = workspace_errors(ws, banks, tables, spec)
-        check(tight["weight_grad"] <= WS_TOL and tight["input_grad"] <= WS_TOL,
-              f"K6 {name} against float64 sums over its own workspace: {tight}")
-        wg_err, wg_empty = weight_grad_check(torch, ws, banks, spec)
         chunk, partial = weight_grad_memory(ws, spec.module_channels)
-        errs[name] = (err, worst[1], tight, wg_err)
-        log(f"[K5 {name}] B={batch}: equal to K2 bit for bit; invalid {int(invalid.sum())}/{batch} "
-            f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e})")
-        log(f"[K6 {name}] rows held to the plain version run alone, with the ReLU outputs whose "
-            f"sign the batched plain forward flips against K5's: {alone or 'none'}")
-        log(f"[K6 {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
-            f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
-            f"{worst[2]:.3e} (ratio {worst[0]:.3e}); bitwise repeatable; dx 0 on invalid rows")
-        log(f"[K6 {name}] against float64 sums over its own {tight['entries']} workspace entries "
-            f"(error over the sum of |products|, limit {WS_TOL}): weight-gradient kernel "
-            f"{tight['weight_grad']:.3e}; conv input gradients of {tight['chained']} chained "
-            f"entries {tight['input_grad']:.3e}")
-        log(f"[K6 {name}] weight-gradient kernel against weight_grad_plain on the same entries "
-            f"(error over the sum of |products|, limit {WS_TOL}): {wg_err:.3e}; {wg_empty} targets "
-            f"without entries exactly 0; chunks of {chunk} entries, partials {partial / 1e6:.1f} MB")
-        timed[name] = (banks, stem, invalid, otraj, atraj, g)
-        wg_work = (weight_grad_work(ws, banks, spec, stem.element_size()), partial)
+        errs[name] = (checked["err"], checked["worst"], checked["tight"], checked["wg_err"])
+        log(f"[K6 {name}] chunks of {chunk} entries, partials {partial / 1e6:.1f} MB")
+        timed[name] = tuple(checked[k] for k in ("banks", "stem", "invalid", "otraj", "atraj", "g"))
+        wg_work = (weight_grad_work(ws, checked["banks"], spec, checked["stem"].element_size()),
+                   partial)
 
     # The trainer on the card in two regimes: K1, K5 and K6 (its sweep and its
     # weight-gradient stage) once a step, K2 never.
@@ -1926,6 +2101,206 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
     ]
 
 
+# Phase 10's kernels: the kernels' JSON names and their launch counters.
+MINI_CLEVR_COUNTERS = (
+    ("seq2seq_decode", "seq2seq_decode", "fused_sampling_forward"),
+    ("k1_encoder_sweep", "seq2seq_decode", "sampling_encode"),
+    ("nmn_interpreter", "nmn_interpreter", "execute_programs_kernel"),
+    ("nmn_plan", "nmn_interpreter", "interpreter_plan"),
+    ("lm_forward", "seq2seq_train", "lm_forward_cuda"),
+    ("lm_backward", "seq2seq_train", "lm_backward_cuda"),
+    ("tf_forward", "seq2seq_train", "tf_forward_cuda"),
+    ("tf_backward", "seq2seq_train", "tf_backward_cuda"),
+    ("nmn_train_forward", "nmn_interpreter", "execute_programs_train_kernel"),
+    ("nmn_backward", "nmn_interpreter", "interpreter_grads_kernel"),
+    ("nmn_weight_grad", "nmn_interpreter", "weight_grad_kernel"),
+)
+
+
+def mini_clevr_against_plain(np, torch, argv):
+    r"""Phase 10's kernels against their plain versions on the card, on what
+    the runner of ``argv`` feeds them, from the best checkpoints it wrote:
+    one question_coding batch (K1 and its encoder sweeps on the unsupervised
+    questions; the four K4 passes at the z K1 sampled; K3f and K3b on that z
+    under the frozen prior; the objective against the CPU's) and one
+    module_training batch (the plan, K2, K5 and K6 in both dtypes, half the
+    rows at the programs the trained generator sampled and half at the
+    task's own, over its 16-channel features), each at its phase's
+    tolerances. Returns the largest error of
+    each kernel by its JSON name (bfloat16 where the path runs it)."""
+    from probnmn_tpu_torch import mini_clevr_run
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.pipeline import image_to_nhwc
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        interpreter_plan, interpreter_plan_plain,
+    )
+    from probnmn_tpu_torch.training._trainer import tree_map
+    from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    run = mini_clevr_run.MiniClevrRun(mini_clevr_run.parser.parse_args(argv))
+    gen = torch.Generator().manual_seed(10)
+
+    def trained(phase, device=None):
+        r"""The phase's trainer at its best checkpoint, on the card or ``device``."""
+        on = run if device is None else mini_clevr_run.MiniClevrRun(
+            mini_clevr_run.parser.parse_args(argv + ["--device", device]))
+        sdir = run.phase_dir(phase)
+        trainer, _, _ = on.build(phase, Config(os.path.join(sdir, "mini_config.yml")),
+                                 RecordingWriter())
+        trainer.load_checkpoint(os.path.join(sdir, "checkpoint_best.ckpt"))
+        return trainer
+
+    errs = {}
+    qc = trained("question_coding")
+    pg_spec = qc.pg_spec
+    batch = next(qc._batches)
+    n_sup = batch[COUNT_KEY]
+    questions, programs = batch["question"], batch["program"]
+    unsup = questions[n_sup:]
+    noise = -torch.log(-torch.log(torch.rand(pg_spec.max_decoding_steps, len(unsup),
+                                             pg_spec.target_vocab_size,
+                                             generator=gen).clamp_min(1e-12)))
+    params = tree_map(lambda t: t.detach(), qc.params)
+    pg = params["program_generator"]
+    errs["seq2seq_decode"] = k1_against_plain(torch, pg, pg_spec, unsup, noise.to(unsup.device),
+                                              tag="K1 mini-CLEVR")["bfloat16"]
+    errs["k1_encoder_sweep"] = k1_encoder_against_plain(
+        torch, pg, pg_spec, unsup, tag="K1 encoder mini-CLEVR")[0]["bfloat16"]
+    z = qc.sample_programs(unsup)
+    torch.cuda.synchronize()
+    log(f"[mini-clevr] question_coding batch: {n_sup} supervised, {len(unsup)} unsupervised; "
+        f"questions {tuple(questions.shape)}, programs {tuple(programs.shape)}, z "
+        f"{tuple(z.shape)} ({int((z == pg_spec.end_index).any(1).sum())} with @end@)")
+    errs["tf_forward"] = errs["tf_backward"] = 0.0
+    for name, weights, spec, src, tgt, reinforce_norm in qc_passes(
+            params, pg_spec, qc.qr_spec, questions, programs, n_sup, z):
+        dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(src.device)
+        err, e, _, _ = k4_pass_against_plain(torch, f"mini-CLEVR {name}", weights, spec, src, tgt,
+                                             reinforce_norm, dloss)
+        errs["tf_forward"], errs["tf_backward"] = (max(errs["tf_forward"], err),
+                                                   max(errs["tf_backward"], e))
+    dloss = (torch.rand(len(z), generator=gen) + 0.5).to(z.device)
+    errs["lm_forward"], errs["lm_backward"] = k3_against_plain(
+        torch, qc.prior_params, qc.prior_spec, z, dloss, tag=" mini-CLEVR")
+    cpu = trained("question_coding", "cpu")
+    objective_against_cpu(torch, qc, cpu, batch, z, qc.baseline.detach(), tag="mini-clevr qc")
+    del qc, cpu
+
+    mt = trained("module_training")
+    nmn_params = tree_map(lambda t: t.detach(), mt.params["nmn"])
+    batch = next(mt._batches)
+    # The first half of the rows at the programs the trained generator
+    # sampled, the rest at the task's own programs, which all run.
+    sampled = mt.sample_programs(batch["question"])
+    half = len(sampled) // 2
+    gold = torch.zeros_like(sampled)
+    gold[:, :batch["program"].shape[1]] = batch["program"]
+    programs = torch.cat([sampled[:half], gold[half:]])
+    feats = image_to_nhwc(batch["image"])
+    plan_convs, plan_order = interpreter_plan(mt.tables, programs)
+    want_convs, want_order = interpreter_plan_plain(mt.tables, programs)
+    errs["nmn_plan"] = float((plan_convs - want_convs).abs().max())
+    check(errs["nmn_plan"] == 0 and torch.equal(plan_order, want_order),
+          "mini-CLEVR: the plan kernel differs from its plain version")
+    log(f"[mini-clevr] module_training batch: programs {tuple(programs.shape)}, {half} sampled "
+        f"by K1 ({int(want_convs[:half].sum())} 3x3 convs), the rest the task's "
+        f"({int(want_convs[half:].sum())}), the longest {int(want_convs.max())}; features "
+        f"{tuple(feats.shape)} (NHWC); the plan equal to its plain version")
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        checked = k5_k6_against_plain(torch, gen, name, dtype, nmn_params, mt.nmn_spec,
+                                      mt.tables, feats, programs, tag=" mini-CLEVR")
+        if dtype == torch.bfloat16:
+            errs["nmn_interpreter"] = errs["nmn_train_forward"] = checked["err"]
+            errs["nmn_backward"] = checked["worst"]
+    return errs
+
+
+def train_mini_clevr(np, torch):
+    r"""Phase 10: the mini-CLEVR runner's four phases on the card at
+    production geometry, a few steps each, then the path's kernels against
+    their plain versions on its batches. Returns the launches of each kernel
+    of the path (by its JSON name) in that run, and the kernels' errors."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch import mini_clevr_run
+    from probnmn_tpu_torch.training import _trainer
+
+    counters = {name: getattr(importlib.import_module(f"probnmn_tpu_torch.ops.kernels.{module}"),
+                              fn) for name, module, fn in MINI_CLEVR_COUNTERS}
+    work = tempfile.mkdtemp(prefix="chip_smoke_mc_")
+    runs = os.path.join(work, "runs")
+    argv = ["--device", "cuda", "--seed", "0", "--train-images", "400", "--val-images", "160",
+            "--supervision", "200", "--iters", "40", "40", "40", "40", "--checkpoint-every", "20",
+            "--resume-split-phase", "module_training", "--hparam", "ALPHA", "500.0",
+            "--root", os.path.join(work, "data"), "--runs", runs,
+            "--report", os.path.join(work, "report.md"),
+            "--report-json", os.path.join(work, "report.json")]
+    frozen = []
+    load_objects = _trainer.load_objects
+
+    def record_frozen(path, templates):
+        frozen.append((os.path.relpath(path, runs), sorted(templates)))
+        return load_objects(path, templates)
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["nmn_backward"].replay_launches = 0
+    _trainer.load_objects = record_frozen
+    t0 = time.perf_counter()
+    try:
+        report = mini_clevr_run.main(mini_clevr_run.parser.parse_args(argv))
+    finally:
+        _trainer.load_objects = load_objects
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["nmn_backward_replay"] = counters["nmn_backward"].replay_launches
+
+    data = report["data"]
+    log(f"[mini-clevr] {data['train_examples']} train / {data['val_examples']} val questions over "
+        f"400 / 160 images of (16, 14, 14), made in {data['generate_s']:.2f} s; the chain "
+        f"{wall:.1f} s; launches {launches}")
+    phases = report["phases"]
+    check(list(phases) == mini_clevr_run.PHASE_ORDER, f"phases {list(phases)}")
+    for phase, entry in phases.items():
+        model, metric, _, _ = mini_clevr_run.THRESHOLDS[phase]
+        log(f"[mini-clevr] {phase}: {metric} {entry['value']:.4f} (best at {entry['best_iteration']}), "
+            f"{entry['steps']} steps, train {entry['train_s']:.2f} s, {entry['steps_per_s']:.2f} "
+            f"steps/s ({1e3 * entry['step_s'] / entry['steps']:.2f} ms a step), eval "
+            f"{entry['eval_s']:.2f} s; all: {json.dumps(entry['metrics'])}")
+        check(entry["steps"] == 40 and entry["nonfinite_steps"] == 0,
+              f"{phase}: {entry['steps']} steps, {entry['nonfinite_steps']} with non-finite logs")
+        check(np.isfinite([v for d in entry["metrics"].values() for v in d.values()]).all(),
+              f"{phase} metrics {entry['metrics']}")
+        wanted = {model} | ({"nmn_free_greedy"} if phase in mini_clevr_run.NMN_PHASES else set())
+        check(wanted <= set(entry["metrics"]), f"{phase} metrics {sorted(entry['metrics'])}")
+        trajectory = report["val_trajectories"][phase][f"val/metrics/{model}/{metric}"]
+        check([it for it, _ in trajectory] == [19, 39], f"{phase} trajectory {trajectory}")
+        best = os.path.join(runs, phase, "checkpoint_best.ckpt")
+        best_iteration = torch.load(best, map_location="cpu", weights_only=True, mmap=True)[
+            "iteration"]
+        check(best_iteration == entry["best_iteration"], f"{phase}: best file at {best_iteration}")
+    legs = phases["module_training"]["legs"]
+    check([(leg["start"], leg["end"]) for leg in legs] == [(0, 20), (20, 40)]
+          and legs[1]["resumed_from"] == os.path.join(runs, "module_training",
+                                                      "checkpoint_19.ckpt"),
+          f"module_training legs {legs}")
+    best = {p: os.path.join(p, "checkpoint_best.ckpt") for p in mini_clevr_run.PHASE_ORDER}
+    for path, names in ((best["program_prior"], ["program_prior"]),
+                        (best["question_coding"], ["program_generator"]),
+                        (best["question_coding"], ["question_reconstructor"]),
+                        (best["module_training"], ["nmn"])):
+        check((path, names) in frozen, f"{names} not read from {path}: {frozen}")
+    check(all(n > 0 for name, n in launches.items() if name != "nmn_backward_replay"),
+          f"a kernel of the mini-CLEVR path never launched: {launches}")
+    check(launches["nmn_backward_replay"] == 0, f"K6's replay mode ran: {launches}")
+    errs = mini_clevr_against_plain(np, torch, argv)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, errs
+
+
 def main():
     import numpy as np
     import torch
@@ -1945,7 +2320,7 @@ def main():
     )
     from probnmn_tpu_torch.models.seq2seq import _encode
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
-        encoder_plan, fused_sampling_forward, pack_weights, philox_gumbel, sampling_encode,
+        fused_sampling_forward, pack_weights, philox_gumbel, sampling_encode,
         sampling_forward_with_noise,
     )
     from probnmn_tpu_torch.serving import InferenceEngine
@@ -1985,24 +2360,7 @@ def main():
 
     # ---------------------------------------------------------------- 2. K1 vs plain
     noise = (-torch.log(-torch.log(torch.rand(T, BATCH, V, generator=gen).clamp_min(1e-12)))).to(dev)
-    k1 = {}
-    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        got = fused_sampling_forward(pg_dev, pg_spec, q_dev, noise=noise, compute_dtype=dtype)
-        want = sampling_forward_with_noise(pg_dev, pg_spec, q_dev, noise, compute_dtype=dtype)
-        torch.cuda.synchronize()
-        same_rows = (got["predictions"] == want["predictions"]).all(dim=1)
-        token_agree = float((got["predictions"] == want["predictions"]).float().mean())
-        err = float((got["logprobs"] - want["logprobs"])[same_rows].abs().max())
-        loss_err = float((got["loss"] - want["loss"])[same_rows].abs().max())
-        log(f"[K1 {name}] identical rows {int(same_rows.sum())}/{BATCH}, token agreement "
-            f"{token_agree:.4f}, max |logprob err| {err:.3e}, max |loss err| {loss_err:.3e}")
-        check(torch.isfinite(got["loss"]).all(), "K1 loss not finite")
-        k1[name] = err
-        if dtype == torch.float32:
-            check(float(same_rows.float().mean()) >= 0.99, "K1 float32 rows differ")
-            check(err <= 1e-4, f"K1 float32 logprob error {err}")
-        else:
-            check(token_agree >= 0.95, f"K1 bfloat16 token agreement {token_agree}")
+    k1 = k1_against_plain(torch, pg_dev, pg_spec, q_dev, noise)
     seed = 20261016
     p1 = fused_sampling_forward(pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=torch.bfloat16)
     p2 = fused_sampling_forward(pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=torch.bfloat16)
@@ -2023,31 +2381,7 @@ def main():
     check(philox_rows >= 0.99, "K1 Philox stream differs from the host's")
     # K1's encoder sweeps alone against the plain encoder on the card.
     L, H = pg_spec.num_layers, pg_spec.hidden_size
-    k1_enc, k1_plans = {}, {}
-    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        out, final = sampling_encode(pg_dev, pg_spec, q_dev, compute_dtype=dtype)
-        want_out, _, want_final, _ = _encode(pg_dev, pg_spec, q_dev, dtype)
-        torch.cuda.synchronize()
-        check(tuple(out.shape) == (BATCH, MAX_QUESTION_LENGTH + 1, H) and out.dtype == dtype
-              and final.dtype == torch.float32, "K1 encoder output shapes")
-        errs = []
-        for got, want, what in ((out.float(), want_out, "outputs"), (final, want_final, "final h")):
-            check(torch.isfinite(got).all(), f"K1 encoder {what} not finite")
-            scale = float(want.abs().max())
-            err = float((got - want).abs().max())
-            tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
-            check(err <= tol, f"K1 encoder {name} {what} error {err} above {tol}")
-            errs.append(f"{what} max |err| {err:.3e} (max |x| {scale:.3e}, limit {tol:.3e})")
-        k1_enc[name] = float((out.float() - want_out).abs().max())
-        k1_plans[name] = [encoder_plan(BATCH, pg_spec.input_size if l == 0 else H, H, dtype)
-                          for l in range(L)]
-        log(f"[K1 encoder {name}] sweeps vs plain encoder: " + "; ".join(errs))
-        for l, pl in enumerate(k1_plans[name]):
-            log(f"[K1 encoder {name}] layer {l} plan: n {pl['cluster']}, U {pl['units']}, R "
-                f"{pl['rows']}, {pl['threads']} threads, {pl['clusters']} clusters ({pl['fit']} at "
-                f"once), {pl['smem']} B shared, W_hh "
-                f"{'resident' if pl['w_hh_resident'] else 'streamed'}, W_ih "
-                f"{'resident' if pl['w_ih_resident'] else 'streamed'}, {pl['registers']} registers")
+    k1_enc, k1_plans = k1_encoder_against_plain(torch, pg_dev, pg_spec, q_dev)
     _, _, _, counts = trace(torch, lambda: fused_sampling_forward(
         pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=torch.bfloat16))
     k1_route = {k: launches_of(counts, k) for k in ("k1_encoder_sweep", "seq2seq_sample_kernel")}
@@ -2310,6 +2644,9 @@ def main():
                                           mt_ckpt)
     shutil.rmtree(shared, ignore_errors=True)
 
+    # ---------------------------------------------------------------- 10. mini-CLEVR
+    mini_clevr, mini_clevr_errs = train_mini_clevr(np, torch)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -2352,6 +2689,9 @@ def main():
         *module_training,
         *joint_training,
     ]
+    for entry in kernels:
+        entry["launches_mini_clevr"] = mini_clevr[entry["name"]]
+        entry["max_abs_err_mini_clevr"] = mini_clevr_errs.get(entry["name"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,15 +47,19 @@ parser.add_argument("--num-val-batches", type=int, default=256)
 
 
 def build(phase: str, config: Config, serialization_dir: str, device: str,
-          in_memory_features: bool = True):
-    r"""(trainer, evaluator) of ``phase``."""
+          in_memory_features: bool = True, writer=None, train_dataset=None, val_dataset=None):
+    r"""(trainer, evaluator) of ``phase``. ``writer`` is the trainer's scalar
+    writer (None: tensorboardX over ``serialization_dir``); ``train_dataset``
+    and ``val_dataset`` are the phase's datasets (None: read from the H5 files
+    that ``config.DATA`` names)."""
+    data = dict(writer=writer, dataset=train_dataset)
     if phase == "joint_training":
         from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
         from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
 
         trainer = JointTrainingTrainer(config, serialization_dir, device=device,
-                                       in_memory_features=in_memory_features)
-        return trainer, JointTrainingEvaluator(config, trainer,
+                                       in_memory_features=in_memory_features, **data)
+        return trainer, JointTrainingEvaluator(config, trainer, dataset=val_dataset,
                                                in_memory_features=in_memory_features)
     if phase == "module_training":
         from probnmn_tpu_torch.evaluators.module_training_evaluator import (
@@ -64,8 +68,8 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
         from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
 
         trainer = ModuleTrainingTrainer(config, serialization_dir, device=device,
-                                        in_memory_features=in_memory_features)
-        return trainer, ModuleTrainingEvaluator(config, trainer,
+                                        in_memory_features=in_memory_features, **data)
+        return trainer, ModuleTrainingEvaluator(config, trainer, dataset=val_dataset,
                                                 in_memory_features=in_memory_features)
     if phase == "question_coding":
         from probnmn_tpu_torch.evaluators.question_coding_evaluator import (
@@ -73,13 +77,13 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
         )
         from probnmn_tpu_torch.training.question_coding_trainer import QuestionCodingTrainer
 
-        trainer = QuestionCodingTrainer(config, serialization_dir, device=device)
-        return trainer, QuestionCodingEvaluator(config, trainer)
+        trainer = QuestionCodingTrainer(config, serialization_dir, device=device, **data)
+        return trainer, QuestionCodingEvaluator(config, trainer, dataset=val_dataset)
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
     from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
 
-    trainer = ProgramPriorTrainer(config, serialization_dir, device=device)
-    return trainer, ProgramPriorEvaluator(config, trainer)
+    trainer = ProgramPriorTrainer(config, serialization_dir, device=device, **data)
+    return trainer, ProgramPriorEvaluator(config, trainer, dataset=val_dataset)
 
 
 def main(args):

@@ -41,6 +41,9 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.evaluators.module_training_evaluator",
     "probnmn_tpu_torch.training.joint_training_trainer",
     "probnmn_tpu_torch.evaluators.joint_training_evaluator",
+    "probnmn_tpu_torch.data.mini_clevr",
+    "probnmn_tpu_torch.evaluate",
+    "probnmn_tpu_torch.mini_clevr_run",
 )
 
 
