@@ -174,6 +174,17 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and K6 in both dtypes over the 16-channel features; each at the
    tolerances of phases 2, 6, 7 and 8. The kernels' JSON line gains each
    kernel's ``launches_mini_clevr`` and ``max_abs_err_mini_clevr``.
+11. The float32 GEMM every product inside K3 and K4 runs on
+   (``csrc/gemm.cu``): its launches are counted over phases 6, 7 and 10's
+   runs (the count set to 0 before each), and the shape, strides, split
+   and epilogue of every launch of one program_prior step (phase 6) and
+   one question_coding step (phase 7) recorded, with the GEMM's device
+   time inside another such step under the profiler. Every shape class,
+   on random operands with the launch's strides, within 1e-5 of the sum
+   of |products| (+ |bias| + |C|) of float64 ``torch.matmul`` and the same
+   bits twice; then timed in a CUDA graph (host issue time left out)
+   beside its bound, the plain version and one cuBLAS float32 call (TF32
+   off) on the same views, with each step's totals (``[gemm]`` lines).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -290,6 +301,31 @@ def trace(torch, fn):
             rows.append((us, event.key, event.count))
     rows.sort(reverse=True)
     return wall_ms, sum(r[0] for r in rows) / 1e3, rows[:6], {r[1]: r[2] for r in rows}
+
+
+def graph_ms(torch, fn, calls=20, replays=3):
+    r"""Milliseconds a call of ``fn`` takes on the card with its launches
+    back to back: ``calls`` calls captured in one CUDA graph, replayed
+    ``replays`` times between CUDA events. Free of the host's time to issue
+    them, which a small kernel behind a Python wrapper does not hide."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up (workspaces, one-time attributes) off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def launches_of(counts, kernel):
@@ -689,6 +725,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     from probnmn_tpu_torch.config import Config
     from probnmn_tpu_torch.data.datasets import ProgramPriorDataset
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
+    from probnmn_tpu_torch.ops.kernels.gemm import gemm_launches
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain, pack_lm_weights,
         tf_sweep_plan,
@@ -737,19 +774,23 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
                      "K3b": {"lstm_fwd_sweep": L, "lstm_fwd_step": 0, "lstm_bwd_step": L * T}},
           f"K3f / K3b launches {inside}")
 
-    # The trainer on the card: K3f and K3b once per step.
+    # The trainer on the card: K3f and K3b once per step, the GEMM inside them.
     steps = 20
     lm_forward_cuda.launches = 0
     lm_backward_cuda.launches = 0
+    gemm_launches(reset=True)
     losses = [trainer.step()["loss"]]
     after_one = tree_map(lambda t: t.detach().clone(), trainer.params["program_prior"])
     grads_one = [p.grad.detach().clone() for p in tree_leaves(trainer.params["program_prior"])]
     losses += [trainer.step()["loss"] for _ in range(steps - 1)]
     torch.cuda.synchronize()
-    launches = {"lm_forward": lm_forward_cuda.launches, "lm_backward": lm_backward_cuda.launches}
+    launches = {"lm_forward": lm_forward_cuda.launches, "lm_backward": lm_backward_cuda.launches,
+                "gemm": gemm_launches()}
     log(f"[prior] {steps} train steps on cuda: launches {launches}, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-    check(launches == {"lm_forward": steps, "lm_backward": steps}, f"launches {launches}")
+    check(launches == {"lm_forward": steps, "lm_backward": steps, "gemm": launches["gemm"]}
+          and launches["gemm"] > 0, f"launches {launches}")
+    GEMM_PATH["launches"]["program_prior"] = launches["gemm"]
     check(all(np.isfinite(losses)), "train loss not finite")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0],
           f"the loss did not fall: {losses}")
@@ -838,6 +879,7 @@ def train_program_prior(np, torch, dev, gen, vocab, smi, prior_out):
     log(f"[trace] launches in that step: {step_launches}")
     check(step_launches == {"lstm_fwd_sweep": 2 * L, "lstm_fwd_step": 0, "lstm_bwd_step": L * T},
           f"program_prior step launches {step_launches}")
+    gemm_in_step(torch, "program_prior", trainer.step)
     shutil.copy(os.path.join(work, "run", "checkpoint_best.ckpt"), prior_out)
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1003,6 +1045,7 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     from probnmn_tpu_torch.config import Config
     from probnmn_tpu_torch.data.datasets import QuestionCodingDataset
     from probnmn_tpu_torch.evaluators.question_coding_evaluator import QuestionCodingEvaluator
+    from probnmn_tpu_torch.ops.kernels.gemm import gemm_launches
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         lm_backward_cuda, lm_forward_cuda, tf_backward_cuda, tf_forward_cuda, tf_grads_plain,
@@ -1101,9 +1144,12 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
                 tf_backward_cuda)
     for fn in counters:
         fn.launches = 0
+    gemm_launches(reset=True)
     step_logs = [trainer.step() for _ in range(steps)]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
+    GEMM_PATH["launches"]["question_coding"] = gemm_launches()
+    check(GEMM_PATH["launches"]["question_coding"] > 0, "the GEMM never ran in question_coding")
     values = [v for out in step_logs for group in out.values() for v in group.values()]
     log(f"[qc] {steps} train steps on cuda (OBJECTIVE ours): launches {launches}; supervised "
         f"loss {step_logs[0]['loss']['program_generation_gt']:.4f} -> "
@@ -1236,6 +1282,7 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
           and step_launches["lstm_fwd_sweep"] == 4 * pg_spec.num_layers
           + trainer.prior_spec.num_layers,
           f"question_coding step launches {step_launches}")
+    gemm_in_step(torch, "question_coding", trainer.step)
     shutil.rmtree(work, ignore_errors=True)
 
     passes_ms = {name: {"ms": p["fwd_ms"], "lean_ms": p["lean_ms"], "backward_ms": p["bwd_ms"]}
@@ -1260,6 +1307,129 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
          "residual_mb": sum(c[-1] for c in checked) / 1e6, "step_launches": step_launches,
          "sweep_fit": sweep_fit["lstm_bwd_sweep"]},
     ]
+
+
+# The GEMM of K3/K4 (gemm.cu) on the paths of phases 6 and 7: its launches
+# over their 20 steps, the shape of each launch of one step, and its device
+# time inside one step under the profiler; phase 11 reads them.
+GEMM_PATH = {"launches": {}, "records": {}, "in_step": {}}
+GEMM_TOL = 1e-5  # of the sum of |products| (+ |bias| + |C|) in float64
+
+
+def gemm_in_step(torch, phase, step):
+    r"""Records the shape of every GEMM launch of one ``step()`` and times
+    the GEMM's kernels inside another under the profiler."""
+    from probnmn_tpu_torch.ops.kernels.gemm import gemm_record, gemm_records
+
+    gemm_record(True)
+    step()
+    torch.cuda.synchronize()
+    gemm_record(False)
+    GEMM_PATH["records"][phase] = gemm_records()
+    times = launch_times(torch, step, ("gemm_tile", "gemm_reduce"))
+    GEMM_PATH["in_step"][phase] = {k: (len(v), sum(v) / 1e3) for k, v in times.items()}
+    log(f"[gemm] {phase} step: {len(GEMM_PATH['records'][phase])} GEMM launches recorded; under "
+        f"the profiler {GEMM_PATH['in_step'][phase]} (launches, ms)")
+
+
+def gemm_operand(torch, rows, cols, strides, gen, dev):
+    r"""A (rows, cols) float32 tensor on the card with the given strides."""
+    t = torch.empty_strided((rows, cols), strides, device=dev)
+    t.copy_(torch.randn(rows, cols, generator=gen))
+    return t
+
+
+def gemm_against_float64(np, torch, dev, smi):
+    r"""Phase 11: every shape class of the GEMM launches of one program_prior
+    step and one question_coding step (phases 6 and 7's records), on random
+    operands with the launch's strides: within GEMM_TOL of float64, the same
+    bits twice, then timed on the card (``graph_ms``) beside its bound,
+    the plain version and one cuBLAS float32 call (TF32 off) on the same
+    views. Returns the GEMM's entry of the kernels line."""
+    from probnmn_tpu_torch.ops.kernels.gemm import gemm_cuda, gemm_plain, gemm_work
+
+    keys = ("M", "N", "K", "sam", "sak", "sbk", "sbn", "splits", "bias", "accumulate", "tile_m",
+            "tile_n")
+    gen = torch.Generator().manual_seed(11)
+    classes, worst, totals = [], 0.0, {}
+    for phase in ("program_prior", "question_coding"):
+        counts = {}
+        for r in GEMM_PATH["records"][phase]:
+            key = tuple(r[k] for k in keys)
+            counts[key] = counts.get(key, 0) + 1
+        total = dict.fromkeys(("launches", "ms", "library_ms", "plain_ms", "bound_ms",
+                               "ops_ms", "bytes_ms"), 0.0)
+        for key, count in sorted(counts.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
+            M, N, K, sam, sak, sbk, sbn, splits, has_bias, acc, tile_m, tile_n = key
+            a = gemm_operand(torch, M, K, (sam, sak), gen, dev)
+            b = gemm_operand(torch, K, N, (sbk, sbn), gen, dev)
+            bias = torch.randn(N, generator=gen).to(dev) if has_bias else None
+            c0 = torch.randn(M, N, generator=gen).to(dev) if acc else None
+            split = splits > 1
+
+            def run(out=None):
+                return gemm_cuda(a, b, bias=bias, out=out, accumulate=bool(acc), split=split)
+
+            got = [run(c0.clone() if acc else None) for _ in range(2)]
+            want = a.double() @ b.double()
+            scale = a.double().abs() @ b.double().abs()
+            for extra in (bias, c0):
+                if extra is not None:
+                    want, scale = want + extra.double(), scale + extra.double().abs()
+            err = (got[0].double() - want).abs()
+            rel = float((err / scale.clamp_min(1e-30)).max())
+            check(bool((err <= GEMM_TOL * scale + 1e-30).all()),
+                  f"GEMM {key} against float64: {rel:.2e} of the sum of |products|")
+            check(torch.equal(got[0], got[1]), f"GEMM {key} differs between two runs")
+            worst = max(worst, float(err.max()))
+            out = torch.empty(M, N, device=dev)
+            ms = graph_ms(torch, lambda: run(c0 if acc else out))
+            plain_ms = graph_ms(torch, lambda: gemm_plain(a, b, bias, c0 if acc else out,
+                                                          bool(acc)))
+            if has_bias:
+                library = lambda: torch.addmm(bias, a, b, out=out)  # noqa: E731
+            elif acc:
+                library = lambda: c0.addmm_(a, b)  # noqa: E731
+            else:
+                library = lambda: torch.mm(a, b, out=out)  # noqa: E731
+            library_ms = graph_ms(torch, library)
+            flops, nbytes = gemm_work(M, N, K, bool(has_bias), bool(acc))
+            b_ms, b_by = bound(flops, nbytes, "float32")
+            pattern = ("t" if sam == 1 and sak != 1 else "n") + ("n" if sbn == 1 else "t")
+            entry = {"phase": phase, "launches_per_step": count, "M": M, "N": N, "K": K,
+                     "pattern": pattern, "splits": splits, "bias": bool(has_bias),
+                     "accumulate": bool(acc), "tile": [tile_m, tile_n], "ms": ms,
+                     "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "gflop": flops / 1e9, "mb": nbytes / 1e6, "max_rel_err": rel}
+            classes.append(entry)
+            log(f"[gemm] {phase} x{count:<3d} {M}x{N}x{K} {pattern} split {splits} "
+                f"{'bias ' if has_bias else ''}{'acc ' if acc else ''}tile {tile_m}x{tile_n}: "
+                f"{ms:.4f} ms "
+                f"(cuBLAS {library_ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {b_by}: "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; {flops / ms / 1e9:.1f} TFLOP/s); "
+                f"err {rel:.1e} of the sum of |products|")
+            total["launches"] += count
+            for name, value in (("ms", ms), ("library_ms", library_ms), ("plain_ms", plain_ms),
+                                ("bound_ms", b_ms)):
+                total[name] += count * value
+            total["ops_ms" if b_by == "operations" else "bytes_ms"] += count * b_ms
+        totals[phase] = total
+        in_step = GEMM_PATH["in_step"][phase]
+        log(f"[gemm] {phase} step, the GEMM's {int(total['launches'])} launches one at a time: "
+            f"{total['ms']:.3f} ms (cuBLAS float32 {total['library_ms']:.3f}, plain "
+            f"{total['plain_ms']:.3f}, bound {total['bound_ms']:.4f}); inside the step under the "
+            f"profiler {sum(ms for _, ms in in_step.values()):.3f} ms ({in_step}); card {smi}")
+    qc = totals["question_coding"]
+    return {"name": "gemm", "route": "cuda", "source": "probnmn_tpu_torch/csrc/gemm.cu",
+            "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:193",
+            "launches": GEMM_PATH["launches"]["question_coding"],
+            "launches_program_prior": GEMM_PATH["launches"]["program_prior"],
+            "max_abs_err": worst, "ms": qc["ms"], "plain_ms": qc["plain_ms"],
+            "bound_ms": qc["bound_ms"],
+            "bound_by": "operations" if qc["ops_ms"] >= qc["bytes_ms"] else "bytes",
+            "library_ms": qc["library_ms"], "per_step": totals,
+            "in_step_ms": {p: v for p, v in GEMM_PATH["in_step"].items()}, "classes": classes}
 
 
 # The program phase 8's scripted generator emits: scene, an attention
@@ -2226,6 +2396,7 @@ def train_mini_clevr(np, torch):
     import tempfile
 
     from probnmn_tpu_torch import mini_clevr_run
+    from probnmn_tpu_torch.ops.kernels.gemm import gemm_launches
     from probnmn_tpu_torch.training import _trainer
 
     counters = {name: getattr(importlib.import_module(f"probnmn_tpu_torch.ops.kernels.{module}"),
@@ -2248,6 +2419,7 @@ def train_mini_clevr(np, torch):
     for fn in counters.values():
         fn.launches = 0
     counters["nmn_backward"].replay_launches = 0
+    gemm_launches(reset=True)
     _trainer.load_objects = record_frozen
     t0 = time.perf_counter()
     try:
@@ -2256,6 +2428,7 @@ def train_mini_clevr(np, torch):
         _trainer.load_objects = load_objects
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    launches["gemm"] = gemm_launches()
     launches["nmn_backward_replay"] = counters["nmn_backward"].replay_launches
 
     data = report["data"]
@@ -2647,6 +2820,9 @@ def main():
     # ---------------------------------------------------------------- 10. mini-CLEVR
     mini_clevr, mini_clevr_errs = train_mini_clevr(np, torch)
 
+    # ---------------------------------------------------------------- 11. GEMM
+    gemm = gemm_against_float64(np, torch, dev, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -2688,6 +2864,7 @@ def main():
         *question_coding,
         *module_training,
         *joint_training,
+        gemm,
     ]
     for entry in kernels:
         entry["launches_mini_clevr"] = mini_clevr[entry["name"]]

@@ -43,10 +43,10 @@
 // sweep's per-step latency (one cluster barrier a step, L sweeps), and
 // K3b's L*T reverse step launches, each too small to fill the card. Later
 // work, not done here: K3b's reverse on lstm_bwd_sweep, TF32/bf16 on the
-// tensor cores (wgmma), double-buffered GEMM tiles.
+// tensor cores (wgmma).
 //
-// The GEMM, the step kernels, the head and the reductions live in
-// train_common.cuh and the persistent sweeps with the layer's forward in
+// The GEMM lives in gemm.cu; the step kernels, the head and the reductions
+// in train_common.cuh and the persistent sweeps with the layer's forward in
 // lstm_sweep.cuh, both shared with K4 (tf_train.cu). Every entry point
 // launches on the caller's stream, allocates nothing (the caller passes a
 // workspace of probnmn_lm_workspace_floats() floats) and returns

@@ -35,14 +35,16 @@
 //   a pass of a question_coding step) and K4b starts from it, consuming it
 //   in place (dpre over the gates, dlogits over the logits). dlogits for
 //   every row, and the head's dh for every step (one GEMM), do not depend
-//   on the recurrence. The decoder is swept back in three launches a step:
-//   the cell backward (dpre over the gates), dpre . [W_ih[:, :H], W_hh]
-//   (one GEMM), and the attention backward (one block per example, so its
-//   rows of the encoder outputs' gradient need no atomics), which hands the
-//   gradient reaching h_prev to the step before. What reaches the initial
-//   decoder h enters the top encoder layer's carry after its last step;
-//   then each encoder layer is swept back in one cluster-resident launch
-//   (lstm_sweep.cuh) and its weight gradients follow, as in K3b.
+//   on the recurrence. The decoder is swept back in three parts a step: the
+//   cell backward (dpre over the gates), dpre . [W_ih[:, :H], W_hh] (one
+//   GEMM, its 4H-deep sum split so that the grid covers the card, then its
+//   fixed-order reduction), and the attention backward (one block per
+//   example, so its rows of the encoder outputs' gradient need no atomics),
+//   which hands the gradient reaching h_prev to the step before. What
+//   reaches the initial decoder h enters the top encoder layer's carry
+//   after its last step; then each encoder layer is swept back in one
+//   cluster-resident launch (lstm_sweep.cuh) and its weight gradients
+//   follow, as in K3b.
 // - Every weight gradient is a contraction over rows, split-K with its
 //   partials added in a fixed order; the bias gradients are column sums and
 //   both embeddings' gradients are reduced per token id: no float atomics,
@@ -56,7 +58,7 @@
 // ms at the 67 TFLOP/s float32 SIMT peak. Reading the residuals takes
 // about 0.04 ms at 3.35 TB/s, so both are bound by operations, and in
 // this version by their serial steps (L sweeps and 2*T launches forward;
-// L sweeps and 3*T launches backward), each too small to fill the card.
+// L sweeps and 4*T launches backward), each too small to fill the card.
 // Later work: the decoder's forward and reverse sweeps persistent too, with
 // the attention inside the cluster; the tensor cores; and skipping
 // row-steps past each row's end.
@@ -221,7 +223,8 @@ ll partial_floats(const Dims& d) {
   const ll dmax = d.D > d.H ? d.D : d.H;
   const ll vmax = d.Vs > d.Vt ? d.Vs : d.Vt;
   ll n = layer_partial_floats(d.SB, d.H, dmax);
-  const ll more[] = {splitk_floats(d.TB, d.G, 2 * d.H), splitk_floats(d.TB, d.G, d.D),
+  const ll more[] = {splitk_floats(d.G, d.B, 2 * d.H), splitk_floats(d.TB, d.G, 2 * d.H),
+                     splitk_floats(d.TB, d.G, d.D),
                      splitk_floats(d.TB, d.Vt, d.H), chunk_count(d.TB) * d.G,
                      chunk_count(d.TB) * d.Vt, chunk_count(rows) * vmax * d.D};
   for (ll m : more) n = n > m ? n : m;
@@ -398,7 +401,7 @@ cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
                                            sc.dc, d.B, d.H);
     TRAIN_LAUNCHED();
     TRAIN_TRY(gemm(s, dpre, d.G, 1, wt.dec_w, H2, 1, sc.dcat, H2, d.B, H2, G, nullptr, false,
-                   nullptr));
+                   sc.partial));
     tf_attend_bwd<<<d.B, kAttnThreads, attn_smem, s>>>(
         enc, ws.src_m, ws.attn_w + t * d.SB, ws.hdec + t * bh, sc.dcat,
         t > 0 ? sc.dh_head + (t - 1) * bh : nullptr, sc.ext, sc.denc, d.S, d.B, d.H);

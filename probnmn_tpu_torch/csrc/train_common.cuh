@@ -1,6 +1,6 @@
 // Building blocks of the training kernels (K3f/K3b in lm_train.cu, K4f/K4b
-// in tf_train.cu), float32 on the SIMT cores: a tiled GEMM with split-K and a
-// fixed-order reduction of its partials, the token streams of a
+// in tf_train.cu), float32 on the SIMT cores: the GEMM (gemm.cu) and a
+// fixed-order reduction of row-chunk partials, the token streams of a
 // teacher-forced pass, embedding lookups, the serial LSTM step kernels and a
 // layer's per-step reverse sweep (lstm_sweep.cuh has the persistent sweeps
 // and the layer's forward), the cross-entropy head, and the deterministic
@@ -8,6 +8,7 @@
 // host helper launches on the given stream and returns cudaGetLastError().
 #pragma once
 
+#include "gemm.cuh"
 #include "lstm.cuh"
 
 namespace probnmn {
@@ -26,82 +27,10 @@ typedef long long ll;
 int ceil_div(ll a, ll b) { return static_cast<int>((a + b - 1) / b); }
 
 // ------------------------------------------------------------------ GEMM
-// C[m, n] (+)= sum_k A[m, k] B[k, n] (+ bias[n]), A and B addressed through
-// strides so that transposed operands need no copy. 64 x 64 tiles, depth 16,
-// 256 threads with 4 x 4 outputs each. With gridDim.z > 1 each z sums its
-// own k_chunk into partial + z * M * N, and splitk_reduce adds the partials.
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
-constexpr int kSplitRows = 512;  // K per split of the weight-gradient contractions
+// The float32 GEMM (gemm() in gemm.cu, declared in gemm.cuh) serves every
+// product; the column sums and the embedding gradient below add their row
+// chunks' partials with splitk_reduce, in a fixed order.
 constexpr int kChunkRows = 256;  // rows per block of the column sums and the embedding gradient
-
-struct GemmArgs {
-  const float* A;
-  ll sam, sak;
-  const float* B;
-  ll sbk, sbn;
-  float* C;  // row-major, leading dimension ldc; or the split-K partials
-  ll ldc;
-  const float* bias;
-  int M, N, K, k_chunk;
-  bool accumulate;
-};
-
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int k_begin = blockIdx.z * g.k_chunk;
-  const int k_end = min(g.K, k_begin + g.k_chunk);
-  const bool a_k_fast = g.sak == 1;
-  const bool b_n_fast = g.sbn == 1;
-  float acc[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kGemmThreads) {
-      const int mm = a_k_fast ? e / kBK : e % kBM;
-      const int kk = a_k_fast ? e % kBK : e / kBM;
-      const int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < g.M && k < k_end) ? g.A[m * g.sam + k * g.sak] : 0.f;
-    }
-    for (int e = tid; e < kBN * kBK; e += kGemmThreads) {
-      const int nn = b_n_fast ? e % kBN : e / kBK;
-      const int kk = b_n_fast ? e / kBN : e % kBK;
-      const int n = n0 + nn, k = k0 + kk;
-      Bs[kk][nn] = (n < g.N && k < k_end) ? g.B[k * g.sbk + n * g.sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const bool split = gridDim.z > 1;
-  float* out = split ? g.C + static_cast<ll>(blockIdx.z) * g.M * g.N : g.C;
-  const ll ld = split ? g.N : g.ldc;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= g.N) continue;
-      float v = acc[i][j];
-      if (g.bias != nullptr) v += g.bias[n];
-      float* dst = out + m * ld + n;
-      *dst = (!split && g.accumulate) ? *dst + v : v;
-    }
-  }
-}
 
 // C[m, n] (+)= sum over s of partial[s][m][n], in the order s = 0, 1, ...
 __global__ void splitk_reduce(const float* __restrict__ partial, int splits, int M, int N,
@@ -115,30 +44,9 @@ __global__ void splitk_reduce(const float* __restrict__ partial, int splits, int
   *dst = accumulate ? *dst + v : v;
 }
 
-// `partial` non-null: split K into kSplitRows chunks (for the long
-// contractions over T*B rows) and add them in a fixed order.
-cudaError_t gemm(cudaStream_t s, const float* A, ll sam, ll sak, const float* B, ll sbk, ll sbn,
-                 float* C, ll ldc, int M, int N, int K, const float* bias, bool accumulate,
-                 float* partial) {
-  GemmArgs g{A, sam, sak, B, sbk, sbn, C, ldc, bias, M, N, K, K, accumulate};
-  int splits = 1;
-  if (partial != nullptr && K > kSplitRows) {
-    splits = ceil_div(K, kSplitRows);
-    g.k_chunk = kSplitRows;
-    g.C = partial;
-  }
-  const dim3 grid(ceil_div(N, kBN), ceil_div(M, kBM), splits);
-  gemm_kernel<<<grid, kGemmThreads, 0, s>>>(g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  splitk_reduce<<<ceil_div(static_cast<ll>(M) * N, 256), 256, 0, s>>>(partial, splits, M, N, C,
-                                                                       ldc, accumulate);
-  return cudaGetLastError();
-}
-
-// Floats of split-K partials a weight-gradient GEMM of an (M, N) result over
-// `rows` rows needs.
-ll splitk_floats(ll rows, ll M, ll N) { return (rows + kSplitRows - 1) / kSplitRows * M * N; }
+// Floats of split-K partials a GEMM of an (M, N) result over `rows` rows
+// (its depth) needs.
+ll splitk_floats(ll rows, ll M, ll N) { return gemm_partial_floats(M, N, rows); }
 
 // ------------------------------------------------------------------ token streams
 // Row r = t * B + b of (T, B) streams from tokens (B, Lt). With append_end

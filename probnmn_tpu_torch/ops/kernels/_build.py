@@ -208,6 +208,27 @@ def library() -> ctypes.CDLL:
         _VOID_P, _VOID_P,                       # dloss (B,), workspace
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # d_emb, d_proj, d_wih, d_whh, d_bias
     ] + lm_sizes
+    _LL = ctypes.c_longlong
+    lib.probnmn_gemm.restype = _INT
+    lib.probnmn_gemm.argtypes = [
+        _VOID_P, _LL, _LL,                      # A, its strides (m, k)
+        _VOID_P, _LL, _LL,                      # B, its strides (k, n)
+        _VOID_P, _LL,                           # C, its leading dimension
+        _INT, _INT, _INT,                       # M, N, K
+        _VOID_P, _INT,                          # bias (N,) or NULL, accumulate
+        _VOID_P, _VOID_P,                       # split-K scratch or NULL, stream
+    ]
+    lib.probnmn_gemm_partial_floats.restype = _LL
+    lib.probnmn_gemm_partial_floats.argtypes = [_INT] * 3  # M, N, K
+    lib.probnmn_gemm_plan.restype = _INT
+    lib.probnmn_gemm_plan.argtypes = [      # M, N, K, A's and B's strides, split; out[11]
+        _INT, _INT, _INT, _LL, _LL, _LL, _LL, _INT, ctypes.POINTER(_INT)]
+    lib.probnmn_gemm_launches.restype = _LL
+    lib.probnmn_gemm_launches.argtypes = [_INT]  # reset
+    lib.probnmn_gemm_record.restype = None
+    lib.probnmn_gemm_record.argtypes = [_INT]   # on
+    lib.probnmn_gemm_records.restype = _INT
+    lib.probnmn_gemm_records.argtypes = [ctypes.POINTER(_LL), _INT]  # out, max records
     tf_dims = [_INT] * 9                       # B, Ls, Lt, D, H, L, Vs, Vt, reinforce
     lib.probnmn_tf_workspace_floats.restype = ctypes.c_longlong
     lib.probnmn_tf_workspace_floats.argtypes = tf_dims + [_INT]  # keep

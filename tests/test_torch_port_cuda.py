@@ -13,6 +13,9 @@ import torch
 from probnmn_tpu_torch.models import nmn, program_generator, program_prior
 from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec, _encode, init_seq2seq_params
 from probnmn_tpu_torch.models.nmn import cast_params
+from probnmn_tpu_torch.ops.kernels.gemm import (
+    gemm_cuda, gemm_launches, gemm_plan, gemm_plan_cuda, gemm_record, gemm_records,
+)
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     DIFF_BANKS, build_banks, build_tables, execute_programs_diff, execute_programs_kernel,
     execute_programs_plain, execute_programs_train_kernel, interpreter_grads_kernel,
@@ -686,3 +689,80 @@ def test_phase8_float32_k6_input(cuda, tmp_path):
                                                           for k in DIFF_BANKS]:
         err = float((got - want).abs().max())
         assert err <= GRAD_TOL[torch.float32] * max(1.0, float(want.abs().max())), (name, err)
+
+
+# GEMM shapes: M, N, K off the tile multiples; one element; a K that the
+# split cuts into 128- and 512-deep chunks; the decoder's per-step product
+# (B x 2H x 4H) and a weight gradient over T*B rows at shipped width.
+GEMM_SHAPES = [(1, 1, 1), (37, 45, 19), (130, 70, 33), (5, 300, 7), (200, 130, 1000),
+               (128, 512, 1024), (1024, 256, 3456)]
+
+
+def _gemm_operand(rs, rows, cols, transposed, offset, device):
+    r"""A (rows, cols) float32 view whose contiguous axis is the other one
+    when ``transposed``, starting ``offset`` floats into its storage."""
+    shape = (cols, rows) if transposed else (rows, cols)
+    flat = torch.from_numpy(rs.randn(offset + shape[0] * shape[1]).astype(np.float32)).to(device)
+    x = flat[offset:].view(shape)
+    return x.t() if transposed else x
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+@pytest.mark.parametrize("pattern", ["nn", "nt", "tn", "tt"])
+@pytest.mark.parametrize("epilogue", ["plain", "bias", "accumulate", "unaligned"])
+def test_gemm_matches_float64(cuda, shape, pattern, epilogue):
+    r"""Every stride pattern (A with m or k contiguous, B with n or k
+    contiguous), with a bias, accumulating into C, or from operands that
+    start one float past a 16-byte boundary (the 4-byte copies), split and
+    not: within 1e-5 of the sum of |products| of float64 torch.matmul, and
+    the same bits on a second run."""
+    M, N, K = shape
+    rs = np.random.RandomState(M * 7 + N * 3 + K)
+    offset = 1 if epilogue == "unaligned" else 0
+    a = _gemm_operand(rs, M, K, pattern[0] == "t", offset, cuda)
+    b = _gemm_operand(rs, K, N, pattern[1] == "t", offset, cuda)
+    bias = torch.randn(N, device=cuda) if epilogue == "bias" else None
+    c0 = torch.randn(M, N, device=cuda) if epilogue == "accumulate" else None
+    want = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    if bias is not None:
+        want, scale = want + bias.double(), scale + bias.double().abs()
+    if c0 is not None:
+        want, scale = want + c0.double(), scale + c0.double().abs()
+    for split in (False, True):
+        runs = []
+        for _ in range(2):
+            out = c0.clone() if c0 is not None else None
+            runs.append(gemm_cuda(a, b, bias=bias, out=out, accumulate=c0 is not None,
+                                  split=split))
+        torch.cuda.synchronize()
+        err = (runs[0].double() - want).abs()
+        assert bool((err <= 1e-5 * scale + 1e-30).all()), (split, float(err.max()))
+        assert torch.equal(runs[0], runs[1]), split
+
+
+def test_gemm_plan_and_launches_match_the_python_twin(cuda):
+    r"""The C library's plan equals :func:`gemm_plan` on every shape and
+    stride pattern of GEMM_SHAPES, split and not; the launch count and the
+    recorder see each call once, with the plan's splits and tile."""
+    for M, N, K in GEMM_SHAPES:
+        for a_strides in ((K, 1), (1, M)):
+            for b_strides in ((N, 1), (1, K)):
+                for split in (False, True):
+                    assert gemm_plan_cuda(M, N, K, a_strides, b_strides, split) == gemm_plan(
+                        M, N, K, a_strides, b_strides, split)
+    a = torch.randn(128, 1024, device=cuda)
+    b = torch.randn(1024, 512, device=cuda)
+    gemm_launches(reset=True)
+    gemm_record(True)
+    gemm_cuda(a, b, split=True)
+    gemm_cuda(a, b)
+    gemm_record(False)
+    gemm_cuda(a, b)
+    records = gemm_records()
+    assert gemm_launches() == 3 and len(records) == 2
+    for record, split in zip(records, (True, False)):
+        plan = gemm_plan(128, 512, 1024, (1024, 1), (512, 1), split)
+        assert (record["M"], record["N"], record["K"]) == (128, 512, 1024)
+        assert (record["splits"], (record["tile_m"], record["tile_n"])) == (
+            plan["splits"], plan["tile"])

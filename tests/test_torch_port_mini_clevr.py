@@ -311,6 +311,31 @@ def test_question_coding_learns_in_lockstep_with_the_jax_trainer(tmp_path, monke
     assert float(port.baseline) != 0.0 and worst < LOCKSTEP_TOL
 
 
+def test_lockstep_tool_at_tiny_width(tmp_path):
+    r"""``tools/qc_lockstep_width.py`` (the lockstep above at any width, as a
+    tool) on data and a random prior it makes itself: three steps, the
+    trainers together (every log within LOCKSTEP_TOL, no sampled program
+    different), and JAX's sampler restored when it returns."""
+    from probnmn_tpu.training import question_coding_trainer as jax_qc
+
+    sys.path.insert(0, REPO)
+    from tools import qc_lockstep_width
+
+    sampler = jax_qc.seq2seq_forward
+    out = tmp_path / "lockstep.json"
+    history = qc_lockstep_width.main([
+        "--root", str(tmp_path / "data"), "--runs", str(tmp_path / "runs"), "--steps", "3",
+        "--out", str(out), "--", "--geometry", "tiny", "--grid", "8", "--max-batch", "16",
+        "--train-images", "60", "--val-images", "8", "--supervision", "30"])
+    assert jax_qc.seq2seq_forward is sampler
+    assert [row["iteration"] for row in history] == [0, 1, 2]
+    assert json.load(open(out)) == history
+    for row in history:
+        assert row["log_diff"] <= LOCKSTEP_TOL and row["baseline_diff"] <= LOCKSTEP_TOL
+        assert row["z_rows"] > 0 and row["z_rows_differ"] == 0
+        assert max(row["params"].values()) < 1e-4
+
+
 def test_runner_in_two_invocations(tmp_path, monkeypatch):
     r"""The JAX script's way of running the chain in pieces: the first
     invocation trains program_prior and question_coding, the second trains

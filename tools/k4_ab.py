@@ -1,7 +1,7 @@
 r"""K4f/K4b (the teacher-forced seq2seq loss and its backward) and K3f/K3b in
 two checkouts of the repo, on one card in one call:
 
-    python3 tools/k4_ab.py <other checkout>
+    python3 tools/k4_ab.py <other checkout> [results.json]
 
 Unpack the other checkout first, e.g. ``git archive <commit> | tar -x -C
 build/parent`` (git ignores ``build/``). Each checkout runs in its own
@@ -24,7 +24,13 @@ other). Through the public API both trees share, each process
 - times the trainer step (host clock over 10 steps that each fetch their
   logs) and counts the LSTM kernels of one step under ``torch.profiler``;
 - times K3f and K3b alone on 256 programs of a random prior and saves
-  K3f's loss and K3b's gradients.
+  K3f's loss and K3b's gradients;
+- sums the device time of the training GEMM's launches (``gemm_kernel``
+  in a tree before ``gemm.cu``, ``gemm_tile`` after it, each with the
+  split-K reduction that follows it) in the profiled trainer step and in
+  one K3f + K3b (a program_prior step's kernels); in a tree with the GEMM's
+  recorder it notes each launch's shape, which ``main`` uses to sum both
+  trees' launches by shape class when their launch counts agree.
 
 Prints every time and the max |dev| of each pass's loss and gradients, and
 of K3f's loss and K3b's gradients, between the checkouts' first runs (and
@@ -50,6 +56,7 @@ tree, out_npz = sys.argv[1], sys.argv[2]
 sys.path.insert(0, tree)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.datasets import QuestionCodingDataset
@@ -67,6 +74,10 @@ from probnmn_tpu_torch.utils.clevr import (
 from probnmn_tpu_torch.utils.observability import RecordingWriter
 
 KERNELS = KERNEL_NAMES
+try:  # the GEMM's recorder, in a tree that has it
+    from probnmn_tpu_torch.ops.kernels import gemm as gemm_module
+except ImportError:
+    gemm_module = None
 _build.library()
 dev = torch.device("cuda")
 vocab = make_clevr_like_vocabulary()
@@ -190,12 +201,41 @@ for _ in range(10):
     trainer.step()
 result["step_ms"] = (time.perf_counter() - t0) / 10 * 1e3
 result["step_mb"] = transient_mb(trainer.step)
-torch.cuda.synchronize()
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    time.sleep(0.02)  # the card idle at both ends: the profiler can lose a trace's first kernels
-    trainer.step()
+def profiled(fn):
     torch.cuda.synchronize()
-    time.sleep(0.02)
+    if gemm_module is not None:
+        gemm_module.gemm_record(True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)  # the card idle at both ends: the profiler can lose first kernels
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    records = []
+    if gemm_module is not None:
+        gemm_module.gemm_record(False)
+        records = gemm_module.gemm_records()
+    return prof, records
+
+def gemm_launches(prof):
+    # [µs of the GEMM kernel, µs of the split-K reduction right after it] a launch.
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    out, after_gemm = [], False
+    for e in events:
+        if "gemm_kernel(" in e.name or "gemm_tile<" in e.name:
+            out.append([e.time_range.elapsed_us(), 0.0])
+            after_gemm = True
+            continue
+        if after_gemm and ("splitk_reduce(" in e.name or "gemm_reduce(" in e.name):
+            out[-1][1] += e.time_range.elapsed_us()
+        after_gemm = False
+    return out
+
+lm_prof, lm_records = profiled(lambda: (lm_forward_cuda(packed, prior_spec, tokens),
+                                        lm_backward_cuda(packed, prior_spec, tokens, lm_dloss)))
+result["gemm_k3"] = {"launches": gemm_launches(lm_prof), "records": lm_records}
+prof, records = profiled(trainer.step)
+result["gemm_step"] = {"launches": gemm_launches(prof), "records": records}
 counts = dict.fromkeys(KERNELS, 0)
 for event in prof.key_averages():
     for k in KERNELS:
@@ -230,6 +270,35 @@ def max_dev(a, b):
     return out
 
 
+def gemm_summary(res):
+    r"""The GEMM's launches and device ms in the question_coding step and in
+    K3f + K3b."""
+    out = {}
+    for key in ("gemm_step", "gemm_k3"):
+        launches = res[key]["launches"]
+        out[key] = (len(launches), sum(a + b for a, b in launches) / 1e3)
+    return out
+
+
+def gemm_classes(results):
+    r"""Per shape class of this tree's recorded question_coding step, each
+    tree's mean device ms per step (every run whose launch count equals the
+    records'), with the class's launches per step."""
+    records = results["this"][0]["gemm_step"]["records"]
+    fields = ("M", "N", "K", "sam", "sak", "sbk", "sbn", "bias", "accumulate")
+    keys = [tuple(r[f] for f in fields) for r in records]
+    out = {}
+    for name, runs in results.items():
+        usable = [r["gemm_step"]["launches"] for r in runs
+                  if len(r["gemm_step"]["launches"]) == len(keys)]
+        for key in set(keys):
+            idx = [i for i, k in enumerate(keys) if k == key]
+            entry = out.setdefault(str(key), {"launches_per_step": len(idx)})
+            if usable:
+                entry[name] = sum(sum(run[i]) for run in usable for i in idx) / len(usable) / 1e3
+    return out
+
+
 def main(argv):
     import numpy as np
 
@@ -251,7 +320,8 @@ def main(argv):
               f"{total('keep_ms'):.3f}; K4b {total('bwd_ms'):.3f}); memory of the four passes {res['four_passes_mb']:.1f} "
               f"MB; question_coding step {res['step_ms']:.3f} ms, {res['step_mb']:.1f} MB; K3f "
               f"{res['k3f_ms']:.4f} ms, K3b {res['k3b_ms']:.4f} ms; launches a step "
-              f"{res['step_launches']}", flush=True)
+              f"{res['step_launches']}; the GEMM (launches, device ms) in the step and in "
+              f"K3f + K3b: {gemm_summary(res)}", flush=True)
     grads = {k: np.load(os.path.join(tmp, f"{k}.npz")) for k in ("other0", "other1", "this0", "this1")}
     for a, b, what in (("this0", "other0", "this vs other"), ("this0", "this1", "this, run 1 vs 2"),
                        ("other0", "other1", "other, run 1 vs 2")):
@@ -262,7 +332,16 @@ def main(argv):
     shutil.rmtree(tmp, ignore_errors=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
+    for key, entry in sorted(gemm_classes(results).items(), key=lambda kv: -kv[1].get("this", 0)):
+        print(f"[k4-ab] GEMM class (M, N, K, sam, sak, sbk, sbn, bias, accumulate) {key}: "
+              + json.dumps(entry), flush=True)
     print(f"[k4-ab] card {smi}")
+    if len(argv) > 1:  # every number, the GEMM's launches and records too
+        with open(argv[1], "w") as f:
+            json.dump(results, f)
+    for runs in results.values():
+        for res in runs:
+            res.update(gemm_summary(res))
     print("[k4-ab] " + json.dumps(results))
     return 0
 
