@@ -15,9 +15,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and matches the host's copy of the stream. Its encoder sweeps alone
    (``sampling_encode``) against the plain encoder on the card: outputs and
    final hidden state within 1e-5 of max(1, max|x|) in float32 and within
-   2e-2 of max|x| in bfloat16; each layer's sweep plan printed; under the
-   profiler K1 is one ``k1_encoder_sweep`` launch a layer and one
-   ``seq2seq_sample_kernel`` launch.
+   2e-2 of max|x| in bfloat16; each layer's sweep plan printed, and the
+   decoder's plan in both dtypes (``[K1 decoder plan]``: cluster, rows,
+   what stays in shared memory); under the profiler K1 is one
+   ``k1_encoder_sweep`` launch a layer and one ``seq2seq_sample_kernel``
+   launch.
 3. K2, the NMN interpreter, against its plain version at full NMN width
    (C=128, 14x14, B=256) on valid CLEVR programs of every module kind plus
    invalid and all-pad rows: float32 invalid flags equal, outputs within
@@ -2493,7 +2495,7 @@ def main():
     )
     from probnmn_tpu_torch.models.seq2seq import _encode
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
-        fused_sampling_forward, pack_weights, philox_gumbel, sampling_encode,
+        decoder_plan, fused_sampling_forward, pack_weights, philox_gumbel, sampling_encode,
         sampling_forward_with_noise,
     )
     from probnmn_tpu_torch.serving import InferenceEngine
@@ -2558,6 +2560,19 @@ def main():
     _, _, _, counts = trace(torch, lambda: fused_sampling_forward(
         pg_dev, pg_spec, q_dev, seed=seed, compute_dtype=torch.bfloat16))
     k1_route = {k: launches_of(counts, k) for k in ("k1_encoder_sweep", "seq2seq_sample_kernel")}
+    k1_decoder_plans = {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        pl = decoder_plan(BATCH, questions.shape[1], pg_spec.input_size, H,
+                          pg_spec.target_vocab_size, dtype)
+        k1_decoder_plans[name] = pl
+        kept = [what for key, what in (("w_hh_resident", "W_hh"), ("w_ih_resident", "W_ih"),
+                                       ("encoder_resident", "encoder outputs"),
+                                       ("projection_resident", "projection")) if pl[key]]
+        log(f"[K1 decoder plan] {name}: n {pl['cluster']}, U {pl['units']}, R {pl['rows']} "
+            f"({pl['rows_per_cta']} a CTA), {pl['clusters']} clusters ({pl['fit']} at once), "
+            f"{pl['threads']} threads, {pl['smem']} B shared holding {', '.join(kept) or 'no weights'}, "
+            f"{pl['tiles']} {'m-tiles' if name == 'bfloat16' else 'rows a thread'}, "
+            f"{pl['registers']} registers")
     log(f"[K1 route] one K1 under the profiler: {k1_route}")
     check(k1_route == {"k1_encoder_sweep": L, "seq2seq_sample_kernel": 1},
           f"K1 is not one sweep a layer and one decoder launch: {k1_route}")
@@ -2836,7 +2851,8 @@ def main():
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "route_launches": k1_route,
          "parts": {"encoder_ms": sum(sweep_us) / 1e3, "encoder_bound_ms": enc_bound,
-                   "decoder_ms": dec_ms, "decoder_bound_ms": dec_bound}},
+                   "decoder_ms": dec_ms, "decoder_bound_ms": dec_bound},
+         "decoder_plan": k1_decoder_plans},
         {"name": "k1_encoder_sweep", "route": "cuda",
          "source": "probnmn_tpu_torch/csrc/seq2seq_decode.cu",
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_decode.py:137",

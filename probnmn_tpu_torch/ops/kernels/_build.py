@@ -120,6 +120,8 @@ def library() -> ctypes.CDLL:
     ]
     lib.probnmn_k1_encoder_plan.restype = _INT
     lib.probnmn_k1_encoder_plan.argtypes = [_INT] * 4 + [ctypes.POINTER(_INT)]  # dtype, B, in, H; out[12]
+    lib.probnmn_k1_decoder_plan.restype = _INT
+    lib.probnmn_k1_decoder_plan.argtypes = [_INT] * 6 + [ctypes.POINTER(_INT)]  # dtype, B, L, D, H, V; out[15]
     lib.probnmn_k1_decode.restype = _INT
     lib.probnmn_k1_decode.argtypes = [
         _INT,                                   # dtype: 0 float32, 1 bfloat16

@@ -10,19 +10,23 @@ the top layer's final state, 26 attentive decode steps with Gumbel-max
 sampling (pad, unk and start blocked; logprob from the unblocked
 log-softmax), the @end@ trim quirk and the length-normalized loss.
 
-What bounds it on an H100: not the 35.6 GFLOP of a batch of 256 (36 µs at the
-bf16 tensor peak) but latency, since the 46 + 26 steps depend on each other.
-The encoder: each layer is one persistent launch of thread-block clusters
-(8 CTAs at H = 256) that own a few rows each for all steps, keep the
+What bounds it on an H100: not the 24.5 GFLOP of a batch of 256 (25 µs at
+the bf16 tensor peak) but latency, since the 46 + 26 steps depend on each
+other. The encoder: each layer is one persistent launch of thread-block
+clusters (8 CTAs at H = 256) that own a few rows each for all steps, keep the
 layer's weights in shared memory and exchange h through distributed shared
-memory (:func:`encoder_plan` gives the plan). The decoder: each block owns
-2 rows and runs every decode step itself with no inter-block sync (128
-blocks for a batch of 256); thread u owns hidden unit u of all four gates;
-the ~1.5 MB of bf16 decoder weights are streamed from L2 each step. The
-encoder outputs (46 x 256 x 256, 6 MB bf16) stay in the 50 MB L2 (the TPU
-kept them in VMEM, over a block's 227 KB of shared memory here). Matmul
-operands are rounded to the compute type and summed in float32, as the TPU
-kernel did.
+memory (:func:`encoder_plan` gives the plan). The decoder is one persistent
+launch of the same kind (16 CTAs a cluster at H = 256, each 16 units' four
+gates; :func:`decoder_plan`): each CTA keeps its columns of the decoder's
+weights and, where they fit, its rows' encoder outputs and the projection in
+shared memory, does the row-wise work (attention, projection, draw) of the
+rows it owns, and meets the cluster twice a step (float32 three times), once
+for the cell inputs and once for h. In bf16 the gate, score, context and
+projection products run on the tensor cores (mma.sync), with the
+embedding's part of the gates a (V, 4U) table computed once a launch; in
+float32 the sums keep the fixed order of the kernel this one replaced, and
+its bits. Matmul operands are rounded to the compute type and summed in
+float32, as the TPU kernel did.
 
 The TPU's hardware PRNG becomes Philox4x32-10 with counter (v // 4, step,
 row, 0) and key ``seed``, so draws do not depend on the block layout, and
@@ -138,6 +142,151 @@ def encoder_plan(batch: int, input_size: int, hidden: int,
         _DTYPE_CODES[compute_dtype], batch, input_size, hidden, out)
     _build.check(code, "K1 encoder sweep plan")
     return dict(zip(_PLAN_KEYS, out))
+
+
+_DECODER_PLAN_KEYS = ("cluster", "units", "rows", "threads", "clusters", "fit", "smem",
+                      "w_hh_resident", "w_ih_resident", "encoder_resident", "projection_resident",
+                      "rows_per_cta", "fit_full_smem", "tiles", "registers")
+# The decoder's constants in csrc/seq2seq_decode.cu and csrc/cluster_sweep.cuh.
+DECODER_THREADS = 256
+DECODER_MAX_ROWS = 48
+DECODER_MAX_OWN = 4
+RING_STAGES = 6
+RING_ROWS = 16
+MAX_SMEM = 232448
+
+
+def decoder_plan(batch: int, raw_len: int, input_size: int, hidden: int, vocab: int,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    r"""The launch plan of the decoder (``seq2seq_sample_kernel``) for
+    ``batch`` rows of ``raw_len`` source tokens: cluster size, units a CTA,
+    rows a cluster, threads a CTA, clusters, the clusters the card runs at
+    once, shared memory bytes a CTA, which of W_hh, W_ih (bf16: its context
+    rows), the owned rows' encoder outputs and the projection stay in shared
+    memory (1) or are read from L2 (0), rows a CTA owns, the clusters the
+    card runs at once at the full shared memory, tiles (bf16: 16-row m-tiles;
+    float32: rows a thread) and registers a thread. Needs the card;
+    :func:`decoder_plan_twin` computes the rest from the card's two fits."""
+    out = (ctypes.c_int * len(_DECODER_PLAN_KEYS))()
+    code = _build.library().probnmn_k1_decoder_plan(
+        _DTYPE_CODES[compute_dtype], batch, raw_len, input_size, hidden, vocab, out)
+    _build.check(code, "K1 decoder plan")
+    return dict(zip(_DECODER_PLAN_KEYS, out))
+
+
+def decoder_units(hidden: int) -> int:
+    r"""Hidden units a CTA of the decoder owns: 16 up to H = 256, else 32."""
+    return 16 if hidden <= 256 else 32
+
+
+def decoder_columns(hidden: int, rank: int) -> np.ndarray:
+    r"""The gate columns (of the (in, 4H) packs) that CTA ``rank`` of a bf16
+    decoder cluster keeps, in the order its products read them
+    (``dec_column`` in the source): its column 8 p + 2 q + e is gate q of
+    unit rank * U + 2 p + e, so an 8-column tile of the product holds one
+    unit pair's four gates. float32 keeps the encoder sweep's order."""
+    U = decoder_units(hidden)
+    c = np.arange(4 * U)
+    return (c >> 1 & 3) * hidden + rank * U + 2 * (c >> 3) + (c & 1)
+
+
+def decoder_row_cap(hidden: int, compute_dtype: torch.dtype) -> int:
+    r"""Rows a decoder cluster owns at most (``decoder_cap`` in the source):
+    three 16-row m-tiles in bf16, three rows a thread in float32, and four
+    rows a CTA."""
+    U = decoder_units(hidden)
+    cap = DECODER_MAX_ROWS if compute_dtype == torch.bfloat16 else 3 * (DECODER_THREADS // U)
+    return min(cap, DECODER_MAX_OWN * (hidden // U))
+
+
+def _align16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def decoder_smem(compute_dtype: torch.dtype, rows: int, raw_len: int, input_size: int,
+                 hidden: int, vocab: int, w_hh: bool, w_ih: bool, encoder: bool,
+                 projection: bool) -> Dict[str, int]:
+    r"""A decoder CTA's shared memory, the byte offset of each part and the
+    total (``dec_smem`` in the source): the resident W_hh and W_ih (bf16: the
+    H context rows, with rows of 4U + 8 elements; float32: all H + D), the
+    bf16 token table (V, 4U) float32, the cell inputs and h of the cluster's
+    rows, the owned rows' encoder outputs (bf16: rows of H + 8 and S rounded
+    up to 16), the projection (bf16: rows of round8(V) + 8), the float32 ring
+    that a matrix not resident streams through (6 stages of 16 rows), and
+    the owned rows' scores, logits, Gumbel noise, state, the rows' tokens and
+    the owned rows' lengths."""
+    bf = compute_dtype == torch.bfloat16
+    sz = 2 if bf else 4
+    D, H, V, S, R = input_size, hidden, vocab, raw_len + 1, rows
+    U = decoder_units(H)
+    own = -(-R // (H // U))
+    ws = 4 * U + 8 if bf else 4 * U
+    xs = H + 8 if bf else ((H + D + 3) // 4 * 4 + 4)
+    hs = H + 8 if bf else H + 4
+    sizes = [
+        ("w_hh", sz * H * ws if w_hh else 0),
+        ("w_ih", sz * (H if bf else H + D) * ws if w_ih else 0),
+        ("table", 16 * V * U if bf else 0),
+        ("xb", sz * R * xs),
+        ("hb", sz * R * hs),
+        ("encoder", sz * own * ((S + 15) // 16 * 16 if bf else S) * (H + 8 if bf else H)
+         if encoder else 0),
+        ("projection", sz * H * ((V + 7) // 8 * 8 + 8 if bf else V) if projection else 0),
+        ("ring", 4 * RING_STAGES * RING_ROWS * 4 * U if not bf and not (w_hh and w_ih) else 0),
+        ("att", 4 * own * S),
+        ("logit", 4 * own * V),
+        ("gumbel", 4 * own * V),
+        ("rowf", 16 * own),
+        ("toks", 4 * R),
+        ("lens", 4 * own),
+    ]
+    out, at = {}, 0
+    for name, size in sizes:
+        out[name] = at
+        at += _align16(size)
+    out["total"] = at
+    return out
+
+
+def decoder_plan_twin(batch: int, raw_len: int, input_size: int, hidden: int, vocab: int,
+                      compute_dtype: torch.dtype, fit_full_smem: int, fit: int) -> Dict[str, int]:
+    r"""What :func:`decoder_plan` computes without the card, given the card's
+    two fits: ``fit_full_smem``, the clusters it runs at once at the full
+    shared memory, which sets the rows that decide what stays resident (W_hh,
+    then W_ih, then the owned rows' encoder outputs, then the projection,
+    each only if it still fits beside the others), and ``fit``, the clusters
+    it runs at once at the plan's widest shared memory, which sets the rows
+    a cluster (the fewest that run every cluster at once, up to what shared
+    memory allows)."""
+    U = decoder_units(hidden)
+    n = hidden // U
+    bf = compute_dtype == torch.bfloat16
+    cap = decoder_row_cap(hidden, compute_dtype)
+    rt = min(cap, -(-batch // fit_full_smem))
+
+    def total(R, *flags):
+        return decoder_smem(compute_dtype, R, raw_len, input_size, hidden, vocab, *flags)["total"]
+
+    wh = total(rt, True, False, False, False) <= MAX_SMEM
+    wx = total(rt, wh, True, False, False) <= MAX_SMEM
+    enc = total(rt, wh, wx, True, False) <= MAX_SMEM
+    proj = total(rt, wh, wx, enc, True) <= MAX_SMEM
+    r_max = cap
+    while r_max > 0 and total(r_max, wh, wx, enc, proj) > MAX_SMEM:
+        r_max -= 1
+    if r_max == 0:
+        raise ValueError("no row of the decoder fits in shared memory")
+    rows = min(-(-batch // fit), r_max)
+    return {
+        "cluster": n, "units": U, "rows": rows, "threads": DECODER_THREADS,
+        "clusters": -(-batch // rows), "fit": fit,
+        "smem": total(rows, wh, wx, enc, proj),
+        "w_hh_resident": int(wh), "w_ih_resident": int(wx), "encoder_resident": int(enc),
+        "projection_resident": int(proj), "rows_per_cta": -(-rows // n),
+        "fit_full_smem": fit_full_smem,
+        "tiles": -(-rows // 16) if bf else -(-rows // (DECODER_THREADS // U)),
+        "r_max": r_max,
+    }
 
 
 def _check_kernel_shapes(spec: Seq2SeqSpec, compute_dtype: torch.dtype) -> None:

@@ -24,8 +24,8 @@ from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     workspace_errors,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
-    encoder_plan, fused_sampling_forward, philox_gumbel, sampling_encode,
-    sampling_forward_with_noise,
+    decoder_plan, decoder_plan_twin, encoder_plan, fused_sampling_forward, philox_gumbel,
+    sampling_encode, sampling_forward_with_noise,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
     fused_lm_loss, fused_tf_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
@@ -149,6 +149,74 @@ def test_encoder_sweep_and_k1_match_plain_versions(cuda, hidden, dtype):
         else:
             assert float((got["predictions"] == want["predictions"]).float().mean()) >= 0.95
         assert torch.isfinite(got["loss"]).all()
+
+
+def _k1_against_plain(params, spec, src, dtype, rs):
+    r"""K1 against its plain version on explicit noise: float32 >= 99%
+    identical rows with logprobs within 1e-4 there, bfloat16 >= 95%
+    identical tokens, finite losses."""
+    T, V = spec.max_decoding_steps, spec.target_vocab_size
+    noise = torch.from_numpy(rs.gumbel(size=(T, src.shape[0], V)).astype(np.float32)).to(src.device)
+    got = fused_sampling_forward(params, spec, src, noise=noise, compute_dtype=dtype)
+    want = sampling_forward_with_noise(params, spec, src, noise, compute_dtype=dtype)
+    same = (got["predictions"] == want["predictions"]).all(dim=1)
+    if dtype == torch.float32:
+        assert float(same.float().mean()) >= 0.99
+        assert float((got["logprobs"] - want["logprobs"])[same].abs().max()) <= 1e-4
+    else:
+        assert float((got["predictions"] == want["predictions"]).float().mean()) >= 0.95
+    assert torch.isfinite(got["loss"]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [128, 256, 512])
+def test_decoder_plan_matches_its_twin(cuda, hidden, dtype):
+    r"""The decoder's plan on the card against its Python twin, given the
+    card's two fits, at B = 1, 37, 256 and a batch that needs waves."""
+    for batch in (1, 37, 256, 4000):
+        plan = decoder_plan(batch, 45, hidden, hidden, 44, dtype)
+        twin = decoder_plan_twin(batch, 45, hidden, hidden, 44, dtype, plan["fit_full_smem"],
+                                 plan["fit"])
+        assert {k: plan[k] for k in plan if k != "registers"} == \
+            {k: twin[k] for k in twin if k != "r_max"}, (batch, plan, twin)
+        assert plan["registers"] <= 255
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [128, 256, 512])
+def test_k1_decoder_runs_in_waves(cuda, hidden, dtype):
+    r"""K1 against its plain version at a batch one wave of the decoder's
+    clusters cannot hold (the plan's most rows a cluster times the clusters
+    that fit, plus 5), at D = H."""
+    vocab = make_clevr_like_vocabulary()
+    spec = dataclasses.replace(program_generator.make_spec(vocab), input_size=hidden,
+                               hidden_size=hidden)
+    params = cast_params(program_generator.init_params(torch.Generator().manual_seed(7), spec),
+                         torch.float32, cuda)
+    widest = decoder_plan(100000, 45, hidden, hidden, spec.target_vocab_size, dtype)
+    batch = widest["rows"] * widest["fit"] + 5
+    plan = decoder_plan(batch, 45, hidden, hidden, spec.target_vocab_size, dtype)
+    assert plan["clusters"] > plan["fit"], plan
+    rs = np.random.RandomState(hidden + 1)
+    src = rs.randint(4, spec.source_vocab_size, (batch, 45))
+    src = src * (np.arange(45)[None, :] < rs.randint(1, 46, (batch, 1)))
+    src[1] = 0
+    _k1_against_plain(params, spec, torch.from_numpy(src).to(cuda), dtype, rs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_k1_decoder_at_odd_input_and_vocabulary_sizes(cuda, hidden, dtype):
+    r"""K1 against its plain version with an odd embedding width (67) and an
+    odd program vocabulary (45), at B = 37 and 1."""
+    vocab = make_clevr_like_vocabulary()
+    spec = dataclasses.replace(program_generator.make_spec(vocab), input_size=67,
+                               hidden_size=hidden, target_vocab_size=45)
+    params = cast_params(program_generator.init_params(torch.Generator().manual_seed(5), spec),
+                         torch.float32, cuda)
+    rs = np.random.RandomState(hidden)
+    for src in _k1_batches(rs, spec.source_vocab_size)[0::2]:
+        _k1_against_plain(params, spec, torch.from_numpy(src).to(cuda), dtype, rs)
 
 
 def test_k1_is_one_sweep_a_layer_and_one_decoder_launch(cuda):

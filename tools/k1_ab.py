@@ -16,9 +16,10 @@ other). Through the public API both trees share, each process
   float32 at B = 256 and 128 with CUDA events over 20 calls each, and K1's
   encoder alone: ``sampling_encode``'s sweeps where the tree has them, else
   the per-row kernel's C entry with no decode steps;
-- splits one K1 at B = 256 into its kernels under ``torch.profiler`` (this
-  checkout's ``chip_smoke.launch_times``): the encoder sweeps and the
-  decoder, or the per-row kernel;
+- splits one K1 at B = 256 and one at B = 128 into its kernels under
+  ``torch.profiler`` (this checkout's ``chip_smoke.launch_times``): the
+  encoder sweeps and the decoder, or the per-row kernel; and records the
+  decoder's plan where the tree has ``decoder_plan``;
 - saves K1's predictions, logprobs and loss on explicit Gumbel noise and
   the encoder's outputs, in both dtypes, to a ``.npz``;
 - unless ``--kernels-only``: times ``InferenceEngine.predict`` at batch 256
@@ -29,8 +30,8 @@ other). Through the public API both trees share, each process
 
 Prints every time, and between the checkouts' first runs (and between each
 checkout's two runs) the share of identical token rows, the max |dev| of
-the logprobs and losses and of the encoder's outputs, and whether those
-outputs are equal bit for bit. With ``--sass DIR`` it also writes the SASS of
+the logprobs and losses and of the encoder's outputs, and whether the
+predictions, logprobs, losses and encoder outputs are equal bit for bit. With ``--sass DIR`` it also writes the SASS of
 each checkout's ``csrc/seq2seq_decode.cu`` to ``DIR/{other,this}.sass``; with
 ``--out DIR`` every time to ``DIR/k1_ab.json``. Needs a CUDA card and the
 CUDA toolkit.
@@ -98,7 +99,7 @@ def encode(q, dtype, packed):
     return enc
 
 
-result = {"sweeps": sweeps, "k1_ms": {}, "encoder_ms": {}, "parts_us": {}}
+result = {"sweeps": sweeps, "k1_ms": {}, "encoder_ms": {}, "parts_us": {}, "decoder_plan": {}}
 arrays = {}
 for dtype, dn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
     packed = sd.pack_weights(pg, spec, dtype, dev)
@@ -108,9 +109,14 @@ for dtype, dn in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         result["k1_ms"][key] = smoke.cuda_ms(torch, lambda: sd.fused_sampling_forward(
             pg, spec, q, seed=seed, compute_dtype=dtype, packed=packed), iters=20)
         result["encoder_ms"][key] = smoke.cuda_ms(torch, lambda: encode(q, dtype, packed), iters=20)
-    result["parts_us"][dn] = smoke.launch_times(torch, lambda: sd.fused_sampling_forward(
-        pg, spec, q_dev, seed=seed, compute_dtype=dtype, packed=packed),
-        ("k1_encoder_sweep", "seq2seq_sample_kernel"))
+    for B in (256, 128):
+        result["parts_us"][f"{dn} B={B}"] = smoke.launch_times(
+            torch, lambda: sd.fused_sampling_forward(pg, spec, q_dev[:B], seed=seed,
+                                                     compute_dtype=dtype, packed=packed),
+            ("k1_encoder_sweep", "seq2seq_sample_kernel"))
+        if hasattr(sd, "decoder_plan"):
+            result["decoder_plan"][f"{dn} B={B}"] = sd.decoder_plan(
+                B, q_dev.shape[1], spec.input_size, spec.hidden_size, V, dtype)
     out = sd.fused_sampling_forward(pg, spec, q_dev, noise=noise, compute_dtype=dtype, packed=packed)
     for k in ("predictions", "logprobs", "loss"):
         arrays[f"{dn}.{k}"] = out[k].cpu().numpy()
@@ -204,8 +210,8 @@ def sass(tree, path):
 
 def compare(a, b):
     r"""Per dtype: the share of identical token rows, the max |dev| of the
-    logprobs and losses over all rows, the encoder's outputs' max |dev| and
-    whether they are equal bit for bit."""
+    logprobs and losses over all rows, the encoder's outputs' max |dev|, and
+    whether each of the four is equal bit for bit."""
     import numpy as np
 
     out = {}
@@ -217,6 +223,8 @@ def compare(a, b):
             "loss_dev": float(np.abs(a[f"{dn}.loss"] - b[f"{dn}.loss"]).max()),
             "encoder_dev": float(np.abs(a[f"{dn}.encoder"] - b[f"{dn}.encoder"]).max()),
             "encoder_bits_equal": bool(np.array_equal(a[f"{dn}.encoder"], b[f"{dn}.encoder"])),
+            "bits_equal": {k: bool(np.array_equal(a[f"{dn}.{k}"], b[f"{dn}.{k}"]))
+                           for k in ("predictions", "logprobs", "loss")},
         }
     return out
 
@@ -240,11 +248,13 @@ def main(argv):
         results[name].append(res)
         times = ", ".join(f"{k} {v:.4f}" for k, v in res["k1_ms"].items())
         enc = ", ".join(f"{k} {v:.4f}" for k, v in res["encoder_ms"].items())
-        parts = "; ".join(f"{dn}: " + ", ".join(f"{k} {sum(us) / 1e3:.4f} ms in {len(us)}"
-                                                for k, us in p.items() if us)
-                          for dn, p in res["parts_us"].items())
-        print(f"[k1-ab] {name}: K1 ms {times}; encoder alone ms {enc}; K1 under the profiler "
-              f"(B=256): {parts}", flush=True)
+        parts = "; ".join(f"{key}: " + ", ".join(f"{k} {sum(us) / 1e3:.4f} ms in {len(us)}"
+                                                 for k, us in p.items() if us)
+                          for key, p in res["parts_us"].items())
+        print(f"[k1-ab] {name}: K1 ms {times}; encoder alone ms {enc}; K1 under the profiler: "
+              f"{parts}", flush=True)
+        for key, plan in res["decoder_plan"].items():
+            print(f"[k1-ab] {name} decoder plan {key}: {plan}", flush=True)
         for key in ("predict", "question_coding_step"):
             if key in res:
                 v = res[key]
