@@ -187,6 +187,26 @@ Phases (any failure raises, and the script exits non-zero with no result):
    bits twice; then timed in a CUDA graph (host issue time left out)
    beside its bound, the plain version and one cuBLAS float32 call (TF32
    off) on the same views, with each step's totals (``[gemm]`` lines).
+12. Serving from a checkpoint, at full width, from a generator of its own:
+   one random ProgramGenerator (its decoder scripted to emit a valid
+   program, so that the NMN's answers depend on its weights) and NMN
+   written as the JAX package's ``.ckpt`` (``save_objects_jax``), as the
+   reference's legacy ``.pth`` (state dicts built here with
+   tests/ref_checkpoints.py's key names) and by the port's
+   ``save_objects``: each file's format read from its bytes, its params
+   loaded bit for bit, and ``InferenceEngine.from_checkpoint(...,
+   device="cuda").predict`` on 256 questions giving the answers of an
+   engine over the params in memory, in bfloat16 and float32, with K1 and
+   K2 launched (counted in the JSON line's ``launches_from_checkpoint``);
+   K1 (the checkpoint's generator and the random one it came from) and K2
+   (half the rows at the programs K1 sampled, half valid CLEVR programs)
+   against their plain versions at phases 2 and 3's tolerances; greedy
+   against beam 1 (the same tokens), beam 4's scores finite and sorted;
+   ``inference.run_inference`` over 300 in-memory test rows (every row once,
+   ``predict``'s answers); a QuestionCodingTrainer whose frozen prior is the
+   JAX-format file, 2 steps with K1, K3f, K4f and K4b launched; each
+   format's write and load time, ``from_checkpoint``'s time to the first
+   answer and the CLI's questions/s (host clock, ``[serve]`` lines).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -2476,6 +2496,347 @@ def train_mini_clevr(np, torch):
     return launches, errs
 
 
+# Phase 12: serving from a checkpoint. The scripted program the checkpoints'
+# generator emits (scene, attention, relate, same, a no-op, query), so that
+# the NMN's answers depend on its weights.
+SERVE_PROGRAM = ["query_color", "unique", "same_shape", "relate[left]", "filter_color[red]",
+                 "scene"]
+
+
+def reference_state_dicts(torch, pg, nmn_params, nmn_spec, vocab):
+    r"""The reference's ``state_dict``s (tests/ref_checkpoints.py's key names:
+    allennlp's Seq2SeqBase, the NMN's stem, classifier and one module per
+    program token) of the port's ProgramGenerator and NMN params, built from
+    the port's own NMN constants."""
+    from probnmn_tpu_torch.models.nmn import ATTENTION, COMPARE, QUERY, RELATE, SAME
+
+    cell, proj = pg["decoder_cell"], pg["output_projection"]
+    pg_state = {"_source_embedder.token_embedder_tokens.weight": pg["source_embedding"],
+                "_target_embedder.weight": pg["target_embedding"],
+                "_decoder_cell.weight_ih": cell["w_ih"], "_decoder_cell.weight_hh": cell["w_hh"],
+                "_decoder_cell.bias_ih": cell["b_ih"], "_decoder_cell.bias_hh": cell["b_hh"],
+                "_output_projection_layer.weight": proj["w"],
+                "_output_projection_layer.bias": proj["b"]}
+    for k, layer in enumerate(pg["encoder"]):
+        for name, key in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"), ("b_ih", "bias_ih"),
+                          ("b_hh", "bias_hh")):
+            pg_state[f"_encoder._module.{key}_l{k}"] = layer[name]
+    stem, cls = nmn_params["stem"], nmn_params["classifier"]
+    P, h2, w2 = nmn_spec.class_projection_channels, nmn_spec.height // 2, nmn_spec.width // 2
+    lin1 = cls["lin1"]["w"]  # NHWC flatten -> torch's NCHW flatten
+    nmn_state = {"stem.0.weight": stem["w1"], "stem.0.bias": stem["b1"],
+                 "stem.2.weight": stem["w2"], "stem.2.bias": stem["b2"],
+                 "classifier.0.weight": cls["proj_w"].T[:, :, None, None],
+                 "classifier.0.bias": cls["proj_b"],
+                 "classifier.4.weight": lin1.reshape(-1, h2, w2, P).permute(0, 3, 1, 2)
+                 .reshape(lin1.shape[0], -1),
+                 "classifier.4.bias": cls["lin1"]["b"],
+                 "classifier.6.weight": cls["lin2"]["w"], "classifier.6.bias": cls["lin2"]["b"]}
+    modules = {ATTENTION: ("attention", ("conv1", "conv2", "conv3")),
+               QUERY: ("query", ("conv1", "conv2")),
+               RELATE: ("relate", ("conv1", "conv2", "conv3", "conv4", "conv5", "conv6")),
+               SAME: ("same", ("conv",)),
+               COMPARE: ("compare", ("projection", "conv1", "conv2"))}
+    tokens = vocab.get_index_to_token_vocabulary("programs")
+    for index in range(len(tokens)):
+        kind = int(nmn_spec.token_kind[index])
+        if kind not in modules:
+            continue
+        bank_name, convs = modules[kind]
+        slot = int(nmn_spec.token_bank[index])
+        for conv in convs:
+            w = nmn_params[bank_name][conv]["w"][slot]
+            # 3x3 banks are HWIO, 1x1 banks (C_in, C_out): torch's OIHW.
+            w = w.permute(3, 2, 0, 1) if w.dim() == 4 else w.T[:, :, None, None]
+            nmn_state[f"{tokens[index]}.{conv}.weight"] = w
+            nmn_state[f"{tokens[index]}.{conv}.bias"] = nmn_params[bank_name][conv]["b"][slot]
+    clone = lambda d: {k: v.detach().clone().contiguous() for k, v in d.items()}  # noqa: E731
+    return clone(pg_state), clone(nmn_state)
+
+
+def trees_equal(torch, got, want):
+    r"""Every tensor of ``want`` equal, bit for bit, to ``got``'s at the same key path."""
+    if isinstance(want, torch.Tensor):
+        return got.shape == want.shape and torch.equal(got.cpu(), want.cpu())
+    keys = list(want) if isinstance(want, dict) else range(len(want))
+    return len(got) == len(want) and all(trees_equal(torch, got[k], want[k]) for k in keys)
+
+
+def serve_from_checkpoints(np, torch, dev, smi):
+    r"""Phase 12: one random ProgramGenerator (its decoder scripted, so that
+    its programs run) and NMN, at full width, written as the JAX package's
+    ``.ckpt`` (``save_objects_jax``), as the reference's legacy ``.pth`` and
+    by the port's ``save_objects``; each loads bit for bit, and
+    ``InferenceEngine.from_checkpoint`` on each answers 256 questions as an
+    engine over the params in memory does, in bfloat16 and float32, with K1
+    and K2 launched; K1 and K2 against their plain versions on that batch;
+    greedy against beam 1 and beam 4's scores; the inference CLI's
+    ``run_inference`` over 300 in-memory test rows; a QuestionCodingTrainer
+    whose frozen prior is the JAX-format file, 2 steps. Inputs come from a
+    generator of their own. Returns the K1 and K2 entries' launches and
+    errors on this path, and its times."""
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch import interop
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import JointTrainingDataset, QuestionCodingDataset
+    from probnmn_tpu_torch.inference import run_inference
+    from probnmn_tpu_torch.models import nmn, program_generator, program_prior
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.models.seq2seq import GREEDY, beam_search_forward, seq2seq_forward
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
+        interpreter_plan,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, sampling_encode,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_backward_cuda, lm_forward_cuda, tf_backward_cuda, tf_forward_cuda,
+    )
+    from probnmn_tpu_torch.serving import InferenceEngine
+    from probnmn_tpu_torch.training._trainer import load_models
+    from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
+    from probnmn_tpu_torch.training.question_coding_trainer import QuestionCodingTrainer
+    from probnmn_tpu_torch.utils.checkpointing import (
+        MSGPACK, TORCH, TORCH_LEGACY, checkpoint_format, save_objects, save_objects_jax,
+    )
+    from probnmn_tpu_torch.utils.clevr import (
+        MAX_QUESTION_LENGTH, make_clevr_like_vocabulary, sample_clevr_like_programs,
+    )
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    config = Config(os.path.join(repo, "configs", "joint_training_ours.yml"),
+                    ["DATA.VOCABULARY", os.path.join(work, "vocab")])
+    gen = torch.Generator().manual_seed(12)
+    pg_spec, nmn_spec = program_generator.make_spec(vocab, config), nmn.make_spec(vocab, config)
+    prior_spec = make_prior_spec(config, vocab)
+    random_pg = program_generator.init_params(gen, pg_spec)
+    pg = scripted_generator(torch, random_pg, pg_spec, vocab, SERVE_PROGRAM)
+    nmn_params = nmn.init_nmn_params(gen, nmn_spec)
+    prior = program_prior.init_program_prior_params(gen, prior_spec)
+    log(f"[serve] ProgramGenerator {pg_spec}; NMN C {nmn_spec.module_channels} on "
+        f"{nmn_spec.height}x{nmn_spec.width} over {nmn_spec.feature_channels} channels, "
+        f"{sum(t.numel() for t in _leaves(torch, nmn_params)) / 1e6:.1f}M NMN params")
+
+    # ------------------------------------------------------------ the three files
+    files = {"jax": os.path.join(work, "joint.ckpt"), "reference": os.path.join(work, "joint.pth"),
+             "port": os.path.join(work, "joint_port.ckpt")}
+    write_s = {}
+    t0 = time.perf_counter()
+    save_objects_jax(files["jax"], {"program_generator": interop.program_generator_to_jax(pg),
+                                    "nmn": interop.nmn_to_jax(nmn_params),
+                                    "program_prior": interop.program_prior_to_jax(prior)}, 0)
+    write_s["jax"] = time.perf_counter() - t0
+    ref_pg, ref_nmn = reference_state_dicts(torch, pg, nmn_params, nmn_spec, vocab)
+    t0 = time.perf_counter()
+    # The reference pins torch 1.4, whose torch.save writes the legacy format.
+    torch.save({"program_generator": ref_pg, "nmn": ref_nmn, "optimizer": {}, "iteration": 0},
+               files["reference"], _use_new_zipfile_serialization=False)
+    write_s["reference"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_objects(files["port"], {"program_generator": pg, "nmn": nmn_params}, 0)
+    write_s["port"] = time.perf_counter() - t0
+    formats = {fmt: checkpoint_format(path) for fmt, path in files.items()}
+    check(formats == {"jax": MSGPACK, "reference": TORCH_LEGACY, "port": TORCH},
+          f"formats {formats}")
+    specs = {"program_generator": pg_spec, "nmn": nmn_spec}
+    load_s = {}
+    for fmt, path in files.items():
+        t0 = time.perf_counter()
+        models = load_models(path, specs, vocab)
+        load_s[fmt] = time.perf_counter() - t0
+        check(trees_equal(torch, models["program_generator"], pg)
+              and trees_equal(torch, models["nmn"], nmn_params),
+              f"the {fmt} checkpoint's params differ from the params written")
+        log(f"[serve] {fmt}: {os.path.getsize(path) / 1e6:.1f} MB written in "
+            f"{write_s[fmt]:.2f} s, read into the port's params in {load_s[fmt]:.2f} s "
+            f"(host clock), bit for bit the params written")
+    del models
+
+    # ------------------------------------------------------------ from_checkpoint
+    rs = np.random.RandomState(12)
+    questions = random_questions(np, vocab, BATCH, MAX_QUESTION_LENGTH, seed=121)
+    images = rs.randn(BATCH, nmn_spec.feature_channels, nmn_spec.height,
+                      nmn_spec.width).astype(np.float32)
+    seed = 20261018
+    counters = {"seq2seq_decode": fused_sampling_forward, "k1_encoder_sweep": sampling_encode,
+                "nmn_interpreter": execute_programs_kernel, "nmn_plan": interpreter_plan}
+    launches = {name: 0 for name in counters}
+    first_answer_s = {}
+    for dtype in ("bfloat16", "float32"):
+        memory = InferenceEngine(vocab, pg_spec, nmn_spec, pg, nmn_params, batch_size=BATCH,
+                                 rng_seed=config.RANDOM_SEED, device=dev, compute_dtype=dtype)
+        want = memory.predict(questions, images, seed=seed)
+        check("@@UNKNOWN@@" not in want, f"the scripted program did not run ({dtype})")
+        for fmt, path in files.items():
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            engine = InferenceEngine.from_checkpoint(config, path, batch_size=BATCH,
+                                                     compute_dtype=dtype, device=dev)
+            answers = engine.predict(questions, images, seed=seed)
+            torch.cuda.synchronize()
+            first_answer_s[(fmt, dtype)] = time.perf_counter() - t0
+            ran = {name: fn.launches for name, fn in counters.items()}
+            log(f"[serve] from_checkpoint({fmt}, {dtype}) -> predict: {len(answers)} answers in "
+                f"{first_answer_s[(fmt, dtype)]:.2f} s to the first answer (host clock); "
+                f"launches {ran}; {len(set(answers))} distinct answers")
+            check(all(n > 0 for n in ran.values()), f"a kernel did not run: {ran}")
+            check(answers == want, f"{fmt} {dtype}: answers differ from the in-memory engine's")
+            for name, n in ran.items():
+                launches[name] += n
+            del engine
+
+    # K1 and K2 against their plain versions on this batch: K1 over the
+    # checkpoint's generator on explicit noise, K2 over the programs it
+    # sampled (half the rows) and valid CLEVR programs (the other half).
+    pg_dev = cast_params(load_models(files["jax"], specs, vocab)["program_generator"],
+                         torch.float32, dev)
+    q_dev = torch.from_numpy(questions).to(dev)
+    T, V = pg_spec.max_decoding_steps, pg_spec.target_vocab_size
+    noise = (-torch.log(-torch.log(torch.rand(T, BATCH, V, generator=gen).clamp_min(1e-12)))).to(dev)
+    k1 = k1_against_plain(torch, pg_dev, pg_spec, q_dev, noise, tag="K1 from checkpoint")
+    # The scripted decoder's tokens win by a wide margin; the random generator
+    # it was made from samples programs that depend on every weight.
+    random_dev = cast_params(random_pg, torch.float32, dev)
+    k1_random = k1_against_plain(torch, random_dev, pg_spec, q_dev, noise,
+                                 tag="K1 random generator")
+    sampled = fused_sampling_forward(pg_dev, pg_spec, q_dev, seed=seed,
+                                     compute_dtype=torch.bfloat16)["predictions"]
+    programs = torch.from_numpy(sample_clevr_like_programs(vocab, BATCH, seed=122)).to(dev)
+    width = max(programs.shape[1], sampled.shape[1])
+    batch_programs = torch.zeros((BATCH, width), dtype=torch.long, device=dev)
+    batch_programs[:BATCH // 2, :sampled.shape[1]] = sampled[:BATCH // 2]
+    batch_programs[BATCH // 2:, :programs.shape[1]] = programs[BATCH // 2:].long()
+    nmn_dev = cast_params(nmn_params, torch.float32, dev)
+    tables = build_tables(nmn_spec, dev)
+    feats = torch.from_numpy(images).to(dev).permute(0, 2, 3, 1)
+    k2 = {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        stem = nmn.apply_stem(cast_params(nmn_dev["stem"], dtype), feats.to(dtype)).contiguous()
+        banks = build_banks(nmn_dev, nmn_spec, dtype)
+        out_k, inv_k = execute_programs_kernel(banks, tables, nmn_spec, stem, batch_programs)
+        out_p, inv_p = execute_programs_plain(banks, tables, nmn_spec, stem, batch_programs)
+        torch.cuda.synchronize()
+        err = float((out_k.float() - out_p.float()).abs().max())
+        scale = float(out_p.float().abs().max())
+        log(f"[K2 from checkpoint {name}] invalid {int(inv_k.sum())}/{BATCH} (plain "
+            f"{int(inv_p.sum())}), max |out err| {err:.3e}, max |out| {scale:.3e}")
+        check(torch.equal(inv_k, inv_p) and not bool(inv_k.any()), "K2 invalid flags")
+        check(torch.isfinite(out_k.float()).all(), "K2 output not finite")
+        check(err <= (1e-4 * max(1.0, scale) if name == "float32" else 2e-2 * scale),
+              f"K2 {name} error {err}")
+        k2[name] = err
+
+    # ------------------------------------------------------------ beam decoding
+    with torch.no_grad():
+        greedy = seq2seq_forward(random_dev, pg_spec, q_dev, GREEDY)["predictions"]
+        beam1 = beam_search_forward(random_dev, pg_spec, q_dev, 1)
+        beam4 = beam_search_forward(random_dev, pg_spec, q_dev, 4)
+    torch.cuda.synchronize()
+    scores = beam4["beam_scores"]
+    log(f"[serve] beam: greedy vs beam 1 identical tokens on "
+        f"{int((greedy == beam1['predictions']).all(1).sum())}/{BATCH} rows; beam 4 scores "
+        f"{float(scores[:, 0].mean()):.4f} (best) .. {float(scores[:, -1].mean()):.4f} (4th) "
+        f"on average")
+    check(torch.equal(greedy, beam1["predictions"]), "beam 1 differs from greedy")
+    check(bool(torch.isfinite(scores).all()) and bool((scores[:, 1:] <= scores[:, :-1]).all()),
+          "beam 4 scores not finite or not sorted best first")
+    beam_ms = cuda_ms(torch, lambda: beam_search_forward(random_dev, pg_spec, q_dev, 4), iters=2,
+                      warmup=1)
+    beam_engine = InferenceEngine.from_checkpoint(config, files["jax"], batch_size=BATCH,
+                                                  decoding="beam", beam_size=4, device=dev)
+    beam_answers = beam_engine.predict(questions, images)
+    check(len(beam_answers) == BATCH and "@@UNKNOWN@@" not in beam_answers,
+          "the beam engine's answers")
+    del beam_engine
+
+    # ------------------------------------------------------------ the inference CLI
+    n_test, n_images = 300, 64
+    test_questions = random_questions(np, vocab, n_test, MAX_QUESTION_LENGTH, seed=123)
+    test_images = rs.randint(0, n_images, n_test)
+    features = rs.randn(n_images, nmn_spec.feature_channels, nmn_spec.height,
+                        nmn_spec.width).astype(np.float32)
+    test_set = JointTrainingDataset.from_arrays(None, test_questions, None, test_images,
+                                                features, split="test")
+    engine = InferenceEngine.from_checkpoint(config, files["jax"], batch_size=BATCH,
+                                             device=dev)
+    engine.warmup()
+    out_path = os.path.join(work, "joint_predictions.json")
+    t0 = time.perf_counter()
+    predictions = run_inference(engine, test_set, BATCH, out_path)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        written = json.load(f)
+    check(written == predictions and len(written) == n_test
+          and sorted(p["question_index"] for p in written) == list(range(n_test)),
+          "the predictions JSON does not cover every test row once")
+    again = InferenceEngine.from_checkpoint(config, files["jax"], batch_size=BATCH,
+                                            device=dev)
+    again.warmup()
+    want = []
+    for start in range(0, n_test, BATCH):
+        rows = np.arange(start, min(start + BATCH, n_test))
+        want += again.predict(test_questions[rows], features[test_images[rows]])
+    check([p["answer"] for p in written] == want, "run_inference's answers differ from predict's")
+    cli_qps = n_test / cli_s
+    log(f"[serve] run_inference: {n_test} test rows in batches of {BATCH} (the last "
+        f"{n_test % BATCH}) in {cli_s:.3f} s, {cli_qps:.1f} questions/s (host clock, sampling, "
+        f"bfloat16), {len(set(want))} distinct answers; the same answers as predict")
+    del engine, again
+
+    # ------------------------------------------------------------ a trainer seeded from it
+    qc_config = Config(os.path.join(repo, "configs", "question_coding_ours.yml"),
+                       ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                        "CHECKPOINTS.PROGRAM_PRIOR", files["jax"]])
+    np.random.seed(qc_config.RANDOM_SEED)
+    qc_set = QuestionCodingDataset.from_tokens(
+        *qc_questions(np, vocab, 2048, seed=124), num_supervision=qc_config.SUPERVISION,
+        supervision_question_max_length=qc_config.SUPERVISION_QUESTION_MAX_LENGTH)
+    trainer = QuestionCodingTrainer(qc_config, os.path.join(work, "qc"), device=dev,
+                                    writer=RecordingWriter(), dataset=qc_set)
+    check(trees_equal(torch, trainer.prior_params, prior), "the JAX-format prior differs")
+    qc_counters = (fused_sampling_forward, lm_forward_cuda, lm_backward_cuda, tf_forward_cuda,
+                   tf_backward_cuda)
+    for fn in qc_counters:
+        fn.launches = 0
+    logs = [trainer.step() for _ in range(2)]
+    torch.cuda.synchronize()
+    qc_launches = {fn.__name__: fn.launches for fn in qc_counters}
+    log(f"[serve] question_coding from the JAX-format prior: 2 steps, launches {qc_launches}, "
+        f"last logs {logs[-1]}")
+    check(all(qc_launches[fn.__name__] > 0 for fn in (fused_sampling_forward, lm_forward_cuda,
+                                                       tf_forward_cuda, tf_backward_cuda)),
+          f"a kernel did not run: {qc_launches}")
+    check(all(np.isfinite(v) for out in logs for g in out.values() for v in g.values()),
+          "train logs not finite")
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+
+    times = {"write_s": write_s, "load_s": load_s,
+             "first_answer_s": {f"{fmt} {dtype}": t for (fmt, dtype), t in first_answer_s.items()},
+             "cli_questions_per_s": cli_qps, "beam4_ms": beam_ms}
+    log(f"[serve] times on {smi}: {json.dumps(times)}")
+    errs = {"seq2seq_decode": max(k1["bfloat16"], k1_random["bfloat16"]),
+            "nmn_interpreter": k2["bfloat16"]}
+    return launches, errs, times
+
+
+def _leaves(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for item in items for leaf in _leaves(torch, item)]
+
+
 def main():
     import numpy as np
     import torch
@@ -2838,6 +3199,9 @@ def main():
     # ---------------------------------------------------------------- 11. GEMM
     gemm = gemm_against_float64(np, torch, dev, smi)
 
+    # ---------------------------------------------------------------- 12. serving from a checkpoint
+    serve_launches, serve_errs, serve_times = serve_from_checkpoints(np, torch, dev, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -2885,6 +3249,10 @@ def main():
     for entry in kernels:
         entry["launches_mini_clevr"] = mini_clevr[entry["name"]]
         entry["max_abs_err_mini_clevr"] = mini_clevr_errs.get(entry["name"])
+        if entry["name"] in serve_launches:
+            entry["launches_from_checkpoint"] = serve_launches[entry["name"]]
+            entry["max_abs_err_from_checkpoint"] = serve_errs.get(entry["name"])
+    kernels[0]["from_checkpoint_times"] = serve_times
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,14 @@ Host -> device batch pipeline (counterpart of ``probnmn_tpu/data/pipeline.py``).
   plain int that never goes to the card: the trainer takes the exact
   supervised and unsupervised subsets with it.
 - :class:`EpochIterator`: one pass for evaluation, dropping the final partial
-  batch.
+  batch unless ``include_last=True`` (test-split inference, which must cover
+  every row).
 - :func:`image_to_nhwc`: image features arrive NCHW from the H5 files
   (reference layout (N, 1024, 14, 14)); the port's NMN functions take NHWC,
   like the JAX package's, so the two can be compared on the same arrays.
 
 Both iterators put batches on ``cuda`` unless the caller asks for the CPU.
-Not ported yet: ``transform`` and ``include_last`` (their callers come with
-later slices).
+Not ported yet: ``transform`` (its caller comes with a later slice).
 """
 from __future__ import annotations
 
@@ -157,17 +157,25 @@ class BatchIterator:
 
 class EpochIterator:
     r"""Single-pass (evaluation) iterator; drops the final partial batch,
-    mirroring the reference evaluator's fixed ``num_batches`` loop."""
+    mirroring the reference evaluator's fixed ``num_batches`` loop, unless
+    ``include_last=True``, which yields it too (with a smaller first axis):
+    test-split inference must cover every example, and the serving engine
+    pads any ``n <= batch_size`` to its batch anyway."""
 
-    def __init__(self, dataset, batch_size: int, device="cuda"):
+    def __init__(self, dataset, batch_size: int, device="cuda", include_last: bool = False):
         self._dataset = dataset
         self._batch_size = batch_size
         self._device = resolve_device(device)
+        self._include_last = include_last
 
     def __len__(self):
-        return len(self._dataset) // self._batch_size
+        n = len(self._dataset)
+        if self._include_last:
+            return -(-n // self._batch_size)
+        return n // self._batch_size
 
     def __iter__(self):
+        n = len(self._dataset)
         for start in range(0, len(self) * self._batch_size, self._batch_size):
-            indices = np.arange(start, start + self._batch_size)
+            indices = np.arange(start, min(start + self._batch_size, n))
             yield to_device(self._dataset.get_batch(indices), self._device)

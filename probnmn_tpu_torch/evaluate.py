@@ -2,7 +2,8 @@ r"""
 Evaluation CLI of the PyTorch port (counterpart of ``scripts/evaluate.py``;
 reference ``scripts/evaluate.py``): build the phase's trainer (for the models
 and the checkpoint load) and evaluator through :func:`train.build`, load the
-checkpoint, evaluate the val split and log every metric.
+checkpoint (the port's, the JAX package's ``.ckpt`` or the reference's
+``.pth``), evaluate the val split and log every metric.
 
     python -m probnmn_tpu_torch.evaluate --phase module_training \
         --config-yml checkpoints/mt/config.yml \
@@ -34,7 +35,10 @@ parser.add_argument(
     default=[],
     help="A sequence of key-value pairs overriding the config.",
 )
-parser.add_argument("--checkpoint-path", required=True)
+parser.add_argument(
+    "--checkpoint-path", required=True,
+    help="A checkpoint of the phase: the port's, the JAX package's .ckpt or the reference's "
+    ".pth, told apart by content.")
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu.")
 parser.add_argument(
     "--streaming-features",

@@ -26,8 +26,9 @@ Philox noise seeded by the caller.
 
 Teacher forcing (``target_tokens``) is the plain version of the training
 kernels K4f/K4b (``ops/kernels/seq2seq_train.py::fused_tf_loss``) in its
-cross-entropy mode, and the evaluator's greedy forward. Beam search is not
-ported yet.
+cross-entropy mode, and the evaluator's greedy forward.
+:func:`beam_search_forward` is the JAX package's beam decoding, plain PyTorch
+as the JAX function is plain XLA.
 """
 from __future__ import annotations
 
@@ -239,4 +240,73 @@ def seq2seq_forward(
         "loss": length_normalized_logprob_loss(logprobs, predictions, spec.pad_index),
         "logits": torch.stack(step_logits, dim=1),
         "logprobs": logprobs,
+    }
+
+
+def beam_search_forward(
+    params: Dict[str, Any],
+    spec: Seq2SeqSpec,
+    source_tokens: torch.Tensor,
+    beam_size: int,
+) -> Dict[str, torch.Tensor]:
+    r"""Width-``beam_size`` beam decode in float32 (counterpart of the JAX
+    package's ``beam_search_forward``, beyond the reference, which decodes
+    without a beam). Returns ``predictions`` (B, T) trimmed at @end@ and
+    ``loss`` (B,), as a free-running :func:`seq2seq_forward`, plus every
+    hypothesis: ``beam_predictions`` (B, K, T) and ``beam_scores`` (B, K),
+    best first.
+
+    Scores are raw cumulative logprobs of the unblocked softmax, the
+    distribution greedy decoding argmaxes over, so ``beam_size=1`` gives the
+    greedy tokens. Only hypothesis 0 is live at t = 0, so the first expansion
+    takes K distinct tokens. A finished hypothesis (it emitted @end@) extends
+    only with @@PADDING@@, at an unchanged score."""
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+    batch, K = source_tokens.shape[0], beam_size
+    vocab, num_steps = spec.target_vocab_size, spec.max_decoding_steps
+    device = source_tokens.device
+
+    encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens)
+    # (B, ...) -> (B*K, ...), hypothesis-major within an example.
+    enc_k = encoder_outputs.repeat_interleave(K, dim=0)
+    mask_k = source_mask.repeat_interleave(K, dim=0)
+    h, c = h.repeat_interleave(K, dim=0), c.repeat_interleave(K, dim=0)
+
+    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=device)
+    token = torch.full((batch, K), spec.start_index, dtype=torch.long, device=device)
+    scores = torch.where(torch.arange(K, device=device) == 0, 0.0, neg_inf).repeat(batch, 1)
+    finished = torch.zeros((batch, K), dtype=torch.bool, device=device)
+    seqs = torch.zeros((batch, K, num_steps), dtype=torch.long, device=device)
+    logps = torch.zeros((batch, K, num_steps), dtype=torch.float32, device=device)
+    pad_only = torch.where(torch.arange(vocab, device=device) == spec.pad_index, 0.0, neg_inf)
+    rows = torch.arange(batch, device=device)[:, None] * K
+
+    for t in range(num_steps):
+        logits, h_new, c_new = _decode_step(
+            params, spec, token.reshape(batch * K), h, c, enc_k, mask_k)
+        log_probs = torch.log_softmax(logits, dim=-1).reshape(batch, K, vocab)
+        cand = scores[:, :, None] + torch.where(finished[:, :, None], pad_only, log_probs)
+        scores, top = torch.topk(cand.reshape(batch, K * vocab), K, dim=-1)
+        parent, token = top // vocab, top % vocab
+        flat_parent = (rows + parent).reshape(-1)
+        h, c = h_new[flat_parent], c_new[flat_parent]
+        finished = finished.gather(1, parent)
+        seqs = seqs.gather(1, parent[:, :, None].expand(-1, -1, num_steps)).clone()
+        logps = logps.gather(1, parent[:, :, None].expand(-1, -1, num_steps)).clone()
+        step_logp = log_probs.gather(1, parent[:, :, None].expand(-1, -1, vocab))
+        step_logp = step_logp.gather(2, token[:, :, None])[..., 0]
+        seqs[:, :, t] = token
+        logps[:, :, t] = torch.where(finished, 0.0, step_logp)
+        finished = finished | (token == spec.end_index)
+
+    # topk keeps each row sorted descending, so hypothesis 0 is the best.
+    trimmed = trim_at_end(seqs.reshape(batch * K, num_steps), spec.end_index)
+    trimmed = trimmed.reshape(batch, K, num_steps)
+    predictions = trimmed[:, 0]
+    return {
+        "predictions": predictions,
+        "loss": length_normalized_logprob_loss(logps[:, 0], predictions, spec.pad_index),
+        "beam_predictions": trimmed,
+        "beam_scores": scores,
     }

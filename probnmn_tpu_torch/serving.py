@@ -7,19 +7,22 @@ is its batch script, reference ``inference.py:74-95``).
   to ``batch_size`` and un-pads the answers, so the device always sees the
   same shapes; larger requests run in chunks.
 - **The pipeline.** ProgramGenerator decode (sampling by default, as the
-  reference's inference script; or greedy) -> NMN stem -> program
-  interpreter -> classifier. On ``cuda`` sampling runs the fused sampling
-  kernel and the interpreter runs the interpreter kernel; on ``cpu`` both run
-  their plain PyTorch versions.
+  reference's inference script; greedy; or beam, beyond the reference) ->
+  NMN stem -> program interpreter -> classifier. On ``cuda`` sampling runs
+  the fused sampling kernel and the interpreter runs the interpreter kernel;
+  on ``cpu`` both run their plain PyTorch versions.
 - **Sampling** draws one Philox seed per batch from the engine's
   ``torch.Generator`` (seeded by ``rng_seed``), unless the caller passes one.
 - **Compute dtype.** bfloat16 on ``cuda`` and float32 on ``cpu`` unless the
   caller or the NMN spec says otherwise (the JAX package's "auto"). Feature
   batches are uploaded as float32 and cast on the device.
 
-Not ported yet: the multi-device mesh, the compilation cache, the
-``submit()``/``start()``/``stop()`` micro-batching dispatcher,
-``from_checkpoint`` and beam decoding.
+- **From a checkpoint.** :meth:`InferenceEngine.from_checkpoint` reads the
+  ProgramGenerator and the NMN from a checkpoint of the port, of the JAX
+  package (its ``.ckpt``) or of the reference (its ``.pth``).
+
+Not ported yet: the ``submit()``/``start()``/``stop()`` micro-batching
+dispatcher, the multi-device mesh and the compilation cache.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from probnmn_tpu_torch.data.pipeline import image_to_nhwc
 from probnmn_tpu_torch.data.vocabulary import Vocabulary
 from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.models import nmn as nmn_lib
+from probnmn_tpu_torch.models import program_generator
 from probnmn_tpu_torch.models.nmn import cast_params, resolve_compute_dtype
-from probnmn_tpu_torch.models.seq2seq import GREEDY, seq2seq_forward
+from probnmn_tpu_torch.models.seq2seq import GREEDY, beam_search_forward, seq2seq_forward
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward, pack_weights
 
 _SEED_RANGE = 2 ** 62
@@ -52,19 +56,24 @@ class InferenceEngine:
         decoding: str = "sampling",
         device="cuda",
         compute_dtype: Optional[str] = None,
+        beam_size: int = 1,
     ):
         r"""``decoding``: ``"sampling"`` (the reference inference default,
-        ``inference.py:80``) or ``"greedy"`` (the reference evaluators').
+        ``inference.py:80``), ``"greedy"`` (the reference evaluators') or
+        ``"beam"`` (width ``beam_size``; 1 gives the greedy tokens).
         ``compute_dtype``: ``"float32"``, ``"bfloat16"`` or None (the NMN
         spec's, else bfloat16 on ``cuda`` and float32 on ``cpu``)."""
-        if decoding not in ("sampling", "greedy"):
+        if decoding not in ("sampling", "greedy", "beam"):
             raise ValueError(f"unknown decoding strategy: {decoding!r}")
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got {beam_size}")
         self._device = resolve_device(device)
         self._vocabulary = vocabulary
         self._pg_spec = pg_spec
         self._nmn_spec = nmn_spec
         self._batch_size = batch_size
         self._decoding = decoding
+        self._beam_size = beam_size
         self._generator = torch.Generator().manual_seed(rng_seed)
         dtype = resolve_compute_dtype(compute_dtype or nmn_spec.compute_dtype, self._device)
         self._compute_dtype = dtype
@@ -81,9 +90,8 @@ class InferenceEngine:
         )
 
         # Bucket ladder batch_size // 4**k, floored at 2 (a size-1 bucket buys
-        # negligible latency over the next one up). It has no caller yet: the
-        # micro-batching dispatcher that picks a bucket is not ported, and
-        # predict() always pads to the full batch.
+        # negligible latency over the next one up), for the micro-batching
+        # dispatcher, which is not ported yet; predict() pads to the full batch.
         bucket_floor = 2
         buckets = []
         b = batch_size
@@ -93,6 +101,37 @@ class InferenceEngine:
                 break
             b //= 4
         self._buckets = sorted(set(buckets))
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        config,
+        checkpoint_path: str,
+        batch_size: Optional[int] = None,
+        compute_dtype: Optional[str] = None,
+        decoding: str = "sampling",
+        beam_size: int = 1,
+        device="cuda",
+    ) -> "InferenceEngine":
+        r"""An engine over the ``program_generator`` and ``nmn`` of a
+        checkpoint (a joint_training one holds both): the port's, the JAX
+        package's ``.ckpt`` or the reference's ``.pth``, told apart by their
+        content (the JAX package's ``from_checkpoint``). The vocabulary, the
+        specs, the batch size (unless given) and the sampling seed come from
+        ``config``."""
+        from probnmn_tpu_torch.training._trainer import load_models
+
+        vocabulary = Vocabulary.from_files(config.DATA.VOCABULARY)
+        pg_spec = program_generator.make_spec(vocabulary, config)
+        nmn_spec = nmn_lib.make_spec(vocabulary, config)
+        models = load_models(checkpoint_path,
+                             {"program_generator": pg_spec, "nmn": nmn_spec}, vocabulary)
+        return cls(
+            vocabulary, pg_spec, nmn_spec, models["program_generator"], models["nmn"],
+            batch_size=batch_size or config.OPTIM.BATCH_SIZE, rng_seed=config.RANDOM_SEED,
+            decoding=decoding, device=device, compute_dtype=compute_dtype,
+            beam_size=beam_size,
+        )
 
     @property
     def vocabulary(self) -> Vocabulary:
@@ -181,7 +220,10 @@ class InferenceEngine:
         return self._finish(answers, n)
 
     def _pipeline(self, questions: torch.Tensor, images: torch.Tensor, seed: int) -> torch.Tensor:
-        if self._decoding == GREEDY:
+        if self._decoding == "beam":
+            programs = beam_search_forward(
+                self._pg_params, self._pg_spec, questions, self._beam_size)["predictions"]
+        elif self._decoding == GREEDY:
             programs = seq2seq_forward(
                 self._pg_params, self._pg_spec, questions, GREEDY
             )["predictions"]

@@ -8,7 +8,9 @@ dispatch and the same loop: ``trainer.step()`` every iteration, evaluate and
         --config-yml configs/program_prior.yml --serialization-dir checkpoints/prior
 
 ``--device`` is ``cuda`` (the default) or ``cpu``. All four phases are
-ported. ``--streaming-features`` reads image features from their H5 file per
+ported. ``--start-from-checkpoint`` and the ``CHECKPOINTS.*`` of the later
+phases take a checkpoint of the port, of the JAX package (its ``.ckpt``) or
+of the reference (its ``.pth``). ``--streaming-features`` reads image features from their H5 file per
 batch instead of loading the file into host memory (the phases that read
 features). In ``joint_training``, ``PROBNMN_NMN_REPLAY_BWD=1`` trains the NMN
 without K5's stored residuals (K2 forward, K6's replay-mode backward).
@@ -42,7 +44,13 @@ parser.add_argument(
 )
 parser.add_argument("--serialization-dir", default="checkpoints/experiment")
 parser.add_argument("--checkpoint-every", type=int, default=500)
-parser.add_argument("--start-from-checkpoint", default="")
+parser.add_argument(
+    "--start-from-checkpoint",
+    default="",
+    help="Resume from a checkpoint of this phase: the port's, the JAX package's .ckpt (params, "
+    "Adam state, scheduler, baseline, iteration) or the reference's .pth (weights only), "
+    "told apart by content.",
+)
 parser.add_argument("--num-val-batches", type=int, default=256)
 
 

@@ -10,29 +10,43 @@ trainable models' parameters; ``step()`` runs one iteration and logs its
 scheduler; ``load_checkpoint`` restores params, optimizer, scheduler,
 learning rate and iteration.
 
+Checkpoints (``load_checkpoint``, and :func:`load_frozen` for the frozen
+models of the later phases) are read in any of three formats, told apart by
+their content (``utils/checkpointing.py``): the port's own; the JAX
+package's ``.ckpt`` (params, Adam state, scheduler, baseline and iteration,
+as the JAX trainer restores them); and the reference's ``.pth`` (weights
+only, with a fresh optimizer and iteration -1, as the JAX trainer does).
+
 In PyTorch the step runs eagerly on ``device`` (``cuda`` unless the caller
 asks for the CPU): forward, ``backward()``, clamp, Adam, each parameter
 updated in place. Parameters are nested dicts and lists of float32 leaf
 tensors. Scalars go to ``writer`` (anything with ``add_scalar`` and
 ``add_scalars``), by default a tensorboardX ``SummaryWriter``.
 
-Not ported yet: the data-parallel mesh, reading the reference's ``.pth``
-checkpoints and ``OPTIM.ADAM_MU_DTYPE = "bfloat16"`` (the JAX package's bf16
-Adam first moment), which raises (ROADMAP.md queue 1).
+Not ported yet: the data-parallel mesh and ``OPTIM.ADAM_MU_DTYPE =
+"bfloat16"`` (the JAX package's bf16 Adam first moment), which raises, also
+in a JAX checkpoint's Adam state (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import logging
-import zipfile
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from probnmn_tpu_torch import interop
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.training.optim import ClampedAdam, ReduceLROnPlateau
-from probnmn_tpu_torch.utils.checkpointing import CheckpointManager, load_objects
+from probnmn_tpu_torch.utils.checkpointing import (
+    MSGPACK,
+    CheckpointManager,
+    checkpoint_format,
+    load_objects,
+    read_checkpoint,
+)
 from probnmn_tpu_torch.utils.observability import StepTimer
+from probnmn_tpu_torch.utils.torch_interop import is_reference_state
 
 logger = logging.getLogger(__name__)
 
@@ -71,22 +85,23 @@ def copy_into(dst: Any, src: Any, path: str = "") -> None:
         copy_into(dst[key], src[key], f"{path}/{key}")
 
 
-def load_frozen(path: str, name: str, params: Any, device: torch.device, writer: str) -> Any:
-    r"""The ``name`` params of a checkpoint written by the port's ``writer``
-    trainer (a ``torch.save`` zip archive), copied into ``params`` (a tree of
-    the right shapes), as float32 tensors on ``device`` that need no
-    gradient. The JAX package's msgpack ``.ckpt`` and the reference's
-    ``.pth`` raise: reading them is not ported."""
-    if path.endswith(".pth") or not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path} is not a checkpoint of the port's {writer}; reading the JAX package's "
-            "msgpack .ckpt and the reference's .pth is not ported (ROADMAP.md queue 1, "
-            "checkpoint interop)"
-        )
-    restored, _, missing = load_objects(path, {name: None})
+def load_models(path: str, specs: Dict[str, Any], vocabulary) -> Dict[str, Any]:
+    r"""The params of every model of ``specs`` (name -> spec) from a
+    checkpoint in any of the three formats, as float32 CPU tensors in the
+    port's layout; a model the file lacks raises."""
+    restored, _, missing = load_objects(path, {name: None for name in specs})
     if missing:
-        raise ValueError(f"{path} holds no {name} params")
-    copy_into(params, restored[name], name)
+        raise ValueError(f"{path} holds no {', '.join(missing)} params")
+    return interop.models_from_payload(restored, checkpoint_format(path), specs, vocabulary)
+
+
+def load_frozen(path: str, name: str, params: Any, device: torch.device, spec,
+                vocabulary) -> Any:
+    r"""The ``name`` params of a checkpoint (the port's, the JAX package's
+    ``.ckpt`` or the reference's ``.pth``), copied into ``params`` (a tree of
+    the right shapes), as float32 tensors on ``device`` that need no
+    gradient."""
+    copy_into(params, load_models(path, {name: spec}, vocabulary)[name], name)
     return tree_map(lambda t: t.to(device, torch.float32), params)
 
 
@@ -211,21 +226,44 @@ class _Trainer:
                     f"val/metrics/{model_name}/{metric_name}", value, self._iteration
                 )
 
+    def model_specs(self) -> Dict[str, Any]:
+        r"""Model name -> spec of every trainable model, for reading the JAX
+        package's and the reference's checkpoints. Phase trainers override."""
+        raise NotImplementedError
+
     def load_checkpoint(self, checkpoint_path: str, iteration: Optional[int] = None):
-        if checkpoint_path.endswith(".pth"):
-            raise NotImplementedError(
-                "reference .pth checkpoints are not ported (ROADMAP.md queue 1, checkpoint "
-                "interop)"
-            )
-        restored, ckpt_iteration = self._checkpoint_manager.load(
-            checkpoint_path, self._checkpointables())
-        for name in self._params:
-            copy_into(self._params[name], restored[name])
-        self._optimizer.load_state_dict(restored["optimizer"])
-        self._lr_scheduler.load_state_dict(restored["scheduler"])
+        r"""Restore from a checkpoint of the port, of the JAX package (its
+        ``.ckpt``) or of the reference (its ``.pth``: weights only); what the
+        file lacks keeps its current state."""
+        logger.info("Loading checkpoint from %s", checkpoint_path)
+        payload, fmt = read_checkpoint(checkpoint_path)
+        ckpt_iteration = int(payload.pop("iteration", -1))
+        models = interop.models_from_payload(payload, fmt, self.model_specs(), self._vocabulary)
+        for name, params in models.items():
+            copy_into(self._params[name], params, name)
+        missing = [name for name in (*self._params, "optimizer", "scheduler", "reinforce_baseline")
+                   if name not in payload]
+        if missing:
+            logger.info("Checkpointables not found in file: %s", missing)
+        if fmt != MSGPACK and any(is_reference_state(payload.get(n)) for n in self._params):
+            # The reference's optimizer and scheduler state is torch 1.4's and
+            # its iteration another run's: start both afresh, as the JAX
+            # trainer does.
+            self._iteration = iteration if iteration is not None else -1
+            return
+        if "optimizer" in payload:
+            optimizer = payload["optimizer"]
+            if fmt == MSGPACK:
+                optimizer = interop.adam_state_from_optax(
+                    optimizer, self._params, self.model_specs(), self._optimizer.state_dict())
+            self._optimizer.load_state_dict(optimizer)
+        if "scheduler" in payload:
+            # Numbers in both files; load_state_dict makes each a float or an int.
+            self._lr_scheduler.load_state_dict(payload["scheduler"])
         self._optimizer.set_learning_rate(self._lr_scheduler.lr)
-        self._baseline = torch.as_tensor(restored["reinforce_baseline"]).to(
-            self._device, torch.float32)
+        if "reinforce_baseline" in payload:
+            self._baseline = torch.as_tensor(payload["reinforce_baseline"]).to(
+                self._device, torch.float32)
         self._iteration = iteration if iteration is not None else ckpt_iteration
 
     # ------------------------------------------------------------------ accessors -----

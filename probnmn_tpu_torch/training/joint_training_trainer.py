@@ -29,12 +29,10 @@ JAX package's fixed windows (``training/_subbatch.py``) are not carried
 over. An empty subset skips its passes: its means are 0 and the baseline
 does not move, which is what the JAX package's masked means give there.
 
-Models: PG and QR come, trainable, from ``CHECKPOINTS.QUESTION_CODING`` (a
-checkpoint of the port's ``QuestionCodingTrainer``), the NMN from
-``CHECKPOINTS.MODULE_TRAINING`` (the port's ``ModuleTrainingTrainer``), the
-frozen prior from ``CHECKPOINTS.PROGRAM_PRIOR``; the JAX package's msgpack
-``.ckpt`` and the reference's ``.pth`` raise (ROADMAP.md queue 1, checkpoint
-interop).
+Models: PG and QR come, trainable, from ``CHECKPOINTS.QUESTION_CODING``, the
+NMN from ``CHECKPOINTS.MODULE_TRAINING``, the frozen prior from
+``CHECKPOINTS.PROGRAM_PRIOR``: each a checkpoint of the port's earlier
+phase, of the JAX package's or of the reference's.
 
 The NMN's backward: by default K5 stores the residuals K6 reads (about 1 GB
 at batch 256 in bfloat16); ``replay=True`` or ``PROBNMN_NMN_REPLAY_BWD=1``
@@ -119,13 +117,13 @@ class JointTrainingTrainer(_Trainer):
         models = {
             "program_generator": load_frozen(
                 qc_path, "program_generator", program_generator.init_params(gen, self.pg_spec),
-                device, "QuestionCodingTrainer"),
+                device, self.pg_spec, vocabulary),
             "question_reconstructor": load_frozen(
                 qc_path, "question_reconstructor",
-                question_reconstructor.init_params(gen, self.qr_spec), device,
-                "QuestionCodingTrainer"),
+                question_reconstructor.init_params(gen, self.qr_spec), device, self.qr_spec,
+                vocabulary),
             "nmn": load_frozen(mt_path, "nmn", nmn.init_nmn_params(gen, self.nmn_spec), device,
-                               "ModuleTrainingTrainer"),
+                               self.nmn_spec, vocabulary),
         }
         super().__init__(config, batches, models, serialization_dir, device=device, writer=writer)
         self._vocabulary = vocabulary
@@ -216,6 +214,10 @@ class JointTrainingTrainer(_Trainer):
             total.backward()
         self._optimizer.step()
         return logs
+
+    def model_specs(self) -> Dict[str, Any]:
+        return {"program_generator": self.pg_spec, "question_reconstructor": self.qr_spec,
+                "nmn": self.nmn_spec}
 
     def after_validation(self, val_metrics: Dict[str, Any], iteration=None) -> None:
         val_metrics["metric"] = val_metrics["nmn"]["answer_accuracy"]

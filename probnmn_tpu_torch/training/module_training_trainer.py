@@ -14,11 +14,9 @@ A step over a batch of questions, answers and NCHW image features:
   loss (3.33 for an invalid program);
 - ``backward()``, clamp and Adam over the NMN's params.
 
-The generator comes from ``CHECKPOINTS.QUESTION_CODING``, a checkpoint of
-the port's ``QuestionCodingTrainer``; reading the JAX package's msgpack
-``.ckpt`` or the reference's ``.pth`` is not ported (ROADMAP.md queue 1,
-checkpoint interop) and raises. The NMN params are initialised from
-``RANDOM_SEED``.
+The generator comes from ``CHECKPOINTS.QUESTION_CODING``: a checkpoint of
+the port's ``QuestionCodingTrainer``, of the JAX package's or the
+reference's. The NMN params are initialised from ``RANDOM_SEED``.
 """
 from __future__ import annotations
 
@@ -40,11 +38,11 @@ from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 
 
 def load_frozen_generator(path: str, spec: Seq2SeqSpec, device: torch.device) -> Dict[str, Any]:
-    r"""The ``program_generator`` params of a checkpoint written by the port's
-    ``QuestionCodingTrainer``, as float32 tensors on ``device`` that need no
-    gradient (:func:`load_frozen`)."""
+    r"""The ``program_generator`` params of a checkpoint (the port's, the JAX
+    package's or the reference's), as float32 tensors on ``device`` that need
+    no gradient (:func:`load_frozen`)."""
     template = program_generator.init_params(torch.Generator().manual_seed(0), spec)
-    return load_frozen(path, "program_generator", template, device, "QuestionCodingTrainer")
+    return load_frozen(path, "program_generator", template, device, spec, None)
 
 
 class ModuleTrainingTrainer(_Trainer):
@@ -104,6 +102,9 @@ class ModuleTrainingTrainer(_Trainer):
         self._optimizer.step()
         return {"loss": loss.detach(),
                 "metrics": {k: v.float() for k, v in out["metrics"].items()}}
+
+    def model_specs(self) -> Dict[str, Any]:
+        return {"nmn": self.nmn_spec}
 
     def after_validation(self, val_metrics: Dict[str, Any], iteration=None) -> None:
         val_metrics["metric"] = val_metrics["nmn"]["answer_accuracy"]

@@ -68,6 +68,9 @@ class ProgramPriorTrainer(_Trainer):
         self._optimizer.step()
         return {"loss": loss.detach()}
 
+    def model_specs(self) -> Dict[str, Any]:
+        return {"program_prior": self.spec}
+
     def after_validation(self, val_metrics: Dict[str, Any], iteration=None) -> None:
         # Reciprocate perplexity to make it "higher is better".
         val_metrics["metric"] = 1.0 / val_metrics["program_prior"]["perplexity"]

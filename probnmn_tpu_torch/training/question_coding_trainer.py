@@ -29,10 +29,8 @@ supervised passes are skipped and their means are 0; at ``n_sup == B`` the
 unsupervised passes are skipped, the ELBO terms are 0 and the baseline does
 not move. That is what the JAX package's masked means give there.
 
-The frozen prior comes from ``CHECKPOINTS.PROGRAM_PRIOR``, a checkpoint of
-the port's ``ProgramPriorTrainer``; reading the JAX package's msgpack
-``.ckpt`` or the reference's ``.pth`` is not ported (ROADMAP.md queue 1,
-checkpoint interop) and raises.
+The frozen prior comes from ``CHECKPOINTS.PROGRAM_PRIOR``: a checkpoint of
+the port's ``ProgramPriorTrainer``, of the JAX package's or the reference's.
 """
 from __future__ import annotations
 
@@ -65,11 +63,11 @@ COUNT_KEY = "_num_" + SORT_KEY  # attached by BatchIterator(sort_descending_by=S
 
 
 def load_frozen_prior(path: str, spec: ProgramPriorSpec, device: torch.device) -> Dict[str, Any]:
-    r"""The ``program_prior`` params of a checkpoint written by the port's
-    ``ProgramPriorTrainer``, as float32 tensors on ``device`` that need no
-    gradient (:func:`load_frozen`)."""
+    r"""The ``program_prior`` params of a checkpoint (the port's, the JAX
+    package's or the reference's), as float32 tensors on ``device`` that need
+    no gradient (:func:`load_frozen`)."""
     template = init_program_prior_params(torch.Generator().manual_seed(0), spec)
-    return load_frozen(path, "program_prior", template, device, "ProgramPriorTrainer")
+    return load_frozen(path, "program_prior", template, device, spec, None)
 
 
 def frozen_prior_logprobs(params: Dict[str, Any], packed: Optional[Dict[str, torch.Tensor]],
@@ -196,6 +194,9 @@ class QuestionCodingTrainer(_Trainer):
             total.backward()
         self._optimizer.step()
         return logs
+
+    def model_specs(self) -> Dict[str, Any]:
+        return {"program_generator": self.pg_spec, "question_reconstructor": self.qr_spec}
 
     def after_validation(self, val_metrics: Dict[str, Any], iteration=None) -> None:
         val_metrics["metric"] = val_metrics["program_generator"]["sequence_accuracy"]

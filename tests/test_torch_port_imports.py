@@ -12,7 +12,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "probnmn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "probnmn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "probnmn_tpu")
 # Modules each slice added; the walk below must import every one of them.
 SLICE_MODULES = (
     "probnmn_tpu_torch.serving",
@@ -44,6 +44,10 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.data.mini_clevr",
     "probnmn_tpu_torch.evaluate",
     "probnmn_tpu_torch.mini_clevr_run",
+    "probnmn_tpu_torch.interop",
+    "probnmn_tpu_torch.utils.msgpack_format",
+    "probnmn_tpu_torch.utils.torch_interop",
+    "probnmn_tpu_torch.inference",
 )
 
 
@@ -67,7 +71,7 @@ def test_import_loads_no_jax():
         "for m in pkgutil.walk_packages(probnmn_tpu_torch.__path__, 'probnmn_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'probnmn_tpu'))\n"
+        f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         f"missing = [m for m in {SLICE_MODULES!r} if m not in sys.modules]\n"
         "assert not missing, missing\n"

@@ -23,8 +23,9 @@ saved both as the JAX package's checkpoints and as the port's:
 and logs within 1e-5, baseline within 1e-6, NMN gradients within 5e-5 /
 1e-3, seq2seq leaves within 5e-6 of their scale); three trainer steps
 against the JAX trainer with both samplers replaced by fixed programs; the
-evaluator in both decode modes against the JAX evaluator; resume; the
-refusal of JAX and reference checkpoints; the CLI with ``--device cpu``."""
+evaluator in both decode modes against the JAX evaluator; resume; each
+frozen model read from a JAX ``.ckpt`` and a reference ``.pth``; the CLI
+with ``--device cpu``."""
 import os
 
 import numpy as np
@@ -50,6 +51,7 @@ from probnmn_tpu.ops.pallas import nmn_interpreter as jni
 from probnmn_tpu.ops.pallas.seq2seq_train import fused_tf_loss as jax_fused_tf_loss
 from probnmn_tpu.training import joint_training_trainer as jax_jt_module
 from probnmn_tpu.training.program_prior_trainer import make_prior_spec as jax_make_prior_spec
+from probnmn_tpu.utils import torch_interop as jax_torch_interop
 from probnmn_tpu.utils.checkpointing import save_objects as jax_save_objects
 from probnmn_tpu_torch import interop, train
 from probnmn_tpu_torch.config import Config
@@ -71,6 +73,7 @@ from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY
 from probnmn_tpu_torch.utils.checkpointing import save_objects
 from probnmn_tpu_torch.utils.observability import RecordingWriter
 
+from tests import ref_checkpoints
 from tests.clevr_fixtures import PROGRAM_TEMPLATES, build_fixture_data, make_fixture_config
 from tests.test_nmn import EXPECTED_INVALID
 from tests.test_torch_port_module_training import (  # noqa: F401 (small is a fixture)
@@ -223,7 +226,9 @@ def jt(tmp_path_factory):
                for t in PROGRAM_TEMPLATES[i % len(PROGRAM_TEMPLATES)]]
         programs[i, :len(ids)] = ids
     return dict(root=root, configs=configs, overrides=overrides, port=port, prior=prior,
-                prior_spec=prior_spec, programs=programs)
+                prior_spec=prior_spec, programs=programs, pg=pg, qr=qr, nmn=nmn_params,
+                specs={"program_generator": pg_spec, "question_reconstructor": qr_spec,
+                       "nmn": nmn_spec, "program_prior": prior_spec}, jvocab=jvocab)
 
 
 def _port_trainer(config, directory, **kwargs):
@@ -485,12 +490,45 @@ def test_checkpoint_resumes_params_and_baseline(runs, tmp_path):
 
 @pytest.mark.parametrize("checkpoint", ["PROGRAM_PRIOR", "QUESTION_CODING", "MODULE_TRAINING"])
 def test_trainer_refuses_jax_and_reference_checkpoints(jt, tmp_path, checkpoint):
+    r"""Each frozen or starting model loads from the JAX package's ``.ckpt``
+    equal to the JAX params, and from a reference ``.pth`` equal to the JAX
+    package's port of it."""
     jax_config, _, path = jt["configs"]("ours")
-    for bad in (getattr(jax_config.CHECKPOINTS, checkpoint), str(tmp_path / "model.pth")):
+    names = {"PROGRAM_PRIOR": ["program_prior"],
+             "QUESTION_CODING": ["program_generator", "question_reconstructor"],
+             "MODULE_TRAINING": ["nmn"]}[checkpoint]
+    specs = {name: jt["specs"][name] for name in names}
+    states = {
+        "program_prior": lambda s: ref_checkpoints.make_prior_state(
+            s.vocab_size, s.input_size, s.hidden_size, s.num_layers, 1),
+        "program_generator": lambda s: ref_checkpoints.make_seq2seq_state(
+            s.source_vocab_size, s.target_vocab_size, s.input_size, s.hidden_size,
+            s.num_layers, 2),
+        "question_reconstructor": lambda s: ref_checkpoints.make_seq2seq_state(
+            s.source_vocab_size, s.target_vocab_size, s.input_size, s.hidden_size,
+            s.num_layers, 3),
+        "nmn": lambda s: ref_checkpoints.make_nmn_state(jt["jvocab"], s, 4),
+    }
+    pth = str(tmp_path / "model.pth")
+    ref_checkpoints.save_reference_pth(pth, {name: states[name](specs[name]) for name in names})
+    ported = jax_torch_interop.load_reference_checkpoint(pth, specs, jt["jvocab"])
+    jax_params = {"program_prior": jt["prior"], "program_generator": jt["pg"],
+                  "question_reconstructor": jt["qr"], "nmn": jt["nmn"]}
+    for source, want in ((getattr(jax_config.CHECKPOINTS, checkpoint), jax_params),
+                         (pth, ported)):
         overrides = list(jt["overrides"])
-        overrides[overrides.index(f"CHECKPOINTS.{checkpoint}") + 1] = bad
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_trainer(Config(path, overrides), str(tmp_path))
+        overrides[overrides.index(f"CHECKPOINTS.{checkpoint}") + 1] = source
+        trainer = _port_trainer(Config(path, overrides), str(tmp_path))
+        for name in names:
+            got = trainer.prior_params if name == "program_prior" else trainer.params[name]
+            expected = _to_numpy(want[name])
+            if name == "nmn":
+                expected = _to_numpy(interop.nmn_from_jax(expected, trainer.nmn_spec))
+            got = _to_numpy(got)
+            assert (jax.tree_util.tree_structure(jax.tree_util.tree_map(np.shape, got))
+                    == jax.tree_util.tree_structure(jax.tree_util.tree_map(np.shape, expected)))
+            for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(expected)):
+                np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 def test_dataset_matches_jax(jt):

@@ -44,6 +44,7 @@ from probnmn_tpu.models import program_generator as jprogram_generator
 from probnmn_tpu.ops.pallas import nmn_interpreter as jni
 from probnmn_tpu.training import module_training_trainer as jax_mt_module
 from probnmn_tpu.utils import metrics as jmetrics
+from probnmn_tpu.utils import torch_interop as jax_torch_interop
 from probnmn_tpu.utils.checkpointing import save_objects as jax_save_objects
 from probnmn_tpu_torch import interop, train
 from probnmn_tpu_torch.config import Config
@@ -75,6 +76,7 @@ from probnmn_tpu_torch.utils import metrics
 from probnmn_tpu_torch.utils.checkpointing import save_objects
 from probnmn_tpu_torch.utils.observability import RecordingWriter
 
+from tests import ref_checkpoints
 from tests.clevr_fixtures import (
     PROGRAM_TEMPLATES,
     build_fixture_data,
@@ -504,9 +506,24 @@ def test_checkpoint_resumes_and_generator_must_be_the_ports(mt, runs, tmp_path):
                     jax.tree_util.tree_leaves(_to_numpy(interop.program_generator_from_jax(
                         _to_numpy(mt["pg"]))))):
         np.testing.assert_array_equal(a, b)
-    for path in (os.path.join(mt["root"], "question_coding_best.ckpt"), str(tmp_path / "x.pth")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_frozen_generator(path, spec, torch.device("cpu"))
+    # The JAX package's .ckpt gives the same params; a reference .pth its
+    # JAX port's.
+    params = load_frozen_generator(os.path.join(mt["root"], "question_coding_best.ckpt"), spec,
+                                   torch.device("cpu"))
+    for a, b in zip(jax.tree_util.tree_leaves(_to_numpy(params)),
+                    jax.tree_util.tree_leaves(_to_numpy(mt["pg"]))):
+        np.testing.assert_array_equal(a, b)
+    pg_spec = jprogram_generator.make_spec(JVocabulary.from_files(
+        mt["jax_config"].DATA.VOCABULARY), mt["jax_config"])
+    pth = str(tmp_path / "x.pth")
+    ref_checkpoints.save_reference_pth(pth, {"program_generator": ref_checkpoints.make_seq2seq_state(
+        pg_spec.source_vocab_size, pg_spec.target_vocab_size, pg_spec.input_size,
+        pg_spec.hidden_size, pg_spec.num_layers, 7)})
+    params = load_frozen_generator(pth, spec, torch.device("cpu"))
+    ported = jax_torch_interop.load_reference_checkpoint(pth, {"program_generator": pg_spec}, None)
+    for a, b in zip(jax.tree_util.tree_leaves(_to_numpy(params)),
+                    jax.tree_util.tree_leaves(_to_numpy(ported["program_generator"]))):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_data_path_matches_jax(mt):

@@ -43,6 +43,7 @@ from probnmn_tpu.training.question_coding_trainer import (
     QuestionCodingTrainer as JaxQuestionCodingTrainer,
 )
 from probnmn_tpu.utils import metrics as jmetrics
+from probnmn_tpu.utils import torch_interop as jax_torch_interop
 from probnmn_tpu.utils.checkpointing import save_objects as jax_save_objects
 from probnmn_tpu_torch import interop, train
 from probnmn_tpu_torch.config import Config
@@ -73,6 +74,7 @@ from probnmn_tpu_torch.utils import metrics
 from probnmn_tpu_torch.utils.checkpointing import save_objects
 from probnmn_tpu_torch.utils.observability import RecordingWriter
 
+from tests import ref_checkpoints
 from tests.clevr_fixtures import build_fixture_data, make_fixture_config
 
 LOSS_ATOL = 1e-5
@@ -509,15 +511,23 @@ def test_ours_steps_move_the_baseline_and_resume(qc, tmp_path):
 
 
 def test_prior_checkpoint_must_be_the_ports(qc, tmp_path):
+    r"""The frozen prior loads from a checkpoint in each of the three formats:
+    the port's and the JAX package's ``.ckpt`` equal to the JAX params, a
+    reference ``.pth`` equal to the JAX package's port of it."""
     from probnmn_tpu_torch.models.program_prior import ProgramPriorSpec
 
     prior_spec = ProgramPriorSpec(**{f: getattr(qc["prior_spec"], f)
                                      for f in qc["prior_spec"].__dataclass_fields__})
-    params = load_frozen_prior(qc["port_prior"], prior_spec, torch.device("cpu"))
-    _assert_trees_close(_to_numpy(params), qc["prior"], 0.0)
-    for path in (os.path.join(qc["root"], "program_prior_best.ckpt"), str(tmp_path / "x.pth")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_frozen_prior(path, prior_spec, torch.device("cpu"))
+    for path in (qc["port_prior"], os.path.join(qc["root"], "program_prior_best.ckpt")):
+        params = load_frozen_prior(path, prior_spec, torch.device("cpu"))
+        _assert_trees_close(_to_numpy(params), qc["prior"], 0.0)
+    spec = qc["prior_spec"]
+    pth = str(tmp_path / "x.pth")
+    ref_checkpoints.save_reference_pth(pth, {"program_prior": ref_checkpoints.make_prior_state(
+        spec.vocab_size, spec.input_size, spec.hidden_size, spec.num_layers, 7)})
+    params = load_frozen_prior(pth, prior_spec, torch.device("cpu"))
+    ported = jax_torch_interop.load_reference_checkpoint(pth, {"program_prior": spec}, None)
+    _assert_trees_close(_to_numpy(params), ported["program_prior"], 0.0)
 
 
 def test_data_path_matches_jax(qc):
