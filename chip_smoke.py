@@ -207,6 +207,31 @@ Phases (any failure raises, and the script exits non-zero with no result):
    JAX-format file, 2 steps with K1, K3f, K4f and K4b launched; each
    format's write and load time, ``from_checkpoint``'s time to the first
    answer and the CLI's questions/s (host clock, ``[serve]`` lines).
+13. Online serving, at full width, from a generator of its own: K1 (random
+   questions, explicit Gumbel noise, the decoder's plan) and K2 (two
+   programs with a module of every kind between them, valid CLEVR programs,
+   token soups, an invalid and an all-pad row; the persistent grid) against
+   their plain versions at B = 4, 16 and 64 in both dtypes at phases 2 and
+   3's tolerances (``[bucket]`` lines); ``warmup`` launching K1 and K2 once
+   a bucket (4, 16, 64, 256), each bucket's ``_run_padded`` by host clock
+   and its pipeline by CUDA events; with a scripted generator, 2,048
+   requests through ``submit`` from 8 client threads and ``submit_many`` in
+   groups of 1-64 at pipeline depth 1 and 2, every answer equal to
+   ``predict``'s and to its batch run again alone, K1 and K2 launched once a
+   batch, never more batches in flight than the depth, ``stats()`` counting
+   every request and the queue empty after ``stop()``; latency p50/p95/p99
+   at a light closed-loop load and q/s at saturation (8 threads of
+   ``submit_many(64)``) at depth 1 and 2, and at depth 2 with 4 intra-op
+   threads and with a 0.5 ms GIL switch interval, a batch's host time split
+   into staging, the pipeline's enqueue, the whole launch and the wait for
+   its answers (wall and the thread's CPU time), beside the same batches
+   launched from one thread alone; ``predict``'s upload
+   at 256 rows, pageable float32 with the cast on the card against the host
+   cast into pinned bfloat16 (the same bits on the card), ``predict``'s ms
+   and q/s with each and its trace; and the serve CLI in-process on the card
+   over a port-format checkpoint (``/healthz``, 8 text questions with inline
+   features answered as ``predict`` answers them, a malformed payload's 400,
+   ``/stats``) (``[serve-online]`` lines).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -2830,6 +2855,618 @@ def serve_from_checkpoints(np, torch, dev, smi):
     return launches, errs, times
 
 
+# Phase 13: online serving. Two programs that hold a module of every kind
+# between them (compare, query, no-op, same, relate, attention, scene; or,
+# and), the first two rows K2 runs at each bucket.
+EVERY_KIND_PROGRAMS = (
+    ["equal_color", "query_color", "unique", "same_shape", "relate[left]", "filter_color[red]",
+     "scene", "query_color", "unique", "filter_size[large]", "scene"],
+    ["count", "union", "filter_shape[cube]", "scene", "intersect", "filter_color[red]", "scene",
+     "filter_size[large]", "scene"],
+)
+ONLINE_BUCKETS = (4, 16, 64)
+ONLINE_REQUESTS = 2048
+ONLINE_IMAGES = 512
+SERVE_QUESTIONS = ["how many red cubes are there", "is there a big metal ball",
+                   "what color is the cylinder left of the cube",
+                   "are there more cubes than balls", "what is the material of the big cylinder",
+                   "is the green ball the same size as the cube",
+                   "how many things are behind the red block", "what shape is the small thing"]
+
+
+def bucket_against_plain(np, torch, dev, batch, pg_dev, pg_spec, nmn_dev, nmn_spec, vocab, seed):
+    r"""Phase 13 (a) at one bucket of ``batch`` rows, on inputs from a
+    generator of its own (``seed``): K1 on random questions and explicit
+    Gumbel noise (``k1_against_plain``, phase 2's tolerances; the decoder's
+    plan printed) and K2 on two programs with a module of every kind between
+    them, valid CLEVR programs, token soups (from 16 rows), an invalid and an all-pad row
+    (phase 3's tolerances; the persistent grid printed), each in float32 and
+    bfloat16. Returns K1's and K2's errors by dtype."""
+    from probnmn_tpu_torch.models import nmn
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
+        interpreter_launch,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import decoder_plan
+    from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH, sample_clevr_like_programs
+
+    gen = torch.Generator().manual_seed(seed)
+    rs = np.random.RandomState(seed)
+    T, V, L = pg_spec.max_decoding_steps, pg_spec.target_vocab_size, MAX_QUESTION_LENGTH
+    q_dev = torch.from_numpy(random_questions(np, vocab, batch, L, seed=seed)).to(dev)
+    noise = (-torch.log(-torch.log(torch.rand(T, batch, V, generator=gen).clamp_min(1e-12)))).to(dev)
+    dtypes = ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))
+    for dtype, name in dtypes:
+        pl = decoder_plan(batch, L, pg_spec.input_size, pg_spec.hidden_size, V, dtype)
+        log(f"[bucket] B={batch} K1 decoder plan {name}: cluster {pl['cluster']} CTAs, rows "
+            f"{pl['rows']} a cluster ({pl['rows_per_cta']} a CTA), {pl['clusters']} clusters "
+            f"({pl['fit']} at once), {pl['smem']} B shared")
+    k1 = k1_against_plain(torch, pg_dev, pg_spec, q_dev, noise, tag=f"bucket B={batch} K1")
+
+    programs_np = sample_clevr_like_programs(vocab, batch, seed=seed)
+    for row, program in enumerate(EVERY_KIND_PROGRAMS):
+        programs_np[row] = 0
+        programs_np[row, :len(program)] = [vocab.get_token_index(t, "programs") for t in program]
+    valid_rows = batch - 2
+    if batch >= 16:  # token soups: mostly invalid
+        valid_rows = batch - 6
+        programs_np[-6:-2] = rs.randint(0, vocab.get_vocab_size("programs"),
+                                        (4, programs_np.shape[1]))
+    programs_np[-2] = 0
+    programs_np[-2, :2] = [vocab.get_token_index("count", "programs"),
+                           vocab.get_token_index("filter_color[red]", "programs")]  # no scene
+    programs_np[-1] = 0  # all padding: valid, the stem features pass through
+    programs = torch.from_numpy(programs_np).to(dev)
+    h, w, C = nmn_spec.height, nmn_spec.width, nmn_spec.module_channels
+    feats = torch.randn(batch, h, w, nmn_spec.feature_channels, generator=gen).to(dev)
+    tables = build_tables(nmn_spec, dev)
+    k2 = {}
+    for dtype, name in dtypes:
+        launch = interpreter_launch(dtype, batch, h, w, C)
+        stem = nmn.apply_stem(cast_params(nmn_dev["stem"], dtype), feats.to(dtype)).contiguous()
+        banks = build_banks(nmn_dev, nmn_spec, dtype)
+        out_k, inv_k = execute_programs_kernel(banks, tables, nmn_spec, stem, programs)
+        out_p, inv_p = execute_programs_plain(banks, tables, nmn_spec, stem, programs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err = float((out_k.float() - out_p.float()).abs().max())
+        scale = float(out_p.float().abs().max())
+        log(f"[bucket] B={batch} K2 {name}: persistent grid {launch['grid']} blocks, weight ring "
+            f"{launch['stages']} stages; invalid {int(inv_k.sum())}/{batch} (plain "
+            f"{int(inv_p.sum())}), max |out err| {err:.3e}, max |out| {scale:.3e}")
+        check(torch.equal(inv_k, inv_p), f"K2 invalid flags differ at B={batch}")
+        check(not bool(inv_k[:valid_rows].any()), f"K2 marked a valid program invalid at B={batch}")
+        check(bool(inv_k[-2]) and not bool(inv_k[-1]), f"K2 invalid/all-pad rows at B={batch}")
+        check(torch.isfinite(out_k.float()).all(), f"K2 output not finite at B={batch}")
+        check(err <= (1e-4 * max(1.0, scale) if name == "float32" else 2e-2 * scale),
+              f"K2 {name} error {err} at B={batch}")
+        k2[name] = err
+    return k1, k2
+
+
+def _percentiles(np, seconds):
+    return {f"p{q}_ms": float(np.percentile(seconds, q)) * 1e3 for q in (50, 95, 99)}
+
+
+def serve_online(np, torch, dev, smi):
+    r"""Phase 13: online serving at full width, on inputs and weights from a
+    generator of its own. (a) K1 and K2 against their plain versions at the
+    buckets below the full batch; (b) ``warmup`` launching each bucket once,
+    each bucket's ``_run_padded`` timed; (c) 2,048 requests through
+    ``submit`` from 8 client threads and ``submit_many`` in groups of 1-64,
+    at pipeline depth 1 and 2, answered as ``predict`` answers them and as
+    the same batches answer again when run alone, with K1 and K2 launched;
+    (d) never more than the depth in flight, the counters, an empty queue;
+    (e) latency at a light closed-loop load and q/s at saturation; (f)
+    ``predict``'s upload, the pageable float32 one with the cast on the card
+    against the host cast into pinned bfloat16, and ``predict`` traced; (g)
+    the serve CLI in-process on the card. Returns the dispatcher's launches
+    of each kernel, K1's and K2's errors by bucket and dtype, and times."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from probnmn_tpu_torch import serve
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.models import nmn, program_generator
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        execute_programs_kernel, interpreter_plan,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward, sampling_encode
+    from probnmn_tpu_torch.data.preprocessing import tokenize_questions
+    from probnmn_tpu_torch.serving import InferenceEngine
+    from probnmn_tpu_torch.utils.checkpointing import save_objects
+    from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH, make_clevr_like_vocabulary
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_online_")
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    config = Config(os.path.join(repo, "configs", "joint_training_ours.yml"),
+                    ["DATA.VOCABULARY", os.path.join(work, "vocab")])
+    gen = torch.Generator().manual_seed(13)
+    pg_spec, nmn_spec = program_generator.make_spec(vocab, config), nmn.make_spec(vocab, config)
+    random_pg = program_generator.init_params(gen, pg_spec)
+    pg = scripted_generator(torch, random_pg, pg_spec, vocab, SERVE_PROGRAM)
+    nmn_params = nmn.init_nmn_params(gen, nmn_spec)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    # ------------------------------------------------------------ (a) buckets
+    errs = {"seq2seq_decode": {}, "nmn_interpreter": {}}
+    pg_dev = cast_params(random_pg, torch.float32, dev)
+    nmn_dev = cast_params(nmn_params, torch.float32, dev)
+    for i, batch in enumerate(ONLINE_BUCKETS):
+        k1, k2 = bucket_against_plain(np, torch, dev, batch, pg_dev, pg_spec, nmn_dev, nmn_spec,
+                                      vocab, seed=1300 + i)
+        for name, got in (("seq2seq_decode", k1), ("nmn_interpreter", k2)):
+            for dtype, err in got.items():
+                errs[name].setdefault(dtype, {})[str(batch)] = err
+    del pg_dev, nmn_dev
+
+    # ------------------------------------------------------------ (b) warmup
+    rs = np.random.RandomState(1310)
+    questions = random_questions(np, vocab, ONLINE_REQUESTS, MAX_QUESTION_LENGTH, seed=1311)
+    pool = torch.randn(ONLINE_IMAGES, nmn_spec.feature_channels, nmn_spec.height, nmn_spec.width,
+                       generator=torch.Generator().manual_seed(1312)).numpy()
+    image_of = rs.randint(0, ONLINE_IMAGES, ONLINE_REQUESTS)
+    engine = InferenceEngine(vocab, pg_spec, nmn_spec, pg, nmn_params, batch_size=BATCH,
+                             rng_seed=config.RANDOM_SEED, device=dev)
+    counters = {"seq2seq_decode": fused_sampling_forward, "k1_encoder_sweep": sampling_encode,
+                "nmn_interpreter": execute_programs_kernel, "nmn_plan": interpreter_plan}
+
+    def reset():
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        sync()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    reset()
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    warm = read()
+    log(f"[serve-online] warmup over buckets {engine._buckets}: {warmup_s:.2f} s, launches {warm}")
+    check(warm["seq2seq_decode"] == warm["nmn_interpreter"] == len(engine._buckets) == 4,
+          f"warmup did not launch each bucket once: {warm}")
+    run_padded = {}
+    for b in engine._buckets:
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine._run_padded(questions[:b], pool[:b], None, b, count_stats=False)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        q_b = torch.from_numpy(questions[:b]).to(dev)
+        im_b = torch.from_numpy(pool[:b]).to(dev).to(engine.compute_dtype)
+        device_ms = cuda_ms(torch, lambda: engine._pipeline(q_b, im_b, 7), iters=10) \
+            if dev.type == "cuda" else 0.0
+        run_padded[str(b)] = {"host_ms": host_ms, "pipeline_ms": device_ms}
+        log(f"[serve-online] bucket {b}: _run_padded {host_ms:.3f} ms (host clock, {b} rows "
+            f"staged, uploaded, answered); its pipeline alone {device_ms:.3f} ms (CUDA events)")
+
+    # ------------------------------------------------------------ (c), (d) dispatcher
+    want = []
+    for start in range(0, ONLINE_REQUESTS, BATCH):
+        rows = slice(start, start + BATCH)
+        want += engine.predict(questions[rows], pool[image_of[rows]])
+    check("@@UNKNOWN@@" not in want, "the scripted program did not run")
+    # The synchronous path's answers with every row padded to a smaller
+    # bucket, in order: bf16 answers may differ by bucket (its convs and
+    # GEMMs may take other algorithms at another batch size), never by a
+    # row's neighbours.
+    want_at = {BATCH: want}
+
+    def synchronous_at(b):
+        if b not in want_at:
+            want_at[b] = []
+            for start in range(0, ONLINE_REQUESTS, b):
+                rows = slice(start, start + b)
+                want_at[b] += engine._run_padded(questions[rows], pool[image_of[rows]], None, b,
+                                                 count_stats=False)
+        return want_at[b]
+
+    def row_of(group):  # requests are views of `questions`: their first row
+        offset = group.__array_interface__["data"][0] - questions.__array_interface__["data"][0]
+        return offset // questions.strides[0]
+    launch, finish = engine._launch_padded_groups, engine._finish
+    records = {}
+
+    def recording_launch(q_groups, im_groups, seed, pad_to):
+        launched = launch(q_groups, im_groups, seed, pad_to)
+        records[id(launched)] = [q_groups, im_groups, pad_to, None, launched]
+        return launched
+
+    def recording_finish(launched, count_stats=True):
+        answers = finish(launched, count_stats)
+        if id(launched) in records:
+            records[id(launched)][3] = answers
+        return answers
+
+    units = [(i, i + 1, True) for i in range(ONLINE_REQUESTS // 2)]
+    i = ONLINE_REQUESTS // 2
+    while i < ONLINE_REQUESTS:
+        j = min(i + int(rs.randint(1, 65)), ONLINE_REQUESTS)
+        units.append((i, j, False))
+        i = j
+    units = [units[k] for k in rs.permutation(len(units))]
+    launches = {name: 0 for name in counters}
+    dispatcher = {}
+    for depth in (1, 2):
+        records.clear()
+        engine._launch_padded_groups, engine._finish = recording_launch, recording_finish
+        engine._max_in_flight = 0
+        before = engine.stats()
+        futures = [None] * ONLINE_REQUESTS
+        reset()
+        engine.start(max_batch_delay=0.005, pipeline_depth=depth)
+
+        def client(t):
+            for a, b, single in units[t::8]:
+                if single:
+                    futures[a] = engine.submit(questions[a], pool[image_of[a]])
+                else:
+                    futures[a:b] = engine.submit_many(questions[a:b], pool[image_of[a:b]])
+
+        t0 = time.perf_counter()
+        try:
+            threads = [threading.Thread(target=client, args=(t,)) for t in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            got = [f.result(timeout=120) for f in futures]
+            seconds = time.perf_counter() - t0
+        finally:
+            engine.stop()
+        ran = read()
+        after = engine.stats()
+        del engine._launch_padded_groups, engine._finish
+        for name, n in ran.items():
+            launches[name] += n
+        bucket_of = np.zeros(ONLINE_REQUESTS, np.int64)
+        for q_groups, _, pad_to, _, _ in records.values():
+            for qg in q_groups:
+                bucket_of[row_of(qg):row_of(qg) + len(qg)] = pad_to
+        check(bool((bucket_of > 0).all()), "a request is in no recorded batch")
+        mismatched = sum(a != synchronous_at(int(b))[r]
+                         for r, (a, b) in enumerate(zip(got, bucket_of)))
+        off_predict = [r for r, (a, b) in enumerate(zip(got, want)) if a != b]
+        off_buckets = sorted({int(bucket_of[r]) for r in off_predict})
+        dispatcher_distinct = len(set(got))
+        # What the card received for each batch, against its requests cast
+        # here: a staging buffer rewritten while its copy was in flight
+        # would differ. (The random NMN's answers barely depend on the
+        # features, so the answers alone would not show it.) Then the same
+        # batches again, each alone.
+        staged_bad, again = 0, 0
+        for q_groups, im_groups, pad_to, answers, launched in records.values():
+            want_q = torch.zeros((pad_to, q_groups[0].shape[1]), dtype=torch.int64)
+            want_im = torch.zeros((pad_to,) + im_groups[0].shape[1:], dtype=engine.compute_dtype)
+            cursor = 0
+            for qg, img in zip(q_groups, im_groups):
+                want_q[cursor:cursor + len(qg)] = torch.from_numpy(qg)
+                want_im[cursor:cursor + len(img)] = torch.from_numpy(img)
+                cursor += len(qg)
+            if dev.type == "cuda":  # the CPU engine computes on its staging buffer itself
+                got_q, got_im = launched.keep[0].cpu(), launched.keep[1].cpu()
+                staged_bad += int(not (torch.equal(got_q, want_q) and torch.equal(
+                    got_im.view(torch.int16), want_im.view(torch.int16))))
+            again += sum(a != b for a, b in zip(
+                finish(launch(q_groups, im_groups, 0, pad_to), False), answers))
+        sizes = {}
+        for _, _, pad_to, _, _ in records.values():
+            sizes[pad_to] = sizes.get(pad_to, 0) + 1
+        answered = after["requests"] - before["requests"]
+        dispatcher[str(depth)] = {"seconds": seconds, "batches": len(records), "buckets": sizes,
+                                  "differ_from_predict": len(off_predict),
+                                  "max_in_flight": after["max_in_flight"], "launches": ran}
+        log(f"[serve-online] dispatcher depth {depth}: {ONLINE_REQUESTS} requests "
+            f"({ONLINE_REQUESTS // 2} by submit, the rest by submit_many in groups of 1-64, 8 "
+            f"client threads) in {seconds:.3f} s, {len(records)} batches by bucket "
+            f"{dict(sorted(sizes.items()))}; {dispatcher_distinct} distinct answers, {mismatched} "
+            f"differ from the synchronous path's at their bucket, {len(off_predict)} from "
+            f"predict's (in buckets {off_buckets}), {again} from the same batches run alone; "
+            f"{staged_bad} "
+            f"batches whose features on the card differ from their requests'; launches {ran}; "
+            f"most in flight {after['max_in_flight']}; stats requests +{answered}, queue depth "
+            f"{after['queue_depth']}")
+        check(mismatched == 0, f"depth {depth}: {mismatched} dispatcher answers differ from the "
+              f"synchronous path's at their bucket")
+        check(BATCH not in off_buckets, f"depth {depth}: a {BATCH}-row batch answered otherwise "
+              f"than predict")
+        check(again == 0, f"depth {depth}: {again} answers differ from their batch run alone")
+        check(staged_bad == 0, f"depth {depth}: {staged_bad} batches reached the card altered")
+        check(ran["seq2seq_decode"] > 0 and ran["nmn_interpreter"] > 0
+              and ran["seq2seq_decode"] == len(records), f"K1/K2 launches {ran}")
+        check(1 <= after["max_in_flight"] <= depth, f"{after['max_in_flight']} batches in flight "
+              f"at depth {depth}")
+        check(answered == ONLINE_REQUESTS and after["queue_depth"] == 0,
+              f"stats {after} after {ONLINE_REQUESTS} requests")
+
+    bucket_flips = {str(b): sum(x != y for x, y in zip(want_at[b], want))
+                    for b in sorted(want_at) if b != BATCH}
+    dispatcher["synchronous_differ_from_predict"] = bucket_flips
+    log(f"[serve-online] the synchronous path over the same {ONLINE_REQUESTS} rows padded to a "
+        f"smaller bucket: rows answered otherwise than at {BATCH}, by bucket {bucket_flips}")
+
+    # ------------------------------------------------------------ (e) load
+    records.clear()
+    engine._launch_padded_groups = recording_launch
+    engine.start(max_batch_delay=0.005, pipeline_depth=2)
+    light = []
+    try:
+        for k in range(150):
+            t0 = time.perf_counter()
+            engine.submit(questions[k], pool[image_of[k]]).result(timeout=60)
+            light.append(time.perf_counter() - t0)
+    finally:
+        engine.stop()
+    light_buckets = {}
+    for _, _, pad_to, _, _ in records.values():
+        light_buckets[pad_to] = light_buckets.get(pad_to, 0) + 1
+    del engine._launch_padded_groups
+    light_load = dict(_percentiles(np, light), buckets=light_buckets, requests=len(light))
+    log(f"[serve-online] light load (one client, one request at a time, max_batch_delay 5 ms): "
+        f"{len(light)} requests, latency p50 {light_load['p50_ms']:.3f} / p95 "
+        f"{light_load['p95_ms']:.3f} / p99 {light_load['p99_ms']:.3f} ms (host clock), buckets "
+        f"{light_buckets}")
+    # Where a batch's host time goes: staging (the cast included), the
+    # pipeline enqueued, the whole launch (staging, the copy and the
+    # pipeline), and the wait for its answers; each as wall and as the
+    # calling thread's CPU time (what it neither waited for nor lost to
+    # another thread). At saturation with the intra-op threads as they
+    # are, with 4 of them, and with a 0.5 ms GIL switch interval; and the
+    # same 4 x 64-row batches launched and fetched from one thread alone.
+    part_names = ("_stage", "_pipeline", "_launch_padded_groups", "_fetch")
+
+    def timed_parts():
+        parts = {name: [] for name in part_names}
+
+        def timed(name, fn):
+            def run(*args):
+                t0, c0 = time.perf_counter(), time.thread_time()
+                out = fn(*args)
+                parts[name].append((time.perf_counter() - t0, time.thread_time() - c0))
+                return out
+            return run
+
+        for name in part_names:
+            setattr(engine, name, timed(name, getattr(engine, name)))
+        return parts
+
+    def part_ms(parts):
+        out = {"batches": len(parts["_fetch"])}
+        for name, v in parts.items():
+            out[name] = {"wall": 1e3 * sum(w for w, _ in v) / max(len(v), 1),
+                         "cpu": 1e3 * sum(c for _, c in v) / max(len(v), 1)}
+        return out
+
+    def part_text(ms):
+        return ", ".join(f"{name.strip('_')} {ms[name]['wall']:.3f} (CPU {ms[name]['cpu']:.3f})"
+                         for name in part_names)
+
+    intra_op = torch.get_num_threads()
+    saturation, saturation_parts = {}, {}
+    variants = [("1", 1, intra_op, None), ("2", 2, intra_op, None),
+                ("2_intra_op_4", 2, 4, None), ("2_switch_0.5ms", 2, intra_op, 0.0005)]
+    for key, depth, n_threads, switch in variants:
+        done = [0] * 8
+        parts = timed_parts()
+        old_switch = sys.getswitchinterval()
+        torch.set_num_threads(n_threads)
+        if switch is not None:
+            sys.setswitchinterval(switch)
+        engine.start(max_batch_delay=0.005, pipeline_depth=depth)
+        end = time.perf_counter() + 2.0
+
+        def loader(t):
+            rows = slice(64 * t, 64 * t + 64)
+            while time.perf_counter() < end:
+                futures = engine.submit_many(questions[rows], pool[rows])
+                for f in futures:
+                    f.result(timeout=60)
+                done[t] += len(futures)
+
+        t0 = time.perf_counter()
+        try:
+            threads = [threading.Thread(target=loader, args=(t,)) for t in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            seconds = time.perf_counter() - t0
+        finally:
+            engine.stop()
+            torch.set_num_threads(intra_op)
+            sys.setswitchinterval(old_switch)
+            for name in part_names:
+                delattr(engine, name)
+        saturation[key] = sum(done) / seconds
+        saturation_parts[key] = part_ms(parts)
+        log(f"[serve-online] saturation depth {depth} ({n_threads} intra-op threads, GIL switch "
+            f"{1e3 * (switch or old_switch):g} ms): 8 threads of submit_many(64), {sum(done)} "
+            f"requests in {seconds:.3f} s: {saturation[key]:.1f} q/s (host clock); "
+            f"{saturation_parts[key]['batches']} batches, a batch's mean host ms: "
+            f"{part_text(saturation_parts[key])}")
+    groups = [slice(BATCH // 4 * t, BATCH // 4 * (t + 1)) for t in range(4)]
+    for key, n_threads in (("alone", intra_op), ("alone_intra_op_4", 4)):
+        torch.set_num_threads(n_threads)
+        parts = timed_parts()
+        try:
+            for _ in range(12):
+                engine._finish(engine._launch_padded_groups(
+                    [questions[g] for g in groups], [pool[g] for g in groups], None, BATCH), False)
+        finally:
+            torch.set_num_threads(intra_op)
+            for name in part_names:
+                delattr(engine, name)
+        for name in part_names:
+            parts[name] = parts[name][2:]  # the first two take new pinned blocks
+        saturation_parts[key] = part_ms(parts)
+        log(f"[serve-online] the same 4 x {BATCH // 4}-row batches from one thread alone ({n_threads} "
+            f"intra-op threads), launch then fetch, a batch's mean host ms: "
+            f"{part_text(saturation_parts[key])}")
+
+    # ------------------------------------------------------------ (f) predict's upload
+    q256, im256 = questions[:BATCH], np.ascontiguousarray(pool[:BATCH])
+    reps = 5
+
+    def host_ms(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    dt = engine.compute_dtype
+    old_upload = host_ms(lambda: torch.from_numpy(im256).to(dev).to(dt))
+    host_cast = host_ms(lambda: engine._stage([q256], [im256], BATCH))
+    _, staged_im = engine._stage([q256], [im256], BATCH)
+    plain_cast = host_ms(lambda: staged_im.copy_(torch.from_numpy(im256)))
+    pinned_copy = host_ms(lambda: staged_im.to(dev, non_blocking=True))
+    new_upload = host_ms(lambda: engine._stage([q256], [im256], BATCH)[1].to(
+        dev, non_blocking=True))
+    # A batch staged as one group and as four of a quarter each, back to
+    # back (the intra-op threads busy) and each after 5 ms asleep (as the
+    # launcher stages after waiting on the card).
+    quarters = [slice(BATCH // 4 * t, BATCH // 4 * (t + 1)) for t in range(4)]
+    stage_split = {}
+    for n_groups, groups in ((1, [slice(0, BATCH)]), (4, quarters)):
+        def stage_groups():
+            return engine._stage([q256[g] for g in groups], [im256[g] for g in groups], BATCH)
+
+        stage_split[f"{n_groups}_back_to_back"] = host_ms(stage_groups)
+        cold = []
+        for _ in range(reps):
+            time.sleep(0.005)
+            t0 = time.perf_counter()
+            stage_groups()
+            cold.append(time.perf_counter() - t0)
+        stage_split[f"{n_groups}_after_5ms"] = 1e3 * sum(cold) / reps
+    log(f"[serve-online] _stage of {BATCH} rows (host clock, ms) as 1 group / 4 groups: back to "
+        f"back {stage_split['1_back_to_back']:.3f} / {stage_split['4_back_to_back']:.3f}, each "
+        f"after 5 ms asleep {stage_split['1_after_5ms']:.3f} / {stage_split['4_after_5ms']:.3f}")
+    card_cast = torch.from_numpy(im256).to(dev).to(dt)
+    staged = engine._stage([q256], [im256], BATCH)[1].to(dev)
+    same_bits = torch.equal(card_cast.view(torch.int16) if dt == torch.bfloat16 else card_cast,
+                            staged.view(torch.int16) if dt == torch.bfloat16 else staged)
+    check(same_bits, "the host cast's features differ from the card's cast")
+
+    def old_predict():
+        q_dev = torch.from_numpy(q256).to(dev)
+        im = torch.from_numpy(im256).to(dev).to(dt)
+        return [vocab.get_token_from_index(int(a), "answers")
+                for a in engine._pipeline(q_dev, im, 7).cpu().tolist()]
+
+    old_predict_ms = host_ms(old_predict)
+    predict_ms = host_ms(lambda: engine.predict(q256, im256))
+    check(old_predict() == engine.predict(q256, im256), "old and new predict answer otherwise")
+    upload = {"old_upload_ms": old_upload, "host_cast_ms": host_cast, "copy_cast_ms": plain_cast,
+              "pinned_copy_ms": pinned_copy,
+              "new_upload_ms": new_upload, "old_predict_ms": old_predict_ms,
+              "predict_ms": predict_ms, "predict_qps": BATCH / predict_ms * 1e3,
+              "old_predict_qps": BATCH / old_predict_ms * 1e3,
+              "old_bytes": im256.nbytes, "new_bytes": staged_im.numel() * staged_im.element_size(),
+              "stage_split_ms": stage_split}
+    log(f"[serve-online] predict's upload at {BATCH} rows (host clock): pageable float32 "
+        f"({im256.nbytes / 1e6:.1f} MB) + cast on the card {old_upload:.3f} ms; host cast into "
+        f"pinned {str(dt).split('.')[-1]} ({upload['new_bytes'] / 1e6:.1f} MB) {host_cast:.3f} ms "
+        f"(its cast into a buffer already pinned {plain_cast:.3f}) + copy {pinned_copy:.3f} ms = {new_upload:.3f} ms "
+        f"together; the card sees the same bits")
+    log(f"[serve-online] predict {predict_ms:.3f} ms/batch, {upload['predict_qps']:.1f} q/s; the old "
+        f"upload's predict {old_predict_ms:.3f} ms/batch, {upload['old_predict_qps']:.1f} q/s")
+    if dev.type == "cuda":
+        wall_ms, busy_ms, top, _ = trace(torch, lambda: engine.predict(q256, im256))
+        upload["trace"] = {"wall_ms": wall_ms, "busy_ms": busy_ms}
+        if busy_ms > 0:
+            log(f"[trace] predict (pinned {str(dt).split('.')[-1]} staging) under torch.profiler: "
+                f"{wall_ms:.2f} ms host clock, device busy {busy_ms:.2f} ms, idle share "
+                f"{1 - busy_ms / wall_ms:.3f}")
+            for us, name, count in top:
+                log(f"[trace]   {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}")
+        else:
+            log("[trace] the profiler recorded no device time: idle share not measured")
+
+    # ------------------------------------------------------------ (g) the serve CLI
+    config.dump(os.path.join(work, "joint.yml"))
+    ckpt = os.path.join(work, "joint_port.ckpt")
+    save_objects(ckpt, {"program_generator": pg, "nmn": nmn_params}, 0)
+    del engine
+    args = serve.parser.parse_args([
+        "--config-yml", os.path.join(work, "joint.yml"), "--checkpoint", ckpt,
+        "--batch-size", str(BATCH), "--device", dev.type, "--port", "0",
+        "--features-h5", os.path.join(work, "no_features.h5")])
+    t0 = time.perf_counter()
+    ctx = serve.ServingContext(args)
+    ready_s = time.perf_counter() - t0
+    httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(ctx))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        health = call("/healthz")
+        # Scaled apart, so that the eight answers need not agree.
+        images = pool[image_of[:len(SERVE_QUESTIONS)]] * np.float32(
+            np.geomspace(0.1, 10.0, len(SERVE_QUESTIONS)))[:, None, None, None]
+        replies = [None] * len(SERVE_QUESTIONS)
+
+        def ask(k):
+            replies[k] = call("/predict", {"question": SERVE_QUESTIONS[k],
+                                           "features": images[k].tolist()})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(k,)) for k in range(len(SERVE_QUESTIONS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        http_s = time.perf_counter() - t0
+        bad = call("/predict", {"question": "what", "features": [[1.0, 2.0]]})
+        stats = call("/stats")
+    finally:
+        httpd.shutdown()
+        ctx.engine.stop()
+    ids, _ = tokenize_questions(SERVE_QUESTIONS, ctx.engine.vocabulary, max_len=MAX_QUESTION_LENGTH)
+    want_cli = ctx.engine.predict(ids.astype(np.int64), images)
+    got_cli = [body["answers"][0] if status == 200 else None for status, body in replies]
+    log(f"[serve-online] serve CLI on {dev.type}: ready in {ready_s:.2f} s (checkpoint, warmup, "
+        f"start); /healthz {health}; {len(SERVE_QUESTIONS)} text questions with inline features "
+        f"from {len(SERVE_QUESTIONS)} threads in {http_s:.3f} s: {got_cli} (predict: {want_cli}); "
+        f"a malformed payload: {bad[0]}")
+    log(f"[serve-online] /stats: {json.dumps(stats[1])}")
+    check(health == (200, {"ok": True}), f"/healthz {health}")
+    check(got_cli == want_cli, "the serve CLI's answers differ from engine.predict's")
+    check(bad[0] == 400, f"a malformed payload got {bad}")
+    check(stats[0] == 200 and stats[1]["requests"] >= len(SERVE_QUESTIONS)
+          and stats[1]["queue_depth"] == 0, f"/stats {stats}")
+    del ctx
+    shutil.rmtree(work, ignore_errors=True)
+
+    times = {"warmup_s": warmup_s, "run_padded": run_padded, "dispatcher": dispatcher,
+             "light_load": light_load, "saturation_qps": saturation,
+             "saturation_batch_ms": saturation_parts, "upload": upload,
+             "serve_cli": {"ready_s": ready_s, "http_s": http_s}, "card": smi}
+    log(f"[serve-online] times on {smi}: {json.dumps(times)}")
+    return launches, errs, times
+
+
 def _leaves(torch, tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -3202,6 +3839,9 @@ def main():
     # ---------------------------------------------------------------- 12. serving from a checkpoint
     serve_launches, serve_errs, serve_times = serve_from_checkpoints(np, torch, dev, smi)
 
+    # ---------------------------------------------------------------- 13. online serving
+    online_launches, online_errs, online_times = serve_online(np, torch, dev, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -3252,7 +3892,12 @@ def main():
         if entry["name"] in serve_launches:
             entry["launches_from_checkpoint"] = serve_launches[entry["name"]]
             entry["max_abs_err_from_checkpoint"] = serve_errs.get(entry["name"])
+        if entry["name"] in online_launches:
+            entry["launches_dispatcher"] = online_launches[entry["name"]]
+        if entry["name"] in online_errs:
+            entry["max_abs_err_buckets"] = online_errs[entry["name"]]
     kernels[0]["from_checkpoint_times"] = serve_times
+    kernels[0]["serve_online"] = online_times
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,19 +14,35 @@ is its batch script, reference ``inference.py:74-95``).
 - **Sampling** draws one Philox seed per batch from the engine's
   ``torch.Generator`` (seeded by ``rng_seed``), unless the caller passes one.
 - **Compute dtype.** bfloat16 on ``cuda`` and float32 on ``cpu`` unless the
-  caller or the NMN spec says otherwise (the JAX package's "auto"). Feature
-  batches are uploaded as float32 and cast on the device.
+  caller or the NMN spec says otherwise (the JAX package's "auto").
+- **Compute-dtype uploads.** A batch's request groups are written in one
+  pass into a host staging buffer already in the compute dtype (float32 ->
+  bfloat16 by PyTorch's cast, which rounds to nearest even as ``ml_dtypes``
+  does in the JAX engine, a NaN staying a NaN; pad rows zero), pinned on
+  ``cuda``, and copied to the card without blocking. The buffers come from
+  PyTorch's caching host allocator, which reuses a block only once the copy
+  out of it has completed.
+- **Micro-batching.** :meth:`InferenceEngine.submit` / :meth:`submit_many`
+  enqueue requests and return futures; :meth:`start` runs a dispatcher that
+  coalesces them up to ``batch_size`` or a deadline, pads each batch to the
+  smallest *bucket* of a short ladder (``batch_size // 4**k``, e.g.
+  4/16/64/256) and launches it on the engine's own CUDA stream, with up to
+  ``pipeline_depth`` batches dispatched and not yet fetched.
 
 - **From a checkpoint.** :meth:`InferenceEngine.from_checkpoint` reads the
   ProgramGenerator and the NMN from a checkpoint of the port, of the JAX
   package (its ``.ckpt``) or of the reference (its ``.pth``).
 
-Not ported yet: the ``submit()``/``start()``/``stop()`` micro-batching
-dispatcher, the multi-device mesh and the compilation cache.
+Not ported: the multi-device mesh and the compilation cache.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from queue import Empty, Queue
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +57,19 @@ from probnmn_tpu_torch.models.seq2seq import GREEDY, beam_search_forward, seq2se
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward, pack_weights
 
 _SEED_RANGE = 2 ** 62
+
+
+class _Launched(NamedTuple):
+    r"""A dispatched batch: its answers (on ``cuda`` a pinned host copy
+    enqueued behind the pipeline), the event recorded after that copy (None
+    on the CPU), the valid rows and the padded size, and the device tensors
+    made on the engine's stream, held until :meth:`InferenceEngine._finish`
+    returns."""
+    answers: torch.Tensor
+    done: Optional[torch.cuda.Event]
+    n: int
+    pad_to: int
+    keep: tuple
 
 
 class InferenceEngine:
@@ -88,10 +117,17 @@ class InferenceEngine:
             cast_params(nmn_params, torch.float32, self._device), nmn_spec,
             device=self._device, dtype=dtype,
         )
+        self._cuda = self._device.type == "cuda"
+        # Every batch runs on the engine's own stream; the weights above were
+        # made on the default one.
+        self._stream = torch.cuda.Stream(self._device) if self._cuda else None
+        if self._cuda:
+            torch.cuda.synchronize(self._device)
 
         # Bucket ladder batch_size // 4**k, floored at 2 (a size-1 bucket buys
-        # negligible latency over the next one up), for the micro-batching
-        # dispatcher, which is not ported yet; predict() pads to the full batch.
+        # negligible latency over the next one up): the dispatcher pads each
+        # batch to the smallest bucket covering it; predict() pads to the
+        # full batch.
         bucket_floor = 2
         buckets = []
         b = batch_size
@@ -101,6 +137,27 @@ class InferenceEngine:
                 break
             b //= 4
         self._buckets = sorted(set(buckets))
+
+        # Batches are enqueued one at a time (predict callers and the
+        # dispatcher share the stream); each stages its own buffer first.
+        self._launch_lock = threading.Lock()
+
+        # Micro-batching state.
+        self._queue: Queue = Queue()
+        self._dispatcher: Optional[threading.Thread] = None
+        self._completer: Optional[threading.Thread] = None
+        self._running = threading.Event()
+        self._join_timeout = 30.0
+        self._lock = threading.Lock()
+        self._stats = {"requests": 0, "batches": 0, "padded_slots": 0}
+        # Sliding window of dispatcher request latencies (submit -> result).
+        self._latencies: deque = deque(maxlen=16384)
+        # Request-level backlog (the queue holds groups).
+        self._queued_requests = 0
+        # Dispatcher batches dispatched and not yet fetched, and the most seen.
+        self._in_flight = 0
+        self._max_in_flight = 0
+        self._started_at = time.monotonic()
 
     @classmethod
     def from_checkpoint(
@@ -203,21 +260,70 @@ class InferenceEngine:
         images: np.ndarray,
         seed: Optional[int],
         pad_to: int,
+        count_stats: bool = True,
     ) -> List[str]:
         r"""Pad ``n <= pad_to`` requests to ``pad_to`` rows, run the pipeline,
-        unpad and detokenize."""
-        n = questions.shape[0]
+        unpad and detokenize: :meth:`_launch_padded_groups`, then
+        :meth:`_finish`. ``count_stats=False`` (warmup) keeps synthetic
+        traffic out of the counters."""
+        return self._finish(self._launch_padded_groups([questions], [images], seed, pad_to),
+                            count_stats)
+
+    def _stage(self, q_groups: List[np.ndarray], im_groups: List[np.ndarray],
+               pad_to: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        r"""Write the request groups into a new staging buffer in one pass
+        (the features cast to the compute dtype on the way), pad rows zero;
+        returns (questions int64, images). Each group is checked first: a
+        malformed one raises before anything is written."""
+        for qg, img in zip(q_groups, im_groups):
+            self._check_inputs(qg, img)
+        n = sum(g.shape[0] for g in q_groups)
+        if n > pad_to:
+            raise ValueError(f"{n} requests do not fit a batch of {pad_to}")
+        spec = self._nmn_spec
+        questions = torch.empty((pad_to, q_groups[0].shape[1]), dtype=torch.int64,
+                                pin_memory=self._cuda)
+        images = torch.empty((pad_to, spec.feature_channels, spec.height, spec.width),
+                             dtype=self._compute_dtype, pin_memory=self._cuda)
+        cursor = 0
+        for qg, img in zip(q_groups, im_groups):
+            k = qg.shape[0]
+            questions[cursor:cursor + k] = torch.from_numpy(qg.astype(np.int64, copy=False))
+            images[cursor:cursor + k] = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+            cursor += k
+        questions[n:].zero_()
+        images[n:].zero_()
+        return questions, images
+
+    def _launch_padded_groups(
+        self,
+        q_groups: List[np.ndarray],
+        im_groups: List[np.ndarray],
+        seed: Optional[int],
+        pad_to: int,
+    ) -> _Launched:
+        r"""Stage the request groups (:meth:`_stage`), copy the buffer to the
+        device without blocking and enqueue the pipeline and the answers'
+        copy to pinned host memory on the engine's stream; returns without a
+        sync (:meth:`_finish` is the batch's one sync point). The seed is
+        drawn from the engine's generator unless given."""
+        n = sum(g.shape[0] for g in q_groups)
         if seed is None:
-            seed = self._draw_seed(self._generator)
-        q = torch.zeros((pad_to, questions.shape[1]), dtype=torch.long, device=self._device)
-        q[:n] = torch.from_numpy(questions.astype(np.int64)).to(self._device)
-        # The features cross to the device as they come (float32, no host
-        # copy) and are cast there; pad rows are zeros made on the device.
-        im = torch.zeros((pad_to,) + images.shape[1:], dtype=self._compute_dtype,
-                         device=self._device)
-        im[:n] = torch.from_numpy(np.asarray(images, dtype=np.float32)).to(self._device)
-        answers = self._pipeline(q, im, seed)
-        return self._finish(answers, n)
+            with self._lock:
+                seed = self._draw_seed(self._generator)
+        questions, images = self._stage(q_groups, im_groups, pad_to)
+        if not self._cuda:
+            with self._launch_lock:
+                return _Launched(self._pipeline(questions, images, seed), None, n, pad_to, ())
+        with self._launch_lock, torch.cuda.stream(self._stream):
+            q = questions.to(self._device, non_blocking=True)
+            im = images.to(self._device, non_blocking=True)
+            answers = self._pipeline(q, im, seed)
+            host = torch.empty(answers.shape, dtype=answers.dtype, pin_memory=True)
+            host.copy_(answers, non_blocking=True)
+            done = torch.cuda.Event(blocking=True)
+            done.record(self._stream)
+        return _Launched(host, done, n, pad_to, (q, im, answers))
 
     def _pipeline(self, questions: torch.Tensor, images: torch.Tensor, seed: int) -> torch.Tensor:
         if self._decoding == "beam":
@@ -234,13 +340,24 @@ class InferenceEngine:
             )["predictions"]
         return self._nmn_forward(image_to_nhwc(images), programs)["predictions"]
 
-    def _finish(self, answers: torch.Tensor, n: int) -> List[str]:
-        r"""Copy the answers to the host (the batch's one synchronization
-        point) and detokenize the ``n`` valid rows."""
-        return [
-            self._vocabulary.get_token_from_index(int(a), "answers")
-            for a in answers[:n].cpu().tolist()
-        ]
+    def _fetch(self, launched: _Launched) -> List[int]:
+        r"""Wait for the batch's answers on the host; the valid rows."""
+        if launched.done is not None:
+            launched.done.synchronize()
+        return launched.answers[:launched.n].tolist()
+
+    def _finish(self, launched: _Launched, count_stats: bool = True) -> List[str]:
+        r"""Wait for a dispatched batch (its one synchronization point) and
+        detokenize its valid rows. The counters count the batch only once
+        its answers are in."""
+        answers = [self._vocabulary.get_token_from_index(int(a), "answers")
+                   for a in self._fetch(launched)]
+        if count_stats:
+            with self._lock:
+                self._stats["requests"] += launched.n
+                self._stats["batches"] += 1
+                self._stats["padded_slots"] += launched.pad_to - launched.n
+        return answers
 
     def bucket_for(self, n: int) -> int:
         r"""Smallest micro-batch bucket covering ``n`` requests."""
@@ -250,17 +367,227 @@ class InferenceEngine:
         return self._batch_size
 
     def warmup(self, question_length: Optional[int] = None) -> None:
-        r"""Run the pipeline once at ``batch_size``, the one shape
-        :meth:`predict` sends, so no live request pays a kernel build or a
-        first allocation. ``question_length`` defaults to the reference's
-        fixed 45."""
+        r"""Run the pipeline once at every bucket (the full batch among
+        them), so no live request pays a kernel build, a first allocation or
+        a staging buffer. ``question_length`` must match the callers' padded
+        question width (the reference's fixed 45 by default)."""
         if question_length is None:
             from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH
 
             question_length = MAX_QUESTION_LENGTH
+        self._load_kernels()
         spec = self._nmn_spec
-        self._run_padded(
-            np.zeros((1, question_length), np.int64),
-            np.zeros((1, spec.feature_channels, spec.height, spec.width), np.float32),
-            None, self._batch_size,
-        )
+        for b in self._buckets:
+            self._run_padded(
+                np.zeros((1, question_length), np.int64),
+                np.zeros((1, spec.feature_channels, spec.height, spec.width), np.float32),
+                None, b, count_stats=False,
+            )
+
+    def _load_kernels(self) -> None:
+        r"""On ``cuda``, build or load the kernel library here, on the
+        caller's thread, and never inside the dispatcher's threads."""
+        if self._cuda:
+            from probnmn_tpu_torch.ops.kernels import _build
+
+            _build.library()
+
+    # ------------------------------------------------------------ micro-batch
+    def start(self, max_batch_delay: float = 0.005, pipeline_depth: int = 2) -> None:
+        r"""Start the micro-batching dispatcher: queued :meth:`submit`
+        requests coalesce until the batch fills or ``max_batch_delay``
+        seconds pass since the oldest queued request.
+
+        A *launcher* thread coalesces, stages, uploads and enqueues each
+        batch on the engine's stream, then hands it to a *completer* thread
+        that waits for its answers and resolves the futures, so batch N+1's
+        host assembly and upload overlap batch N's device work. The launcher
+        reserves one of ``pipeline_depth`` slots before it stages a batch
+        and the completer frees it once the batch's futures are resolved:
+        at most ``pipeline_depth`` batches are dispatched and not yet
+        fetched. ``pipeline_depth=1`` is one thread, launch then fetch."""
+        if pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        if self._dispatcher is not None:
+            if self._running.is_set():
+                return
+            if any(t is not None and t.is_alive() for t in (self._dispatcher, self._completer)):
+                raise RuntimeError("a stopped dispatcher thread is still alive; the engine "
+                                   "does not start a second one on its queue")
+            self._dispatcher = self._completer = None
+        self._load_kernels()
+        if self._cuda:
+            torch.cuda.synchronize(self._device)
+        self._running.set()
+        pipelined = pipeline_depth > 1
+        slots = threading.BoundedSemaphore(pipeline_depth)
+        completions: Queue = Queue()
+
+        def fail(pending, total, error):
+            for p in pending:
+                for fut in p[2]:
+                    fut.set_exception(error)
+            self._note_dequeued(total)
+
+        def launch():
+            # A group that would overflow the batch is carried to the next
+            # cycle: one device batch a cycle.
+            carry = None
+            while self._running.is_set():
+                if carry is not None:
+                    first, carry = carry, None
+                else:
+                    try:
+                        first = self._queue.get(timeout=0.05)
+                    except Empty:
+                        continue
+                # Queue items are groups: (questions (n, Tq), images (n, ...),
+                # [n futures], t_submit).
+                pending = [first]
+                total = first[0].shape[0]
+                deadline = time.monotonic() + max_batch_delay
+                while total < self._batch_size:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        group = self._queue.get(timeout=remaining)
+                    except Empty:
+                        break
+                    if total + group[0].shape[0] > self._batch_size:
+                        carry = group
+                        break
+                    pending.append(group)
+                    total += group[0].shape[0]
+                if not total:
+                    continue
+                slots.acquire()
+                with self._lock:
+                    self._in_flight += 1
+                    self._max_in_flight = max(self._max_in_flight, self._in_flight)
+                # One malformed request fails its batch's futures; the
+                # threads live on.
+                try:
+                    launched = self._launch_padded_groups(
+                        [p[0] for p in pending], [p[1] for p in pending], None,
+                        self.bucket_for(total))
+                except Exception as error:
+                    release()
+                    fail(pending, total, error)
+                    continue
+                if pipelined:
+                    completions.put((launched, pending, total))
+                else:
+                    resolve(launched, pending, total)
+            if pipelined:
+                completions.put(None)  # stops the completer behind the batches in flight
+
+        def release():
+            with self._lock:
+                self._in_flight -= 1
+            slots.release()
+
+        def resolve(launched, pending, total):
+            try:
+                resolved = self._finish(launched)
+            except Exception as error:
+                release()
+                fail(pending, total, error)
+                return
+            release()
+            done = time.monotonic()
+            latencies = []
+            cursor = 0
+            for p in pending:
+                k = p[0].shape[0]
+                latencies.extend([done - p[3]] * k)
+                for fut, answer in zip(p[2], resolved[cursor:cursor + k]):
+                    fut.set_result(answer)
+                cursor += k
+            with self._lock:
+                self._latencies.extend(latencies)
+            self._note_dequeued(total)
+
+        def complete():
+            while True:
+                item = completions.get()
+                if item is None:
+                    return
+                resolve(*item)
+
+        self._dispatcher = threading.Thread(
+            target=launch, daemon=True, name="probnmn-serving-launcher")
+        self._dispatcher.start()
+        if pipelined:
+            self._completer = threading.Thread(
+                target=complete, daemon=True, name="probnmn-serving-completer")
+            self._completer.start()
+
+    def stop(self) -> None:
+        r"""Stop the dispatcher once the batches in flight are resolved.
+        Raises if a thread does not stop within the join timeout (30 s); its
+        handle is kept, so :meth:`start` cannot put a second launcher on the
+        same queue."""
+        if self._dispatcher is None:
+            return
+        self._running.clear()
+        # The launcher leaves within its 50 ms poll (or after its cycle) and
+        # queues the completer's stop behind the batches still in flight.
+        for name in ("_dispatcher", "_completer"):
+            thread = getattr(self, name)
+            if thread is None:
+                continue
+            thread.join(timeout=self._join_timeout)
+            if thread.is_alive():
+                raise RuntimeError(f"the dispatcher's thread {thread.name} did not stop within "
+                                   f"{self._join_timeout} s; its handle is kept")
+        self._completer = None
+        self._dispatcher = None
+
+    def submit(self, question: np.ndarray, image: np.ndarray) -> Future:
+        r"""Enqueue one request for the micro-batching dispatcher; returns a
+        Future resolving to the answer string. ``start()`` must be running."""
+        return self.submit_many(np.asarray(question)[None], np.asarray(image)[None])[0]
+
+    def submit_many(self, questions: np.ndarray, images: np.ndarray) -> List[Future]:
+        r"""Enqueue ``n`` requests as one dispatcher group (one queue
+        round-trip; more than ``batch_size`` requests as groups of
+        ``batch_size``); returns one Future per request. Groups coalesce with
+        other pending requests up to the batch size, and a group is never
+        split across batches."""
+        if self._dispatcher is None or not self._running.is_set():
+            raise RuntimeError("call start() before submit()")
+        questions = np.asarray(questions)
+        images = np.asarray(images)
+        futures: List[Future] = [Future() for _ in range(questions.shape[0])]
+        with self._lock:
+            self._queued_requests += len(futures)
+        now = time.monotonic()
+        for start in range(0, len(futures), self._batch_size):
+            end = start + self._batch_size
+            self._queue.put((questions[start:end], images[start:end], futures[start:end], now))
+        return futures
+
+    def _note_dequeued(self, n: int) -> None:
+        with self._lock:
+            self._queued_requests -= n
+
+    # ------------------------------------------------------------------ stats
+    def stats(self) -> Dict[str, Any]:
+        r"""The JAX engine's counters (requests, batches and padded slots of
+        the batches answered, questions/s since the engine was made, the
+        queue depth in requests, and submit-to-result latency percentiles in
+        seconds over the dispatcher's last 16,384 requests), and
+        ``max_in_flight``: the most dispatcher batches dispatched and not
+        yet fetched at once."""
+        with self._lock:
+            s = dict(self._stats)
+            lat = np.asarray(self._latencies, np.float64)
+            s["queue_depth"] = self._queued_requests
+            s["max_in_flight"] = self._max_in_flight
+        s["qps"] = s["requests"] / max(time.monotonic() - self._started_at, 1e-9)
+        if lat.size:
+            s["latency_p50"], s["latency_p95"], s["latency_p99"] = (
+                float(np.percentile(lat, q)) for q in (50, 95, 99))
+            s["latency_count"] = int(lat.size)
+        return s

@@ -834,3 +834,20 @@ def test_gemm_plan_and_launches_match_the_python_twin(cuda):
         assert (record["M"], record["N"], record["K"]) == (128, 512, 1024)
         assert (record["splits"], (record["tile_m"], record["tile_n"])) == (
             plan["splits"], plan["tile"])
+
+
+def test_phase13_bucket_check_at_four_rows(cuda):
+    r"""chip_smoke.py phase 13 (a) at B = 4 alone, at full width: K1 (the
+    decoder's cluster plan leaves most CTAs without a row) and K2 (its
+    persistent grid has one block an example) against their plain versions
+    in both dtypes, at phases 2 and 3's tolerances."""
+    import chip_smoke
+
+    vocab = make_clevr_like_vocabulary()
+    pg_spec, nmn_spec = program_generator.make_spec(vocab), nmn.make_spec(vocab)
+    gen = torch.Generator().manual_seed(13)
+    pg = cast_params(program_generator.init_params(gen, pg_spec), torch.float32, cuda)
+    nmn_params = cast_params(nmn.init_nmn_params(gen, nmn_spec), torch.float32, cuda)
+    k1, k2 = chip_smoke.bucket_against_plain(np, torch, cuda, 4, pg, pg_spec, nmn_params,
+                                             nmn_spec, vocab, seed=1300)
+    assert set(k1) == set(k2) == {"float32", "bfloat16"}

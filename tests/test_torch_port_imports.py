@@ -48,6 +48,8 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.utils.msgpack_format",
     "probnmn_tpu_torch.utils.torch_interop",
     "probnmn_tpu_torch.inference",
+    "probnmn_tpu_torch.data.preprocessing",
+    "probnmn_tpu_torch.serve",
 )
 
 
