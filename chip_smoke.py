@@ -232,6 +232,23 @@ Phases (any failure raises, and the script exits non-zero with no result):
    over a port-format checkpoint (``/healthz``, 8 text questions with inline
    features answered as ``predict`` answers them, a malformed payload's 400,
    ``/stats``) (``[serve-online]`` lines).
+14. Images -> features -> answers, at full width, from a generator of its
+   own: a synthesized torchvision ``resnet101`` state dict (27.45M conv
+   parameters; ``layer4``, ``fc`` and ``num_batches_tracked`` present and
+   ignored) and 293 random uint8 224 x 224 images through
+   ``preprocess.extract_features.extract_features`` on the card (batches
+   of 128, 128 and 37; cuDNN convs in IEEE float32), then ``predict`` on
+   256 questions over those features with a scripted generator, the
+   extractor's, K1's and K2's counters set to 0 before and read after; the
+   card's features within 1e-4 of max |f| of the same module's on the CPU
+   (4 images) and of the plain forward, the 37-row batch within it of
+   the same images inside a full batch, the float32 NMN's logits on the
+   card's features within 1e-3 of max(1, max |logit|) of the CPU's on the
+   CPU's; a batch of 128's forward by CUDA events (cudnn.benchmark as set,
+   then on) beside its bound and the plain forward, the uint8 upload, the
+   feature download, the peak memory, 256 images to 256 answers by host
+   clock, and ``load_image`` on a 480 x 320 PNG where PIL is installed
+   (``[extract]`` lines).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -3467,6 +3484,253 @@ def serve_online(np, torch, dev, smi):
     return launches, errs, times
 
 
+# Phase 14: images -> features -> answers. 293 images make batches of 128,
+# 128 and 37 at the extract CLI's default batch.
+EXTRACT_IMAGES = 293
+EXTRACT_BATCH = 128
+EXTRACT_TOL = 1e-4  # of max |f|: IEEE float32 holds it, TF32 would not
+
+
+def extract_work(model, batch, size=224):
+    r"""FLOPs and bytes of the extractor on ``batch`` images of ``size``
+    squared: every conv's multiply-adds from its shapes (the stride on
+    conv2); the uint8 images read once, the float32 weights read once, the
+    float32 features written once."""
+    from probnmn_tpu_torch.models.resnet import FEATURE_CHANNELS, STAGES
+
+    s, cin = size // 2, 64
+    macs = s * s * 64 * 3 * 49
+    s //= 2  # the maxpool
+    for blocks, mid, out, stride in STAGES:
+        for i in range(blocks):
+            so = s // stride if i == 0 else s
+            macs += s * s * mid * cin + so * so * (mid * mid * 9 + out * mid)
+            if i == 0:
+                macs += so * so * out * cin
+            s, cin = so, out
+    weight_bytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    nbytes = batch * size * size * 3 + weight_bytes + batch * FEATURE_CHANNELS * s * s * 4
+    return 2.0 * macs * batch, nbytes
+
+
+def plain_extract(torch, F, params, x):
+    r"""The extractor written out over its unfolded ``params`` (OIHW convs,
+    batch norm as scale and shift after each conv, as the JAX function
+    applies it), with ``F.conv2d``'s torchvision padding: the plain version
+    the module is held to and timed against on the card."""
+    from probnmn_tpu_torch.models.resnet import STAGES
+
+    def conv_bn(p, x, stride=1, padding=0):
+        y = F.conv2d(x, p["w"], None, stride, padding)
+        return y * p["bn"]["scale"].view(-1, 1, 1) + p["bn"]["shift"].view(-1, 1, 1)
+
+    x = torch.relu(conv_bn(params["conv1"], x, 2, 3))
+    x = F.max_pool2d(x, 3, 2, 1)
+    for stage, (_, _, _, stride) in zip(params["layers"], STAGES):
+        for i, block in enumerate(stage):
+            s = stride if i == 0 else 1
+            out = torch.relu(conv_bn(block["conv1"], x))
+            out = torch.relu(conv_bn(block["conv2"], out, s, 1))
+            out = conv_bn(block["conv3"], out)
+            identity = conv_bn(block["downsample"], x, s) if "downsample" in block else x
+            x = torch.relu(out + identity)
+    return x
+
+
+def extract_to_answers(np, torch, dev, smi):
+    r"""Phase 14: a synthesized torchvision ``resnet101`` state dict (its
+    ``layer4``, ``fc`` and ``num_batches_tracked`` keys present) and 293
+    random uint8 224 x 224 images through ``extract_features`` on the card
+    (batches of 128, 128, 37), then ``InferenceEngine.predict`` on 256
+    questions over the first 256 features, with a scripted generator; the
+    extractor's, K1's and K2's counters set to 0 before that path and read
+    after. The card's features against the same module's on the CPU (4
+    images) and against the plain forward, the partial batch against
+    the same images inside a full batch, the float32 NMN's logits on the
+    card's features against the CPU's on the CPU's features; times, memory,
+    bound. Inputs come from a generator of their own. Returns the JSON
+    entry."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from probnmn_tpu_torch.models import nmn, program_generator, resnet
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        execute_programs_kernel, interpreter_plan,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, sampling_encode,
+    )
+    from probnmn_tpu_torch.preprocess.extract_features import (
+        extract_features, load_image, normalize_images,
+    )
+    from probnmn_tpu_torch.serving import InferenceEngine
+    from probnmn_tpu_torch.utils.clevr import (
+        CLEVR_ANSWERS, MAX_QUESTION_LENGTH, make_clevr_like_vocabulary,
+        sample_clevr_like_programs,
+    )
+
+    gen = torch.Generator().manual_seed(14)
+    state = resnet.synthetic_torchvision_state_dict(gen)
+    check(any(k.startswith("layer4.") for k in state) and "fc.weight" in state
+          and "bn1.num_batches_tracked" in state, "the state dict lacks torchvision's extra keys")
+    params = resnet.params_from_torch_state_dict(state)
+    model, cpu_model = resnet.ResNet101Stage3(params), resnet.ResNet101Stage3(params)
+    n_conv = sum(b.numel() for name, b in model.named_buffers() if name.endswith("weight"))
+    images = torch.randint(0, 256, (EXTRACT_IMAGES, 224, 224, 3), generator=gen,
+                           dtype=torch.uint8).numpy()
+    vocab = make_clevr_like_vocabulary()
+    pg_spec, nmn_spec = program_generator.make_spec(vocab), nmn.make_spec(vocab)
+    pg = scripted_generator(torch, program_generator.init_params(gen, pg_spec), pg_spec, vocab,
+                            SERVE_PROGRAM)
+    nmn_params = nmn.init_nmn_params(gen, nmn_spec)
+    questions = random_questions(np, vocab, BATCH, MAX_QUESTION_LENGTH, seed=14)
+    engine = InferenceEngine(vocab, pg_spec, nmn_spec, pg, nmn_params, batch_size=BATCH,
+                             device="cuda")
+    engine.warmup()
+    extract_features(model, images[:EXTRACT_BATCH], EXTRACT_BATCH, "cuda")  # cuDNN's first calls
+    log(f"[extract] {n_conv / 1e6:.2f}M conv parameters of {len(state)} state-dict keys; "
+        f"{EXTRACT_IMAGES} images 224x224 uint8, batch {EXTRACT_BATCH}; cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}")
+
+    # ------------------------------------------------------------ the main path
+    resnet.ResNet101Stage3.launches = 0
+    fused_sampling_forward.launches = 0
+    sampling_encode.launches = 0
+    execute_programs_kernel.launches = 0
+    interpreter_plan.launches = 0
+    features = extract_features(model, images, EXTRACT_BATCH, "cuda")
+    answers = engine.predict(questions, features[:BATCH], seed=14)
+    torch.cuda.synchronize()
+    launches = {"extract": resnet.ResNet101Stage3.launches,
+                "seq2seq_decode": fused_sampling_forward.launches,
+                "k1_encoder_sweep": sampling_encode.launches,
+                "nmn_interpreter": execute_programs_kernel.launches,
+                "nmn_plan": interpreter_plan.launches}
+    f_scale = float(np.abs(features).max())
+    log(f"[extract] images -> features -> answers: launches {launches}; features "
+        f"{features.shape} {features.dtype}, max |f| {f_scale:.4f}, mean |f| "
+        f"{float(np.abs(features).mean()):.4f}; answers seen {sorted(set(answers))[:8]}")
+    check(launches["extract"] == -(-EXTRACT_IMAGES // EXTRACT_BATCH),
+          f"the extractor's batches: {launches['extract']}")
+    check(all(n > 0 for n in launches.values()), f"a kernel did not run on the path: {launches}")
+    check(features.shape == (EXTRACT_IMAGES, 1024, 14, 14) and features.dtype == np.float32,
+          f"features {features.shape} {features.dtype}")
+    check(bool(np.isfinite(features).all()) and 1.0 < f_scale < 100.0, f"features max {f_scale}")
+    check(len(answers) == BATCH and "@@UNKNOWN@@" not in answers
+          and set(answers) <= set(CLEVR_ANSWERS), "the answers on the extracted features")
+
+    # ------------------------------------------------------------ checks
+    cpu_features = extract_features(cpu_model, images[:4], 4, "cpu")
+    cpu_scale = float(np.abs(cpu_features).max())
+    cpu_err = float(np.abs(features[:4] - cpu_features).max())
+    full = extract_features(model, images[-EXTRACT_BATCH:], EXTRACT_BATCH, "cuda")
+    tail = EXTRACT_IMAGES % EXTRACT_BATCH
+    tail_err = float(np.abs(features[-tail:] - full[-tail:]).max())
+    x128 = torch.from_numpy(images[:EXTRACT_BATCH]).to(dev)
+    params_dev = cast_params(params, torch.float32, dev)
+    with torch.no_grad(), resnet.ieee_float32_convs():
+        plain = plain_extract(torch, F, params_dev, normalize_images(x128))
+    plain_err = float((plain - torch.from_numpy(features[:EXTRACT_BATCH]).to(dev)).abs().max())
+    del plain
+    log(f"[extract] card vs CPU on 4 images: max |err| {cpu_err:.3e} (max |f| {cpu_scale:.4f}, "
+        f"limit {EXTRACT_TOL * cpu_scale:.3e}); the {tail}-row batch vs its rows in a full batch "
+        f"{tail_err:.3e}; the module vs the plain forward on the card, {EXTRACT_BATCH} images "
+        f"{plain_err:.3e}")
+    check(cpu_err <= EXTRACT_TOL * cpu_scale, f"card vs CPU features {cpu_err}")
+    check(tail_err <= EXTRACT_TOL * f_scale, f"partial vs full batch {tail_err}")
+    check(plain_err <= EXTRACT_TOL * f_scale, f"module vs plain forward {plain_err}")
+    programs = sample_clevr_like_programs(vocab, 4, seed=14)
+    gpu32 = nmn.make_fast_inference_fn(cast_params(nmn_params, torch.float32, dev), nmn_spec,
+                                       device=dev, dtype=torch.float32)(
+        torch.from_numpy(features[:4]).to(dev).permute(0, 2, 3, 1),
+        torch.from_numpy(programs).to(dev))
+    cpu32 = nmn.make_fast_inference_fn(nmn_params, nmn_spec, device="cpu", dtype=torch.float32)(
+        torch.from_numpy(cpu_features).permute(0, 2, 3, 1), torch.from_numpy(programs))
+    logit_err = float((gpu32["answer_logits"].cpu() - cpu32["answer_logits"]).abs().max())
+    logit_scale = max(1.0, float(cpu32["answer_logits"].abs().max()))
+    log(f"[extract] float32 NMN on the card's features vs the CPU's on the CPU's, 4 rows: "
+        f"max |logit err| {logit_err:.3e} (limit {1e-3 * logit_scale:.3e})")
+    check(not bool(cpu32["invalid"].any()) and torch.equal(gpu32["invalid"].cpu(), cpu32["invalid"]),
+          "NMN invalid flags on the extracted features")
+    check(logit_err <= 1e-3 * logit_scale, f"NMN logits on card vs CPU features {logit_err}")
+
+    # ------------------------------------------------------------ times
+    def forward():
+        return model(normalize_images(x128))
+
+    ms = cuda_ms(torch, forward, iters=10)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        ms_benchmark = cuda_ms(torch, forward, iters=10, warmup=3)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    with torch.no_grad(), resnet.ieee_float32_convs():
+        plain_ms = cuda_ms(torch, lambda: plain_extract(torch, F, params_dev,
+                                                         normalize_images(x128)), iters=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = forward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    upload_ms = cuda_ms(torch, lambda: torch.from_numpy(images[:EXTRACT_BATCH]).to(dev), iters=10)
+    download_ms = cuda_ms(torch, lambda: out.contiguous().cpu(), iters=5)
+    flops, nbytes = extract_work(model, EXTRACT_BATCH)
+    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f256 = extract_features(model, images[:BATCH], EXTRACT_BATCH, "cuda")
+        engine.predict(questions, f256, seed=14)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"[extract] forward {ms:.3f} ms per {EXTRACT_BATCH}-image batch (CUDA events, "
+        f"cudnn.benchmark {benchmark}; with cudnn.benchmark on {ms_benchmark:.3f}), "
+        f"{EXTRACT_BATCH / ms * 1e3:.1f} images/s; plain forward {plain_ms:.3f}; bound "
+        f"{bound_ms:.3f} by {bound_by} ({flops / 1e9:.1f} GFLOP at "
+        f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s float32 SIMT, {nbytes / 1e6:.1f} MB); "
+        f"card {smi}")
+    log(f"[extract] uint8 upload {upload_ms:.3f} ms per batch ({EXTRACT_BATCH * 150528 / 1e6:.1f} "
+        f"MB), feature download {download_ms:.3f} ms ({out.numel() * 4 / 1e6:.1f} MB); "
+        f"max_memory_allocated at B = {EXTRACT_BATCH}: {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} "
+        f"GB above what was allocated before)")
+    log(f"[extract] {BATCH} images -> {BATCH} answers (extract_features + predict, host clock): "
+        f"{', '.join(f'{w:.2f}' for w in walls)} ms")
+    del out
+    try:
+        from PIL import Image
+    except ImportError:
+        load_ms = None
+        log("[extract] PIL is not installed here: load_image not timed")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "clevr_like.png")
+            Image.fromarray(np.ascontiguousarray(
+                images[0].repeat(2, axis=0).repeat(3, axis=1)[:320, :480])).save(path)
+            load_image(path)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                load_image(path)
+            load_ms = (time.perf_counter() - t0) / 20 * 1e3
+        log(f"[extract] load_image on a 480x320 PNG (decode, resize): {load_ms:.3f} ms per image")
+    return {
+        "name": "extract", "route": "cuda", "source": "probnmn_tpu_torch/models/resnet.py",
+        "replaces": "probnmn_tpu/models/resnet.py:86",
+        "kernel": "cuDNN float32 (IEEE) convs through PyTorch; the JAX extractor is XLA, no Pallas",
+        "launches": launches["extract"], "max_abs_err": cpu_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ms_cudnn_benchmark": ms_benchmark, "images_per_s": EXTRACT_BATCH / ms * 1e3,
+        "max_abs_err_partial_batch": tail_err, "max_abs_err_plain": plain_err,
+        "max_abs_logit_err": logit_err, "max_abs_f": f_scale, "upload_ms": upload_ms,
+        "download_ms": download_ms, "peak_bytes": peak, "images_to_answers_ms": walls,
+        "load_image_ms": load_ms, "route_launches": launches,
+    }
+
+
 def _leaves(torch, tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -3842,6 +4106,9 @@ def main():
     # ---------------------------------------------------------------- 13. online serving
     online_launches, online_errs, online_times = serve_online(np, torch, dev, smi)
 
+    # ---------------------------------------------------------------- 14. images -> answers
+    extract = extract_to_answers(np, torch, dev, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -3896,6 +4163,7 @@ def main():
             entry["launches_dispatcher"] = online_launches[entry["name"]]
         if entry["name"] in online_errs:
             entry["max_abs_err_buckets"] = online_errs[entry["name"]]
+    kernels.append(extract)
     kernels[0]["from_checkpoint_times"] = serve_times
     kernels[0]["serve_online"] = online_times
     print(json.dumps({"kernels": kernels}), flush=True)

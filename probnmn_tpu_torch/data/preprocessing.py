@@ -9,6 +9,8 @@ CLEVR preprocessing primitives (counterpart of
   ``NativeTokenizer``),
 - program tokenization: program list -> tree via ``inputs`` indices -> PREFIX
   notation by pre-order traversal, with value inputs folded as ``fn[value]``,
+  and to vocabulary ids (the ids of ``probnmn_tpu/data/native.py``'s
+  ``program_prefix_ids``),
 - vocabulary construction over the three namespaces with the reference's
   ordering (sorted unique tokens; answers sorted + @@UNKNOWN@@ last).
 """
@@ -62,6 +64,19 @@ def tokenize_program(program_list: List[Dict[str, Any]]) -> List[str]:
 
     visit(program_list[-1])
     return prefix
+
+
+def program_prefix_ids(
+    program_list: List[Dict[str, Any]], vocabulary: Vocabulary, max_out: int = 64
+) -> np.ndarray:
+    r"""CLEVR program list -> prefix-notation ``programs`` ids, int32 (the ids
+    of ``probnmn_tpu/data/native.py::program_prefix_ids``); an empty list
+    gives none, and a prefix longer than ``max_out`` raises, as the JAX
+    package's native path does."""
+    tokens = tokenize_program(program_list) if program_list else []
+    if len(tokens) > max_out:
+        raise ValueError(f"program prefix longer than {max_out}")
+    return np.asarray([vocabulary.get_token_index(t, "programs") for t in tokens], np.int32)
 
 
 def build_vocabulary(clevr_json: List[Dict[str, Any]]) -> Vocabulary:

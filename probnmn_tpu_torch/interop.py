@@ -11,7 +11,8 @@ layout everywhere (torch-style (out, in) matrices, per-slot HWIO module
 banks, the classifier's NHWC flatten) except the NMN stem's two 3x3 convs,
 which run ``F.conv2d`` and so take OIHW weights: HWIO -> OIHW here. The
 reference's ``.pth`` goes through the JAX layout first
-(``utils/torch_interop.py``), so it meets the same change.
+(``utils/torch_interop.py``), so it meets the same change. The ResNet
+extractor's convs (:func:`resnet_params_from_jax`) change likewise.
 """
 from __future__ import annotations
 
@@ -78,6 +79,19 @@ def nmn_from_jax(params_np: Any, spec, device="cpu") -> dict:
     stem = params["stem"]
     for name in ("w1", "w2"):
         stem[name] = stem[name].permute(3, 2, 0, 1).contiguous()
+    return params
+
+
+def resnet_params_from_jax(params_np: Any, device="cpu") -> dict:
+    r"""The JAX extractor's params (``probnmn_tpu/models/resnet.py``) as the
+    port's ``models/resnet.py`` params: every conv HWIO -> OIHW, the folded
+    batch norm's scale and shift as they are."""
+    params = _tree_to_torch(params_np, device)
+    convs = [params["conv1"]] + [block[name] for stage in params["layers"] for block in stage
+                                 for name in ("conv1", "conv2", "conv3", "downsample")
+                                 if name in block]
+    for conv in convs:
+        conv["w"] = conv["w"].permute(3, 2, 0, 1).contiguous()
     return params
 
 

@@ -50,6 +50,10 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.inference",
     "probnmn_tpu_torch.data.preprocessing",
     "probnmn_tpu_torch.serve",
+    "probnmn_tpu_torch.models.resnet",
+    "probnmn_tpu_torch.preprocess.build_vocabulary",
+    "probnmn_tpu_torch.preprocess.preprocess_questions",
+    "probnmn_tpu_torch.preprocess.extract_features",
 )
 
 
