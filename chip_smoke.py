@@ -249,6 +249,24 @@ Phases (any failure raises, and the script exits non-zero with no result):
    feature download, the peak memory, 256 images to 256 answers by host
    clock, and ``load_image`` on a 480 x 320 PNG where PIL is installed
    (``[extract]`` lines).
+15. The training options, at full width (256 x 2, batch 256), from
+   generators of its own: DROPOUT 0.2 on the prior, the generator and the
+   reconstructor, OPTIM.ADAM_MU_DTYPE bfloat16. K1's encoder and K1 (on the
+   unsupervised rows' mask), the four K4 passes of a question_coding batch
+   and K3f/K3b, each with its dropout masks, against its plain version under
+   the same masks at phases 2, 6 and 7's tolerances; one question_coding and
+   one program_prior step on the card against the CPU trainer fed the
+   card's masks (and z): logs within 1e-4, every gradient leaf within 1e-4
+   of its scale, 99% of the parameters within 1e-5 after the bf16-moment
+   update; the kernels' counters in those steps (K1, its encoder, K3f, K3b,
+   K4f, K4b all above 0), the masked launches of a step under the profiler
+   (``k1_dropout`` a layer below the top, ``dropout_rows`` 8 times in a
+   question_coding step, 3 in a program_prior step), two steps through
+   ``train.run(..., profile_dir=)`` whose Chrome trace holds both steps'
+   ranges and names every kernel of the path; each masked kernel's time
+   beside the same kernel unmasked on the same inputs, and the
+   question_coding step at DROPOUT 0 and 0.2 in turns (``[dropout]``,
+   ``[time]`` lines; the JSON line's ``*_dropout`` keys).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -469,20 +487,23 @@ def scripted_generator(torch, params, spec, vocab, program):
     )
 
 
-def k1_against_plain(torch, params, spec, questions, noise, tag="K1"):
+def k1_against_plain(torch, params, spec, questions, noise, tag="K1", dropout_masks=None):
     r"""K1 against its plain version on the card on the same ``questions`` and
-    explicit Gumbel ``noise``, in float32 and bfloat16: float32 predictions
-    identical on >= 99% of rows with logprobs within 1e-4 there, bfloat16
-    tokens >= 95% identical, finite losses. Returns each dtype's largest
-    logprob error over the identical rows."""
+    explicit Gumbel ``noise`` (and the encoder's ``dropout_masks``, if any),
+    in float32 and bfloat16: float32 predictions identical on >= 99% of rows
+    with logprobs within 1e-4 there, bfloat16 tokens >= 95% identical,
+    finite losses. Returns each dtype's largest logprob error over the
+    identical rows."""
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
         fused_sampling_forward, sampling_forward_with_noise,
     )
 
     errs = {}
     for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        got = fused_sampling_forward(params, spec, questions, noise=noise, compute_dtype=dtype)
-        want = sampling_forward_with_noise(params, spec, questions, noise, compute_dtype=dtype)
+        got = fused_sampling_forward(params, spec, questions, noise=noise, compute_dtype=dtype,
+                                     dropout_masks=dropout_masks)
+        want = sampling_forward_with_noise(params, spec, questions, noise, compute_dtype=dtype,
+                                           dropout_masks=dropout_masks)
         if questions.is_cuda:  # tools/qc_card_check.py --device cpu rehearses on the CPU
             torch.cuda.synchronize()
         same_rows = (got["predictions"] == want["predictions"]).all(dim=1)
@@ -502,19 +523,22 @@ def k1_against_plain(torch, params, spec, questions, noise, tag="K1"):
     return errs
 
 
-def k1_encoder_against_plain(torch, params, spec, questions, tag="K1 encoder"):
-    r"""K1's encoder sweeps alone (``sampling_encode``) against the plain
-    encoder on the card: outputs and final hidden state within 1e-5 of
-    max(1, max|x|) in float32 and within 2e-2 of max|x| in bfloat16. Returns
-    each dtype's output error and each layer's sweep plan."""
+def k1_encoder_against_plain(torch, params, spec, questions, tag="K1 encoder",
+                             dropout_masks=None):
+    r"""K1's encoder sweeps alone (``sampling_encode``, with the inter-layer
+    ``dropout_masks`` if any) against the plain encoder on the card:
+    outputs and final hidden state within 1e-5 of max(1, max|x|) in float32
+    and within 2e-2 of max|x| in bfloat16. Returns each dtype's output error
+    and each layer's sweep plan."""
     from probnmn_tpu_torch.models.seq2seq import _encode
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import encoder_plan, sampling_encode
 
     n, L, H = len(questions), spec.num_layers, spec.hidden_size
     errs, plans = {}, {}
     for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        out, final = sampling_encode(params, spec, questions, compute_dtype=dtype)
-        want_out, _, want_final, _ = _encode(params, spec, questions, dtype)
+        out, final = sampling_encode(params, spec, questions, compute_dtype=dtype,
+                                     dropout_masks=dropout_masks)
+        want_out, _, want_final, _ = _encode(params, spec, questions, dtype, dropout_masks)
         torch.cuda.synchronize()
         check(tuple(out.shape) == (n, questions.shape[1] + 1, H) and out.dtype == dtype
               and final.dtype == torch.float32, f"{tag} output shapes")
@@ -744,19 +768,19 @@ def lm_work(spec, programs):
     return fwd, bwd
 
 
-def k3_against_plain(torch, params, spec, tok, dloss, tag=""):
+def k3_against_plain(torch, params, spec, tok, dloss, tag="", dropout_masks=None):
     r"""K3f's per-example loss within 1e-4 of its plain version and every K3b
     gradient leaf within 1e-4 * max(1, max|g|) of autograd through the plain
-    loss under the cotangent ``dloss``, on the programs ``tok``. Returns both
-    errors."""
+    loss under the cotangent ``dloss``, on the programs ``tok`` (and the
+    LM's ``dropout_masks``, if any). Returns both errors."""
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain, pack_lm_weights,
         param_leaves,
     )
 
     packed = pack_lm_weights(params)
-    loss_k = lm_forward_cuda(packed, spec, tok)
-    loss_p = lm_loss_plain(params, spec, tok)
+    loss_k = lm_forward_cuda(packed, spec, tok, dropout_masks)
+    loss_p = lm_loss_plain(params, spec, tok, dropout_masks)
     torch.cuda.synchronize()
     k3f_err = float((loss_k - loss_p).abs().max())
     pad_row = f"; all-pad row {float(loss_k[1]):.4f}" if not bool(tok[1].any()) else ""
@@ -767,8 +791,9 @@ def k3_against_plain(torch, params, spec, tok, dloss, tag=""):
     names = ["embedding", "projection"] + [
         f"encoder[{l}].{n}" for l in range(spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")]
     k3b_err = 0.0
-    for name, got, want in zip(names, param_leaves(lm_backward_cuda(packed, spec, tok, dloss)),
-                               param_leaves(lm_grads_plain(params, spec, tok, dloss))):
+    for name, got, want in zip(
+            names, param_leaves(lm_backward_cuda(packed, spec, tok, dloss, dropout_masks)),
+            param_leaves(lm_grads_plain(params, spec, tok, dloss, dropout_masks))):
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         log(f"[K3b{tag}] {name:18s} {tuple(want.shape)}: max |err| {err:.3e}, max |grad| "
             f"{scale:.3e}")
@@ -978,12 +1003,14 @@ def qc_passes(params, pg_spec, qr_spec, questions, programs, n_sup, z):
     ]
 
 
-def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, dloss):
-    r"""One K4 pass against its plain version: K4f's per-example loss within
-    1e-4 and equal to the lean forward's, every K4b gradient leaf (from the
-    residuals K4f kept) within 1e-4 * max(1, max|g|) of autograd under the
-    cotangent ``dloss``, K4f + K4b bitwise repeatable. Returns K4f's error,
-    K4b's largest leaf error, the packed weights and the residuals' bytes."""
+def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, dloss,
+                          dropout_masks=None):
+    r"""One K4 pass (with the encoder's ``dropout_masks``, if any) against
+    its plain version: K4f's per-example loss within 1e-4 and equal to the
+    lean forward's, every K4b gradient leaf (from the residuals K4f kept)
+    within 1e-4 * max(1, max|g|) of autograd under the cotangent ``dloss``,
+    K4f + K4b bitwise repeatable. Returns K4f's error, K4b's largest leaf
+    error, the packed weights and the residuals' bytes."""
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
         pack_tf_weights, tf_backward_cuda, tf_forward_cuda, tf_grads_plain, tf_loss_plain,
         tf_param_leaves,
@@ -993,10 +1020,11 @@ def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, d
         f"encoder[{l}].{n}" for l in range(spec.num_layers) for n in ("w_ih", "w_hh", "b_ih", "b_hh")
     ] + [f"decoder_cell.{n}" for n in ("w_ih", "w_hh", "b_ih", "b_hh")] + ["proj.w", "proj.b"]
     packed = pack_tf_weights(params, spec)
-    lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
-    loss_k, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    masks = {"dropout_masks": dropout_masks}
+    lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, **masks)
+    loss_k, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True, **masks)
     residual_bytes = residuals.nbytes
-    loss_p = tf_loss_plain(params, spec, src, tgt, reinforce_norm)
+    loss_p = tf_loss_plain(params, spec, src, tgt, reinforce_norm, dropout_masks)
     torch.cuda.synchronize()
     err = float((loss_k - loss_p).abs().max())
     log(f"[K4f {name}] B={src.shape[0]} S={src.shape[1] + 1} T={tgt.shape[1] + (0 if reinforce_norm else 1)} "
@@ -1006,9 +1034,11 @@ def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, d
     check(bool(torch.isfinite(loss_k).all()), f"K4f {name} loss not finite")
     check(err <= 1e-4, f"K4f {name} error {err}")
     got = tf_param_leaves(tf_backward_cuda(residuals, dloss))
-    loss_again, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
+    loss_again, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True,
+                                            **masks)
     again = tf_param_leaves(tf_backward_cuda(residuals, dloss))
-    want = tf_param_leaves(tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm))
+    want = tf_param_leaves(tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm,
+                                          dropout_masks))
     check(torch.equal(loss_k, loss_again) and all(torch.equal(a, b) for a, b in zip(got, again)),
           f"K4f + K4b {name} are not bitwise repeatable")
     worst = (0.0, 0.0, "")
@@ -3731,6 +3761,372 @@ def extract_to_answers(np, torch, dev, smi):
     }
 
 
+DROPOUT = 0.2
+DROPOUT_MODELS = ("PROGRAM_PRIOR", "PROGRAM_GENERATOR", "QUESTION_RECONSTRUCTOR")
+
+
+def traced_route(torch, fn, names, want, tries=3):
+    r"""Launches of each named kernel in one traced call of ``fn``, traced up
+    to ``tries`` times until they read ``want``. Late in a run the profiler
+    on the H100 dropped the first kernels of a trace, idle gaps and all
+    (``profiled``): a program_prior step read 3 of its 4 sweeps and 2 of its
+    3 dropout passes three times running, while the same step traced in a
+    fresh process read them all. So each trace starts with 64 small fills
+    and a synchronize, which take the loss, before ``fn``. Returns every
+    try's counts; the last is the one to check."""
+    def padded():
+        pad = torch.empty(1, device="cuda")
+        for _ in range(64):
+            pad.fill_(0.0)
+        torch.cuda.synchronize()
+        fn()
+
+    seen = []
+    for _ in range(tries):
+        _, _, _, counts = trace(torch, padded)
+        seen.append({k: launches_of(counts, k) for k in names})
+        if seen[-1] == want:
+            break
+    return seen
+
+
+def step_against_cpu(torch, tag, card, cpu, record, replay):
+    r"""One step of the trainer ``card`` and one of ``cpu`` (the plain
+    versions, from the same parameters and batch), the CPU step fed the
+    random draws the card's took (``record`` wraps the card's draws,
+    ``replay`` hands them to the CPU's): the logged losses within 1e-4 (of
+    max(1, |value|)), every clamped gradient leaf within 1e-4 * max(1,
+    max|g|), and 99% of the parameters within 1e-5 after the update (Adam's
+    first step is about lr * sign(g), which may flip where |g| is at the
+    float32 noise floor). Returns the card's logs and the largest loss
+    difference."""
+    from probnmn_tpu_torch.training._trainer import tree_leaves
+
+    with record():
+        got = card.step()
+    with replay():
+        want = cpu.step()
+    flat = {f"{g}/{k}": v for g, vals in want.items() for k, v in
+            (vals.items() if isinstance(vals, dict) else [("", vals)])}
+    flat_card = {f"{g}/{k}": v for g, vals in got.items() for k, v in
+                 (vals.items() if isinstance(vals, dict) else [("", vals)])}
+    loss_diff = max(abs(flat_card[k] - v) for k, v in flat.items())
+    log(f"[{tag}] one step, card vs CPU on the card's draws: logs {flat_card} / {flat}")
+    for key, value in flat.items():
+        check(abs(flat_card[key] - value) <= 1e-4 * max(1.0, abs(value)),
+              f"{tag}: card vs CPU {key}")
+    worst = 0.0
+    for index, (a, b) in enumerate(zip(tree_leaves(card.params), tree_leaves(cpu.params))):
+        err, scale = float((a.grad.cpu() - b.grad).abs().max()), float(b.grad.abs().max())
+        check(err <= 1e-4 * max(1.0, scale), f"{tag}: card vs CPU gradient of leaf {index}: {err}")
+        worst = max(worst, err / max(1.0, scale))
+    diffs = [(a.detach().cpu() - b.detach()).abs()
+             for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params))]
+    close = sum(int((d <= 1e-5).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    log(f"[{tag}]   every gradient leaf within 1e-4 * max(1, max|g|) (worst ratio {worst:.3e}); "
+        f"params within 1e-5 after the update: {close:.6f}")
+    check(close >= 0.99, f"{tag}: card vs CPU params after one step")
+    return got, loss_diff
+
+
+def train_with_dropout(np, torch, dev, smi):
+    r"""Phase 15: the deferred training options at the shipped width (256 x
+    2, the configs' batch of 256) with DROPOUT 0.2 on the ProgramPrior, the
+    generator and the reconstructor and OPTIM.ADAM_MU_DTYPE bfloat16: K1's
+    encoder and K1, K3f/K3b and K4f/K4b (the four passes of a
+    question_coding step) with dropout masks against their plain versions
+    under the same masks, at phases 2, 6 and 7's tolerances; one
+    question_coding and one program_prior step on the card against the CPU
+    trainer on the masks (and the programs) the card drew, with every
+    kernel's launch counter above 0 and the masked launches under the
+    profiler; a 2-step ``--profile-dir`` run (``train.run``) whose Chrome
+    trace names the kernels; each masked kernel's time beside the same
+    kernel without masks on the same inputs; and the question_coding step's
+    time at DROPOUT 0 and 0.2. Its inputs come from generators of its own.
+    Returns ``{kernel name: the entries phase 15 adds to its kernels line
+    entry}``."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch import train as train_cli
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import ProgramPriorDataset, QuestionCodingDataset
+    from probnmn_tpu_torch.models.program_prior import init_program_prior_params, lm_dropout_masks
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, pack_weights, sampling_encode,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_backward_cuda, lm_forward_cuda, pack_lm_weights, tf_backward_cuda, tf_forward_cuda,
+    )
+    from probnmn_tpu_torch.training import program_prior_trainer
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_map
+    from probnmn_tpu_torch.training.program_prior_trainer import (
+        ProgramPriorTrainer, make_prior_spec,
+    )
+    from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
+    from probnmn_tpu_torch.utils.checkpointing import save_objects
+    from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(1500)  # this phase's inputs, apart from phases 1-14's
+    mgen = torch.Generator(device=dev).manual_seed(1501)  # its kernel checks' masks
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_dropout_")
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(os.path.join(work, "vocab"))
+
+    def phase_options(p):
+        out = ["DATA.VOCABULARY", os.path.join(work, "vocab"), "OPTIM.ADAM_MU_DTYPE", "bfloat16"]
+        for model in DROPOUT_MODELS:
+            out += [f"{model}.DROPOUT", p]
+        return out
+
+    prior_config = Config(os.path.join(repo, "configs", "program_prior.yml"),
+                          phase_options(DROPOUT))
+    prior_spec = make_prior_spec(prior_config, vocab)
+    prior_ckpt = os.path.join(work, "prior.ckpt")
+    save_objects(prior_ckpt, {"program_prior": init_program_prior_params(gen, prior_spec)})
+    qc_yml = os.path.join(repo, "configs", "question_coding_ours.yml")
+    qc_config = Config(qc_yml, phase_options(DROPOUT) + ["CHECKPOINTS.PROGRAM_PRIOR", prior_ckpt])
+    batch_size = qc_config.OPTIM.BATCH_SIZE
+    np.random.seed(qc_config.RANDOM_SEED)  # the supervision subset, as the CLI seeds it
+    qc_set = QuestionCodingDataset.from_tokens(
+        *qc_questions(np, vocab, 4096, seed=151), num_supervision=qc_config.SUPERVISION,
+        supervision_question_max_length=qc_config.SUPERVISION_QUESTION_MAX_LENGTH)
+    prior_set = ProgramPriorDataset.from_programs(lm_programs(np, vocab, 2048, seed=152))
+
+    def qc_trainer(device, name, cfg=qc_config):
+        return QuestionCodingTrainer(cfg, os.path.join(work, name), device=device,
+                                     writer=RecordingWriter(), dataset=qc_set)
+
+    def prior_trainer(device, name):
+        return ProgramPriorTrainer(prior_config, os.path.join(work, name), device=device,
+                                   writer=RecordingWriter(), dataset=prior_set)
+
+    card = qc_trainer("cuda", "qc")
+    pg_spec, qr_spec = card.pg_spec, card.qr_spec
+    check(pg_spec.dropout == qr_spec.dropout == card.prior_spec.dropout == DROPOUT
+          and card._optimizer.mu_dtype == "bfloat16", "the phase's options did not reach the trainer")
+    init = tree_map(lambda t: t.detach().clone(), card.params)
+    log(f"[dropout] DROPOUT {DROPOUT} on the prior, PG and QR ({pg_spec.num_layers} x "
+        f"{pg_spec.hidden_size}), ADAM_MU_DTYPE bfloat16, batch {batch_size}")
+
+    # ---- the kernels with masks against their plain versions under the same masks
+    batch = next(card._batches)
+    n_sup = batch[COUNT_KEY]
+    questions, programs = batch["question"], batch["program"]
+    masks = card.draw_dropout_masks(batch)
+    keep = {k: float(m.float().mean()) for k, m in masks.items()}
+    log(f"[dropout] first batch: {n_sup} supervised; masks {({k: tuple(m.shape) for k, m in masks.items()})}, "
+        f"kept {keep}")
+    check(all(m.is_cuda and abs(keep[k] - (1 - DROPOUT)) < 0.01 for k, m in masks.items()),
+          "dropout masks")
+    pg = init["program_generator"]
+    q_unsup = questions[n_sup:]
+    k1_enc, _ = k1_encoder_against_plain(torch, pg, pg_spec, q_unsup, "K1 encoder, dropout",
+                                         masks["pg_unsup"])
+    T, V = pg_spec.max_decoding_steps, pg_spec.target_vocab_size
+    noise = (-torch.log(-torch.log(torch.rand(T, len(q_unsup), V, generator=gen)
+                                   .clamp_min(1e-12)))).to(dev)
+    k1 = k1_against_plain(torch, pg, pg_spec, q_unsup, noise, "K1, dropout", masks["pg_unsup"])
+    z = card.sample_programs(q_unsup, masks["pg_unsup"])
+    mask_of = {"pg_sup": "pg_sup", "qr_sup": "qr_sup", "pg_z": "pg_unsup", "qr_z": "qr_unsup"}
+    k4f_err = k4b_err = 0.0
+    k4_inputs = []
+    for name, params, spec, src, tgt, reinforce_norm in qc_passes(init, pg_spec, qr_spec,
+                                                                  questions, programs, n_sup, z):
+        dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
+        err, e, packed, _ = k4_pass_against_plain(torch, f"{name}, dropout", params, spec, src,
+                                                  tgt, reinforce_norm, dloss, masks[mask_of[name]])
+        k4f_err, k4b_err = max(k4f_err, err), max(k4b_err, e)
+        k4_inputs.append((packed, spec, src, tgt, reinforce_norm, dloss, masks[mask_of[name]]))
+    prior = prior_trainer("cuda", "prior")
+    prior_init = tree_map(lambda t: t.detach().clone(), prior.params["program_prior"])
+    tok = torch.from_numpy(prior_set.get_batch(np.arange(batch_size))["program"]).to(dev)
+    lm_masks = lm_dropout_masks(mgen, prior_spec, tok)
+    lm_dloss = (torch.rand(batch_size, generator=gen) + 0.5).to(dev)
+    k3f_err, k3b_err = k3_against_plain(torch, prior_init, prior_spec, tok, lm_dloss, ", dropout",
+                                        lm_masks)
+
+    # ---- one step each on the card against the CPU trainer on the card's draws
+    counters = (fused_sampling_forward, sampling_encode, lm_forward_cuda, lm_backward_cuda,
+                tf_forward_cuda, tf_backward_cuda)
+    for fn in counters:
+        fn.launches = 0
+    drawn = {}
+    qc_card, qc_cpu = qc_trainer("cuda", "qc_step"), qc_trainer("cpu", "qc_cpu")
+    copy_into(qc_card.params, init)
+    copy_into(qc_cpu.params, init)
+
+    @contextlib.contextmanager
+    def record_qc():
+        draw, sample = qc_card.draw_dropout_masks, qc_card.sample_programs
+
+        def draw_and_keep(b):
+            drawn["qc"] = draw(b)
+            return drawn["qc"]
+
+        def sample_and_keep(q, m):
+            drawn["z"] = sample(q, m)
+            return drawn["z"]
+
+        qc_card.draw_dropout_masks, qc_card.sample_programs = draw_and_keep, sample_and_keep
+        yield
+        del qc_card.draw_dropout_masks, qc_card.sample_programs
+
+    @contextlib.contextmanager
+    def replay_qc():
+        qc_cpu.draw_dropout_masks = lambda b: {k: m.cpu() for k, m in drawn["qc"].items()}
+        qc_cpu.sample_programs = lambda q, m: drawn["z"].cpu()
+        yield
+        del qc_cpu.draw_dropout_masks, qc_cpu.sample_programs
+
+    qc_logs, qc_diff = step_against_cpu(torch, "qc, dropout", qc_card, qc_cpu, record_qc,
+                                        replay_qc)
+    pp_card, pp_cpu = prior_trainer("cuda", "prior_step"), prior_trainer("cpu", "prior_cpu")
+    copy_into(pp_card.params["program_prior"], prior_init)
+    copy_into(pp_cpu.params["program_prior"], prior_init)
+
+    @contextlib.contextmanager
+    def patched_lm_masks(fn):
+        real = program_prior_trainer.lm_dropout_masks
+        program_prior_trainer.lm_dropout_masks = lambda g, spec, p: fn(real, g, spec, p)
+        yield
+        program_prior_trainer.lm_dropout_masks = real
+
+    def keep_lm(real, g, spec, p):
+        drawn["lm"] = real(g, spec, p)
+        return drawn["lm"]
+
+    pp_logs, pp_diff = step_against_cpu(
+        torch, "prior, dropout", pp_card, pp_cpu, lambda: patched_lm_masks(keep_lm),
+        lambda: patched_lm_masks(lambda real, g, spec, p: drawn["lm"].cpu()))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"[dropout] launches in those two card steps: {launches}")
+    check(launches == {"fused_sampling_forward": 1, "sampling_encode": 1, "lm_forward_cuda": 2,
+                       "lm_backward_cuda": 1, "tf_forward_cuda": 4, "tf_backward_cuda": 4},
+          f"dropout steps' launches {launches}")
+    check(all(m.dtype == torch.bfloat16
+              for m in (s["exp_avg"] for s in qc_card._optimizer.state_dict()["state"].values())),
+          "the Adam first moment is not bfloat16")
+    names = ("dropout_rows", "k1_dropout", "k1_encoder_sweep", "lstm_fwd_sweep", "lstm_bwd_sweep")
+    # A question_coding step: K1's encoder (a sweep a layer, a dropout pass a
+    # layer below the top), the four K4 passes (a forward and a reverse sweep
+    # a layer, a dropout pass each way a layer below the top), the frozen
+    # prior's K3f (a sweep a layer, no mask). A program_prior step: K3f and
+    # K3b's replay (a sweep a layer each) and three dropout passes a layer
+    # below the top (K3f, the replay, the gradient).
+    L, Lp = pg_spec.num_layers, prior_spec.num_layers
+    qc_want = {"dropout_rows": 8 * (L - 1), "k1_dropout": L - 1, "k1_encoder_sweep": L,
+               "lstm_fwd_sweep": 4 * L + Lp, "lstm_bwd_sweep": 4 * L}
+    pp_want = {"dropout_rows": 3 * (Lp - 1), "k1_dropout": 0, "k1_encoder_sweep": 0,
+               "lstm_fwd_sweep": 2 * Lp, "lstm_bwd_sweep": 0}
+    qc_tries = traced_route(torch, qc_card.step, names, qc_want)
+    pp_tries = traced_route(torch, pp_card.step, names, pp_want)
+    qc_route, pp_route = qc_tries[-1], pp_tries[-1]
+    log(f"[dropout] under the profiler, a question_coding step: {qc_tries}; a program_prior "
+        f"step: {pp_tries} (traced until the counts were whole, at most 3 times)")
+    check(qc_route == qc_want, f"question_coding step route {qc_tries}")
+    check(pp_route == pp_want, f"program_prior step route {pp_tries}")
+
+    # ---- two steps under --profile-dir's window (the train CLI's loop)
+    trace_dir = os.path.join(work, "trace")
+    start = qc_card.iteration + 1
+    train_cli.run(qc_card, None, start + 4, checkpoint_every=10 ** 9, profile_dir=trace_dir,
+                  profile_steps=2)
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"--profile-dir wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    steps_seen = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("train_step_")})
+    wanted = ("k1_encoder_sweep", "k1_dropout", "seq2seq_sample_kernel", "lstm_fwd_sweep",
+              "lstm_bwd_sweep", "dropout_rows", "tf_attend")
+    named = {k: sum(1 for n in kernel_names if f"{k}(" in n or f"{k}<" in n) > 0 for k in wanted}
+    log(f"[dropout] --profile-dir trace {files[0]}: {len(events)} events, {len(kernel_names)} "
+        f"kernel names, ranges {steps_seen}; kernels named: {named}")
+    check(steps_seen == [f"train_step_{start + 2}", f"train_step_{start + 3}"],
+          f"profile window {steps_seen}")
+    check(all(named.values()), f"the trace does not name every kernel: {named}")
+
+    # ---- times: each masked kernel beside the same kernel without masks, same inputs
+    pg_packed = pack_weights(pg, pg_spec, torch.bfloat16, dev)
+    m1 = masks["pg_unsup"]
+    times = {}
+
+    def pair(key, fn, iters=10):
+        times[key] = {"ms_dropout": cuda_ms(torch, lambda: fn(True), iters),
+                      "ms_no_dropout": cuda_ms(torch, lambda: fn(False), iters)}
+
+    pair("seq2seq_decode", lambda d: fused_sampling_forward(
+        pg, pg_spec, q_unsup, seed=7, compute_dtype=torch.bfloat16, packed=pg_packed,
+        dropout_masks=m1 if d else None))
+    pair("k1_encoder_sweep", lambda d: sampling_encode(
+        pg, pg_spec, q_unsup, compute_dtype=torch.bfloat16, packed=pg_packed,
+        dropout_masks=m1 if d else None))
+    lm_packed = pack_lm_weights(prior_init)
+    pair("lm_forward", lambda d: lm_forward_cuda(lm_packed, prior_spec, tok,
+                                                 lm_masks if d else None))
+    pair("lm_backward", lambda d: lm_backward_cuda(lm_packed, prior_spec, tok, lm_dloss,
+                                                   lm_masks if d else None))
+    fwd = {True: 0.0, False: 0.0}
+    bwd = {True: 0.0, False: 0.0}
+    for packed, spec, src, tgt, reinforce_norm, dloss, m in k4_inputs:
+        for d in (True, False):
+            def keep_forward(d=d):
+                return tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True,
+                                       dropout_masks=m if d else None)[1]
+
+            fwd[d] += cuda_ms(torch, keep_forward, iters=5)
+            bwd[d] += cuda_ms_each(torch, keep_forward, lambda res: tf_backward_cuda(res, dloss),
+                                   iters=5)
+    times["tf_forward"] = {"ms_dropout": fwd[True], "ms_no_dropout": fwd[False]}
+    times["tf_backward"] = {"ms_dropout": bwd[True], "ms_no_dropout": bwd[False]}
+    for key, t in times.items():
+        log(f"[time] {key} with dropout masks {t['ms_dropout']:.4f} ms, without "
+            f"{t['ms_no_dropout']:.4f} ms, same inputs; card {smi}")
+
+    # ---- the question_coding step at DROPOUT 0 and 0.2, in turns (0, 0.2, 0.2, 0)
+    plain_config = Config(qc_yml, phase_options(0.0) + ["CHECKPOINTS.PROGRAM_PRIOR", prior_ckpt])
+    runs = {0.0: qc_trainer("cuda", "qc_p0", plain_config), DROPOUT: qc_trainer("cuda", "qc_p2")}
+    for trainer in runs.values():
+        copy_into(trainer.params, init)
+        for _ in range(2):
+            trainer.step()
+    step_ms = {0.0: [], DROPOUT: []}
+    for p in (0.0, DROPOUT, DROPOUT, 0.0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            runs[p].step()
+        step_ms[p].append((time.perf_counter() - t0) / 5 * 1e3)
+    mean_ms = {p: sum(v) / len(v) for p, v in step_ms.items()}
+    log(f"[time] question_coding train step (host clock, logs fetched each step, 5 steps a turn "
+        f"in turns 0, 0.2, 0.2, 0): DROPOUT 0 {step_ms[0.0]} ms, DROPOUT {DROPOUT} "
+        f"{step_ms[DROPOUT]} ms; means {mean_ms[0.0]:.3f} / {mean_ms[DROPOUT]:.3f}; card {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[dropout] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+    errs = {"seq2seq_decode": k1["bfloat16"], "k1_encoder_sweep": k1_enc["bfloat16"],
+            "lm_forward": k3f_err, "lm_backward": k3b_err, "tf_forward": k4f_err,
+            "tf_backward": k4b_err}
+    launch_keys = {"seq2seq_decode": "fused_sampling_forward", "k1_encoder_sweep": "sampling_encode",
+                   "lm_forward": "lm_forward_cuda", "lm_backward": "lm_backward_cuda",
+                   "tf_forward": "tf_forward_cuda", "tf_backward": "tf_backward_cuda"}
+    out = {name: {"launches_dropout": launches[launch_keys[name]],
+                  "max_abs_err_dropout": errs[name], **times[name]} for name in errs}
+    out["seq2seq_decode"]["max_abs_err_dropout_float32"] = k1["float32"]
+    out["k1_encoder_sweep"]["max_abs_err_dropout_float32"] = k1_enc["float32"]
+    out["tf_forward"]["qc_step_ms"] = {"dropout_0": step_ms[0.0], "dropout_0.2": step_ms[DROPOUT]}
+    out["tf_forward"]["dropout_route"] = {"question_coding": qc_route, "program_prior": pp_route}
+    out["tf_forward"]["step_vs_cpu_max_log_diff"] = {"question_coding": qc_diff,
+                                                     "program_prior": pp_diff}
+    return out
+
+
 def _leaves(torch, tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -4109,6 +4505,9 @@ def main():
     # ---------------------------------------------------------------- 14. images -> answers
     extract = extract_to_answers(np, torch, dev, smi)
 
+    # ---------------------------------------------------------------- 15. dropout, bf16 Adam moment
+    dropout = train_with_dropout(np, torch, dev, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -4163,6 +4562,7 @@ def main():
             entry["launches_dispatcher"] = online_launches[entry["name"]]
         if entry["name"] in online_errs:
             entry["max_abs_err_buckets"] = online_errs[entry["name"]]
+        entry.update(dropout.get(entry["name"], {}))
     kernels.append(extract)
     kernels[0]["from_checkpoint_times"] = serve_times
     kernels[0]["serve_online"] = online_times

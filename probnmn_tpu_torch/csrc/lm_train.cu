@@ -35,6 +35,12 @@
 //   per (id, 256-row chunk), rows visited in order, chunks added in order):
 //   deterministic, no float atomics. Its output side (dlogits^T . proj_out,
 //   pad row included) is a split-K GEMM.
+// - Inter-layer dropout (PROGRAM_PRIOR.DROPOUT > 0, a training pass): the
+//   caller's keep mask drops each layer's y below the top in place
+//   (dropout_rows, train_common.cuh) before the layer above reads it, in K3f
+//   and in K3b's replay alike, and K3b scales the gradient reaching that y
+//   the same way. One elementwise launch a layer each time; without a mask
+//   nothing more runs.
 //
 // What bounds it on an H100: at B=256, T=27, D=H=256, V=44, 2 layers, K3f is
 // ~15.6 GFLOP (0.23 ms at the 67 TFLOP/s float32 SIMT peak) and K3b ~46.8
@@ -147,8 +153,11 @@ LayerArgs layer_args(const Dims& d, const Weights& wt, const Workspace& ws, int 
   return a;
 }
 
-// The forward through the logits, into the workspace.
-cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, cudaStream_t s) {
+// The forward through the logits, into the workspace. With dropout, layer
+// l - 1's y is dropped in place before layer l reads it (the top layer's is
+// not), so K3b's replay, given the same mask, repeats K3f's forward.
+cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, const Dropout& dr,
+                         cudaStream_t s) {
   const ll TB = d.TB;
   token_streams<<<ceil_div(TB, 256), 256, 0, s>>>(wt.tokens, d.B, d.Lt, d.T, d.V, wt.pad,
                                                    wt.start, wt.end, true, ws.lm_in, ws.label,
@@ -156,7 +165,11 @@ cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, 
   TRAIN_LAUNCHED();
   embed_rows<<<ceil_div(TB * d.D, 256), 256, 0, s>>>(wt.emb, ws.lm_in, ws.m_in, ws.x0, d.TB, d.D);
   TRAIN_LAUNCHED();
-  for (int l = 0; l < d.L; ++l) TRAIN_TRY(lstm_layer_forward(s, layer_args(d, wt, ws, l)));
+  for (int l = 0; l < d.L; ++l) {
+    if (l > 0 && dr.keep != nullptr)
+      TRAIN_TRY(drop_layer(s, dr, l - 1, ws.y + (l - 1) * ws.layer_h, d.T, d.B, d.H));
+    TRAIN_TRY(lstm_layer_forward(s, layer_args(d, wt, ws, l)));
+  }
   const float* top = ws.y + (d.L - 1) * ws.layer_h;
   TRAIN_TRY(gemm(s, top, d.H, 1, wt.proj, 1, d.H, ws.proj_out, d.D, d.TB, d.D, d.H, nullptr, false,
                  nullptr));
@@ -170,9 +183,10 @@ struct Grads {
 };
 
 cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
-                          const float* dloss, const Grads& gr, cudaStream_t s) {
+                          const float* dloss, const Grads& gr, const Dropout& dr,
+                          cudaStream_t s) {
   const ll TB = d.TB;
-  TRAIN_TRY(forward_pass(d, wt, ws, s));
+  TRAIN_TRY(forward_pass(d, wt, ws, dr, s));
   loss_rows<<<ceil_div(d.B, 128), 128, 0, s>>>(nullptr, ws.label, dloss, nullptr, ws.dnum, d.B,
                                                d.T, wt.pad, kCeEps);
   TRAIN_LAUNCHED();
@@ -192,12 +206,14 @@ cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
   const float* ext = ws.e0;
   TRAIN_TRY(gemm(s, ws.dproj_out, d.D, 1, wt.proj, d.H, 1, ws.e0, d.H, d.TB, d.H, d.D, nullptr,
                  false, nullptr));
-  // Layers top down; layer l's dx is the gradient reaching layer l - 1's y.
+  // Layers top down; layer l's dx is the gradient reaching layer l - 1's y
+  // (through the dropout between them, if any).
   for (int l = d.L - 1; l >= 0; --l) {
     float* dx = (d.L - 1 - l) % 2 == 0 ? ws.e1 : ws.e0;
     TRAIN_TRY(lstm_layer_backward(s, layer_args(d, wt, ws, l), ext, nullptr, ws.dh, ws.dc,
                                   gr.w_ih + (l == 0 ? 0 : d.G * d.D + (l - 1) * d.G * d.H),
                                   gr.w_hh + l * d.G * d.H, gr.bias + l * d.G, dx, ws.partial));
+    if (l > 0 && dr.keep != nullptr) TRAIN_TRY(drop_layer(s, dr, l - 1, dx, d.T, d.B, d.H));
     ext = dx;
   }
   // ext now holds dx0: the embedding's input side, reduced per token id.
@@ -236,10 +252,14 @@ extern "C" long long probnmn_lm_workspace_floats(int batch, int lt, int input_si
 
 // K3f. tokens (B, Lt) int32; emb (V, D); proj (D, H); w_ih: the layers'
 // (4H, D_l) matrices one after another; w_hh (L, 4H, H); bias (L, 4H) =
-// b_ih + b_hh. Writes loss (B,).
+// b_ih + b_hh; dropout_keep: null, or the inter-layer dropout's keep mask
+// (L-1, B, dropout_steps, H) bytes (dropout_steps >= Lt + 1; the JAX
+// package draws Lt + 2) with its scale 1 / (1 - p). Writes loss (B,).
 extern "C" int probnmn_lm_forward(const void* tokens, int batch, int lt, const void* emb,
                                   const void* proj, const void* w_ih, const void* w_hh,
-                                  const void* bias, void* workspace, void* loss, int vocab,
+                                  const void* bias, void* workspace, void* loss,
+                                  const void* dropout_keep, int dropout_steps,
+                                  float dropout_scale, int vocab,
                                   int input_size, int hidden, int layers, int pad, int start,
                                   int end, void* stream) {
   const Dims d = make_dims(batch, lt, input_size, hidden, layers, vocab);
@@ -250,8 +270,10 @@ extern "C" int probnmn_lm_forward(const void* tokens, int batch, int lt, const v
                    static_cast<const float*>(proj), static_cast<const float*>(w_ih),
                    static_cast<const float*>(w_hh), static_cast<const float*>(bias),
                    pad, start, end};
+  const Dropout dr{static_cast<const unsigned char*>(dropout_keep), dropout_steps, dropout_scale};
+  if (dr.keep != nullptr && dropout_steps < d.T) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = forward_pass(d, wt, ws, s);
+  cudaError_t err = forward_pass(d, wt, ws, dr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ce_head_fwd<<<ceil_div(static_cast<ll>(d.TB) * 32, 256), 256, 0, s>>>(ws.logits, ws.label,
                                                                         ws.ce, d.TB, d.V, pad);
@@ -264,12 +286,14 @@ extern "C" int probnmn_lm_forward(const void* tokens, int batch, int lt, const v
 
 // K3b. The forward's inputs plus dloss (B,); writes the gradients in the
 // same layouts: d_emb (V, D), d_proj (D, H), d_wih (flat), d_whh (L, 4H, H),
-// d_bias (L, 4H) (the gradient of b_ih and of b_hh alike).
+// d_bias (L, 4H) (the gradient of b_ih and of b_hh alike). Its replay takes
+// the dropout mask K3f took.
 extern "C" int probnmn_lm_backward(const void* tokens, int batch, int lt, const void* emb,
                                    const void* proj, const void* w_ih, const void* w_hh,
                                    const void* bias, const void* dloss, void* workspace,
                                    void* d_emb, void* d_proj, void* d_wih, void* d_whh,
-                                   void* d_bias, int vocab, int input_size, int hidden,
+                                   void* d_bias, const void* dropout_keep, int dropout_steps,
+                                   float dropout_scale, int vocab, int input_size, int hidden,
                                    int layers, int pad, int start, int end, void* stream) {
   const Dims d = make_dims(batch, lt, input_size, hidden, layers, vocab);
   if (!valid_dims(d)) return static_cast<int>(cudaErrorInvalidValue);
@@ -282,7 +306,9 @@ extern "C" int probnmn_lm_backward(const void* tokens, int batch, int lt, const 
   const Grads gr{static_cast<float*>(d_emb), static_cast<float*>(d_proj),
                  static_cast<float*>(d_wih), static_cast<float*>(d_whh),
                  static_cast<float*>(d_bias)};
-  const cudaError_t err = backward_pass(d, wt, ws, static_cast<const float*>(dloss), gr,
+  const Dropout dr{static_cast<const unsigned char*>(dropout_keep), dropout_steps, dropout_scale};
+  if (dr.keep != nullptr && dropout_steps < d.T) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = backward_pass(d, wt, ws, static_cast<const float*>(dloss), gr, dr,
                                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

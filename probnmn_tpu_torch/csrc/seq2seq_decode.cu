@@ -510,6 +510,21 @@ cudaError_t launch_encoder_layer(EncoderArgs a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Inter-layer dropout on the encoder's way up (torch nn.LSTM(dropout=p), as
+// the JAX package's lstm_encode applies it): the layer below's outputs
+// (B, S, H) in T, in place, v = keep ? round_T(v * scale) : 0 with keep the
+// layer's (B, S, H) byte mask. One elementwise pass a layer above the first,
+// beside the sweeps: masking inside the sweep's staged x loads (cp.async a
+// step ahead) would put a byte load and a select on every step of the
+// serial chain. The plain version rounds (y * keep) * scale to T as the
+// layer above's matmul operand: the same value.
+template <typename T>
+__global__ void k1_dropout(T* v, const unsigned char* __restrict__ keep, ll n, float scale) {
+  const ll idx = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  v[idx] = keep[idx] ? from_f<T>(to_f(v[idx]) * scale) : from_f<T>(0.f);
+}
+
 // ------------------------------------------------------------------ decoder
 constexpr int kDecThreads = 256;  // 8 warps a CTA
 constexpr int kDecWarps = kDecThreads / 32;
@@ -1443,12 +1458,16 @@ using namespace probnmn;
 // (in, 4H) one after another), enc_whh (L, H, 4H) in the dtype; enc_bias
 // (L, 4H) float32. Writes enc_out (B, raw_len + 1, H) in the dtype and
 // h_final (B, H) float32; enc_tmp, another (B, raw_len + 1, H), holds the
-// layers below the top (null for one layer). Launches on `stream`.
+// layers below the top (null for one layer). dropout_keep: null, or the
+// inter-layer dropout's keep mask (L-1, B, raw_len + 1, H) bytes with its
+// scale 1 / (1 - p): each layer below the top has its outputs dropped
+// (k1_dropout) before the layer above reads them. Launches on `stream`.
 extern "C" int probnmn_k1_encode(int dtype, const void* src, int batch, int raw_len,
                                  const void* src_emb, const void* enc_wih, const void* enc_whh,
                                  const void* enc_bias, void* enc_out, void* enc_tmp,
-                                 void* h_final, int input_size, int hidden, int num_layers,
-                                 int pad, int end, void* stream) {
+                                 void* h_final, const void* dropout_keep, float dropout_scale,
+                                 int input_size, int hidden, int num_layers, int pad, int end,
+                                 void* stream) {
   if (batch <= 0) return 0;
   if (num_layers < 1 || (num_layers > 1 && enc_tmp == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1462,8 +1481,21 @@ extern "C" int probnmn_k1_encode(int dtype, const void* src, int batch, int raw_
   a.H = hidden;
   a.pad = pad;
   a.end = end;
+  const ll layer_n = static_cast<ll>(batch) * (raw_len + 1) * hidden;
   for (int l = 0; l < num_layers; ++l) {
     void* mine = (num_layers - 1 - l) % 2 == 0 ? enc_out : enc_tmp;  // the top layer's is enc_out
+    if (l > 0 && dropout_keep != nullptr) {
+      const unsigned char* keep = static_cast<const unsigned char*>(dropout_keep) + (l - 1) * layer_n;
+      const int blocks = static_cast<int>((layer_n + 255) / 256);
+      if (dtype == 1)
+        k1_dropout<bf16><<<blocks, 256, 0, s>>>(static_cast<bf16*>(a.out), keep, layer_n,
+                                                dropout_scale);
+      else
+        k1_dropout<float><<<blocks, 256, 0, s>>>(static_cast<float*>(a.out), keep, layer_n,
+                                                 dropout_scale);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     a.layer = l;
     a.in = l == 0 ? input_size : hidden;
     a.x = l == 0 ? src_emb : a.out;

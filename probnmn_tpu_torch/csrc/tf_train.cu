@@ -49,6 +49,12 @@
 //   partials added in a fixed order; the bias gradients are column sums and
 //   both embeddings' gradients are reduced per token id: no float atomics,
 //   so K4b gives the same bits on every run.
+// - Inter-layer dropout of the encoder (DROPOUT > 0, a training pass): K4f
+//   drops each encoder layer's y below the top in place (dropout_rows,
+//   train_common.cuh) before the layer above reads it, so the residuals hold
+//   the dropped input that layer's W_ih gradient needs; K4b takes the same
+//   mask and scales the gradient reaching that y alike. One elementwise
+//   launch a layer each way; without a mask nothing more runs.
 //
 // What bounds it on an H100: a pass of a question_coding step has about 128
 // rows (half a batch of 256). At CLEVR lengths the ProgramGenerator pass
@@ -312,8 +318,12 @@ LayerArgs encoder_layer(const Dims& d, const Weights& wt, const Workspace& ws, i
   return a;
 }
 
-// The forward through the logits, into the workspace.
-cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, cudaStream_t s) {
+// The forward through the logits, into the workspace. With dropout, encoder
+// layer l - 1's y is dropped in place before layer l reads it (the top
+// layer's, the attention memory, is not): the residuals then hold the
+// dropped input that layer l's W_ih gradient needs.
+cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, const Dropout& dr,
+                         cudaStream_t s) {
   const ll bh = static_cast<ll>(d.B) * d.H;
   token_streams<<<ceil_div(d.SB, 256), 256, 0, s>>>(wt.src, d.B, d.Ls, d.S, d.Vs, wt.pad,
                                                      wt.start, wt.end, true, nullptr, ws.src_id,
@@ -326,7 +336,11 @@ cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, 
   embed_rows<<<ceil_div(d.SB * d.D, 256), 256, 0, s>>>(wt.src_emb, ws.src_id, ws.src_m, ws.x0,
                                                         static_cast<int>(d.SB), d.D);
   TRAIN_LAUNCHED();
-  for (int l = 0; l < d.L; ++l) TRAIN_TRY(lstm_layer_forward(s, encoder_layer(d, wt, ws, l)));
+  for (int l = 0; l < d.L; ++l) {
+    if (l > 0 && dr.keep != nullptr)
+      TRAIN_TRY(drop_layer(s, dr, l - 1, ws.y + (l - 1) * ws.layer_h, d.S, d.B, d.H));
+    TRAIN_TRY(lstm_layer_forward(s, encoder_layer(d, wt, ws, l)));
+  }
   // Decoder: h starts at the top layer's final (frozen) hidden state, c at 0.
   const float* enc = ws.y + (d.L - 1) * ws.layer_h;
   const float* h_top = ws.h + (d.L - 1) * ws.layer_h;
@@ -362,10 +376,10 @@ struct Grads {
 };
 
 // K4b from K4f's residuals `ws`, which it consumes: dpre overwrites the
-// gates and dlogits the logits.
+// gates and dlogits the logits. `dr` is the dropout mask K4f took.
 cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
                           const Scratch& sc, const float* dloss, const Grads& gr,
-                          cudaStream_t s) {
+                          const Dropout& dr, cudaStream_t s) {
   const ll bh = static_cast<ll>(d.B) * d.H;
   const int TB = static_cast<int>(d.TB), G = static_cast<int>(d.G), H2 = 2 * d.H;
   loss_rows<<<ceil_div(d.B, 128), 128, 0, s>>>(nullptr, ws.label, dloss, nullptr, sc.dnum, d.B,
@@ -433,6 +447,8 @@ cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
     TRAIN_TRY(lstm_layer_grads(s, layer, gr.enc_wih + wt.wih_offset(d, l),
                                gr.enc_whh + l * d.G * d.H, gr.enc_bias + l * d.G, dx,
                                sc.partial));
+    // dx reaches layer l - 1's y through the dropout between them.
+    if (l > 0 && dr.keep != nullptr) TRAIN_TRY(drop_layer(s, dr, l - 1, dx, d.S, d.B, d.H));
     ext = dx;
     dh_last = nullptr;
   }
@@ -525,9 +541,13 @@ extern "C" int probnmn_tf_sweep_plan(int batch, int hidden, int forward, int* ou
 // enc_bias (L, 4H), dec_w (4H, 2H), dec_wx (4H, D), dec_bias (4H),
 // proj_w (Vt, H), proj_b (Vt). Writes loss (B,). With keep, the workspace
 // is in the residual layout and holds, on return, what K4b starts from.
+// dropout_keep: null, or the encoder's inter-layer dropout keep mask
+// (L-1, B, dropout_steps, H) bytes (dropout_steps >= Ls + 1) with its scale
+// 1 / (1 - p).
 extern "C" int probnmn_tf_forward(const void* src, const void* tgt, int batch, int ls, int lt,
                                   const void* const* weights, void* workspace, void* loss,
-                                  int keep, int input_size, int hidden, int layers,
+                                  int keep, const void* dropout_keep, int dropout_steps,
+                                  float dropout_scale, int input_size, int hidden, int layers,
                                   int src_vocab, int tgt_vocab, int reinforce, int pad,
                                   int start, int end, void* stream) {
   const Dims d = make_dims(batch, ls, lt, input_size, hidden, layers, src_vocab, tgt_vocab,
@@ -536,8 +556,10 @@ extern "C" int probnmn_tf_forward(const void* src, const void* tgt, int batch, i
   Workspace ws;
   layout(d, keep != 0, static_cast<float*>(workspace), &ws);
   const Weights wt = make_weights(src, tgt, weights, pad, start, end);
+  const Dropout dr{static_cast<const unsigned char*>(dropout_keep), dropout_steps, dropout_scale};
+  if (dr.keep != nullptr && dropout_steps < d.S) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = forward_pass(d, wt, ws, s);
+  cudaError_t err = forward_pass(d, wt, ws, dr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ce_head_fwd<<<ceil_div(d.TB * 32, 256), 256, 0, s>>>(ws.logits, ws.label, ws.ce,
                                                        static_cast<int>(d.TB), d.Vt, pad);
@@ -554,10 +576,11 @@ extern "C" int probnmn_tf_forward(const void* src, const void* tgt, int batch, i
 // probnmn_tf_scratch_floats() floats; `grads` points to ten arrays in the
 // weights' order and layouts, which receive the gradient of
 // sum(dloss * loss) (enc_bias and dec_bias: the gradient of b_ih and of
-// b_hh alike).
+// b_hh alike). The dropout mask is the one K4f took.
 extern "C" int probnmn_tf_backward(int batch, int ls, int lt, const void* const* weights,
                                    const void* dloss, void* residuals, void* scratch,
-                                   void* const* grads, int input_size, int hidden, int layers,
+                                   void* const* grads, const void* dropout_keep,
+                                   int dropout_steps, float dropout_scale, int input_size, int hidden, int layers,
                                    int src_vocab, int tgt_vocab, int reinforce, int pad,
                                    int start, int end, void* stream) {
   const Dims d = make_dims(batch, ls, lt, input_size, hidden, layers, src_vocab, tgt_vocab,
@@ -570,7 +593,9 @@ extern "C" int probnmn_tf_backward(int batch, int ls, int lt, const void* const*
   const Weights wt = make_weights(nullptr, nullptr, weights, pad, start, end);
   auto g = [&](int i) { return static_cast<float*>(grads[i]); };
   const Grads gr{g(0), g(1), g(2), g(3), g(4), g(5), g(6), g(7), g(8), g(9)};
-  const cudaError_t err = backward_pass(d, wt, ws, sc, static_cast<const float*>(dloss), gr,
+  const Dropout dr{static_cast<const unsigned char*>(dropout_keep), dropout_steps, dropout_scale};
+  if (dr.keep != nullptr && dropout_steps < d.S) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = backward_pass(d, wt, ws, sc, static_cast<const float*>(dloss), gr, dr,
                                         static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -86,6 +86,42 @@ __global__ void embed_rows(const float* __restrict__ emb, const int* __restrict_
   out[idx] = (m == nullptr || m[r] != 0.f) ? emb[static_cast<ll>(ids[r]) * D + d] : 0.f;
 }
 
+// ------------------------------------------------------------------ inter-layer dropout
+// torch nn.LSTM(dropout=p) between a layer and the one above, as the JAX
+// package's lstm_encode applies it: the layer below's output y becomes
+// (y * keep) * scale, scale = 1 / (1 - p). Here in place over a layer's
+// (T*B, H) rows r = t * B + b, with keep read from a (B, Tm, H) byte mask
+// (Tm >= T steps; the mask of layer l below the top follows layer l - 1's
+// at B * Tm * H bytes). (y * 1.0) * scale is y * scale exactly, so the
+// forward's values are the plain version's bits. The forward drops y before
+// the layer above reads it, so that layer's W_ih gradient sees the dropped
+// input; the backward scales the gradient reaching y the same way, since
+// d/dy of (y * keep) * scale is keep * scale.
+struct Dropout {
+  const unsigned char* keep;  // (L-1, B, Tm, H), or null: no dropout (no launch)
+  int steps;                  // Tm
+  float scale;
+};
+
+__global__ void dropout_rows(float* v, const unsigned char* __restrict__ keep, int T, int B,
+                             int Tm, int H, float scale) {
+  const ll idx = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<ll>(T) * B * H) return;
+  const int k = static_cast<int>(idx % H);
+  const ll r = idx / H;
+  const int b = static_cast<int>(r % B), t = static_cast<int>(r / B);
+  v[idx] = keep[(static_cast<ll>(b) * Tm + t) * H + k] ? v[idx] * scale : 0.f;
+}
+
+// Drops (or scales the gradient of) the output of layer `below`, (T*B, H) at v.
+cudaError_t drop_layer(cudaStream_t s, const Dropout& dr, int below, float* v, int T, int B,
+                       int H) {
+  const ll n = static_cast<ll>(T) * B * H;
+  dropout_rows<<<ceil_div(n, 256), 256, 0, s>>>(
+      v, dr.keep + static_cast<ll>(below) * B * dr.steps * H, T, B, dr.steps, H, dr.scale);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ recurrent steps
 // One forward step of one layer (the attentive decoder's steps, and an
 // encoder layer's where no cluster holds it). `gates` holds this step's input part

@@ -20,7 +20,10 @@ Host -> device batch pipeline (counterpart of ``probnmn_tpu/data/pipeline.py``).
   like the JAX package's, so the two can be compared on the same arrays.
 
 Both iterators put batches on ``cuda`` unless the caller asks for the CPU.
-Not ported yet: ``transform`` (its caller comes with a later slice).
+Both take ``transform``, a function of a host batch (a dict of numpy
+arrays) that returns the batch to use, applied on the host right after the
+gather and before the sort and the copy to the card, as the JAX package
+applies it.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -65,10 +68,12 @@ class BatchIterator:
     PREFETCH = 2  # host batches gathered ahead of the consumer
 
     def __init__(self, dataset, sampler, batch_size: int, device="cuda",
-                 sort_descending_by: Optional[str] = None):
+                 sort_descending_by: Optional[str] = None,
+                 transform: Optional[Callable] = None):
         self._dataset = dataset
         self._sampler = sampler
         self._batch_size = batch_size
+        self._transform = transform
         self._device = resolve_device(device)
         self._sort_key = sort_descending_by
         # Rolling per-stage timers: how long the consumer waited on the
@@ -96,6 +101,8 @@ class BatchIterator:
     def _host_batches(self) -> Iterator[Dict[str, Any]]:
         for indices in self._index_stream():
             batch = self._dataset.get_batch(indices)
+            if self._transform is not None:
+                batch = self._transform(batch)
             if self._sort_key is not None:
                 key_values = np.asarray(batch[self._sort_key])
                 order = np.argsort(-key_values.astype(np.int64), kind="stable")
@@ -162,9 +169,11 @@ class EpochIterator:
     test-split inference must cover every example, and the serving engine
     pads any ``n <= batch_size`` to its batch anyway."""
 
-    def __init__(self, dataset, batch_size: int, device="cuda", include_last: bool = False):
+    def __init__(self, dataset, batch_size: int, device="cuda", include_last: bool = False,
+                 transform: Optional[Callable] = None):
         self._dataset = dataset
         self._batch_size = batch_size
+        self._transform = transform
         self._device = resolve_device(device)
         self._include_last = include_last
 
@@ -178,4 +187,7 @@ class EpochIterator:
         n = len(self._dataset)
         for start in range(0, len(self) * self._batch_size, self._batch_size):
             indices = np.arange(start, min(start + self._batch_size, n))
-            yield to_device(self._dataset.get_batch(indices), self._device)
+            batch = self._dataset.get_batch(indices)
+            if self._transform is not None:
+                batch = self._transform(batch)
+            yield to_device(batch, self._device)

@@ -12,8 +12,10 @@ checkpoint (the port's, the JAX package's ``.ckpt`` or the reference's
 ``--device`` is ``cuda`` (the default) or ``cpu``. ``--num-val-batches``
 evaluates that many batches instead of the whole split. Scalars go to an
 in-memory writer, so evaluating writes nothing beside the checkpoint. The
-JAX CLI's ``--gpu-ids``, ``--compilation-cache-dir``, ``--cpu-workers`` and
-``--num-devices`` are not ported.
+JAX CLI's other flags: ``--gpu-ids`` is ignored, ``--cpu-workers`` accepted
+and unused, ``--compilation-cache-dir`` roots the kernels' build cache and
+``--num-devices`` takes 1 (``utils/cli_flags.py``). A config with
+``DROPOUT > 0`` evaluates as the JAX evaluators do: without dropout.
 """
 import argparse
 import logging
@@ -23,6 +25,7 @@ import numpy as np
 
 from probnmn_tpu_torch import train
 from probnmn_tpu_torch.config import Config
+from probnmn_tpu_torch.utils.cli_flags import add_shared_flags, apply_shared_flags
 from probnmn_tpu_torch.utils.observability import RecordingWriter
 
 parser = argparse.ArgumentParser(
@@ -48,12 +51,14 @@ parser.add_argument(
 )
 parser.add_argument("--num-val-batches", type=int, default=None,
                     help="Batches to evaluate (default: the whole val split).")
+add_shared_flags(parser)
 
 
 def main(args):
     r"""Returns the evaluator's metrics."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     logger = logging.getLogger(__name__)
+    apply_shared_flags(args)
     config = Config(args.config_yml, args.config_override)
     if args.phase != config.PHASE:
         raise ValueError(

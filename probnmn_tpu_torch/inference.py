@@ -11,9 +11,10 @@ one entry for every test row.
     python -m probnmn_tpu_torch.inference --config-yml checkpoints/jt/config.yml \
         --checkpoint-path checkpoints/jt/checkpoint_best.ckpt
 
-``--device`` is ``cuda`` (the default) or ``cpu``. The JAX CLI's
-``--gpu-ids``, ``--compilation-cache-dir``, ``--cpu-workers`` and
-``--num-devices`` are not ported and raise.
+``--device`` is ``cuda`` (the default) or ``cpu``. The JAX CLI's other
+flags: ``--gpu-ids`` is ignored, ``--cpu-workers`` accepted and unused,
+``--compilation-cache-dir`` roots the kernels' build cache and
+``--num-devices`` takes 1 (``utils/cli_flags.py``).
 """
 import argparse
 import json
@@ -24,8 +25,7 @@ import numpy as np
 
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.pipeline import EpochIterator
-
-NOT_PORTED = ("--gpu-ids", "--compilation-cache-dir", "--cpu-workers", "--num-devices")
+from probnmn_tpu_torch.utils.cli_flags import add_shared_flags, apply_shared_flags
 
 parser = argparse.ArgumentParser(
     description="Run inference on the CLEVR v1.0 test split with a joint_training checkpoint "
@@ -47,8 +47,7 @@ parser.add_argument(
 parser.add_argument("--beam-size", type=int, default=4,
                     help="Beam width with --decoding-strategy beam (1 gives greedy).")
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu.")
-for _flag in NOT_PORTED:
-    parser.add_argument(_flag, nargs="*", default=None, help="Not ported; raises.")
+add_shared_flags(parser)
 
 
 def run_inference(engine, dataset, batch_size: int, output_path: str) -> List[Dict]:
@@ -71,9 +70,7 @@ def main(args):
     from probnmn_tpu_torch.serving import InferenceEngine
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    given = [flag for flag in NOT_PORTED if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: not ported to the PyTorch inference CLI")
+    apply_shared_flags(args)
     config = Config(args.config_yml, args.config_override)
     np.random.seed(config.RANDOM_SEED)
 

@@ -4,7 +4,8 @@ pytrees, as numpy arrays, become the port's parameter dicts of tensors
 (``*_from_jax``) and back (``*_to_jax``); a checkpoint's models, in any of
 the three formats ``utils/checkpointing.py`` reads, become the port's params
 (:func:`models_from_payload`); the JAX package's optax Adam state becomes
-``torch.optim.Adam``'s (:func:`adam_state_from_optax`).
+``torch.optim.Adam``'s (:func:`adam_state_from_optax`) and back
+(:func:`adam_state_to_optax`), a bfloat16 first moment included.
 
 This is the one place where layouts change. The port keeps the JAX package's
 layout everywhere (torch-style (out, in) matrices, per-slot HWIO module
@@ -132,6 +133,22 @@ def model_from_jax(name: str, tree: Any, spec) -> dict:
     return _FROM_JAX[name](tree)
 
 
+_TO_JAX = {
+    "program_prior": program_prior_to_jax,
+    "program_generator": program_generator_to_jax,
+    "question_reconstructor": question_reconstructor_to_jax,
+    "nmn": nmn_to_jax,
+}
+
+
+def model_to_jax(name: str, tree: Any) -> dict:
+    r"""Model ``name``'s params (or a tree of its shape, such as an Adam
+    moment) in the JAX layout, as numpy float32 arrays."""
+    if name not in _TO_JAX:
+        raise ValueError(f"no model named {name!r}")
+    return _TO_JAX[name](tree)
+
+
 def _lists_from_maps(tree: Any) -> Any:
     r"""A flax state dict's ``{"0": ..., "1": ...}`` maps back into lists."""
     if not isinstance(tree, dict):
@@ -208,12 +225,9 @@ def adam_state_from_optax(opt_state: Dict[str, Any], params: Dict[str, Any],
     adam = _find_adam(opt_state.get("inner_state"))
     if adam is None:
         raise ValueError("the optimizer state holds no Adam state (count, mu, nu)")
-    for moment in ("mu", "nu"):
-        for leaf in _flat_leaves(adam[moment]):
-            if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
-                raise NotImplementedError(
-                    f"a bfloat16 Adam {moment} (OPTIM.ADAM_MU_DTYPE='bfloat16') is not ported "
-                    "(ROADMAP.md queue 1: 'bfloat16 Adam first moment')")
+    # A bfloat16 mu (OPTIM.ADAM_MU_DTYPE = bfloat16) reads as float32, which
+    # holds it exactly; ClampedAdam.load_state_dict stores it in its own
+    # mu dtype.
     step = float(np.asarray(adam["count"]))
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     for name, tree in params.items():
@@ -226,6 +240,66 @@ def adam_state_from_optax(opt_state: Dict[str, Any], params: Dict[str, Any],
     groups = [dict(group) for group in template["param_groups"]]
     groups[0]["lr"] = float(np.asarray(opt_state["hyperparams"]["learning_rate"]))
     return {"state": state, "param_groups": groups}
+
+
+def _tree_like(template: Any, leaves: List[torch.Tensor]) -> Any:
+    r"""``leaves`` (in ``template``'s order) as a tree of ``template``'s shape."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return [build(v) for v in node]
+
+    return build(template)
+
+
+def adam_state_to_optax(optimizer_state: Dict[str, Any], params: Dict[str, Any],
+                        weight_decay: float = 0.0, mu_dtype: str = "float32") -> Dict[str, Any]:
+    r"""The flax state of the JAX package's optimizer
+    (``training/optim.py::make_optimizer(lr, weight_decay, mu_dtype)``:
+    ``inject_hyperparams`` over clip, [weight decay], ``scale_by_adam`` and
+    the learning rate) from ``ClampedAdam.state_dict()`` over ``params``
+    (name -> the port's tree, in the optimizer's order): ``count`` = ``step``,
+    ``mu`` = ``exp_avg`` (bfloat16 with ``mu_dtype`` bfloat16), ``nu`` =
+    ``exp_avg_sq``, each in the JAX layout; ``learning_rate`` = the group's
+    ``lr``. Inverse of :func:`adam_state_from_optax`."""
+    state = optimizer_state["state"]
+    index, steps = 0, set()
+    mu, nu = {}, {}
+    for name, tree in params.items():
+        n = len(_flat_leaves(tree))
+        entries = [state.get(i, {}) for i in range(index, index + n)]
+        index += n
+        steps |= {float(e["step"]) for e in entries if "step" in e}
+        zeros = [torch.zeros_like(leaf) for leaf in _flat_leaves(tree)]
+        moments = {key: [e[key].float() if key in e else z for e, z in zip(entries, zeros)]
+                   for key in ("exp_avg", "exp_avg_sq")}
+        mu[name] = model_to_jax(name, _tree_like(tree, moments["exp_avg"]))
+        nu[name] = model_to_jax(name, _tree_like(tree, moments["exp_avg_sq"]))
+        if mu_dtype == "bfloat16":  # bf16 values: the float32 round trip is exact
+            mu[name] = _map_leaves(lambda a: torch.from_numpy(a).to(torch.bfloat16), mu[name])
+    if len(steps) > 1:
+        raise ValueError(f"parameters at different Adam steps: {sorted(steps)}")
+    count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
+    chain = [{}] + ([{}] if weight_decay else []) + [{"count": count, "mu": mu, "nu": nu}, {}]
+    return {
+        "count": count,
+        "hyperparams": {"learning_rate": np.asarray(
+            optimizer_state["param_groups"][0]["lr"], np.float32)},
+        "hyperparams_states": {},
+        "inner_state": {str(i): part for i, part in enumerate(chain)},
+    }
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _flat_leaves(tree: Any) -> list:

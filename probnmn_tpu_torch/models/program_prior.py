@@ -66,22 +66,37 @@ def _lm_logits(params: Dict[str, Any], encoded: torch.Tensor):
     return projected @ params["embedding"].T, projected
 
 
-def _teacher_forced(params: Dict[str, Any], spec: ProgramPriorSpec, program_tokens: torch.Tensor):
+def lm_dropout_masks(gen: Optional[torch.Generator], spec: ProgramPriorSpec,
+                     program_tokens: torch.Tensor) -> Optional[torch.Tensor]:
+    r"""The LM's inter-layer dropout masks for a training pass over
+    ``program_tokens`` (B, Lt): (L-1, B, Lt + 2, H) bool (the steps of
+    [start, program, end]) from ``gen`` on the tokens' device, or None when
+    ``spec.dropout`` is 0 (or one layer)."""
+    batch, lt = program_tokens.shape
+    return rnn.draw_dropout_masks(gen, spec.dropout, spec.num_layers, batch, lt + 2,
+                                  spec.hidden_size, program_tokens.device)
+
+
+def _teacher_forced(params: Dict[str, Any], spec: ProgramPriorSpec, program_tokens: torch.Tensor,
+                    dropout_masks: Optional[torch.Tensor] = None):
     tokens = add_boundary(program_tokens, spec.pad_index, spec.start_index, spec.end_index)
     mask = tokens != spec.pad_index
     embedded = embed(params["embedding"], tokens, pad_index=spec.pad_index)
-    encoded, _ = rnn.lstm_encode(params["encoder"], embedded, mask)
+    encoded, _ = rnn.lstm_encode(params["encoder"], embedded, mask,
+                                 dropout_masks=dropout_masks, dropout=spec.dropout)
     logits, _ = _lm_logits(params, encoded)
     loss = sequence_cross_entropy(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
     return loss, logits, mask
 
 
 def program_prior_loss(
-    params: Dict[str, Any], spec: ProgramPriorSpec, program_tokens: torch.Tensor
+    params: Dict[str, Any], spec: ProgramPriorSpec, program_tokens: torch.Tensor,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     r"""Per-example teacher-forced LM cross entropy (B,), in plain PyTorch ops
-    (differentiable by autograd)."""
-    return _teacher_forced(params, spec, program_tokens)[0]
+    (differentiable by autograd). ``dropout_masks`` (L-1, B, Lt + 2, H): the
+    inter-layer dropout of a training pass (:func:`lm_dropout_masks`)."""
+    return _teacher_forced(params, spec, program_tokens, dropout_masks)[0]
 
 
 def program_prior_forward(

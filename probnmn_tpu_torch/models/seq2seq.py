@@ -91,15 +91,28 @@ def init_seq2seq_params(gen: torch.Generator, spec: Seq2SeqSpec) -> Dict[str, An
     }
 
 
+def encoder_dropout_masks(gen: Optional[torch.Generator], spec: Seq2SeqSpec,
+                          source_tokens: torch.Tensor) -> Optional[torch.Tensor]:
+    r"""The encoder's inter-layer dropout masks for a training pass over
+    ``source_tokens`` (B, Ls): (L-1, B, Ls + 1, H) bool from ``gen`` on the
+    tokens' device, or None when ``spec.dropout`` is 0 (or one layer)."""
+    batch, raw_len = source_tokens.shape
+    return rnn.draw_dropout_masks(gen, spec.dropout, spec.num_layers, batch, raw_len + 1,
+                                  spec.hidden_size, source_tokens.device)
+
+
 def _encode(
     params: Dict[str, Any],
     spec: Seq2SeqSpec,
     source_tokens: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    dropout_masks: Optional[torch.Tensor] = None,
 ):
     r"""Boundary-add, strip @start@, embed, run the masked encoder (reference
     forward:127-145). Encoder outputs are rounded to ``compute_dtype``, the
-    type the kernel stores them in."""
+    type the kernel stores them in. ``dropout_masks`` (L-1, B, Ls + 1, H):
+    the encoder's inter-layer dropout at ``spec.dropout`` (training passes
+    only; :func:`encoder_dropout_masks` draws them)."""
     source = add_boundary(source_tokens, spec.pad_index, spec.start_index, spec.end_index)
     source = source[:, 1:]  # "@start@" is removed from source sequences
     source_mask = source != spec.pad_index
@@ -108,7 +121,7 @@ def _encode(
         pad_index=spec.pad_index,
     )
     encoder_outputs, finals = rnn.lstm_encode(
-        params["encoder"], embedded, source_mask, compute_dtype
+        params["encoder"], embedded, source_mask, compute_dtype, dropout_masks, spec.dropout
     )
     decoder_hidden = finals[-1][0]
     decoder_context = torch.zeros_like(decoder_hidden)
@@ -154,10 +167,12 @@ def teacher_forced_logits(
     spec: Seq2SeqSpec,
     source_tokens: torch.Tensor,
     step_inputs: torch.Tensor,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     r"""Decoder logits (B, T, V) with the given token ``step_inputs[:, t]``
     fed at step t, in float32."""
-    encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens)
+    encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens,
+                                                 dropout_masks=dropout_masks)
     step_logits = []
     for t in range(step_inputs.shape[1]):
         logits, h, c = _decode_step(
@@ -175,6 +190,7 @@ def seq2seq_forward(
     noise: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
     target_tokens: Optional[torch.Tensor] = None,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     r"""Free-running decode for ``max_decoding_steps``, or teacher forcing
     with ``target_tokens``.
@@ -187,7 +203,9 @@ def seq2seq_forward(
     of the boundary-added targets at each step and returns ``predictions``
     (the argmax tokens, trimmed), ``logits``, the per-example masked sequence
     cross entropy ``loss``, ``relevant_targets`` (the targets after @start@)
-    and ``relevant_mask`` (where they are not pad).
+    and ``relevant_mask`` (where they are not pad). ``dropout_masks``: the
+    encoder's inter-layer dropout (a training pass, the JAX package's
+    ``train=True``), as :func:`_encode` takes them.
     """
     if decoding_strategy not in (GREEDY, SAMPLING):
         raise ValueError(f"unknown decoding strategy: {decoding_strategy!r}")
@@ -197,7 +215,8 @@ def seq2seq_forward(
         if decoding_strategy != GREEDY or compute_dtype != torch.float32:
             raise ValueError("teacher forcing takes greedy predictions in float32")
         targets = add_boundary(target_tokens, spec.pad_index, spec.start_index, spec.end_index)
-        logits = teacher_forced_logits(params, spec, source_tokens, targets[:, :-1])
+        logits = teacher_forced_logits(params, spec, source_tokens, targets[:, :-1],
+                                       dropout_masks)
         relevant_targets = targets[:, 1:]
         relevant_mask = relevant_targets != spec.pad_index
         return {
@@ -209,7 +228,8 @@ def seq2seq_forward(
         }
 
     batch = source_tokens.shape[0]
-    encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens, compute_dtype)
+    encoder_outputs, source_mask, h, c = _encode(params, spec, source_tokens, compute_dtype,
+                                                 dropout_masks)
     vocab = spec.target_vocab_size
     blocked = torch.zeros(vocab, dtype=torch.bool, device=source_tokens.device)
     blocked[[spec.pad_index, spec.unk_index, spec.start_index]] = True

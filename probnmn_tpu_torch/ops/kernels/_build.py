@@ -37,6 +37,10 @@ BUILD_INFO: Dict[str, object] = {"seconds": 0.0, "log": "", "path": None}
 _VOID_P = ctypes.c_void_p
 _VOID_P_ARRAY = ctypes.POINTER(ctypes.c_void_p)
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+# The inter-layer dropout of K1's, K3's and K4's encoders: keep mask (L-1, B,
+# steps, H) uint8 or NULL, its steps, its scale 1 / (1 - p).
+_DROPOUT = [_VOID_P, _INT, _FLOAT]
 
 
 def _nvcc() -> str:
@@ -114,6 +118,7 @@ def library() -> ctypes.CDLL:
         _VOID_P,                                # source embedding
         _VOID_P, _VOID_P, _VOID_P,              # encoder w_ih^T (flat), w_hh^T, bias
         _VOID_P, _VOID_P, _VOID_P,              # outputs (B, L+1, H), the layers below (or NULL), final h (B, H)
+        _VOID_P, _FLOAT,                        # dropout keep mask (layers-1, B, L+1, H) u8 or NULL, scale
         _INT, _INT, _INT,                       # D, H, layers
         _INT, _INT,                             # pad, end
         _VOID_P,                                # stream
@@ -204,12 +209,12 @@ def library() -> ctypes.CDLL:
     lib.probnmn_lm_forward.restype = _INT
     lib.probnmn_lm_forward.argtypes = lm_weights + [
         _VOID_P, _VOID_P,                       # workspace, loss (B,)
-    ] + lm_sizes
+    ] + _DROPOUT + lm_sizes
     lib.probnmn_lm_backward.restype = _INT
     lib.probnmn_lm_backward.argtypes = lm_weights + [
         _VOID_P, _VOID_P,                       # dloss (B,), workspace
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,  # d_emb, d_proj, d_wih, d_whh, d_bias
-    ] + lm_sizes
+    ] + _DROPOUT + lm_sizes
     _LL = ctypes.c_longlong
     lib.probnmn_gemm.restype = _INT
     lib.probnmn_gemm.argtypes = [
@@ -244,14 +249,14 @@ def library() -> ctypes.CDLL:
         _VOID_P, _VOID_P, _INT, _INT, _INT,     # src (B, Ls), tgt (B, Lt) int32, B, Ls, Lt
         _VOID_P_ARRAY,                          # the ten packed weights
         _VOID_P, _VOID_P, _INT,                 # workspace, loss (B,), keep
-    ] + tf_sizes
+    ] + _DROPOUT + tf_sizes
     lib.probnmn_tf_backward.restype = _INT
     lib.probnmn_tf_backward.argtypes = [
         _INT, _INT, _INT,                       # B, Ls, Lt
         _VOID_P_ARRAY,                          # the ten packed weights
         _VOID_P, _VOID_P, _VOID_P,              # dloss (B,), K4f's residuals, scratch
         _VOID_P_ARRAY,                          # the ten gradients
-    ] + tf_sizes
+    ] + _DROPOUT + tf_sizes
     return lib
 
 

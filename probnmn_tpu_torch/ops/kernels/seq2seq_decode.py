@@ -33,6 +33,14 @@ row, 0) and key ``seed``, so draws do not depend on the block layout, and
 :func:`philox_gumbel` reproduces them on the host: the plain version fed that
 noise samples the same tokens. ``noise=`` (T, B, >=V) float32 drives both from
 explicit noise instead, for token-for-token comparisons.
+
+A training call (question_coding's and joint_training's z ~ q(z|x), the
+JAX package's ``seq2seq_forward(..., train=True)``) passes the encoder's
+inter-layer dropout masks, ``dropout_masks`` (L-1, B, L+1, H): after each
+layer's sweep below the top, one elementwise launch (``k1_dropout``) drops
+its outputs in place before the layer above reads them. The trainer hands
+the same masks to K4's REINFORCE pass over the sampled z, since JAX computes
+both from one encoder pass.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import torch
 
 from probnmn_tpu_torch.models.seq2seq import SAMPLING, Seq2SeqSpec, _encode, seq2seq_forward
 from probnmn_tpu_torch.ops.kernels import _build
+from probnmn_tpu_torch.ops.rnn import keep_bytes
 
 _PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -84,13 +93,15 @@ def sampling_forward_with_noise(
     source_tokens: torch.Tensor,
     noise: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     r"""Plain PyTorch version of K1: Gumbel-max sampling on explicit noise
     (T, B, >=V), with the kernel's arithmetic (operands rounded to
     ``compute_dtype``, float32 sums). Counterpart of the JAX package's
     ``sampling_forward_with_noise_xla``."""
     out = seq2seq_forward(
-        params, spec, source_tokens, SAMPLING, noise=noise, compute_dtype=compute_dtype
+        params, spec, source_tokens, SAMPLING, noise=noise, compute_dtype=compute_dtype,
+        dropout_masks=dropout_masks,
     )
     return {k: out[k] for k in ("predictions", "loss", "logprobs")}
 
@@ -312,18 +323,21 @@ def sampling_encode(
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
     packed: Optional[Dict[str, torch.Tensor]] = None,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     r"""K1's encoder: ``(outputs (B, L+1, H) in compute_dtype, the top
     layer's final hidden state (B, H) float32, not rounded)``, the decoder's
     attention memory and initial state.
 
     A CPU ``source_tokens`` runs the plain version, ``models/seq2seq.py``'s
-    ``_encode``; a CUDA one launches one encoder sweep a layer (and raises if
-    it cannot plan or launch one).
+    ``_encode``; a CUDA one launches one encoder sweep a layer, with one
+    dropout pass before each layer above the first when ``dropout_masks``
+    (L-1, B, L+1, H) are given (and raises if it cannot plan or launch one).
     """
     device = source_tokens.device
     if device.type == "cpu":
-        outputs, _, hidden, _ = _encode(params, spec, source_tokens, compute_dtype)
+        outputs, _, hidden, _ = _encode(params, spec, source_tokens, compute_dtype,
+                                        dropout_masks)
         return outputs.to(compute_dtype), hidden
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -331,6 +345,10 @@ def sampling_encode(
     p = _packed(params, spec, compute_dtype, device, packed)
     batch, raw_len = source_tokens.shape
     hidden = spec.hidden_size
+    keep = keep_bytes(dropout_masks, spec.num_layers, batch, raw_len + 1, hidden, device)
+    if keep is not None and keep.shape[2] != raw_len + 1:
+        raise ValueError(f"K1 takes dropout masks of exactly {raw_len + 1} steps, got "
+                         f"{tuple(keep.shape)}")
     src = source_tokens.to(torch.int32).contiguous()
     outputs = torch.empty(batch, raw_len + 1, hidden, dtype=compute_dtype, device=device)
     below = torch.empty_like(outputs) if spec.num_layers > 1 else None
@@ -340,6 +358,7 @@ def sampling_encode(
         p["src_emb"].data_ptr(), p["enc_wih"].data_ptr(), p["enc_whh"].data_ptr(),
         p["enc_bias"].data_ptr(), outputs.data_ptr(),
         below.data_ptr() if below is not None else None, final.data_ptr(),
+        keep.data_ptr() if keep is not None else None, 1.0 / (1.0 - spec.dropout),
         spec.input_size, hidden, spec.num_layers, spec.pad_index, spec.end_index,
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -360,6 +379,7 @@ def fused_sampling_forward(
     noise: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     packed: Optional[Dict[str, torch.Tensor]] = None,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     r"""The sampling forward: ``{"predictions": (B, T) int64 trimmed,
     "loss": (B,), "logprobs": (B, T)}``. The serving engine calls it
@@ -367,9 +387,11 @@ def fused_sampling_forward(
     ``models/seq2seq.py::sampling_forward_serving``.
 
     Noise comes from ``noise`` (T, B, >=V) float32 when given, else from the
-    Philox stream of ``seed``. A CPU ``source_tokens`` runs the plain version;
-    a CUDA one runs :func:`sampling_encode`'s sweeps, then the decoder kernel
-    (and raises if it cannot).
+    Philox stream of ``seed``. ``dropout_masks`` (L-1, B, L+1, H): the
+    encoder's inter-layer dropout of a training call. A CPU
+    ``source_tokens`` runs the plain version; a CUDA one runs
+    :func:`sampling_encode`'s sweeps, then the decoder kernel (and raises if
+    it cannot).
     """
     if noise is None and seed is None:
         raise ValueError("pass a Philox seed or explicit noise")
@@ -380,7 +402,8 @@ def fused_sampling_forward(
     if device.type == "cpu":
         if noise is None:
             noise = torch.from_numpy(philox_gumbel(seed, num_steps, batch, vocab))
-        return sampling_forward_with_noise(params, spec, source_tokens, noise, compute_dtype)
+        return sampling_forward_with_noise(params, spec, source_tokens, noise, compute_dtype,
+                                           dropout_masks)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     _check_kernel_shapes(spec, compute_dtype)
@@ -391,7 +414,7 @@ def fused_sampling_forward(
         noise = noise.to(device=device, dtype=torch.float32).contiguous()
 
     outputs, final = sampling_encode(params, spec, source_tokens, compute_dtype=compute_dtype,
-                                     packed=p)
+                                     packed=p, dropout_masks=dropout_masks)
     src = source_tokens.to(torch.int32).contiguous()
     preds = torch.empty(batch, num_steps, dtype=torch.int32, device=device)
     loss = torch.empty(batch, dtype=torch.float32, device=device)

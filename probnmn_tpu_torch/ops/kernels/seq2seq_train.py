@@ -24,6 +24,14 @@ layer up to H = 256 (:func:`tf_sweep_plan`). All run in float32 on the SIMT
 cores, as the JAX trainers do; the sources say how the work is laid out and
 what bounds it.
 
+Inter-layer dropout (a training pass of a config with ``DROPOUT > 0``):
+each entry takes the encoder's keep masks, ``dropout_masks`` (L-1, B, T, H),
+as the plain versions do (``ops/rnn.py``). The kernels drop each layer's
+output below the top in place before the layer above reads it, and scale
+the gradient reaching it alike in the backward; K3b's replay and K4b's
+residuals see the same mask as the forward. Without masks nothing more is
+launched and the bits are those of a build without dropout.
+
 CPU tokens run the plain versions (:func:`lm_loss_plain`,
 :func:`tf_loss_plain`, and autograd through them); CUDA tokens launch the
 kernels or raise.
@@ -45,16 +53,18 @@ from probnmn_tpu_torch.models.seq2seq import (
 )
 from probnmn_tpu_torch.ops.common import length_normalized_logprob_loss
 from probnmn_tpu_torch.ops.kernels import _build
-from probnmn_tpu_torch.ops.rnn import check_no_dropout
+from probnmn_tpu_torch.ops.rnn import keep_bytes
 
 _LEAF_NAMES = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
 def lm_loss_plain(
-    params: Dict[str, Any], spec: ProgramPriorSpec, tokens: torch.Tensor
+    params: Dict[str, Any], spec: ProgramPriorSpec, tokens: torch.Tensor,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    r"""Plain PyTorch version of K3f: ``program_prior_forward``'s loss."""
-    return program_prior_loss(params, spec, tokens)
+    r"""Plain PyTorch version of K3f: ``program_prior_forward``'s loss, with
+    the inter-layer ``dropout_masks`` (L-1, B, Lt + 2, H) of a training pass."""
+    return program_prior_loss(params, spec, tokens, dropout_masks)
 
 
 def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
@@ -72,13 +82,14 @@ def params_from_leaves(leaves: List[torch.Tensor]) -> Dict[str, Any]:
 
 
 def lm_grads_plain(
-    params: Dict[str, Any], spec: ProgramPriorSpec, tokens: torch.Tensor, dloss: torch.Tensor
+    params: Dict[str, Any], spec: ProgramPriorSpec, tokens: torch.Tensor, dloss: torch.Tensor,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     r"""Plain PyTorch version of K3b: ``torch.autograd.grad`` of the plain
     loss, weighted by the per-example cotangent ``dloss``."""
     leaves = [p.detach().requires_grad_(True) for p in param_leaves(params)]
     with torch.enable_grad():
-        loss = lm_loss_plain(params_from_leaves(leaves), spec, tokens)
+        loss = lm_loss_plain(params_from_leaves(leaves), spec, tokens, dropout_masks)
         grads = torch.autograd.grad(loss, leaves, grad_outputs=dloss)
     return params_from_leaves(list(grads))
 
@@ -115,6 +126,19 @@ def _kernel_args(packed: Dict[str, torch.Tensor], spec: ProgramPriorSpec, tokens
     return tokens.to(torch.int32).contiguous(), (V, D, H, L)
 
 
+def _dropout_args(keep: Optional[torch.Tensor], dropout: float) -> Tuple:
+    r"""The kernels' three dropout arguments: the keep bytes' pointer (None:
+    no dropout), their steps and the scale 1 / (1 - p)."""
+    if keep is None:
+        return None, 0, 1.0
+    return keep.data_ptr(), keep.shape[2], 1.0 / (1.0 - dropout)
+
+
+def _lm_keep(spec: ProgramPriorSpec, tok: torch.Tensor, dropout_masks) -> Optional[torch.Tensor]:
+    batch, lt = tok.shape
+    return keep_bytes(dropout_masks, spec.num_layers, batch, lt + 1, spec.hidden_size, tok.device)
+
+
 def _workspace(batch: int, lt: int, sizes, backward: bool, device) -> torch.Tensor:
     V, D, H, L = sizes
     n = _build.library().probnmn_lm_workspace_floats(batch, lt, D, H, L, V, int(backward))
@@ -122,10 +146,14 @@ def _workspace(batch: int, lt: int, sizes, backward: bool, device) -> torch.Tens
 
 
 def lm_forward_cuda(
-    packed: Dict[str, torch.Tensor], spec: ProgramPriorSpec, tokens: torch.Tensor
+    packed: Dict[str, torch.Tensor], spec: ProgramPriorSpec, tokens: torch.Tensor,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    r"""Launch K3f: per-example loss (B,) float32."""
+    r"""Launch K3f: per-example loss (B,) float32; ``dropout_masks`` (L-1, B,
+    >= Lt + 1, H) on the card: the LM's inter-layer dropout at
+    ``spec.dropout``."""
     tok, sizes = _kernel_args(packed, spec, tokens)
+    keep = _lm_keep(spec, tok, dropout_masks)
     batch, lt = tok.shape
     ws = _workspace(batch, lt, sizes, False, tok.device)
     loss = torch.empty(batch, dtype=torch.float32, device=tok.device)
@@ -133,7 +161,7 @@ def lm_forward_cuda(
     code = _build.library().probnmn_lm_forward(
         tok.data_ptr(), batch, lt, p["emb"].data_ptr(), p["proj"].data_ptr(),
         p["w_ih"].data_ptr(), p["w_hh"].data_ptr(), p["bias"].data_ptr(),
-        ws.data_ptr(), loss.data_ptr(), *sizes,
+        ws.data_ptr(), loss.data_ptr(), *_dropout_args(keep, spec.dropout), *sizes,
         spec.pad_index, spec.start_index, spec.end_index,
         torch.cuda.current_stream(tok.device).cuda_stream,
     )
@@ -147,11 +175,13 @@ lm_forward_cuda.launches = 0
 
 def lm_backward_cuda(
     packed: Dict[str, torch.Tensor], spec: ProgramPriorSpec, tokens: torch.Tensor,
-    dloss: torch.Tensor,
+    dloss: torch.Tensor, dropout_masks: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     r"""Launch K3b: the gradient of ``sum(dloss * loss)`` as a params dict
-    (``b_ih`` and ``b_hh`` get equal gradients, as separate tensors)."""
+    (``b_ih`` and ``b_hh`` get equal gradients, as separate tensors). Its
+    replay of the forward takes ``dropout_masks``, the ones K3f took."""
     tok, sizes = _kernel_args(packed, spec, tokens)
+    keep = _lm_keep(spec, tok, dropout_masks)
     batch, lt = tok.shape
     if tuple(dloss.shape) != (batch,):
         raise ValueError(f"dloss must be ({batch},), got {tuple(dloss.shape)}")
@@ -165,7 +195,7 @@ def lm_backward_cuda(
         packed["w_ih"].data_ptr(), packed["w_hh"].data_ptr(), packed["bias"].data_ptr(),
         dloss.data_ptr(), ws.data_ptr(),
         g["emb"].data_ptr(), g["proj"].data_ptr(), g["w_ih"].data_ptr(),
-        g["w_hh"].data_ptr(), g["bias"].data_ptr(), *sizes,
+        g["w_hh"].data_ptr(), g["bias"].data_ptr(), *_dropout_args(keep, spec.dropout), *sizes,
         spec.pad_index, spec.start_index, spec.end_index,
         torch.cuda.current_stream(tok.device).cuda_stream,
     )
@@ -188,35 +218,39 @@ lm_backward_cuda.launches = 0
 
 
 class _FusedLMLoss(torch.autograd.Function):
-    r"""Forward: K3f. Backward: K3b with the incoming per-example cotangent."""
+    r"""Forward: K3f. Backward: K3b with the incoming per-example cotangent
+    (and the forward's dropout masks)."""
 
     @staticmethod
-    def forward(ctx, spec, tokens, *leaves):
+    def forward(ctx, spec, tokens, dropout_masks, *leaves):
         packed = pack_lm_weights(params_from_leaves(list(leaves)))
         ctx.spec = spec
         ctx.packed = packed
         ctx.tokens = tokens
-        return lm_forward_cuda(packed, spec, tokens)
+        ctx.dropout_masks = dropout_masks
+        return lm_forward_cuda(packed, spec, tokens, dropout_masks)
 
     @staticmethod
     def backward(ctx, dloss):
-        grads = lm_backward_cuda(ctx.packed, ctx.spec, ctx.tokens, dloss)
-        return (None, None, *param_leaves(grads))
+        grads = lm_backward_cuda(ctx.packed, ctx.spec, ctx.tokens, dloss, ctx.dropout_masks)
+        return (None, None, None, *param_leaves(grads))
 
 
 def fused_lm_loss(
-    params: Dict[str, Any], spec: ProgramPriorSpec, tokens: torch.Tensor
+    params: Dict[str, Any], spec: ProgramPriorSpec, tokens: torch.Tensor,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     r"""Per-example ProgramPrior LM cross entropy (B,), differentiable with
     respect to every parameter; the tied embedding's gradient sums its
     output-layer and input-lookup parts. Equals ``program_prior_forward``'s
-    loss. CPU tokens: plain version; CUDA tokens: K3f, and K3b in backward."""
-    check_no_dropout(spec.dropout)
+    loss; with ``dropout_masks`` (L-1, B, Lt + 2, H), its ``train=True``
+    loss under those masks. CPU tokens: plain version; CUDA tokens: K3f, and
+    K3b in backward."""
     if tokens.device.type == "cpu":
-        return lm_loss_plain(params, spec, tokens)
+        return lm_loss_plain(params, spec, tokens, dropout_masks)
     if tokens.device.type != "cuda":
         raise ValueError(f"unsupported device {tokens.device}")
-    return _FusedLMLoss.apply(spec, tokens, *param_leaves(params))
+    return _FusedLMLoss.apply(spec, tokens, dropout_masks, *param_leaves(params))
 
 
 # ============================================================ K4: teacher-forced seq2seq
@@ -229,6 +263,7 @@ _TF_PACKED = ("src_emb", "tgt_emb", "enc_wih", "enc_whh", "enc_bias",
 def tf_loss_plain(
     params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
     target_tokens: torch.Tensor, reinforce_norm: bool = False,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     r"""Plain PyTorch version of K4f: the per-example teacher-forced loss (B,).
 
@@ -236,13 +271,15 @@ def tf_loss_plain(
     the masked mean CE over the targets with @end@ appended (eps 1e-13).
     REINFORCE mode: ``target_tokens`` is a trimmed sampled z, fed as
     ``[start, z[:-1]]``; the loss is the length-normalized negative logprob
-    of z's tokens (eps 1e-12), the free-running loss at that z."""
+    of z's tokens (eps 1e-12), the free-running loss at that z.
+    ``dropout_masks`` (L-1, B, Ls + 1, H): the encoder's inter-layer dropout
+    of a training pass."""
     if not reinforce_norm:
         return seq2seq_forward(params, spec, source_tokens, GREEDY,
-                               target_tokens=target_tokens)["loss"]
+                               target_tokens=target_tokens, dropout_masks=dropout_masks)["loss"]
     start = torch.full_like(target_tokens[:, :1], spec.start_index)
     step_inputs = torch.cat([start, target_tokens[:, :-1]], dim=1)
-    logits = teacher_forced_logits(params, spec, source_tokens, step_inputs)
+    logits = teacher_forced_logits(params, spec, source_tokens, step_inputs, dropout_masks)
     logprobs = torch.log_softmax(logits, dim=-1).gather(-1, target_tokens[..., None])[..., 0]
     return length_normalized_logprob_loss(logprobs, target_tokens, spec.pad_index)
 
@@ -270,13 +307,14 @@ def tf_params_from_leaves(leaves: List[torch.Tensor]) -> Dict[str, Any]:
 def tf_grads_plain(
     params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
     target_tokens: torch.Tensor, dloss: torch.Tensor, reinforce_norm: bool = False,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     r"""Plain PyTorch version of K4b: ``torch.autograd.grad`` of the plain
     loss, weighted by the per-example cotangent ``dloss``."""
     leaves = [p.detach().requires_grad_(True) for p in tf_param_leaves(params)]
     with torch.enable_grad():
         loss = tf_loss_plain(tf_params_from_leaves(leaves), spec, source_tokens, target_tokens,
-                             reinforce_norm)
+                             reinforce_norm, dropout_masks)
         grads = torch.autograd.grad(loss, leaves, grad_outputs=dloss)
     return tf_params_from_leaves(list(grads))
 
@@ -371,6 +409,7 @@ class TFResiduals:
     shape: Tuple[int, int, int]  # (B, Ls, Lt)
     sizes: Tuple[int, ...]  # (D, H, L, Vs, Vt)
     reinforce_norm: bool
+    keep: Optional[torch.Tensor] = None  # the dropout mask K4f took (bytes), or None
 
     @property
     def nbytes(self) -> int:
@@ -381,11 +420,16 @@ class TFResiduals:
 def tf_forward_cuda(
     packed: Dict[str, torch.Tensor], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
     target_tokens: torch.Tensor, reinforce_norm: bool = False, keep: bool = False,
+    dropout_masks: Optional[torch.Tensor] = None,
 ):
     r"""Launch K4f: the per-example loss (B,) float32; with ``keep``,
-    ``(loss, residuals)``, the :class:`TFResiduals` K4b starts from."""
+    ``(loss, residuals)``, the :class:`TFResiduals` K4b starts from.
+    ``dropout_masks`` (L-1, B, >= Ls + 1, H) on the card: the encoder's
+    inter-layer dropout at ``spec.dropout``."""
     src, tgt, sizes = _tf_kernel_args(packed, spec, source_tokens, target_tokens)
     (batch, ls), lt = src.shape, tgt.shape[1]
+    kept = keep_bytes(dropout_masks, spec.num_layers, batch, ls + 1, spec.hidden_size,
+                      src.device)
     n = _build.library().probnmn_tf_workspace_floats(batch, ls, lt, *sizes,
                                                      int(bool(reinforce_norm)), int(bool(keep)))
     ws = torch.empty(n, dtype=torch.float32, device=src.device)
@@ -393,14 +437,14 @@ def tf_forward_cuda(
     code = _build.library().probnmn_tf_forward(
         src.data_ptr(), tgt.data_ptr(), batch, ls, lt,
         _build.pointers([packed[name] for name in _TF_PACKED]),
-        ws.data_ptr(), loss.data_ptr(), int(bool(keep)),
+        ws.data_ptr(), loss.data_ptr(), int(bool(keep)), *_dropout_args(kept, spec.dropout),
         *_tf_call_args(spec, sizes, reinforce_norm, src.device),
     )
     _build.check(code, "teacher-forced forward kernel")
     tf_forward_cuda.launches += 1
     if not keep:
         return loss
-    return loss, TFResiduals(ws, packed, spec, (batch, ls, lt), sizes, bool(reinforce_norm))
+    return loss, TFResiduals(ws, packed, spec, (batch, ls, lt), sizes, bool(reinforce_norm), kept)
 
 
 tf_forward_cuda.launches = 0
@@ -429,6 +473,7 @@ def tf_backward_cuda(residuals: TFResiduals, dloss: torch.Tensor) -> Dict[str, A
         batch, ls, lt, _build.pointers([packed[name] for name in _TF_PACKED]),
         dloss.data_ptr(), ws.data_ptr(), scratch.data_ptr(),
         _build.pointers([g[name] for name in _TF_PACKED]),
+        *_dropout_args(residuals.keep, spec.dropout),
         *_tf_call_args(spec, sizes, residuals.reinforce_norm, ws.device),
     )
     if code == _CUDA_ERROR_INVALID_VALUE:
@@ -437,7 +482,7 @@ def tf_backward_cuda(residuals: TFResiduals, dloss: torch.Tensor) -> Dict[str, A
             f"no thread-block cluster holds the encoder's reverse sweep above H = 256")
     _build.check(code, "teacher-forced backward kernel")
     tf_backward_cuda.launches += 1
-    residuals.packed = None
+    residuals.packed = residuals.keep = None
     D, H, L = sizes[:3]
     encoder, offset = [], 0
     for layer in range(L):
@@ -467,17 +512,21 @@ tf_backward_cuda.launches = 0
 
 
 class _FusedTFLoss(torch.autograd.Function):
-    r"""Forward: K4f, keeping its residuals when ``keep``. Backward: K4b from
-    them with the incoming per-example cotangent; a second backward raises."""
+    r"""Forward: K4f (with the encoder's dropout masks, or None), keeping its
+    residuals when ``keep``. Backward: K4b from them with the incoming
+    per-example cotangent; a second backward raises."""
 
     @staticmethod
-    def forward(ctx, spec, reinforce_norm, keep, source_tokens, target_tokens, *leaves):
+    def forward(ctx, spec, reinforce_norm, keep, source_tokens, target_tokens, dropout_masks,
+                *leaves):
         packed = pack_tf_weights(tf_params_from_leaves(list(leaves)), spec)
         ctx.residuals = None
         if not keep:
-            return tf_forward_cuda(packed, spec, source_tokens, target_tokens, reinforce_norm)
+            return tf_forward_cuda(packed, spec, source_tokens, target_tokens, reinforce_norm,
+                                   dropout_masks=dropout_masks)
         loss, ctx.residuals = tf_forward_cuda(packed, spec, source_tokens, target_tokens,
-                                              reinforce_norm, keep=True)
+                                              reinforce_norm, keep=True,
+                                              dropout_masks=dropout_masks)
         return loss
 
     @staticmethod
@@ -489,28 +538,32 @@ class _FusedTFLoss(torch.autograd.Function):
                 "the first backward freed its saved residuals): K4b consumes K4f's residuals "
                 "in place. Call fused_tf_loss again for another backward.")
         grads = tf_backward_cuda(residuals, dloss)
-        return (None, None, None, None, None, *tf_param_leaves(grads))
+        return (None, None, None, None, None, None, *tf_param_leaves(grads))
 
 
 def fused_tf_loss(
     params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
     target_tokens: torch.Tensor, reinforce_norm: bool = False,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     r"""Per-example teacher-forced seq2seq loss (B,), differentiable with
     respect to every parameter (the tokens carry no gradient). Equals
-    :func:`tf_loss_plain` in either mode. CPU tokens: plain version; CUDA
-    tokens: :func:`fused_tf_kernels`."""
-    check_no_dropout(spec.dropout)
+    :func:`tf_loss_plain` in either mode, with the encoder's inter-layer
+    ``dropout_masks`` (L-1, B, Ls + 1, H) of a training pass when given.
+    CPU tokens: plain version; CUDA tokens: :func:`fused_tf_kernels`."""
     if source_tokens.device.type == "cpu":
-        return tf_loss_plain(params, spec, source_tokens, target_tokens, reinforce_norm)
+        return tf_loss_plain(params, spec, source_tokens, target_tokens, reinforce_norm,
+                             dropout_masks)
     if source_tokens.device.type != "cuda":
         raise ValueError(f"unsupported device {source_tokens.device}")
-    return fused_tf_kernels(params, spec, source_tokens, target_tokens, reinforce_norm)
+    return fused_tf_kernels(params, spec, source_tokens, target_tokens, reinforce_norm,
+                            dropout_masks)
 
 
 def fused_tf_kernels(
     params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
     target_tokens: torch.Tensor, reinforce_norm: bool = False,
+    dropout_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     r"""K4f, and K4b in backward. Whether a gradient will be taken is decided
     here, since grad mode is off inside ``Function.forward``: when grad is
@@ -519,4 +572,4 @@ def fused_tf_kernels(
     leaves = tf_param_leaves(params)
     keep = torch.is_grad_enabled() and any(leaf.requires_grad for leaf in leaves)
     return _FusedTFLoss.apply(spec, bool(reinforce_norm), keep, source_tokens, target_tokens,
-                              *leaves)
+                              dropout_masks, *leaves)

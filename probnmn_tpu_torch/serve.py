@@ -24,9 +24,9 @@ the file only inline ``features`` are served.
         --checkpoint runs/joint/checkpoint_best.ckpt --port 8090
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; the checkpoint may be the
-port's, the JAX package's ``.ckpt`` or the reference's ``.pth``. The JAX
-CLI's ``--num-devices`` and ``--compilation-cache-dir`` are not ported and
-raise.
+port's, the JAX package's ``.ckpt`` or the reference's ``.pth``.
+``--compilation-cache-dir`` roots the kernels' build cache, and
+``--num-devices`` takes 1 (``utils/cli_flags.py``).
 """
 import argparse
 import json
@@ -39,10 +39,9 @@ import numpy as np
 
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.preprocessing import tokenize_questions
+from probnmn_tpu_torch.utils.cli_flags import add_shared_flags, apply_shared_flags
 
 logger = logging.getLogger(__name__)
-
-NOT_PORTED = ("--num-devices", "--compilation-cache-dir")
 
 parser = argparse.ArgumentParser(
     description="Serve a joint_training checkpoint over HTTP (PyTorch/CUDA).")
@@ -73,8 +72,7 @@ parser.add_argument("--in-memory-features", action="store_true",
 parser.add_argument("--max-question-length", type=int, default=45,
                     help="Token budget per question (reference question_reconstructor.py:34 "
                     "uses 45); fixes the question width of every batch.")
-for _flag in NOT_PORTED:
-    parser.add_argument(_flag, default=None, help="Not ported; raises.")
+add_shared_flags(parser, gpu_ids=False, num_devices_default=None, cache_default=None)
 
 
 class ServingContext:
@@ -83,10 +81,7 @@ class ServingContext:
     def __init__(self, args):
         from probnmn_tpu_torch.serving import InferenceEngine
 
-        given = [flag for flag in NOT_PORTED
-                 if getattr(args, flag[2:].replace("-", "_")) is not None]
-        if given:
-            raise NotImplementedError(f"{', '.join(given)}: not ported to the PyTorch serve CLI")
+        apply_shared_flags(args)
         config = Config(args.config_yml, args.config_override)
         # Inline 'features' must have the NMN's feature geometry: any other
         # shape would fail the whole coalesced batch.

@@ -33,7 +33,12 @@ is its batch script, reference ``inference.py:74-95``).
   ProgramGenerator and the NMN from a checkpoint of the port, of the JAX
   package (its ``.ckpt``) or of the reference (its ``.pth``).
 
-Not ported: the multi-device mesh and the compilation cache.
+- **Warm restarts.** ``compilation_cache_dir=...`` roots the kernels' build
+  cache there (``utils/compilation_cache.py``; ``"auto"`` resolves as the JAX
+  package resolves its XLA cache), so that a restarted process loads the
+  kernels instead of building them.
+
+Not ported: the multi-device mesh.
 """
 from __future__ import annotations
 
@@ -86,16 +91,24 @@ class InferenceEngine:
         device="cuda",
         compute_dtype: Optional[str] = None,
         beam_size: int = 1,
+        compilation_cache_dir: Optional[str] = None,
     ):
         r"""``decoding``: ``"sampling"`` (the reference inference default,
         ``inference.py:80``), ``"greedy"`` (the reference evaluators') or
         ``"beam"`` (width ``beam_size``; 1 gives the greedy tokens).
         ``compute_dtype``: ``"float32"``, ``"bfloat16"`` or None (the NMN
-        spec's, else bfloat16 on ``cuda`` and float32 on ``cpu``)."""
+        spec's, else bfloat16 on ``cuda`` and float32 on ``cpu``).
+        ``compilation_cache_dir``: where the kernels' build cache lives
+        (``"auto"``: ``$PROBNMN_COMPILATION_CACHE`` or the default; None:
+        ``build/torch_kernels`` beside the package)."""
         if decoding not in ("sampling", "greedy", "beam"):
             raise ValueError(f"unknown decoding strategy: {decoding!r}")
         if beam_size < 1:
             raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+        if compilation_cache_dir is not None:
+            from probnmn_tpu_torch.utils.compilation_cache import enable_compilation_cache
+
+            enable_compilation_cache(compilation_cache_dir)
         self._device = resolve_device(device)
         self._vocabulary = vocabulary
         self._pg_spec = pg_spec
@@ -169,6 +182,7 @@ class InferenceEngine:
         decoding: str = "sampling",
         beam_size: int = 1,
         device="cuda",
+        compilation_cache_dir: Optional[str] = None,
     ) -> "InferenceEngine":
         r"""An engine over the ``program_generator`` and ``nmn`` of a
         checkpoint (a joint_training one holds both): the port's, the JAX
@@ -187,7 +201,7 @@ class InferenceEngine:
             vocabulary, pg_spec, nmn_spec, models["program_generator"], models["nmn"],
             batch_size=batch_size or config.OPTIM.BATCH_SIZE, rng_seed=config.RANDOM_SEED,
             decoding=decoding, device=device, compute_dtype=compute_dtype,
-            beam_size=beam_size,
+            beam_size=beam_size, compilation_cache_dir=compilation_cache_dir,
         )
 
     @property

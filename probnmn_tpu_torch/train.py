@@ -14,6 +14,13 @@ of the reference (its ``.pth``). ``--streaming-features`` reads image features f
 batch instead of loading the file into host memory (the phases that read
 features). In ``joint_training``, ``PROBNMN_NMN_REPLAY_BWD=1`` trains the NMN
 without K5's stored residuals (K2 forward, K6's replay-mode backward).
+``--profile-dir DIR`` traces ``--profile-steps`` steps, from the third step of
+the run on (the first ones build the kernels and fill the caches), with
+``torch.profiler`` into a Chrome trace in DIR, each step a named range
+``train_step_<iteration>``. The JAX CLI's other flags: ``--gpu-ids`` is
+ignored, ``--cpu-workers`` accepted and unused, ``--compilation-cache-dir``
+roots the kernels' build cache, and ``--num-devices`` and
+``--model-parallel`` take 1 (``utils/cli_flags.py``).
 """
 import argparse
 import logging
@@ -23,6 +30,8 @@ import numpy as np
 from tqdm import tqdm
 
 from probnmn_tpu_torch.config import Config
+from probnmn_tpu_torch.utils.cli_flags import add_shared_flags, apply_shared_flags
+from probnmn_tpu_torch.utils.observability import annotate, profile_trace
 
 PHASES = ["program_prior", "question_coding", "module_training", "joint_training"]
 
@@ -52,6 +61,15 @@ parser.add_argument(
     "told apart by content.",
 )
 parser.add_argument("--num-val-batches", type=int, default=256)
+parser.add_argument(
+    "--profile-dir",
+    default="",
+    help="Trace --profile-steps training steps (from the third on) with torch.profiler into a "
+    "Chrome trace in this directory; open it in Perfetto.",
+)
+parser.add_argument("--profile-steps", type=int, default=5,
+                    help="Steps to trace when --profile-dir is set.")
+add_shared_flags(parser, model_parallel=True)
 
 
 def build(phase: str, config: Config, serialization_dir: str, device: str,
@@ -96,6 +114,7 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
 
 def main(args):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    apply_shared_flags(args)
     config = Config(args.config_yml, args.config_override)
     if args.phase != config.PHASE:
         raise ValueError(
@@ -116,12 +135,39 @@ def main(args):
     if args.start_from_checkpoint:
         trainer.load_checkpoint(args.start_from_checkpoint)
 
+    run(trainer, evaluator, config.OPTIM.NUM_ITERATIONS, args.checkpoint_every,
+        args.num_val_batches, args.profile_dir, args.profile_steps)
+
+
+def run(trainer, evaluator, num_iterations: int, checkpoint_every: int = 500,
+        num_val_batches: int = 256, profile_dir: str = "", profile_steps: int = 5) -> None:
+    r"""The training loop from ``trainer.iteration + 1`` up to
+    ``num_iterations``: a step an iteration, evaluation and
+    ``after_validation`` every ``checkpoint_every`` iterations. With
+    ``profile_dir``, steps [start + 2, start + 2 + ``profile_steps``) run
+    under :func:`profile_trace`, each a range ``train_step_<iteration>``
+    (the JAX CLI's window: the first steps build the kernels)."""
     start_iteration = trainer.iteration + 1
-    for iteration in tqdm(range(start_iteration, config.OPTIM.NUM_ITERATIONS), desc="training"):
-        trainer.step(iteration)
-        if (iteration + 1) % args.checkpoint_every == 0:
-            val_metrics = evaluator.evaluate(num_batches=args.num_val_batches)
+    window = (range(start_iteration + 2, start_iteration + 2 + profile_steps)
+              if profile_dir else range(0))
+    profiling = None
+    for iteration in tqdm(range(start_iteration, num_iterations), desc="training"):
+        if window and iteration == window.start:
+            profiling = profile_trace(profile_dir)
+            profiling.__enter__()
+        if profiling is not None:
+            with annotate(f"train_step_{iteration}"):
+                trainer.step(iteration)
+        else:
+            trainer.step(iteration)
+        if profiling is not None and iteration == window.stop - 1:
+            profiling.__exit__(None, None, None)
+            profiling = None
+        if (iteration + 1) % checkpoint_every == 0:
+            val_metrics = evaluator.evaluate(num_batches=num_val_batches)
             trainer.after_validation(val_metrics, iteration)
+    if profiling is not None:
+        profiling.__exit__(None, None, None)
 
 
 if __name__ == "__main__":

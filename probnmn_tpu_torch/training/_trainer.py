@@ -23,15 +23,23 @@ updated in place. Parameters are nested dicts and lists of float32 leaf
 tensors. Scalars go to ``writer`` (anything with ``add_scalar`` and
 ``add_scalars``), by default a tensorboardX ``SummaryWriter``.
 
-Not ported yet: the data-parallel mesh and ``OPTIM.ADAM_MU_DTYPE =
-"bfloat16"`` (the JAX package's bf16 Adam first moment), which raises, also
-in a JAX checkpoint's Adam state (ROADMAP.md queue 1).
+``OPTIM.ADAM_MU_DTYPE = "bfloat16"`` keeps Adam's first moment in
+bfloat16 as the JAX package does (``training/optim.py``), in the port's
+checkpoints and through a JAX ``.ckpt`` both ways: :meth:`_Trainer.load_checkpoint`
+reads its bfloat16 ``mu`` and :meth:`_Trainer.save_checkpoint_jax` writes a
+``.ckpt`` the JAX trainer resumes. A config with ``DROPOUT > 0`` trains
+with inter-layer LSTM dropout: the phase trainers draw each training pass's
+keep masks from ``dropout_generator``, a generator on the trainer's device
+seeded from ``RANDOM_SEED`` that nothing else draws from.
+
+Not ported yet: the data-parallel mesh (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import logging
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from probnmn_tpu_torch import interop
@@ -44,6 +52,7 @@ from probnmn_tpu_torch.utils.checkpointing import (
     checkpoint_format,
     load_objects,
     read_checkpoint,
+    save_objects_jax,
 )
 from probnmn_tpu_torch.utils.observability import StepTimer
 from probnmn_tpu_torch.utils.torch_interop import is_reference_state
@@ -135,11 +144,6 @@ class _Trainer:
         writer=None,
     ):
         self._C = config
-        if config.OPTIM.ADAM_MU_DTYPE != "float32":
-            raise NotImplementedError(
-                f"OPTIM.ADAM_MU_DTYPE={config.OPTIM.ADAM_MU_DTYPE!r} is not ported (ROADMAP.md "
-                "queue 1: 'bfloat16 Adam first moment'); use float32"
-            )
         self._device = resolve_device(device)
         self._batch_source = batches  # kept for the per-stage pipeline timers
         self._batches = iter(batches)
@@ -151,7 +155,8 @@ class _Trainer:
             for name, tree in models.items()
         }
         self._optimizer = ClampedAdam(
-            tree_leaves(self._params), self._C.OPTIM.LR_INITIAL, self._C.OPTIM.WEIGHT_DECAY
+            tree_leaves(self._params), self._C.OPTIM.LR_INITIAL, self._C.OPTIM.WEIGHT_DECAY,
+            mu_dtype=self._C.OPTIM.ADAM_MU_DTYPE,
         )
         self._lr_scheduler = ReduceLROnPlateau(
             self._C.OPTIM.LR_INITIAL, self._C.OPTIM.LR_GAMMA, self._C.OPTIM.LR_PATIENCE
@@ -162,6 +167,10 @@ class _Trainer:
             serialization_dir=serialization_dir, keep_recent=100
         )
         self._generator = torch.Generator().manual_seed(self._C.RANDOM_SEED)
+        # The inter-layer dropout masks, drawn where they are used (drawn
+        # only when a model's DROPOUT > 0).
+        self.dropout_generator = torch.Generator(device=self._device).manual_seed(
+            self._C.RANDOM_SEED)
         # REINFORCE moving-average baseline: a 0-dim float32 tensor on the
         # device, updated there without a host sync.
         self._baseline = torch.zeros((), dtype=torch.float32, device=self._device)
@@ -203,6 +212,25 @@ class _Trainer:
         objects["scheduler"] = self._lr_scheduler.state_dict()
         objects["reinforce_baseline"] = self._baseline
         return objects
+
+    def jax_checkpointables(self) -> Dict[str, Any]:
+        r"""What the JAX trainer checkpoints, in its layout: every model's
+        params (``interop.model_to_jax``), the optax state of its optimizer
+        (``interop.adam_state_to_optax``; a bfloat16 ``mu`` stays bfloat16),
+        the scheduler and the baseline."""
+        objects: Dict[str, Any] = {name: interop.model_to_jax(name, tree)
+                                   for name, tree in self._params.items()}
+        objects["optimizer"] = interop.adam_state_to_optax(
+            self._optimizer.state_dict(), self._params, self._C.OPTIM.WEIGHT_DECAY,
+            self._optimizer.mu_dtype)
+        objects["scheduler"] = self._lr_scheduler.state_dict()
+        objects["reinforce_baseline"] = np.asarray(float(self._baseline), np.float32)
+        return objects
+
+    def save_checkpoint_jax(self, path: str) -> None:
+        r"""Write the trainer's state as the JAX package's ``.ckpt``, which
+        its trainer's ``load_checkpoint`` resumes."""
+        save_objects_jax(path, self.jax_checkpointables(), self._iteration)
 
     def after_validation(
         self, val_metrics: Dict[str, Any], iteration: Optional[int] = None

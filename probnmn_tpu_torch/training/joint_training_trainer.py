@@ -24,6 +24,10 @@ OBJECTIVE ``baseline`` rewards the answer log-likelihood alone: REINFORCE of
 PG's loss at z over the unsupervised rows, total = γ·nmn − elbo, and no QR,
 prior or supervised pass (JAX trainer :229-245).
 
+With ``DROPOUT > 0`` every PG and QR pass draws its encoder's inter-layer
+dropout masks as question_coding's do (K1 and PG's REINFORCE pass share
+theirs); the frozen prior and the NMN take none.
+
 As in the question_coding trainer, each pass takes its *exact* subset; the
 JAX package's fixed windows (``training/_subbatch.py``) are not carried
 over. An empty subset skips its passes: its means are 0 and the baseline
@@ -59,7 +63,6 @@ from probnmn_tpu_torch.modules.elbo import (
     reinforce,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import fused_tf_loss, pack_lm_weights
-from probnmn_tpu_torch.ops.rnn import check_no_dropout
 from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
 from probnmn_tpu_torch.training.question_coding_trainer import (
@@ -92,8 +95,6 @@ class JointTrainingTrainer(_Trainer):
         self.qr_spec = question_reconstructor.make_spec(vocabulary, config)
         self.nmn_spec = nmn.make_spec(vocabulary, config)
         self.prior_spec = make_prior_spec(config, vocabulary)
-        for spec in (self.pg_spec, self.qr_spec, self.prior_spec):
-            check_no_dropout(spec.dropout)
         if dataset is None:
             dataset = JointTrainingDataset(
                 config.DATA.TRAIN_TOKENS, config.DATA.TRAIN_FEATURES,
@@ -135,17 +136,22 @@ class JointTrainingTrainer(_Trainer):
                               if self._device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ the step ------
-    # z ~ q(z|x) from the live ProgramGenerator, as question_coding samples it.
+    # z ~ q(z|x) from the live ProgramGenerator, as question_coding samples it,
+    # and the passes' dropout masks, drawn as question_coding draws them.
     sample_programs = QuestionCodingTrainer.sample_programs
+    draw_dropout_masks = QuestionCodingTrainer.draw_dropout_masks
 
     def joint_training_objective(
         self, params: Dict[str, Any], batch: Dict[str, Any], z: Optional[torch.Tensor],
-        baseline: torch.Tensor,
+        baseline: torch.Tensor, dropout_masks: Optional[Dict[str, Any]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
         r"""(total loss, new baseline, logs) of one supervised-first batch
         (``batch[COUNT_KEY]`` supervised rows) with the programs ``z`` sampled
-        for its unsupervised rows (None when there are none). The logs are
-        detached 0-dim tensors under the JAX trainer's keys."""
+        for its unsupervised rows (None when there are none), under the
+        passes' ``dropout_masks`` (``question_coding_dropout_masks``' keys;
+        None: no dropout). The logs are detached 0-dim tensors under the JAX
+        trainer's keys."""
+        masks = dropout_masks or {}
         c = self._C
         n_sup = batch[COUNT_KEY]
         questions, programs = batch["question"], batch["program"]
@@ -158,7 +164,7 @@ class JointTrainingTrainer(_Trainer):
                        "reinforce_reward": zero}
         if z is not None:
             q_unsup = questions[n_sup:]
-            pg_loss = fused_tf_loss(pg, self.pg_spec, q_unsup, z, True)
+            pg_loss = fused_tf_loss(pg, self.pg_spec, q_unsup, z, True, masks.get("pg_unsup"))
             nmn_out = nmn.nmn_forward_fast(
                 params["nmn"], self.nmn_spec, image_to_nhwc(batch["image"][n_sup:]), z,
                 batch["answer"][n_sup:], tables=self._tables, replay=self._replay)
@@ -172,7 +178,8 @@ class JointTrainingTrainer(_Trainer):
                 diagnostics = {"reinforce_reward": masked_mean(logprobs_answering, ones)}
             else:
                 logprobs_generation = -pg_loss
-                logprobs_reconstruction = -fused_tf_loss(qr, self.qr_spec, z, q_unsup)
+                logprobs_reconstruction = -fused_tf_loss(qr, self.qr_spec, z, q_unsup,
+                                                         dropout_masks=masks.get("qr_unsup"))
                 logprobs_prior = frozen_prior_logprobs(self._prior_params, self._prior_packed,
                                                        self.prior_spec, z)
                 reward = joint_training_reward(logprobs_reconstruction, logprobs_generation,
@@ -194,8 +201,10 @@ class JointTrainingTrainer(_Trainer):
             if n_sup > 0:
                 q_sup, p_sup = questions[:n_sup], programs[:n_sup]
                 ones = torch.ones(n_sup, dtype=torch.float32, device=questions.device)
-                pg_loss_sup = masked_mean(fused_tf_loss(pg, self.pg_spec, q_sup, p_sup), ones)
-                qr_loss_sup = masked_mean(fused_tf_loss(qr, self.qr_spec, p_sup, q_sup), ones)
+                pg_loss_sup = masked_mean(fused_tf_loss(
+                    pg, self.pg_spec, q_sup, p_sup, dropout_masks=masks.get("pg_sup")), ones)
+                qr_loss_sup = masked_mean(fused_tf_loss(
+                    qr, self.qr_spec, p_sup, q_sup, dropout_masks=masks.get("qr_sup")), ones)
             losses.update(question_reconstruction_gt=qr_loss_sup, program_generation_gt=pg_loss_sup)
             total = total + c.ALPHA * (pg_loss_sup + qr_loss_sup)
         logs = {"loss": {k: v.detach() for k, v in losses.items()},
@@ -204,11 +213,12 @@ class JointTrainingTrainer(_Trainer):
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         n_sup = batch[COUNT_KEY]
+        masks = self.draw_dropout_masks(batch)
         z = None
         if batch["question"].shape[0] > n_sup:
-            z = self.sample_programs(batch["question"][n_sup:])
+            z = self.sample_programs(batch["question"][n_sup:], masks["pg_unsup"])
         total, self._baseline, logs = self.joint_training_objective(
-            self._params, batch, z, self._baseline)
+            self._params, batch, z, self._baseline, masks)
         self._optimizer.zero_grad()
         if total.requires_grad:
             total.backward()

@@ -7,7 +7,9 @@ of ``probnmn_tpu/training/module_training_trainer.py``; reference
 A step over a batch of questions, answers and NCHW image features:
 
 - the frozen ProgramGenerator samples a program per question (kernel K1,
-  bfloat16, a Philox seed drawn from the trainer's generator; no gradient);
+  bfloat16, a Philox seed drawn from the trainer's generator; no gradient;
+  no dropout, whatever its DROPOUT, since the JAX trainer's sampling call
+  is not a training pass);
 - ``nmn_forward_fast`` runs the NMN: the unified banks built from the live
   params, the stem, the interpreter (kernel K5 forward, K6 backward on
   ``cuda``), the classifier; the loss is the batch mean of its per-example
@@ -33,7 +35,6 @@ from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.models import nmn, program_generator
 from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
-from probnmn_tpu_torch.ops.rnn import check_no_dropout
 from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 
 
@@ -60,7 +61,6 @@ class ModuleTrainingTrainer(_Trainer):
         vocabulary = Vocabulary.from_files(config.DATA.VOCABULARY)
         self.nmn_spec = nmn.make_spec(vocabulary, config)
         self.pg_spec = program_generator.make_spec(vocabulary, config)
-        check_no_dropout(self.pg_spec.dropout)
         if dataset is None:
             dataset = ModuleTrainingDataset(config.DATA.TRAIN_TOKENS, config.DATA.TRAIN_FEATURES,
                                             in_memory=in_memory_features)

@@ -5,7 +5,9 @@ Phase 1 trainer: the ProgramPrior LSTM language model over CLEVR programs
 
 A step is ``fused_lm_loss(...).mean()``, ``backward()``, clamp and Adam: on
 ``cuda`` the loss is kernel K3f and its gradient kernel K3b
-(``ops/kernels/seq2seq_train.py``), on the CPU their plain versions.
+(``ops/kernels/seq2seq_train.py``), on the CPU their plain versions. With
+``PROGRAM_PRIOR.DROPOUT > 0`` each step draws the LM's inter-layer dropout
+masks (the JAX package's ``program_prior_forward(train=True)``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ from probnmn_tpu_torch.data.pipeline import BatchIterator
 from probnmn_tpu_torch.data.samplers import RandomSampler
 from probnmn_tpu_torch.data.vocabulary import Vocabulary
 from probnmn_tpu_torch.device import resolve_device
-from probnmn_tpu_torch.models.program_prior import ProgramPriorSpec, init_program_prior_params
+from probnmn_tpu_torch.models.program_prior import (
+    ProgramPriorSpec,
+    init_program_prior_params,
+    lm_dropout_masks,
+)
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import fused_lm_loss
 from probnmn_tpu_torch.training._trainer import _Trainer
 
@@ -62,7 +68,9 @@ class ProgramPriorTrainer(_Trainer):
         self._vocabulary = vocabulary
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        loss = fused_lm_loss(self._params["program_prior"], self.spec, batch["program"]).mean()
+        programs = batch["program"]
+        masks = lm_dropout_masks(self.dropout_generator, self.spec, programs)
+        loss = fused_lm_loss(self._params["program_prior"], self.spec, programs, masks).mean()
         self._optimizer.zero_grad()
         loss.backward()
         self._optimizer.step()

@@ -19,6 +19,15 @@ on the host) runs:
   (``modules/elbo.py``);
 - ``backward()``, clamp and Adam.
 
+Dropout. With ``DROPOUT > 0`` on the generator or the reconstructor, every
+pass above is a training pass of the JAX package's (``seq2seq_forward(...,
+train=True)``): each draws its encoder's inter-layer dropout masks
+(:func:`question_coding_dropout_masks`, from the trainer's
+``dropout_generator``). PG's unsupervised pass is one call in JAX, which
+samples z and scores it with one encoder pass; here K1 samples and K4 scores
+in REINFORCE mode, so both take the one mask drawn for those rows. The
+frozen prior takes none.
+
 Sub-batches. PyTorch runs eagerly, so each pass takes its *exact* subset, as
 the reference does (``question_coding_trainer.py:112-113``). The JAX package
 cannot take dynamic shapes under ``jit``: it runs fixed windows of 3B/4 rows
@@ -45,6 +54,7 @@ from probnmn_tpu_torch.data.samplers import SupervisionWeightedRandomSampler
 from probnmn_tpu_torch.data.vocabulary import Vocabulary
 from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.models import program_generator, question_reconstructor
+from probnmn_tpu_torch.models.seq2seq import encoder_dropout_masks
 from probnmn_tpu_torch.models.program_prior import ProgramPriorSpec, init_program_prior_params
 from probnmn_tpu_torch.modules.elbo import elbo_with_reinforce, masked_mean, question_coding_reward
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
@@ -54,7 +64,7 @@ from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
     lm_loss_plain,
     pack_lm_weights,
 )
-from probnmn_tpu_torch.ops.rnn import check_no_dropout
+from probnmn_tpu_torch.ops.rnn import draw_dropout_masks
 from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
 
@@ -68,6 +78,27 @@ def load_frozen_prior(path: str, spec: ProgramPriorSpec, device: torch.device) -
     no gradient (:func:`load_frozen`)."""
     template = init_program_prior_params(torch.Generator().manual_seed(0), spec)
     return load_frozen(path, "program_prior", template, device, spec, None)
+
+
+def question_coding_dropout_masks(gen: torch.Generator, pg_spec, qr_spec,
+                                  batch: Dict[str, Any]) -> Dict[str, Optional[torch.Tensor]]:
+    r"""The encoders' dropout masks of a supervised-first batch's training
+    passes, drawn from ``gen``: ``pg_sup`` / ``qr_sup`` over the supervised
+    questions / programs, ``pg_unsup`` over the unsupervised questions (K1's
+    sampling and PG's REINFORCE pass share it) and ``qr_unsup`` over the
+    sampled programs z (``pg_spec.max_decoding_steps`` tokens). Each is None
+    where its model has no dropout or its subset no rows."""
+    n_sup = batch[COUNT_KEY]
+    questions, programs = batch["question"], batch["program"]
+    n_unsup = questions.shape[0] - n_sup
+    return {
+        "pg_sup": encoder_dropout_masks(gen, pg_spec, questions[:n_sup]),
+        "qr_sup": encoder_dropout_masks(gen, qr_spec, programs[:n_sup]),
+        "pg_unsup": encoder_dropout_masks(gen, pg_spec, questions[n_sup:]),
+        "qr_unsup": draw_dropout_masks(gen, qr_spec.dropout, qr_spec.num_layers, n_unsup,
+                                       pg_spec.max_decoding_steps + 1, qr_spec.hidden_size,
+                                       questions.device),
+    }
 
 
 def frozen_prior_logprobs(params: Dict[str, Any], packed: Optional[Dict[str, torch.Tensor]],
@@ -97,8 +128,6 @@ class QuestionCodingTrainer(_Trainer):
         self.pg_spec = program_generator.make_spec(vocabulary, config)
         self.qr_spec = question_reconstructor.make_spec(vocabulary, config)
         self.prior_spec = make_prior_spec(config, vocabulary)
-        for spec in (self.pg_spec, self.qr_spec, self.prior_spec):
-            check_no_dropout(spec.dropout)
         if dataset is None:
             dataset = QuestionCodingDataset(
                 config.DATA.TRAIN_TOKENS,
@@ -128,23 +157,34 @@ class QuestionCodingTrainer(_Trainer):
                               if self._device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ the step ------
-    def sample_programs(self, questions: torch.Tensor) -> torch.Tensor:
+    def sample_programs(self, questions: torch.Tensor,
+                        dropout_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
         r"""z ~ q(z|x): (N, 26) programs trimmed at @end@, sampled by kernel K1
-        in bfloat16 from a Philox seed drawn from the trainer's generator."""
+        in bfloat16 from a Philox seed drawn from the trainer's generator,
+        with the encoder's ``dropout_masks`` of this training pass."""
         seed = int(torch.randint(2 ** 62, (1,), generator=self._generator))
         with torch.no_grad():
             out = fused_sampling_forward(self._params["program_generator"], self.pg_spec,
-                                         questions, seed=seed, compute_dtype=torch.bfloat16)
+                                         questions, seed=seed, compute_dtype=torch.bfloat16,
+                                         dropout_masks=dropout_masks)
         return out["predictions"]
+
+    def draw_dropout_masks(self, batch: Dict[str, Any]) -> Dict[str, Optional[torch.Tensor]]:
+        r"""This step's dropout masks (:func:`question_coding_dropout_masks`)."""
+        return question_coding_dropout_masks(self.dropout_generator, self.pg_spec, self.qr_spec,
+                                             batch)
 
     def question_coding_objective(
         self, params: Dict[str, Any], batch: Dict[str, Any], z: Optional[torch.Tensor],
-        baseline: torch.Tensor,
+        baseline: torch.Tensor, dropout_masks: Optional[Dict[str, Any]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
         r"""(total loss, new baseline, logs) of one supervised-first batch
         (``batch[COUNT_KEY]`` supervised rows) with the programs ``z`` sampled
         for its unsupervised rows (None when there are none, or with
-        OBJECTIVE ``baseline``). The logs are detached 0-dim tensors."""
+        OBJECTIVE ``baseline``), under the passes' ``dropout_masks`` (the keys
+        of :func:`question_coding_dropout_masks`; None: no dropout). The logs
+        are detached 0-dim tensors."""
+        masks = dropout_masks or {}
         n_sup = batch[COUNT_KEY]
         questions, programs = batch["question"], batch["program"]
         pg, qr = params["program_generator"], params["question_reconstructor"]
@@ -154,8 +194,12 @@ class QuestionCodingTrainer(_Trainer):
         if n_sup > 0:
             q_sup, p_sup = questions[:n_sup], programs[:n_sup]
             ones = torch.ones(n_sup, dtype=torch.float32, device=questions.device)
-            pg_loss_sup = masked_mean(fused_tf_loss(pg, self.pg_spec, q_sup, p_sup), ones)
-            qr_loss_sup = masked_mean(fused_tf_loss(qr, self.qr_spec, p_sup, q_sup), ones)
+            pg_loss_sup = masked_mean(
+                fused_tf_loss(pg, self.pg_spec, q_sup, p_sup, dropout_masks=masks.get("pg_sup")),
+                ones)
+            qr_loss_sup = masked_mean(
+                fused_tf_loss(qr, self.qr_spec, p_sup, q_sup, dropout_masks=masks.get("qr_sup")),
+                ones)
         logs = {"loss": {"question_reconstruction_gt": qr_loss_sup.detach(),
                          "program_generation_gt": pg_loss_sup.detach()}}
         if self._C.OBJECTIVE == "baseline":
@@ -166,8 +210,10 @@ class QuestionCodingTrainer(_Trainer):
                        "reinforce_reward": zero}
         if z is not None:
             q_unsup = questions[n_sup:]
-            logprobs_generation = -fused_tf_loss(pg, self.pg_spec, q_unsup, z, True)
-            logprobs_reconstruction = -fused_tf_loss(qr, self.qr_spec, z, q_unsup)
+            logprobs_generation = -fused_tf_loss(pg, self.pg_spec, q_unsup, z, True,
+                                                 masks.get("pg_unsup"))
+            logprobs_reconstruction = -fused_tf_loss(qr, self.qr_spec, z, q_unsup,
+                                                     dropout_masks=masks.get("qr_unsup"))
             logprobs_prior = frozen_prior_logprobs(self._prior_params, self._prior_packed,
                                                    self.prior_spec, z)
             reward = question_coding_reward(logprobs_reconstruction, logprobs_generation,
@@ -184,11 +230,12 @@ class QuestionCodingTrainer(_Trainer):
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         n_unsup = batch["question"].shape[0] - batch[COUNT_KEY]
+        masks = self.draw_dropout_masks(batch)
         z = None
         if self._C.OBJECTIVE == "ours" and n_unsup > 0:
-            z = self.sample_programs(batch["question"][batch[COUNT_KEY]:])
+            z = self.sample_programs(batch["question"][batch[COUNT_KEY]:], masks["pg_unsup"])
         total, self._baseline, logs = self.question_coding_objective(
-            self._params, batch, z, self._baseline)
+            self._params, batch, z, self._baseline, masks)
         self._optimizer.zero_grad()
         if total.requires_grad:
             total.backward()

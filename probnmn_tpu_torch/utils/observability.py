@@ -1,12 +1,19 @@
 r"""
-Training observability (``StepTimer`` from ``probnmn_tpu/utils/observability.py``)
-and ``RecordingWriter``, an in-memory stand-in for the trainer's scalar writer.
+Training observability (counterpart of ``probnmn_tpu/utils/observability.py``):
+``StepTimer``, :func:`profile_trace` and :func:`annotate` on ``torch.profiler``
+(the JAX package's are on ``jax.profiler``), and ``RecordingWriter``, an
+in-memory stand-in for the trainer's scalar writer.
 """
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
 import time
 from collections import deque
-from typing import Optional
+from typing import Iterator, Optional
+
+logger = logging.getLogger(__name__)
 
 
 class StepTimer:
@@ -60,3 +67,38 @@ class RecordingWriter:
     def add_scalars(self, tag, values, step):
         for key, value in values.items():
             self.add_scalar(f"{tag}/{key}", value, step)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[object]:
+    r"""``torch.profiler`` over the block, the host's activity and, where a
+    card is present, the card's (its kernels by name), written on exit as a
+    Chrome trace ``trace_<pid>_<time>.json`` into ``log_dir`` (open it in
+    Perfetto or ``chrome://tracing``). Yields the profiler. With a card, the
+    card idles 20 ms after the trace starts and before it stops: without
+    that gap the profiler on the H100 now and then lost a trace's first
+    kernels, or all of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    card = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        if card:
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        yield prof
+        if card:
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("Wrote profiler trace to %s", path)
+
+
+def annotate(name: str):
+    r"""A named range in profiler traces (``torch.profiler.record_function``)."""
+    import torch
+
+    return torch.profiler.record_function(name)

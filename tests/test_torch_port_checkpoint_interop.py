@@ -15,7 +15,10 @@
 - Resume: the JAX program_prior trainer (weight decay on, which moves Adam
   in optax's chain) takes 3 steps and saves; the JAX trainer and the port
   each resume from that file and take 2 steps on the same batches, within
-  tests/test_torch_port_training.py's tolerances.
+  tests/test_torch_port_training.py's tolerances. With
+  ``OPTIM.ADAM_MU_DTYPE bfloat16`` the same both ways: the port resumes a
+  JAX file with its bfloat16 ``mu`` bit for bit, and the JAX trainer
+  resumes the port's ``save_checkpoint_jax`` file into the port's state.
 - A reference ``.pth`` from tests/ref_checkpoints.py, zip and legacy: every
   model equals, at tolerance 0, the JAX package's ``torch_interop`` port of
   the same file through ``interop``.
@@ -289,15 +292,77 @@ def test_jax_trainer_checkpoint_loads(chain, tmp_path, phase):
 
 
 def test_bfloat16_adam_moment_is_refused_by_name(chain, tmp_path):
+    r"""Once refused, now read and written both ways: the JAX trainer with
+    ``OPTIM.ADAM_MU_DTYPE bfloat16`` takes 3 steps and saves; the port
+    resumes from that file with every Adam moment as JAX stored it (``mu``
+    in bfloat16, bit for bit), takes 2 steps beside the JAX trainer resumed
+    from the same file (losses within 1e-5), and writes the JAX format
+    (``save_checkpoint_jax``), which the JAX trainer resumes into the port's
+    state exactly: params, ``mu`` (bfloat16) and ``nu``, the count, the
+    learning rate, the scheduler, the baseline and the iteration."""
     root = chain["root"]
-    jax_config = make_fixture_config(root, "program_prior", ["OPTIM.ADAM_MU_DTYPE", "bfloat16"])
+    overrides = ["OPTIM.ADAM_MU_DTYPE", "bfloat16"]
+    jax_config = make_fixture_config(root, "program_prior", overrides)
     np.random.seed(0)
-    jax_trainer = JaxPP(jax_config, str(tmp_path / "jax"))
-    jax_trainer._checkpoint_manager.step(1, jax_trainer._checkpointables())
+    first = JaxPP(jax_config, str(tmp_path / "jax"))
+    for iteration in range(3):
+        first._do_iteration(next(first._batches))
+        first._iteration = iteration
+    first._checkpoint_manager.step(2, first._checkpointables())
+    ckpt = str(tmp_path / "jax" / "checkpoint_2.ckpt")
+
     port = _port_trainer("program_prior", chain["program_prior"]["config_path"],
-                         str(tmp_path / "port"))
-    with pytest.raises(NotImplementedError, match="OPTIM.ADAM_MU_DTYPE"):
-        port.load_checkpoint(str(tmp_path / "jax" / "checkpoint_1.ckpt"))
+                         str(tmp_path / "port"), overrides)
+    port.load_checkpoint(ckpt)
+    assert port.iteration == 2
+    spec = port.model_specs()["program_prior"]
+
+    def moments(trainer):
+        adam = [s for s in trainer._opt_state.inner_state if hasattr(s, "mu")][0]
+        return adam, {key: dict(_paths(interop.model_from_jax(
+            "program_prior", _to_numpy(getattr(adam, key)["program_prior"]), spec)))
+            for key in ("mu", "nu")}
+
+    adam, want = moments(first)
+    assert all(m.dtype == jnp.bfloat16 for m in jax.tree_util.tree_leaves(adam.mu))
+    state = port._optimizer.state_dict()["state"]
+    for index, (path, _) in enumerate(_paths(port.params["program_prior"])):
+        assert float(state[index]["step"]) == int(adam.count) == 3
+        assert state[index]["exp_avg"].dtype == torch.bfloat16
+        assert torch.equal(state[index]["exp_avg"].float(), want["mu"][path]), path
+        assert torch.equal(state[index]["exp_avg_sq"], want["nu"][path]), path
+
+    np.random.seed(0)
+    jax_resumed = JaxPP(jax_config, str(tmp_path / "jax_resumed"))
+    jax_resumed.load_checkpoint(ckpt)
+    jax_losses, port_losses = [], []
+    for iteration in (3, 4):
+        jax_losses.append(float(jax_resumed._do_iteration(next(jax_resumed._batches))["loss"]))
+        port_losses.append(port.step(iteration)["loss"])
+    np.testing.assert_allclose(port_losses, jax_losses, atol=LOSS_ATOL, rtol=0)
+
+    out = str(tmp_path / "port_as_jax.ckpt")
+    port.save_checkpoint_jax(out)
+    assert checkpoint_format(out) == MSGPACK
+    np.random.seed(0)
+    from_port = JaxPP(jax_config, str(tmp_path / "from_port"))
+    from_port.load_checkpoint(out)
+    assert from_port.iteration == 4
+    _assert_trees_equal(
+        interop.model_from_jax("program_prior", _to_numpy(from_port.params["program_prior"]), spec),
+        jax.tree_util.tree_map(lambda t: t.detach(), port.params["program_prior"]))
+    adam, got = moments(from_port)
+    assert all(m.dtype == jnp.bfloat16 for m in jax.tree_util.tree_leaves(adam.mu))
+    assert int(adam.count) == int(from_port._opt_state.count) == 5
+    state = port._optimizer.state_dict()["state"]
+    for index, (path, _) in enumerate(_paths(port.params["program_prior"])):
+        assert torch.equal(got["mu"][path], state[index]["exp_avg"].float()), path
+        assert torch.equal(got["nu"][path], state[index]["exp_avg_sq"]), path
+    assert from_port.learning_rate == pytest.approx(port.learning_rate)
+    assert from_port._lr_scheduler.state_dict() == port._lr_scheduler.state_dict()
+    assert float(from_port._baseline) == float(port.baseline)
+    # And the JAX trainer steps on from it.
+    assert np.isfinite(float(from_port._do_iteration(next(from_port._batches))["loss"]))
 
 
 def test_resume_from_a_jax_checkpoint_matches_the_jax_trainer(chain, tmp_path):

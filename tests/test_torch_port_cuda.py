@@ -851,3 +851,130 @@ def test_phase13_bucket_check_at_four_rows(cuda):
     k1, k2 = chip_smoke.bucket_against_plain(np, torch, cuda, 4, pg, pg_spec, nmn_params,
                                              nmn_spec, vocab, seed=1300)
     assert set(k1) == set(k2) == {"float32", "bfloat16"}
+
+
+# ------------------------------------------------------------------ inter-layer dropout
+DROPOUT_NAMES = ("lstm_fwd_sweep", "lstm_bwd_sweep", "dropout_rows", "k1_dropout")
+
+
+@pytest.mark.parametrize("num_layers", [2, 3])
+def test_masked_lm_kernels_match_plain_versions(cuda, num_layers):
+    r"""K3f and K3b with the LM's dropout masks against the plain versions
+    under the same masks (phase 6's tolerances): one ``dropout_rows`` launch
+    a layer below the top in K3f, and in K3b as many for the replay and as
+    many for the gradient; none without masks."""
+    spec = program_prior.ProgramPriorSpec(vocab_size=44, input_size=64, hidden_size=96,
+                                          num_layers=num_layers, dropout=0.3)
+    params = program_prior.init_program_prior_params(torch.Generator().manual_seed(7), spec)
+    params = params_from_leaves([p.to(cuda) for p in param_leaves(params)])
+    rs = np.random.RandomState(8)
+    tok = rs.randint(4, spec.vocab_size, (37, 26))
+    tok *= np.arange(26)[None, :] < rs.randint(1, 26, (37, 1))
+    tok[1] = 0
+    tok = torch.from_numpy(tok).to(cuda)
+    masks = program_prior.lm_dropout_masks(torch.Generator(device=cuda).manual_seed(9), spec, tok)
+    assert masks.shape == (num_layers - 1, 37, 28, 96) and masks.is_cuda
+    dloss = torch.from_numpy(rs.rand(37).astype(np.float32) + 0.5).to(cuda)
+    packed = pack_lm_weights(params)
+    loss = lm_forward_cuda(packed, spec, tok, masks)
+    torch.testing.assert_close(loss, lm_loss_plain(params, spec, tok, masks), rtol=0, atol=1e-5)
+    assert float((loss - lm_forward_cuda(packed, spec, tok)).abs().max()) > 1e-3
+    want = lm_grads_plain(params, spec, tok, dloss, masks)
+    for g, w in zip(param_leaves(lm_backward_cuda(packed, spec, tok, dloss, masks)),
+                    param_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+    below = num_layers - 1
+    assert _launches(lambda: lm_forward_cuda(packed, spec, tok, masks), DROPOUT_NAMES) == {
+        "lstm_fwd_sweep": num_layers, "lstm_bwd_sweep": 0, "dropout_rows": below, "k1_dropout": 0}
+    assert _launches(lambda: lm_backward_cuda(packed, spec, tok, dloss, masks),
+                     DROPOUT_NAMES)["dropout_rows"] == 2 * below
+    assert _launches(lambda: lm_forward_cuda(packed, spec, tok), DROPOUT_NAMES)["dropout_rows"] == 0
+    leaves = [p.detach().clone().requires_grad_(True) for p in param_leaves(params)]
+    (fused_lm_loss(params_from_leaves(leaves), spec, tok, masks) * dloss).sum().backward()
+    for leaf, w in zip(leaves, param_leaves(want)):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.parametrize("reinforce_norm", [False, True])
+@pytest.mark.parametrize("num_layers", [2, 3])
+def test_masked_tf_kernels_match_plain_versions(cuda, num_layers, reinforce_norm):
+    r"""K4f (lean and keeping its residuals) and K4b with the encoder's
+    dropout masks against the plain versions under the same masks (phase
+    7's tolerances), through autograd too; one ``dropout_rows`` launch a
+    layer below the top each way."""
+    spec = Seq2SeqSpec(source_vocab_size=92, target_vocab_size=44, input_size=64,
+                       hidden_size=96, num_layers=num_layers, dropout=0.2)
+    params = init_seq2seq_params(torch.Generator().manual_seed(10), spec)
+    params = tf_params_from_leaves([p.to(cuda) for p in tf_param_leaves(params)])
+    rs = np.random.RandomState(11)
+    src = torch.from_numpy(_tf_tokens(rs, 37, 45, spec.source_vocab_size)).to(cuda)
+    tgt = torch.from_numpy(_tf_tokens(rs, 37, 26, spec.target_vocab_size)).to(cuda)
+    from probnmn_tpu_torch.models.seq2seq import encoder_dropout_masks
+
+    masks = encoder_dropout_masks(torch.Generator(device=cuda).manual_seed(12), spec, src)
+    dloss = torch.from_numpy(rs.rand(37).astype(np.float32) + 0.5).to(cuda)
+    packed = pack_tf_weights(params, spec)
+    lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, dropout_masks=masks)
+    loss, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True,
+                                      dropout_masks=masks)
+    assert torch.equal(lean, loss)
+    torch.testing.assert_close(loss, tf_loss_plain(params, spec, src, tgt, reinforce_norm, masks),
+                               rtol=0, atol=1e-5)
+    want = tf_grads_plain(params, spec, src, tgt, dloss, reinforce_norm, masks)
+    for g, w in zip(tf_param_leaves(tf_backward_cuda(residuals, dloss)), tf_param_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+    below = num_layers - 1
+    assert _launches(lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm,
+                                             dropout_masks=masks),
+                     DROPOUT_NAMES)["dropout_rows"] == below
+    _, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True,
+                                   dropout_masks=masks)
+    assert _launches(lambda: tf_backward_cuda(residuals, dloss),
+                     DROPOUT_NAMES)["dropout_rows"] == below
+    leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(params)]
+    out = fused_tf_loss(tf_params_from_leaves(leaves), spec, src, tgt, reinforce_norm, masks)
+    (out * dloss).sum().backward()
+    for leaf, w in zip(leaves, tf_param_leaves(want)):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_k1_matches_plain_version(cuda, dtype):
+    r"""K1's encoder with dropout masks (one ``k1_dropout`` launch a layer
+    below the top) against the plain encoder under the same masks, and K1
+    against its plain version (phase 2's tolerances), at the shipped width."""
+    from probnmn_tpu_torch.models.seq2seq import encoder_dropout_masks
+
+    vocab = make_clevr_like_vocabulary()
+    spec = dataclasses.replace(program_generator.make_spec(vocab), dropout=0.2, num_layers=3)
+    params = cast_params(program_generator.init_params(torch.Generator().manual_seed(13), spec),
+                         torch.float32, cuda)
+    rs = np.random.RandomState(14)
+    src = torch.from_numpy(_tf_tokens(rs, 64, 45, spec.source_vocab_size)).to(cuda)
+    masks = encoder_dropout_masks(torch.Generator(device=cuda).manual_seed(15), spec, src)
+    out, final = sampling_encode(params, spec, src, compute_dtype=dtype, dropout_masks=masks)
+    want_out, _, want_final, _ = _encode(params, spec, src, dtype, masks)
+    plain_out = _encode(params, spec, src, dtype)[0]
+    assert float((want_out - plain_out).abs().max()) > 1e-3  # the masks matter
+    for got, want in ((out.float(), want_out), (final, want_final)):
+        scale = float(want.abs().max())
+        tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+        assert float((got - want).abs().max()) <= tol
+    assert _launches(lambda: sampling_encode(params, spec, src, compute_dtype=dtype,
+                                             dropout_masks=masks), DROPOUT_NAMES)["k1_dropout"] == 2
+    assert _launches(lambda: sampling_encode(params, spec, src, compute_dtype=dtype),
+                     DROPOUT_NAMES)["k1_dropout"] == 0
+    T, V = spec.max_decoding_steps, spec.target_vocab_size
+    noise = torch.from_numpy(rs.gumbel(size=(T, 64, V)).astype(np.float32)).to(cuda)
+    got = fused_sampling_forward(params, spec, src, noise=noise, compute_dtype=dtype,
+                                 dropout_masks=masks)
+    want = sampling_forward_with_noise(params, spec, src, noise, compute_dtype=dtype,
+                                       dropout_masks=masks)
+    same = (got["predictions"] == want["predictions"]).all(dim=1)
+    if dtype == torch.float32:
+        assert float(same.float().mean()) >= 0.99
+        assert float((got["logprobs"] - want["logprobs"])[same].abs().max()) <= 1e-4
+    else:
+        assert float((got["predictions"] == want["predictions"]).float().mean()) >= 0.95
+    with pytest.raises(ValueError, match="dropout masks"):
+        sampling_encode(params, spec, src, compute_dtype=dtype, dropout_masks=masks[:, :, :10])

@@ -54,6 +54,8 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.preprocess.build_vocabulary",
     "probnmn_tpu_torch.preprocess.preprocess_questions",
     "probnmn_tpu_torch.preprocess.extract_features",
+    "probnmn_tpu_torch.utils.compilation_cache",
+    "probnmn_tpu_torch.utils.cli_flags",
 )
 
 

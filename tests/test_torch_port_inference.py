@@ -225,6 +225,14 @@ def test_inference_cli_matches_the_jax_cli(served, tmp_path):
         want = json.load(f)
     assert got == want
     assert sorted(p["question_index"] for p in got) == list(range(16))
-    with pytest.raises(NotImplementedError, match="--gpu-ids"):
+    # The JAX CLI's flags, once refused: --gpu-ids ignored, --cpu-workers
+    # accepted, one device; more devices are the mesh, not ported yet.
+    os.remove(output)
+    assert inference.main(inference.parser.parse_args(
+        [*common, "--checkpoint-path", port_ckpt, "--device", "cpu", "--gpu-ids", "0",
+         "--cpu-workers", "2", "--num-devices", "1"])) == output
+    with open(output) as f:
+        assert json.load(f) == want
+    with pytest.raises(NotImplementedError, match="--num-devices"):
         inference.main(inference.parser.parse_args(
-            [*common, "--checkpoint-path", port_ckpt, "--gpu-ids", "0"]))
+            [*common, "--checkpoint-path", port_ckpt, "--num-devices", "2"]))

@@ -386,7 +386,8 @@ def runs(jt, tmp_path_factory):
         jax_trainer = jax_jt_module.JointTrainingTrainer(
             jax_config, str(tmp_path_factory.mktemp("jax_jt")))
         port = _port_trainer(config, str(tmp_path_factory.mktemp("port_jt")))
-        port.sample_programs = lambda questions: torch.from_numpy(fixed[-len(questions):])
+        port.sample_programs = lambda questions, dropout_masks=None: torch.from_numpy(
+            fixed[-len(questions):])
         jax_logs, port_logs, baselines, grads, first_params = [], [], [], [], None
         for iteration in range(3):
             jax_logs.append(jax.tree_util.tree_map(float, jax_trainer._do_iteration(

@@ -48,9 +48,10 @@ def launchers(monkeypatch):
     ``keep`` and each K4b call."""
     calls = {"keep": [], "backward": 0}
 
-    def forward(packed, spec, src, tgt, reinforce_norm, keep=False):
+    def forward(packed, spec, src, tgt, reinforce_norm, keep=False, dropout_masks=None):
         calls["keep"].append(keep)
-        loss = tf_loss_plain(calls["params"], spec, src, tgt, reinforce_norm).detach()
+        loss = tf_loss_plain(calls["params"], spec, src, tgt, reinforce_norm,
+                             dropout_masks).detach()
         return (loss, (spec, src, tgt, reinforce_norm)) if keep else loss
 
     def backward(residuals, dloss):

@@ -289,7 +289,7 @@ def test_question_coding_learns_in_lockstep_with_the_jax_trainer(tmp_path, monke
         copy_into(port.params[name], interop.program_generator_from_jax(
             jax.tree_util.tree_map(np.asarray, jax_trainer.params[name])))
 
-    def port_sampling(questions):
+    def port_sampling(questions, dropout_masks=None):
         draws["rows"] = len(questions)
         gumbel = torch.from_numpy(noise("port", len(questions), port.pg_spec))
         with torch.no_grad():

@@ -121,13 +121,26 @@ def test_pack_lm_weights_layout():
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_dropout():
-    _, tp = _params(5)
+    r"""The CUDA wrapper refuses CPU tensors. Dropout, once refused, now
+    trains: with masks ``fused_lm_loss`` is JAX's ``train=True`` loss under
+    the masks its key draws; without them (evaluation) it is the plain
+    loss, whatever the spec's rate."""
+    jp, tp = _params(5)
     tok = torch.from_numpy(_tokens(5))
     with pytest.raises(ValueError, match="CUDA"):
         lm_forward_cuda(pack_lm_weights(tp), SPEC, tok)
+    jspec = jprior.ProgramPriorSpec(vocab_size=50, dropout=0.1)
     dropout_spec = program_prior.ProgramPriorSpec(vocab_size=50, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_lm_loss(tp, dropout_spec, tok)
+    rng = jax.random.PRNGKey(5)
+    drop_rng = jax.random.fold_in(rng, 991)
+    masks = torch.from_numpy(np.stack([np.asarray(jax.random.bernoulli(
+        jax.random.fold_in(drop_rng, layer), 0.9, (tok.shape[0], tok.shape[1] + 2, 256)))
+        for layer in range(dropout_spec.num_layers - 1)]))
+    want = jprior.program_prior_forward(jp, jspec, jnp.asarray(tok.numpy()), rng, train=True)
+    np.testing.assert_allclose(fused_lm_loss(tp, dropout_spec, tok, masks).numpy(),
+                               np.asarray(want["loss"]), atol=LOSS_ATOL, rtol=0)
+    np.testing.assert_allclose(fused_lm_loss(tp, dropout_spec, tok).numpy(),
+                               fused_lm_loss(tp, SPEC, tok).numpy(), atol=0, rtol=0)
 
 
 def test_sequence_cross_entropy_and_blocked_sampling_match_jax():

@@ -197,8 +197,8 @@ def test_fused_tf_loss_function_keeps_the_leaf_order(monkeypatch):
     _, tp = _params(5)
     src, tgt = (torch.from_numpy(a).long() for a in _batch(5, True))
 
-    def forward(packed, spec, s, t, r, keep=False):
-        loss = tf_loss_plain(tp, spec, s, t, r).detach()
+    def forward(packed, spec, s, t, r, keep=False, dropout_masks=None):
+        loss = tf_loss_plain(tp, spec, s, t, r, dropout_masks).detach()
         return (loss, (spec, s, t, r)) if keep else loss
 
     monkeypatch.setattr(seq2seq_train, "tf_forward_cuda", forward)
@@ -206,7 +206,7 @@ def test_fused_tf_loss_function_keeps_the_leaf_order(monkeypatch):
                         lambda res, d: tf_grads_plain(tp, res[0], res[1], res[2], d, res[3]))
     leaves = [p.detach().clone().requires_grad_(True) for p in tf_param_leaves(tp)]
     dloss = torch.from_numpy(np.random.RandomState(5).rand(BATCH).astype(np.float32))
-    loss = seq2seq_train._FusedTFLoss.apply(SPEC, True, True, src, tgt, *leaves)
+    loss = seq2seq_train._FusedTFLoss.apply(SPEC, True, True, src, tgt, None, *leaves)
     (loss * dloss).sum().backward()
     want = tf_param_leaves(tf_grads_plain(tp, SPEC, src, tgt, dloss, True))
     assert len(leaves) == len(want) == 2 + 4 * SPEC.num_layers + 4 + 2
@@ -232,13 +232,27 @@ def test_pack_tf_weights_layout():
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_dropout():
-    _, tp = _params(7)
+    r"""The CUDA wrapper refuses CPU tensors. Dropout, once refused, now
+    trains: with masks ``fused_tf_loss`` is JAX's teacher-forced
+    ``train=True`` loss under the masks its key draws; without them
+    (evaluation) it is the plain loss, whatever the spec's rate."""
+    jp, tp = _params(7)
     src, tgt = (torch.from_numpy(a).long() for a in _batch(7, False))
     with pytest.raises(ValueError, match="CUDA"):
         tf_forward_cuda(pack_tf_weights(tp, SPEC), SPEC, src, tgt)
+    jspec = jseq2seq.Seq2SeqSpec(**dict(SIZES, dropout=0.1))
     dropout_spec = seq2seq.Seq2SeqSpec(**dict(SIZES, dropout=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_tf_loss(tp, dropout_spec, src, tgt)
+    rng = jax.random.PRNGKey(7)
+    drop_rng = jax.random.fold_in(rng, 997)
+    masks = torch.from_numpy(np.stack([np.asarray(jax.random.bernoulli(
+        jax.random.fold_in(drop_rng, layer), 0.9, (BATCH, LS + 1, SPEC.hidden_size)))
+        for layer in range(SPEC.num_layers - 1)]))
+    want = jseq2seq.seq2seq_forward(jp, jspec, jnp.asarray(src.numpy()), jnp.asarray(tgt.numpy()),
+                                    "sampling", rng, train=True)["loss"]
+    np.testing.assert_allclose(fused_tf_loss(tp, dropout_spec, src, tgt, dropout_masks=masks)
+                               .numpy(), np.asarray(want), atol=LOSS_ATOL, rtol=0)
+    np.testing.assert_allclose(fused_tf_loss(tp, dropout_spec, src, tgt).numpy(),
+                               fused_tf_loss(tp, SPEC, src, tgt).numpy(), atol=0, rtol=0)
 
 
 # ------------------------------------------------------------------ ELBO and metrics

@@ -25,6 +25,7 @@ from probnmn_tpu.models import nmn as jnmn
 from probnmn_tpu.models import program_generator as jpg
 from probnmn_tpu.utils.checkpointing import save_objects as jax_save_objects
 from probnmn_tpu_torch import serve
+from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.preprocessing import tokenize_questions
 
 from tests.clevr_fixtures import build_fixture_data, make_fixture_config
@@ -199,11 +200,35 @@ def test_stats_carries_the_jax_keys(servers):
 
 
 @pytest.mark.parametrize("flag", ["--num-devices", "--compilation-cache-dir"])
-def test_flags_not_ported_raise(servers, flag):
+def test_flags_not_ported_raise(servers, flag, tmp_path, monkeypatch):
+    r"""``--num-devices 2`` stays refused (the mesh is not ported);
+    ``--compilation-cache-dir``, once refused, now roots the kernels' build
+    cache, as ``InferenceEngine.from_checkpoint(compilation_cache_dir=)``
+    does."""
+    from probnmn_tpu_torch.ops.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)  # restored after the test
+    if flag == "--num-devices":
+        args = _args(serve, servers["config_path"], servers["ckpt"], servers["features_h5"],
+                     "--device", "cpu", flag, "2")
+        with pytest.raises(NotImplementedError, match=flag):
+            serve.ServingContext(args)
+        return
+    cache = str(tmp_path / "kernels")
     args = _args(serve, servers["config_path"], servers["ckpt"], servers["features_h5"],
-                 "--device", "cpu", flag, "2")
-    with pytest.raises(NotImplementedError, match=flag):
-        serve.ServingContext(args)
+                 "--device", "cpu", flag, cache)
+    ctx = serve.ServingContext(args)
+    try:
+        assert str(_build.BUILD_DIR) == cache and os.path.isdir(cache)
+        assert ctx.engine.compute_dtype == torch.float32
+    finally:
+        ctx.engine.stop()
+    engine_cache = str(tmp_path / "engine_kernels")
+    from probnmn_tpu_torch.serving import InferenceEngine
+
+    InferenceEngine.from_checkpoint(Config(servers["config_path"]), servers["ckpt"],
+                                    device="cpu", compilation_cache_dir=engine_cache)
+    assert str(_build.BUILD_DIR) == engine_cache and os.path.isdir(engine_cache)
 
 
 def test_cuda_without_a_card_raises(servers):

@@ -194,10 +194,93 @@ def test_clamped_adam_matches_optax(weight_decay):
     assert opt.get_learning_rate() == pytest.approx(0.002)
 
 
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_clamped_adam_bfloat16_moment_matches_optax(weight_decay):
+    r"""``mu_dtype="bfloat16"`` against optax's ``scale_by_adam(mu_dtype=
+    bfloat16)`` over 50 steps of gradients beyond +-5: the stored first
+    moment bit for bit, the parameters within 1e-6."""
+    rs = np.random.RandomState(1)
+    shapes = [(6, 5), (7,), (3, 4, 2)]
+    params = [rs.randn(*shape).astype(np.float32) for shape in shapes]
+    tx = make_optimizer(0.01, weight_decay, "bfloat16")
+    jp = [jax.numpy.asarray(a) for a in params]
+    state = tx.init(jp)
+    tp = [torch.from_numpy(a.copy()).requires_grad_(True) for a in params]
+    opt = ClampedAdam(tp, 0.01, weight_decay, mu_dtype="bfloat16")
+    for step in range(50):
+        grads = [(rs.randn(*shape) * 4.0).astype(np.float32) for shape in shapes]
+        grads[0][0, :3] = [12.0, -7.5, 5.0]
+        updates, state = tx.update([jax.numpy.asarray(g) for g in grads], state, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.zero_grad()
+        for p, g in zip(tp, grads):
+            p.grad = torch.from_numpy(g.copy())
+        opt.step()
+        adam = [s for s in state.inner_state if hasattr(s, "mu")][0]
+        moments = opt.state_dict()["state"]
+        for i, (p, j) in enumerate(zip(tp, jp)):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(j), atol=1e-6, rtol=0)
+            mu = moments[i]["exp_avg"]
+            assert mu.dtype == torch.bfloat16 and adam.mu[i].dtype == jax.numpy.bfloat16
+            np.testing.assert_array_equal(mu.view(torch.int16).numpy(),
+                                          np.asarray(adam.mu[i]).view(np.int16))
+            np.testing.assert_array_equal(moments[i]["exp_avg_sq"].numpy(), np.asarray(adam.nu[i]))
+        assert float(moments[0]["step"]) == int(adam.count) == step + 1
+    # A state_dict round trip keeps the moment in bfloat16.
+    again = ClampedAdam(tp, 0.01, weight_decay, mu_dtype="bfloat16")
+    again.load_state_dict(opt.state_dict())
+    assert again.state_dict()["state"][0]["exp_avg"].dtype == torch.bfloat16
+
+
 def test_trainer_refuses_bfloat16_adam_moment(fixture, tmp_path):
-    config = Config(fixture["config_path"], ["OPTIM.ADAM_MU_DTYPE", "bfloat16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ProgramPriorTrainer(config, str(tmp_path), device="cpu", writer=RecordingWriter())
+    r"""Once refused, now trained: the program_prior trainer with
+    ``OPTIM.ADAM_MU_DTYPE bfloat16`` against the JAX trainer with the same
+    setting over three steps: the losses within the float32 trainer's
+    tolerance; the parameters within it plus what a bfloat16 moment adds.
+    The two runs' gradients differ by float32 rounding, and where a float32
+    moment lies at a bfloat16 rounding boundary that difference moves the
+    stored moment (and the rounded product b1 * mu) by one bfloat16 ulp,
+    2**-8 of its size: up to about 2 * lr * 2**-8 on a parameter each step.
+    The first moment is stored in bfloat16, within 1% of optax's."""
+    overrides = ["OPTIM.ADAM_MU_DTYPE", "bfloat16"]
+    config = Config(fixture["config_path"], overrides)
+    jax_config = make_fixture_config(fixture["root"], "program_prior", overrides)
+    np.random.seed(0)
+    jax_trainer = JaxProgramPriorTrainer(jax_config, str(tmp_path / "jax"))
+    port = ProgramPriorTrainer(config, str(tmp_path / "port"), device="cpu",
+                               writer=RecordingWriter())
+    copy_into(port.params["program_prior"], _port_tree(jax_trainer.params["program_prior"]))
+    jax_losses, port_losses, grads = [], [], []
+    for iteration in range(STEPS):
+        jax_losses.append(float(jax_trainer._do_iteration(next(jax_trainer._batches))["loss"]))
+        port_losses.append(port.step(iteration)["loss"])
+        grads.append(_flat(jax.tree_util.tree_map(lambda t: t.grad, port.params["program_prior"])))
+    np.testing.assert_allclose(port_losses, jax_losses, atol=LOSS_ATOL, rtol=0)
+    want = _flat(jax_trainer.params["program_prior"])
+    got = _flat(port.params["program_prior"])
+    for key, w in want.items():
+        smooth = np.min([np.abs(g[key]) for g in grads], axis=0) > GRAD_FLOOR
+        np.testing.assert_allclose(got[key][smooth], w[smooth], rtol=0, err_msg=key,
+                                   atol=PARAM_ATOL + STEPS * 2 * 0.01 * 2 ** -8)
+        np.testing.assert_allclose(got[key], w, atol=2 * 0.01 * STEPS, rtol=0, err_msg=key)
+    moments = port._optimizer.state_dict()["state"]
+    assert all(m["exp_avg"].dtype == torch.bfloat16 for m in moments.values())
+    adam = [s for s in jax_trainer._opt_state.inner_state if hasattr(s, "mu")][0]
+    assert all(m.dtype == jax.numpy.bfloat16
+               for m in jax.tree_util.tree_leaves(adam.mu["program_prior"]))
+    port_mu = _flat(interop._tree_like(port.params["program_prior"], [
+        moments[i]["exp_avg"].float() for i in range(len(moments))]))
+    for key, m in _flat(_port_tree(adam.mu["program_prior"])).items():
+        np.testing.assert_allclose(port_mu[key], m, atol=0.01 * np.abs(m).max() + 1e-6, rtol=0,
+                                   err_msg=key)
+    # The port's own checkpoint keeps the moment in bfloat16, bit for bit.
+    port._checkpoint_manager.step(STEPS - 1, port._checkpointables())
+    resumed = ProgramPriorTrainer(config, str(tmp_path / "resumed"), device="cpu",
+                                  writer=RecordingWriter())
+    resumed.load_checkpoint(str(tmp_path / "port" / f"checkpoint_{STEPS - 1}.ckpt"))
+    for index, state in resumed._optimizer.state_dict()["state"].items():
+        assert state["exp_avg"].dtype == torch.bfloat16
+        assert torch.equal(state["exp_avg"], moments[index]["exp_avg"])
 
 
 def test_token_ids_outside_the_vocabulary_are_refused(fixture, tmp_path):

@@ -94,12 +94,12 @@ def main(args):
     cpu, _ = build("cpu", "cpu")
     spec = trainer.pg_spec
     if args.sample_float32:
-        def sample_float32(questions):
+        def sample_float32(questions, dropout_masks=None):
             seed = int(torch.randint(2 ** 62, (1,), generator=trainer._generator))
             with torch.no_grad():
                 return fused_sampling_forward(trainer.params["program_generator"], spec,
-                                              questions, seed=seed,
-                                              compute_dtype=torch.float32)["predictions"]
+                                              questions, seed=seed, compute_dtype=torch.float32,
+                                              dropout_masks=dropout_masks)["predictions"]
         trainer.sample_programs = sample_float32
 
     def check(tag):

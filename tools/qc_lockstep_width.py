@@ -137,7 +137,7 @@ def main(argv=None):
 
         sampled = {}
 
-        def port_sampling(questions):
+        def port_sampling(questions, dropout_masks=None):
             draws["rows"] = len(questions)
             gumbel = torch.from_numpy(noise("port", len(questions), port.pg_spec))
             at_jax = interop.program_generator_from_jax(jax.tree_util.tree_map(
