@@ -267,6 +267,35 @@ Phases (any failure raises, and the script exits non-zero with no result):
    beside the same kernel unmasked on the same inputs, and the
    question_coding step at DROPOUT 0 and 0.2 in turns (``[dropout]``,
    ``[time]`` lines; the JSON line's ``*_dropout`` keys).
+16. The data-parallel mesh (``parallel/mesh.py``), at the shipped widths
+   (program_prior 256 x 2 at batch 256; module_training at batch 128 with
+   the NMN in float32 and a random frozen generator, 256 images of (1024,
+   14, 14) in shared host memory): 2 ranks spawned by ``mesh.launch``, over
+   NCCL one card a rank when there are two cards or more, else over gloo
+   both on card 0 (the ``[mesh]`` line says which). Each phase: the
+   evaluator and 3 steps at one rank on the card (module_training at
+   handed-in programs, 4 of 128 rows token soups), then the same at 2 ranks
+   from the same parameters, each rank on its 128 / 64 rows: the logged
+   loss within 2e-4 relative and the metrics within 1e-6 of one rank's, the
+   first step's all-reduced gradient within 1e-4 * max(1, max|g|) a leaf,
+   the parameters where every step's |g| > 1e-5 within 1% of lr a step
+   (program_prior; the NMN's plateau gradients: 2 lr a step) and all within
+   2 lr a step (rank 0 against the one-rank run), both ranks' parameters
+   and logs equal, the evaluators' numbers within 1e-5; each
+   rank's launch counters over those 3 steps and a fourth traced under the
+   profiler (module_training's through its own K1 sampling): K3f and K3b
+   4 a rank, or K1 and its encoder 1 and K5 and K6 4 a rank, and the traced
+   step's sweeps and kernels whole; then on each rank's rows K3f and K3b,
+   or K1, its encoder, K5 and K6 in both dtypes, against their plain
+   versions at the tolerances of phases 2, 6 and 8 (the JSON line's
+   ``launches_mesh``, by rank, and ``max_abs_err_mesh``). Then
+   module_training again at the shipped ``NMN.COMPUTE_DTYPE`` ('auto':
+   bfloat16 on the card), the same steps, programs and counts, held to one
+   rank in bfloat16: the loss within 1e-2 relative, the answer accuracy
+   within 2 rows of the batch and the invalid count equal, the first
+   gradient within 1e-1 * max(1, max|g|) a leaf (ROADMAP's bf16 bound),
+   the parameters within 2 lr a step, the evaluator's accuracy within 2
+   rows (JSON ``launches_mesh_bf16``).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -4127,6 +4156,340 @@ def train_with_dropout(np, torch, dev, smi):
     return out
 
 
+MESH_RANKS = 2
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 2e-4
+MESH_VAL_RTOL = 1e-5
+
+
+def mesh_rank(parallel, phase, config, run_dir, train_set, val_set, init, programs, reference):
+    r"""One rank of phase 16, spawned by ``parallel.mesh.launch``: the
+    evaluator on ``init``, ``MESH_STEPS`` steps (module_training at the
+    rank's rows of the handed-in ``programs``) and one more traced under the
+    profiler (module_training with its own K1 sampling), the launch counters
+    set to 0 before those steps and read after; rank 0's parameters against
+    the one-rank run's (``reference``: flat parameters and the mask of those
+    whose |g| cleared 1e-5 at every step, in shared memory); then each
+    kernel of the path against its plain version on the rank's rows."""
+    import numpy as np
+    import torch
+
+    from probnmn_tpu_torch.evaluators.module_training_evaluator import ModuleTrainingEvaluator
+    from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        execute_programs_train_kernel, interpreter_grads_kernel,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, sampling_encode,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import lm_backward_cuda, lm_forward_cuda
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
+    from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = parallel.device
+    gen = torch.Generator().manual_seed(160 + parallel.rank)
+    batch = config.OPTIM.BATCH_SIZE
+    rows = batch // parallel.world_size
+    mine = slice(parallel.rank * rows, (parallel.rank + 1) * rows)
+    common = dict(device=dev, writer=RecordingWriter(), dataset=train_set, parallel=parallel)
+    model = "program_prior" if phase == "program_prior" else "module_training"
+    if phase == "program_prior":
+        trainer = ProgramPriorTrainer(config, run_dir, **common)
+        params = trainer.params["program_prior"]
+        evaluator = ProgramPriorEvaluator(config, trainer, dataset=val_set)
+        counters = (lm_forward_cuda, lm_backward_cuda)
+        L, T = trainer.spec.num_layers, train_set.get_batch(np.arange(1))["program"].shape[1] + 1
+        names, want = ("lstm_fwd_sweep", "lstm_bwd_step"), {"lstm_fwd_sweep": 2 * L,
+                                                             "lstm_bwd_step": L * T}
+    else:
+        trainer = ModuleTrainingTrainer(config, run_dir, **common)
+        params = trainer.params["nmn"]
+        evaluator = ModuleTrainingEvaluator(config, trainer, dataset=val_set)
+        counters = (fused_sampling_forward, sampling_encode, execute_programs_train_kernel,
+                    interpreter_grads_kernel)
+        names = ("k1_encoder_sweep", "seq2seq_sample_kernel", "nmn_interpreter_kernel",
+                 "nmn_backward_kernel")
+        want = dict(zip(names, (trainer.pg_spec.num_layers, 1, 1, 1)))
+        sampler = trainer.sample_programs
+        handed = torch.from_numpy(programs[mine]).to(dev)
+        trainer.sample_programs = lambda questions: handed
+    copy_into(params, tree_map(lambda t: t.to(dev), init))
+    val = evaluator.evaluate(num_batches=2)
+
+    # The main path: MESH_STEPS steps, then one traced (module_training's
+    # through its own sampler, so that K1 runs).
+    for fn in counters:
+        fn.launches = 0
+    logs, grad_ratio = [], None
+    for i in range(MESH_STEPS):
+        logs.append(trainer.step(i))
+        if i == 0 and parallel.is_writer:
+            # The first step's gradient (all-reduced, clamped) against one
+            # rank's at the same parameters, leaf by leaf.
+            got = [p.grad.reshape(-1) for p in tree_leaves(params)]
+            want_g = reference["grad"].to(dev).split([g.numel() for g in got])
+            grad_ratio = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                             for a, b in zip(got, want_g))
+    leaves = [p.detach().reshape(-1) for p in tree_leaves(params)]
+    flat = torch.cat(leaves).float()
+    compared = {"checksum": [float(flat.double().sum()), float(flat.double().abs().sum())]}
+    if parallel.is_writer:
+        want_p = reference["params"].to(dev)
+        smooth = reference["smooth"].to(dev)
+        diff = (flat - want_p).abs()
+        compared.update(smooth_err=float(diff[smooth].max()) if bool(smooth.any()) else 0.0,
+                        rest_err=float(diff.max()), smooth_share=float(smooth.float().mean()),
+                        grad_ratio=grad_ratio)
+    if model == "module_training":
+        trainer.sample_programs = sampler
+    route = traced_route(torch, lambda: trainer.step(MESH_STEPS), names, want, tries=1)[-1]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    # The gradient all-reduce alone (host clock; the ranks' gradients are
+    # already equal, so it leaves them as they are).
+    leaves = tree_leaves(params)
+    parallel.barrier()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        parallel.all_reduce_grads(leaves)
+    torch.cuda.synchronize()
+    allreduce = {"ms": (time.perf_counter() - t0) / 5 * 1e3,
+                 "mb": sum(p.numel() for p in leaves) * 4 / 1e6}
+
+    # The path's kernels against their plain versions at the rank's rows.
+    errs = {}
+    first = train_set.get_batch(np.arange(batch))
+    detached = tree_map(lambda t: t.detach(), params)
+    if phase == "program_prior":
+        tok = torch.from_numpy(first["program"][mine]).to(dev)
+        dloss = (torch.rand(rows, generator=gen) + 0.5).to(dev)
+        errs["lm_forward"], errs["lm_backward"] = k3_against_plain(
+            torch, detached, trainer.spec, tok, dloss, tag=f" rank {parallel.rank}")
+    elif phase == "module_training":
+        # The bfloat16 pass runs the same kernels at the same rows, checked
+        # here in both dtypes.
+        questions = torch.from_numpy(first["question"][mine]).to(dev)
+        pg_spec = trainer.pg_spec
+        noise = (-torch.log(-torch.log(torch.rand(
+            pg_spec.max_decoding_steps, rows, pg_spec.target_vocab_size,
+            generator=gen).clamp_min(1e-12)))).to(dev)
+        k1 = k1_against_plain(torch, trainer.pg_params, pg_spec, questions, noise,
+                              tag=f"K1 rank {parallel.rank}")
+        enc, _ = k1_encoder_against_plain(torch, trainer.pg_params, pg_spec, questions,
+                                          tag=f"K1 encoder rank {parallel.rank}")
+        errs["seq2seq_decode"], errs["k1_encoder_sweep"] = k1["bfloat16"], enc["bfloat16"]
+        spec = trainer.nmn_spec
+        feats = torch.randn(rows, spec.height, spec.width, spec.feature_channels,
+                            generator=gen).to(dev)
+        for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+            checked = k5_k6_against_plain(torch, gen, name, dtype, detached, spec, trainer.tables,
+                                          feats, handed, tag=f" rank {parallel.rank}")
+            if dtype == torch.bfloat16:
+                errs["nmn_train_forward"], errs["nmn_backward"] = checked["err"], checked["worst"]
+    return dict(logs=logs, val=val, launches=launches, route=route, route_want=want, errs=errs,
+                compared=compared, device=str(dev), rows=rows, allreduce=allreduce)
+
+
+def train_mesh(np, torch, smi):
+    r"""Phase 16: program_prior and module_training at 2 ranks over
+    ``torch.distributed`` (``parallel/mesh.py``) at the shipped widths,
+    against the same steps at one rank on the card: losses, parameters by the
+    trainer-parity rule, the evaluators' numbers, each rank's launches and
+    each kernel of the path at B / 2 rows against its plain version. With two
+    cards or more the ranks go over NCCL, one card a rank; with one, they
+    share it over gloo. Returns {kernel name: mesh keys of the kernels
+    line}."""
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset, ProgramPriorDataset
+    from probnmn_tpu_torch.data.readers import SharedFeatures
+    from probnmn_tpu_torch.evaluators.module_training_evaluator import ModuleTrainingEvaluator
+    from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
+    from probnmn_tpu_torch.models import program_generator
+    from probnmn_tpu_torch.parallel import mesh
+    from probnmn_tpu_torch.training._trainer import tree_leaves, tree_map
+    from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
+    from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
+    from probnmn_tpu_torch.utils.checkpointing import save_objects
+    from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    cards = torch.cuda.device_count()
+    share = cards < MESH_RANKS
+    log(f"[mesh] {MESH_RANKS} ranks over "
+        f"{'gloo, both on card 0 (one card)' if share else f'nccl, one card a rank ({cards} cards)'}"
+        f"; card {smi}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    gen = torch.Generator().manual_seed(16)
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    # program_prior (configs/program_prior.yml: 256 x 2, batch 256) and
+    # module_training (configs/module_training.yml: batch 128, the NMN in
+    # float32 so that one rank and two agree to float32 rounding) over the
+    # same in-memory data; module_training's features in shared memory.
+    pp_config = Config(os.path.join(repo, "configs", "program_prior.yml"),
+                       ["DATA.VOCABULARY", os.path.join(work, "vocab")])
+    qc_ckpt = os.path.join(work, "generator.ckpt")
+    mt_shipped = Config(os.path.join(repo, "configs", "module_training.yml"),
+                        ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                         "CHECKPOINTS.QUESTION_CODING", qc_ckpt])
+    mt_config = Config(os.path.join(repo, "configs", "module_training.yml"),
+                       ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                        "CHECKPOINTS.QUESTION_CODING", qc_ckpt, "NMN.COMPUTE_DTYPE", "float32"])
+    pg_spec = program_generator.make_spec(vocab, mt_config)
+    save_objects(qc_ckpt, {"program_generator": program_generator.init_params(gen, pg_spec)})
+    features = SharedFeatures.from_array(
+        np.random.default_rng(17).standard_normal((256, 1024, 14, 14), dtype=np.float32))
+    mt_batch = mt_config.OPTIM.BATCH_SIZE
+    handed = sample_clevr_like_programs(vocab, mt_batch, seed=18)
+    handed[-4:] = np.random.RandomState(19).randint(
+        0, vocab.get_vocab_size("programs"), (4, handed.shape[1]))  # token soups: mostly invalid
+    handed[-1] = 0
+    mt_sets = (ModuleTrainingDataset.from_arrays(*mt_arrays(np, vocab, 4096, 256, seed=23),
+                                                 features),
+               ModuleTrainingDataset.from_arrays(*mt_arrays(np, vocab, 1024, 256, seed=25),
+                                                 features, split="val"))
+    cases = {
+        "program_prior": (pp_config,
+                          ProgramPriorDataset.from_programs(lm_programs(np, vocab, 4096, seed=20)),
+                          ProgramPriorDataset.from_programs(lm_programs(np, vocab, 1024, seed=21),
+                                                            split="val"),
+                          None),
+        "module_training": (mt_config, *mt_sets, handed),
+        # The shipped dtype ('auto': bfloat16 on the card).
+        "module_training_bf16": (mt_shipped, *mt_sets, handed),
+    }
+    out = {}
+    for phase, (config, train_set, val_set, programs) in cases.items():
+        t0 = time.perf_counter()
+        common = dict(device=dev, writer=RecordingWriter(), dataset=train_set)
+        if phase == "program_prior":
+            one = ProgramPriorTrainer(config, os.path.join(work, "one_pp"), **common)
+            params, evaluator = one.params["program_prior"], ProgramPriorEvaluator(
+                config, one, dataset=val_set)
+        else:
+            one = ModuleTrainingTrainer(config, os.path.join(work, "one_mt"), **common)
+            fixed = torch.from_numpy(programs).to(dev)
+            one.sample_programs = lambda questions: fixed
+            params, evaluator = one.params["nmn"], ModuleTrainingEvaluator(config, one,
+                                                                           dataset=val_set)
+        init = tree_map(lambda t: t.detach().cpu().clone(), params)
+        one_val = evaluator.evaluate(num_batches=2)
+        one_logs, smooth = [], None
+        for i in range(MESH_STEPS):
+            one_logs.append(one.step(i))
+            grads = torch.cat([p.grad.reshape(-1) for p in tree_leaves(params)])
+            if i == 0:
+                first_grad = grads.cpu()
+            smooth = grads.abs() > 1e-5 if smooth is None else smooth & (grads.abs() > 1e-5)
+        reference = {"params": torch.cat([p.detach().reshape(-1) for p in tree_leaves(params)])
+                     .cpu().share_memory_(), "smooth": smooth.cpu().share_memory_(),
+                     "grad": first_grad.share_memory_()}
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mesh.launch(mesh_rank, MESH_RANKS, "cuda", work, share_card=share, timeout=900,
+                            collective_timeout=600,
+                            args=(phase, config, os.path.join(work, f"mesh_{phase}"), train_set,
+                                  val_set, init, programs, reference))
+        mesh_s = time.perf_counter() - t0
+        lr = config.OPTIM.LR_INITIAL
+        cmp = ranks[0]["compared"]
+        log(f"[mesh {phase}] one rank: {one_s:.1f} s (evaluator, {MESH_STEPS} steps); "
+            f"{MESH_RANKS} ranks on {[r['device'] for r in ranks]} at {ranks[0]['rows']} rows "
+            f"each: {mesh_s:.1f} s (spawn, evaluator, {MESH_STEPS + 1} steps, kernel checks)")
+        bf16 = phase == "module_training_bf16"
+        # bfloat16 keeps 8 bits: the loss within 1e-2 relative; an answer
+        # whose logits tie to within the rows' rounding may flip (5 of
+        # 2,048 rows between buckets 64 and 256, ROADMAP section 3), so the
+        # accuracy within 2 rows of the batch; the invalid count equal.
+        loss_rtol = 1e-2 if bf16 else MESH_LOSS_RTOL
+        accuracy_tol = 2.0 / config.OPTIM.BATCH_SIZE if bf16 else 1e-6
+        for i, (got, want) in enumerate(zip(ranks[0]["logs"], one_logs)):
+            log(f"[mesh {phase}] step {i}: {MESH_RANKS} ranks {got} / one rank {want}")
+            flat_got = {k: v for k, v in got.items() if not isinstance(v, dict)}
+            flat_got.update(got.get("metrics", {}))
+            flat_want = {k: v for k, v in want.items() if not isinstance(v, dict)}
+            flat_want.update(want.get("metrics", {}))
+            for key, value in flat_want.items():
+                tol = (loss_rtol * abs(value) if key == "loss" else
+                       accuracy_tol if key == "answer_accuracy" else 0.0 if bf16 else 1e-6)
+                check(abs(flat_got[key] - value) <= tol,
+                      f"mesh {phase} step {i} {key}: {flat_got[key]} against {value}")
+        check(ranks[1]["logs"] == ranks[0]["logs"], f"mesh {phase}: the ranks logged otherwise")
+        check(ranks[1]["compared"]["checksum"] == cmp["checksum"],
+              f"mesh {phase}: the ranks' parameters differ: {[r['compared'] for r in ranks]}")
+        # ROADMAP.md's trainer-parity rule. The NMN's gradients sit on the
+        # random-init plateau, where a sum's order moves a |g| above 1e-5 by
+        # a sizeable part of it (K6's weight gradients sum more rows at one
+        # rank than at two); there the bound is absolute, 2 lr a step, and
+        # the first step's gradient is held leaf by leaf.
+        # 1% of lr a step does not hold for the NMN: one rank and two part
+        # there by up to 1.6e-4 where that allows 3e-6.
+        limit = 1e-2 * lr * MESH_STEPS if phase == "program_prior" else 2 * lr * MESH_STEPS
+        grad_limit = 1e-1 if bf16 else 1e-4
+        log(f"[mesh {phase}] the first step's all-reduced gradient against one rank's: worst "
+            f"leaf max |dev| / max(1, max|g|) {cmp['grad_ratio']:.3e} (limit {grad_limit:.0e})")
+        log(f"[mesh {phase}] params after {MESH_STEPS} steps against one rank: where every "
+            f"step's |g| > 1e-5 ({cmp['smooth_share']:.4f} of them) max |dev| "
+            f"{cmp['smooth_err']:.3e} (limit {limit:.1e}); all {cmp['rest_err']:.3e} (limit "
+            f"{2 * lr * MESH_STEPS:.1e}, 2 lr a step); the ranks' parameters equal (checksums "
+            f"{cmp['checksum']})")
+        check(cmp["grad_ratio"] <= grad_limit,
+              f"mesh {phase} first gradient against one rank: {cmp}")
+        check(cmp["smooth_err"] <= limit and cmp["rest_err"] <= 2 * lr * MESH_STEPS,
+              f"mesh {phase} params against one rank: {cmp}")
+        for model, metrics in one_val.items():
+            for key, value in metrics.items():
+                got = [r["val"][model][key] for r in ranks]
+                log(f"[mesh {phase}] evaluator {model}/{key}: {MESH_RANKS} ranks {got}, one "
+                    f"rank {value}")
+                tol = (accuracy_tol if bf16 and key == "answer_accuracy" else
+                       MESH_VAL_RTOL * max(1.0, abs(value)))
+                check(all(abs(g - value) <= tol for g in got), f"mesh {phase} evaluator {key}")
+        log(f"[mesh {phase}] the gradient all-reduce alone ({ranks[0]['allreduce']['mb']:.1f} MB "
+            f"float32, host clock): {[round(r['allreduce']['ms'], 3) for r in ranks]} ms a rank")
+        for r in ranks:
+            log(f"[mesh {phase}] rank launches over the main path: {r['launches']}; one traced "
+                f"step under the profiler: {r['route']}; kernels against plain at "
+                f"{r['rows']} rows: {r['errs']}")
+        # Phase 16's counts: 3 steps and a traced one; K1 in the traced step alone.
+        want = ({"lm_forward_cuda": MESH_STEPS + 1, "lm_backward_cuda": MESH_STEPS + 1}
+                if phase == "program_prior" else
+                {"fused_sampling_forward": 1, "sampling_encode": 1,
+                 "execute_programs_train_kernel": MESH_STEPS + 1,
+                 "interpreter_grads_kernel": MESH_STEPS + 1})
+        for r in ranks:
+            check(r["launches"] == want, f"mesh {phase} launches {r['launches']}")
+        names = {"lm_forward_cuda": "lm_forward", "lm_backward_cuda": "lm_backward",
+                 "fused_sampling_forward": "seq2seq_decode", "sampling_encode": "k1_encoder_sweep",
+                 "execute_programs_train_kernel": "nmn_train_forward",
+                 "interpreter_grads_kernel": "nmn_backward"}
+        for r in ranks:
+            check(r["route"] == r["route_want"],
+                  f"mesh {phase} traced step {r['route']}, not {r['route_want']}")
+        for counter, name in names.items():
+            if counter in want and bf16:
+                out[name]["launches_mesh_bf16"] = [r["launches"][counter] for r in ranks]
+            elif counter in want:
+                out[name] = {"launches_mesh": [r["launches"][counter] for r in ranks],
+                             "max_abs_err_mesh": max(r["errs"][name] for r in ranks)}
+        del one, params, evaluator, reference
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[mesh] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _leaves(torch, tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -4508,6 +4871,9 @@ def main():
     # ---------------------------------------------------------------- 15. dropout, bf16 Adam moment
     dropout = train_with_dropout(np, torch, dev, smi)
 
+    # ---------------------------------------------------------------- 16. the mesh
+    mesh_keys = train_mesh(np, torch, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -4563,6 +4929,7 @@ def main():
         if entry["name"] in online_errs:
             entry["max_abs_err_buckets"] = online_errs[entry["name"]]
         entry.update(dropout.get(entry["name"], {}))
+        entry.update(mesh_keys.get(entry["name"], {}))
     kernels.append(extract)
     kernels[0]["from_checkpoint_times"] = serve_times
     kernels[0]["serve_online"] = online_times

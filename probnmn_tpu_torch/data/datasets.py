@@ -17,7 +17,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from probnmn_tpu_torch.data.readers import ClevrImageFeaturesReader, ClevrTokensReader
+from probnmn_tpu_torch.data.readers import (
+    ClevrImageFeaturesReader,
+    ClevrTokensReader,
+    SharedFeatures,
+)
 
 
 def check_token_ids(tokens: np.ndarray, vocab_size: int, what: str) -> None:
@@ -144,12 +148,17 @@ class QuestionCodingDataset:
 class ModuleTrainingDataset:
     r"""{"question", "answer", "image", "program"} (reference
     ``datasets.py:110-146``); ``image`` is float32 NCHW as stored, gathered
-    through each question's ``image_indices`` entry."""
+    through each question's ``image_indices`` entry. ``shared_features``
+    (in memory) reads the features into shared memory, one copy for every
+    rank of a data-parallel launch (:class:`SharedFeatures`; ``from_arrays``
+    takes one as ``features``)."""
 
-    def __init__(self, tokens_h5path: str, features_h5path: str, in_memory: bool = True):
+    def __init__(self, tokens_h5path: str, features_h5path: str, in_memory: bool = True,
+                 shared_features: bool = False):
         tokens = ClevrTokensReader(tokens_h5path)
         self._setup(tokens.programs, tokens.questions, tokens.answers, tokens.image_indices,
-                    ClevrImageFeaturesReader(features_h5path, in_memory), tokens.split)
+                    ClevrImageFeaturesReader(features_h5path, in_memory, shared_features),
+                    tokens.split)
 
     @classmethod
     def from_arrays(
@@ -165,7 +174,9 @@ class ModuleTrainingDataset:
         answers and (N,) indices into ``features`` (M, C, H, W)."""
         dataset = cls.__new__(cls)
         dataset._setup(np.asarray(programs), np.asarray(questions), np.asarray(answers),
-                       np.asarray(image_indices), np.asarray(features), split)
+                       np.asarray(image_indices),
+                       features if isinstance(features, SharedFeatures) else np.asarray(features),
+                       split)
         return dataset
 
     def _setup(self, programs, questions, answers, image_indices, features, split):

@@ -20,7 +20,12 @@ Host -> device batch pipeline (counterpart of ``probnmn_tpu/data/pipeline.py``).
   like the JAX package's, so the two can be compared on the same arrays.
 
 Both iterators put batches on ``cuda`` unless the caller asks for the CPU.
-Both take ``transform``, a function of a host batch (a dict of numpy
+Both take ``rank`` and ``world_size`` (``parallel/mesh.py``): every rank
+walks the same global batches and keeps its contiguous block of rows,
+``[rank * B / n, (rank + 1) * B / n)``, before it gathers, so a rank
+gathers, pins and uploads only its B / n rows (the JAX package's batch
+sharding over the mesh's ``data`` axis). At ``world_size`` 1 a rank's block
+is the whole batch. Both take ``transform``, a function of a host batch (a dict of numpy
 arrays) that returns the batch to use, applied on the host right after the
 gather and before the sort and the copy to the card, as the JAX package
 applies it.
@@ -60,16 +65,30 @@ def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     return out
 
 
+def rank_rows(batch_size: int, rank: int, world_size: int) -> slice:
+    r"""The rows of a global batch that ``rank`` of ``world_size`` holds."""
+    if batch_size % world_size != 0:
+        raise ValueError(f"batch size {batch_size} does not split over {world_size} ranks")
+    rows = batch_size // world_size
+    return slice(rank * rows, (rank + 1) * rows)
+
+
 class BatchIterator:
     r"""Cyclic iterator of fixed-size batches: sampler epochs are concatenated and
     the remainder at an epoch boundary is dropped (every batch has the same
-    shape)."""
+    shape). With ``world_size`` above 1 each batch is this rank's rows of
+    the global batch of ``batch_size``."""
 
     PREFETCH = 2  # host batches gathered ahead of the consumer
 
     def __init__(self, dataset, sampler, batch_size: int, device="cuda",
                  sort_descending_by: Optional[str] = None,
-                 transform: Optional[Callable] = None):
+                 transform: Optional[Callable] = None, rank: int = 0, world_size: int = 1):
+        if sort_descending_by is not None and world_size > 1:
+            raise NotImplementedError(
+                "a batch sorted by supervision over several ranks (question_coding and "
+                "joint_training) is ROADMAP.md queue 1 item 5, piece (b)")
+        self._rows = rank_rows(batch_size, rank, world_size)
         self._dataset = dataset
         self._sampler = sampler
         self._batch_size = batch_size
@@ -96,7 +115,7 @@ class BatchIterator:
         while True:
             order = self._sampler.epoch()
             for start in range(0, len(order) - self._batch_size + 1, self._batch_size):
-                yield order[start : start + self._batch_size]
+                yield order[start : start + self._batch_size][self._rows]
 
     def _host_batches(self) -> Iterator[Dict[str, Any]]:
         for indices in self._index_stream():
@@ -167,10 +186,16 @@ class EpochIterator:
     mirroring the reference evaluator's fixed ``num_batches`` loop, unless
     ``include_last=True``, which yields it too (with a smaller first axis):
     test-split inference must cover every example, and the serving engine
-    pads any ``n <= batch_size`` to its batch anyway."""
+    pads any ``n <= batch_size`` to its batch anyway. With ``world_size``
+    above 1 each batch is this rank's rows of the global batch, and the
+    number of batches counts global batches."""
 
     def __init__(self, dataset, batch_size: int, device="cuda", include_last: bool = False,
-                 transform: Optional[Callable] = None):
+                 transform: Optional[Callable] = None, rank: int = 0, world_size: int = 1):
+        if include_last and world_size > 1:
+            raise NotImplementedError("a partial last batch over several ranks (inference) is "
+                                      "ROADMAP.md queue 1 item 5, piece (d)")
+        self._rows = rank_rows(batch_size, rank, world_size)
         self._dataset = dataset
         self._batch_size = batch_size
         self._transform = transform
@@ -186,7 +211,7 @@ class EpochIterator:
     def __iter__(self):
         n = len(self._dataset)
         for start in range(0, len(self) * self._batch_size, self._batch_size):
-            indices = np.arange(start, min(start + self._batch_size, n))
+            indices = np.arange(start, min(start + self._batch_size, n))[self._rows]
             batch = self._dataset.get_batch(indices)
             if self._transform is not None:
                 batch = self._transform(batch)

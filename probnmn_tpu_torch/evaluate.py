@@ -58,7 +58,7 @@ def main(args):
     r"""Returns the evaluator's metrics."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     logger = logging.getLogger(__name__)
-    apply_shared_flags(args)
+    apply_shared_flags(args, "evaluate")
     config = Config(args.config_yml, args.config_override)
     if args.phase != config.PHASE:
         raise ValueError(

@@ -6,6 +6,12 @@ Evaluation iterates the val split in fixed-size batches and accumulates
 host-side metric objects. ``evaluate(num_batches)`` processes exactly
 ``num_batches`` batches (the reference processes two extra,
 ``_evaluator.py:88-94``; not replicated, the metrics are averages either way).
+
+When the trainer is one rank of a data-parallel run (``trainer.parallel``),
+each val batch is the rank's rows of the global batch (the JAX package's
+``eval_sharding``), ``num_batches`` counts global batches, and the phase
+evaluators all-reduce each batch's sums, so every rank reports the global
+batch's metrics.
 """
 from __future__ import annotations
 

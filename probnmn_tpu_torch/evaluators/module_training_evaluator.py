@@ -17,7 +17,8 @@ per batch.
 Both decodes are plain PyTorch in float32, as the JAX evaluator leaves them
 to XLA. The NMN runs ``fast_forward_from_tables``: kernel K2 on ``cuda``
 over banks rebuilt from the live params at the start of each pass, its
-plain version on the CPU.
+plain version on the CPU. In a data-parallel run each batch's correct
+answers, rows and invalid programs are summed over the ranks.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from probnmn_tpu_torch.data.pipeline import EpochIterator, image_to_nhwc
 from probnmn_tpu_torch.evaluators._evaluator import _Evaluator
 from probnmn_tpu_torch.models import nmn
 from probnmn_tpu_torch.models.seq2seq import GREEDY, seq2seq_forward
-from probnmn_tpu_torch.utils.metrics import Average, BooleanAccuracy
+from probnmn_tpu_torch.parallel.mesh import global_sums, shard_of
+from probnmn_tpu_torch.utils.metrics import Average
 
 
 class ModuleTrainingEvaluator(_Evaluator):
@@ -48,9 +50,10 @@ class ModuleTrainingEvaluator(_Evaluator):
         self._nmn_spec = trainer.nmn_spec
         dataset.check_tokens(self._pg_spec.target_vocab_size, self._pg_spec.source_vocab_size)
         super().__init__(
-            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device)
+            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device,
+                                           **shard_of(trainer.parallel))
         )
-        self._answer_accuracy = BooleanAccuracy()
+        self._correct = self._rows = 0.0
         self._average_invalid = Average()
         self._banks = None
 
@@ -67,13 +70,19 @@ class ModuleTrainingEvaluator(_Evaluator):
         out = nmn.fast_forward_from_tables(
             self._banks, self._trainer.tables, self._nmn_spec, nmn_params["stem"],
             nmn_params["classifier"], image_to_nhwc(batch["image"]), programs, batch["answer"])
-        self._answer_accuracy(out["predictions"].cpu().numpy(), batch["answer"].cpu().numpy())
-        self._average_invalid(float(out["invalid"].sum()))
+        correct, rows, invalid = global_sums(self._trainer.parallel, [
+            (out["predictions"] == batch["answer"]).sum(), len(batch["answer"]),
+            out["invalid"].sum()])
+        self._correct += correct
+        self._rows += rows
+        self._average_invalid(invalid)
 
     def _collect(self) -> Dict[str, Any]:
+        accuracy = self._correct / self._rows if self._rows else 0.0
+        self._correct = self._rows = 0.0
         return {
             "nmn": {
-                "answer_accuracy": self._answer_accuracy.get_metric(reset=True),
+                "answer_accuracy": accuracy,
                 "average_invalid": self._average_invalid.get_metric(reset=True),
             }
         }

@@ -7,7 +7,8 @@ natural-log CE, kept) and five GT / Pred pairs in the log.
 
 The loss goes through ``fused_lm_loss`` under ``torch.no_grad()``: kernel
 K3f on ``cuda``. The logged predictions come from ``program_prior_forward``
-on the first batch's five rows.
+on the first batch's five rows (rank 0's, in a data-parallel run; each
+batch's mean CE there is the global batch's, from the ranks' sums).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from probnmn_tpu_torch.data.vocabulary import Vocabulary
 from probnmn_tpu_torch.evaluators._evaluator import _Evaluator
 from probnmn_tpu_torch.models.program_prior import program_prior_forward
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import fused_lm_loss
+from probnmn_tpu_torch.parallel.mesh import global_sums, shard_of
 from probnmn_tpu_torch.utils.metrics import Average
 
 logger = logging.getLogger(__name__)
@@ -39,7 +41,8 @@ class ProgramPriorEvaluator(_Evaluator):
             dataset = ProgramPriorDataset(config.DATA.VAL_TOKENS)
         dataset.check_tokens(trainer.spec.vocab_size)
         super().__init__(
-            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device)
+            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device,
+                                           **shard_of(trainer.parallel))
         )
         self._vocabulary = Vocabulary.from_files(config.DATA.VOCABULARY)
         self._spec = trainer.spec
@@ -53,9 +56,10 @@ class ProgramPriorEvaluator(_Evaluator):
     def _do_iteration(self, batch: Dict[str, Any]) -> None:
         params = self._trainer.params["program_prior"]
         loss = fused_lm_loss(params, self._spec, batch["program"])
-        self._log2_perplexity(float(loss.mean()))
+        total, rows = global_sums(self._trainer.parallel, [loss.sum(), loss.numel()])
+        self._log2_perplexity(total / rows)
 
-        if not self._printed:
+        if not self._printed and self._trainer.is_writer:
             self._printed = True
             programs = batch["program"][:NUM_LOGGED]
             out = program_prior_forward(params, self._spec, programs, gen=self._generator)

@@ -70,7 +70,7 @@ def main(args):
     from probnmn_tpu_torch.serving import InferenceEngine
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    apply_shared_flags(args)
+    apply_shared_flags(args, "inference")
     config = Config(args.config_yml, args.config_override)
     np.random.seed(config.RANDOM_SEED)
 

@@ -1,0 +1,1 @@
+r"""Data parallelism over ``torch.distributed`` (``parallel/mesh.py``)."""

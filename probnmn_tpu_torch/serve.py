@@ -81,7 +81,7 @@ class ServingContext:
     def __init__(self, args):
         from probnmn_tpu_torch.serving import InferenceEngine
 
-        apply_shared_flags(args)
+        apply_shared_flags(args, "serve")
         config = Config(args.config_yml, args.config_override)
         # Inline 'features' must have the NMN's feature geometry: any other
         # shape would fail the whole coalesced batch.

@@ -19,8 +19,19 @@ the run on (the first ones build the kernels and fill the caches), with
 ``torch.profiler`` into a Chrome trace in DIR, each step a named range
 ``train_step_<iteration>``. The JAX CLI's other flags: ``--gpu-ids`` is
 ignored, ``--cpu-workers`` accepted and unused, ``--compilation-cache-dir``
-roots the kernels' build cache, and ``--num-devices`` and
-``--model-parallel`` take 1 (``utils/cli_flags.py``).
+roots the kernels' build cache, and ``--model-parallel`` takes 1
+(``utils/cli_flags.py``).
+
+``--num-devices N`` trains program_prior and module_training data-parallel
+(``parallel/mesh.py``), as the JAX CLI's mesh does: N ranks, ``auto_mesh``'s
+count (0 is every card; the count drops to the largest that divides
+``OPTIM.BATCH_SIZE``), one process a card over NCCL on ``cuda`` and CPU
+processes over gloo with ``--device cpu``. The launcher builds the kernels
+once and reads module_training's in-memory features once into shared host
+memory; each rank trains on its rows of every global batch with one
+gradient all-reduce a step, and rank 0 alone writes checkpoints, scalars
+and the ``--profile-dir`` trace. question_coding and joint_training take
+one device (ROADMAP.md queue 1 item 5, piece (b)).
 """
 import argparse
 import logging
@@ -30,10 +41,14 @@ import numpy as np
 from tqdm import tqdm
 
 from probnmn_tpu_torch.config import Config
+from probnmn_tpu_torch.device import resolve_device
+from probnmn_tpu_torch.parallel import mesh
 from probnmn_tpu_torch.utils.cli_flags import add_shared_flags, apply_shared_flags
 from probnmn_tpu_torch.utils.observability import annotate, profile_trace
 
 PHASES = ["program_prior", "question_coding", "module_training", "joint_training"]
+# The phases that train over several ranks.
+MESH_PHASES = ("program_prior", "module_training")
 
 parser = argparse.ArgumentParser(description="Train a specified phase of ProbNMN (PyTorch/CUDA).")
 parser.add_argument("--phase", required=True, choices=PHASES)
@@ -69,15 +84,20 @@ parser.add_argument(
 )
 parser.add_argument("--profile-steps", type=int, default=5,
                     help="Steps to trace when --profile-dir is set.")
-add_shared_flags(parser, model_parallel=True)
+add_shared_flags(parser, model_parallel=True, num_devices_ported=True)
 
 
 def build(phase: str, config: Config, serialization_dir: str, device: str,
-          in_memory_features: bool = True, writer=None, train_dataset=None, val_dataset=None):
+          in_memory_features: bool = True, writer=None, train_dataset=None, val_dataset=None,
+          parallel=None):
     r"""(trainer, evaluator) of ``phase``. ``writer`` is the trainer's scalar
     writer (None: tensorboardX over ``serialization_dir``); ``train_dataset``
     and ``val_dataset`` are the phase's datasets (None: read from the H5 files
-    that ``config.DATA`` names)."""
+    that ``config.DATA`` names); ``parallel`` makes the trainer a rank of a
+    data-parallel run (program_prior and module_training)."""
+    if parallel is not None and phase not in MESH_PHASES:
+        raise NotImplementedError(f"{phase} over several ranks is ROADMAP.md queue 1 item 5, "
+                                  "piece (b)")
     data = dict(writer=writer, dataset=train_dataset)
     if phase == "joint_training":
         from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
@@ -94,7 +114,8 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
         from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
 
         trainer = ModuleTrainingTrainer(config, serialization_dir, device=device,
-                                        in_memory_features=in_memory_features, **data)
+                                        in_memory_features=in_memory_features,
+                                        parallel=parallel, **data)
         return trainer, ModuleTrainingEvaluator(config, trainer, dataset=val_dataset,
                                                 in_memory_features=in_memory_features)
     if phase == "question_coding":
@@ -108,13 +129,15 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
     from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
 
-    trainer = ProgramPriorTrainer(config, serialization_dir, device=device, **data)
+    trainer = ProgramPriorTrainer(config, serialization_dir, device=device, parallel=parallel,
+                                  **data)
     return trainer, ProgramPriorEvaluator(config, trainer, dataset=val_dataset)
 
 
 def main(args):
+    r"""Returns what :func:`fit` returns."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    apply_shared_flags(args)
+    apply_shared_flags(args, None if args.phase in MESH_PHASES else args.phase)
     config = Config(args.config_yml, args.config_override)
     if args.phase != config.PHASE:
         raise ValueError(
@@ -125,22 +148,73 @@ def main(args):
 
     os.makedirs(args.serialization_dir, exist_ok=True)
     config.dump(os.path.join(args.serialization_dir, "config.yml"))
+    return fit(args, config)
 
+
+def fit(args, config: Config, train_dataset=None, val_dataset=None, writer=None):
+    r"""Train ``config``'s phase from the CLI's parsed ``args``: in this
+    process, or with ``--num-devices`` above 1 (program_prior and
+    module_training) over that many ranks through
+    :func:`parallel.mesh.launch`. ``train_dataset`` and ``val_dataset``
+    stand in for the H5 files (None: read them); ``writer`` is rank 0's
+    scalar writer (None: tensorboardX), which must pickle where there are
+    several ranks. Returns rank 0's ``writer`` once trained."""
+    device_type = resolve_device(args.device).type
+    world = mesh.auto_world(args.num_devices, config.OPTIM.BATCH_SIZE,
+                            mesh.available_devices(device_type, args.num_devices))
+    if world == 1:
+        return _train(None, args, config, train_dataset, val_dataset, writer)
+    logging.getLogger(__name__).info("Training %s over %d ranks on %s", args.phase, world,
+                                     device_type)
+    if args.phase == "module_training" and not args.streaming_features:
+        # One copy of the features in shared host memory, whatever the ranks.
+        from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset
+
+        if train_dataset is None:
+            train_dataset = ModuleTrainingDataset(config.DATA.TRAIN_TOKENS,
+                                                  config.DATA.TRAIN_FEATURES, shared_features=True)
+        if val_dataset is None:
+            val_dataset = ModuleTrainingDataset(config.DATA.VAL_TOKENS, config.DATA.VAL_FEATURES,
+                                                shared_features=True)
+    if device_type == "cuda":
+        # Built once here, so that the ranks load the library and no rank runs nvcc.
+        from probnmn_tpu_torch.ops.kernels import _build
+
+        _build.build()
+    return mesh.launch(_train_rank, world, device_type, args.serialization_dir,
+                       args=(args, config, train_dataset, val_dataset, writer))[0]
+
+
+def _train_rank(parallel, args, config, train_dataset, val_dataset, writer):
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    apply_shared_flags(args)  # the build cache's root, in this process too
+    return _train(parallel, args, config, train_dataset, val_dataset, writer)
+
+
+def _train(parallel, args, config, train_dataset, val_dataset, writer):
     # The supervision subset selection depends on this global seed
     # (reference train.py:104-110).
     np.random.seed(config.RANDOM_SEED)
-
-    trainer, evaluator = build(args.phase, config, args.serialization_dir, args.device,
-                               in_memory_features=not args.streaming_features)
+    device = parallel.device if parallel is not None else args.device
+    given = dict(writer=writer, train_dataset=train_dataset, val_dataset=val_dataset,
+                 parallel=parallel)
+    trainer, evaluator = build(args.phase, config, args.serialization_dir, device,
+                               in_memory_features=not args.streaming_features,
+                               **{k: v for k, v in given.items() if v is not None})
     if args.start_from_checkpoint:
         trainer.load_checkpoint(args.start_from_checkpoint)
 
+    # Rank 0 alone traces and shows progress.
     run(trainer, evaluator, config.OPTIM.NUM_ITERATIONS, args.checkpoint_every,
-        args.num_val_batches, args.profile_dir, args.profile_steps)
+        args.num_val_batches, args.profile_dir if trainer.is_writer else "", args.profile_steps,
+        progress=trainer.is_writer)
+    trainer.close_writer()
+    return writer if trainer.is_writer else None
 
 
 def run(trainer, evaluator, num_iterations: int, checkpoint_every: int = 500,
-        num_val_batches: int = 256, profile_dir: str = "", profile_steps: int = 5) -> None:
+        num_val_batches: int = 256, profile_dir: str = "", profile_steps: int = 5,
+        progress: bool = True) -> None:
     r"""The training loop from ``trainer.iteration + 1`` up to
     ``num_iterations``: a step an iteration, evaluation and
     ``after_validation`` every ``checkpoint_every`` iterations. With
@@ -151,7 +225,8 @@ def run(trainer, evaluator, num_iterations: int, checkpoint_every: int = 500,
     window = (range(start_iteration + 2, start_iteration + 2 + profile_steps)
               if profile_dir else range(0))
     profiling = None
-    for iteration in tqdm(range(start_iteration, num_iterations), desc="training"):
+    for iteration in tqdm(range(start_iteration, num_iterations), desc="training",
+                          disable=not progress):
         if window and iteration == window.start:
             profiling = profile_trace(profile_dir)
             profiling.__enter__()

@@ -32,7 +32,17 @@ with inter-layer LSTM dropout: the phase trainers draw each training pass's
 keep masks from ``dropout_generator``, a generator on the trainer's device
 seeded from ``RANDOM_SEED`` that nothing else draws from.
 
-Not ported yet: the data-parallel mesh (ROADMAP.md queue 1).
+``parallel`` (a ``parallel/mesh.py`` ``DataParallel``; None is one process)
+makes the trainer one rank of a data-parallel run: its batches are the
+rank's rows of each global batch, the phase trainers all-reduce the
+gradients before Adam's step (:meth:`_apply_gradients`; the clamp then acts
+on the global gradient, as the JAX package's does) and the logged values as
+sums over the global batch, rank 0's parameters are broadcast before the
+first step, the trainer's generators are seeded by (``RANDOM_SEED``, rank),
+and rank 0 alone writes checkpoints, scalars and the JAX ``.ckpt``. Every
+rank reads a checkpoint it resumes from and runs the plateau scheduler on
+the same all-reduced validation metric, so every rank keeps the same
+learning rate.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import torch
 from probnmn_tpu_torch import interop
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.device import resolve_device
+from probnmn_tpu_torch.parallel.mesh import rank_seed
 from probnmn_tpu_torch.training.optim import ClampedAdam, ReduceLROnPlateau
 from probnmn_tpu_torch.utils.checkpointing import (
     MSGPACK,
@@ -54,7 +65,7 @@ from probnmn_tpu_torch.utils.checkpointing import (
     read_checkpoint,
     save_objects_jax,
 )
-from probnmn_tpu_torch.utils.observability import StepTimer
+from probnmn_tpu_torch.utils.observability import NullWriter, StepTimer
 from probnmn_tpu_torch.utils.torch_interop import is_reference_state
 
 logger = logging.getLogger(__name__)
@@ -131,7 +142,9 @@ class _Trainer:
     models: trainable parameter trees keyed by model name.
     serialization_dir: str
     device: ``"cuda"`` (default) or ``"cpu"``.
-    writer: scalar writer; None builds :func:`summary_writer` over ``serialization_dir``.
+    writer: scalar writer; None builds :func:`summary_writer` over
+        ``serialization_dir``. A rank other than 0 writes nothing.
+    parallel: the rank's ``DataParallel`` handle, or None for one process.
     """
 
     def __init__(
@@ -142,9 +155,12 @@ class _Trainer:
         serialization_dir: str,
         device="cuda",
         writer=None,
+        parallel=None,
     ):
         self._C = config
         self._device = resolve_device(device)
+        self._parallel = parallel
+        self._synced = parallel is None
         self._batch_source = batches  # kept for the per-stage pipeline timers
         self._batches = iter(batches)
         self._params = {
@@ -161,16 +177,18 @@ class _Trainer:
         self._lr_scheduler = ReduceLROnPlateau(
             self._C.OPTIM.LR_INITIAL, self._C.OPTIM.LR_GAMMA, self._C.OPTIM.LR_PATIENCE
         )
+        if not self.is_writer:
+            writer = NullWriter()
         self._tensorboard_writer = writer if writer is not None else summary_writer(
             serialization_dir)
         self._checkpoint_manager = CheckpointManager(
             serialization_dir=serialization_dir, keep_recent=100
         )
-        self._generator = torch.Generator().manual_seed(self._C.RANDOM_SEED)
+        seed = rank_seed(self._C.RANDOM_SEED, parallel.rank if parallel is not None else 0)
+        self._generator = torch.Generator().manual_seed(seed)
         # The inter-layer dropout masks, drawn where they are used (drawn
         # only when a model's DROPOUT > 0).
-        self.dropout_generator = torch.Generator(device=self._device).manual_seed(
-            self._C.RANDOM_SEED)
+        self.dropout_generator = torch.Generator(device=self._device).manual_seed(seed)
         # REINFORCE moving-average baseline: a 0-dim float32 tensor on the
         # device, updated there without a host sync.
         self._baseline = torch.zeros((), dtype=torch.float32, device=self._device)
@@ -180,6 +198,10 @@ class _Trainer:
     # ------------------------------------------------------------------ step ----------
     def step(self, iteration: Optional[int] = None) -> Dict[str, Any]:
         r"""One training iteration; returns its logged scalars as host floats."""
+        if not self._synced:
+            # Every rank starts from rank 0's parameters.
+            self._parallel.broadcast_params(tree_leaves(self._params))
+            self._synced = True
         batch = next(self._batches)
         output_dict = _to_host(self._do_iteration(batch))
         self._iteration = iteration if iteration is not None else self._iteration + 1
@@ -196,6 +218,15 @@ class _Trainer:
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def _apply_gradients(self, loss: torch.Tensor) -> None:
+        r"""``backward()`` of ``loss``, the gradients' mean over the ranks
+        where there are several, then the clamp and Adam's step."""
+        self._optimizer.zero_grad()
+        loss.backward()
+        if self._parallel is not None:
+            self._parallel.all_reduce_grads(tree_leaves(self._params))
+        self._optimizer.step()
 
     def _log_output(self, output_dict: Dict[str, Any]) -> None:
         for key, value in output_dict.items():
@@ -229,7 +260,9 @@ class _Trainer:
 
     def save_checkpoint_jax(self, path: str) -> None:
         r"""Write the trainer's state as the JAX package's ``.ckpt``, which
-        its trainer's ``load_checkpoint`` resumes."""
+        its trainer's ``load_checkpoint`` resumes (rank 0 alone writes)."""
+        if not self.is_writer:
+            return
         save_objects_jax(path, self.jax_checkpointables(), self._iteration)
 
     def after_validation(
@@ -239,7 +272,8 @@ class _Trainer:
             self._iteration = iteration
 
         metric = val_metrics["metric"]
-        self._checkpoint_manager.step(self._iteration, self._checkpointables(), metric)
+        if self.is_writer:
+            self._checkpoint_manager.step(self._iteration, self._checkpointables(), metric)
 
         new_lr = self._lr_scheduler.step(metric)
         self._optimizer.set_learning_rate(new_lr)
@@ -253,6 +287,13 @@ class _Trainer:
                 self._tensorboard_writer.add_scalar(
                     f"val/metrics/{model_name}/{metric_name}", value, self._iteration
                 )
+
+    def close_writer(self) -> None:
+        r"""Flush and close the scalar writer, where it has files to close
+        (tensorboardX's writes from a thread of its own)."""
+        close = getattr(self._tensorboard_writer, "close", None)
+        if close is not None:
+            close()
 
     def model_specs(self) -> Dict[str, Any]:
         r"""Model name -> spec of every trainable model, for reading the JAX
@@ -302,6 +343,16 @@ class _Trainer:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def parallel(self):
+        r"""The rank's ``DataParallel`` handle, or None for one process."""
+        return self._parallel
+
+    @property
+    def is_writer(self) -> bool:
+        r"""True where this trainer writes files: one process, or rank 0."""
+        return self._parallel is None or self._parallel.is_writer
 
     @property
     def params(self) -> Dict[str, Any]:

@@ -19,6 +19,14 @@ A step over a batch of questions, answers and NCHW image features:
 The generator comes from ``CHECKPOINTS.QUESTION_CODING``: a checkpoint of
 the port's ``QuestionCodingTrainer``, of the JAX package's or the
 reference's. The NMN params are initialised from ``RANDOM_SEED``.
+
+With ``parallel`` (``parallel/mesh.py``) the trainer is one rank: every rank
+loads the frozen generator, K1 samples the rank's B / n rows from a Philox
+seed of the rank's own generator, K5 and K6 run on those rows, and the
+gradients (K6's banks and weights with the rest) are all-reduced. The
+logged loss and answer accuracy are the global batch's means, from sums and
+counts over the ranks, and ``average_invalid`` its count of invalid
+programs, as the JAX trainer logs them over the mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.models import nmn, program_generator
 from probnmn_tpu_torch.models.seq2seq import Seq2SeqSpec
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
+from probnmn_tpu_torch.parallel.mesh import global_sums, shard_of
 from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 
 
@@ -53,7 +62,7 @@ class ModuleTrainingTrainer(_Trainer):
 
     def __init__(self, config: Config, serialization_dir: str, device="cuda", writer=None,
                  dataset: Optional[ModuleTrainingDataset] = None,
-                 in_memory_features: bool = True):
+                 in_memory_features: bool = True, parallel=None):
         if config.PHASE != "module_training":
             raise ValueError(f"Expected PHASE module_training, found {config.PHASE}")
         device = resolve_device(device)
@@ -66,11 +75,11 @@ class ModuleTrainingTrainer(_Trainer):
                                             in_memory=in_memory_features)
         dataset.check_tokens(self.pg_spec.target_vocab_size, self.pg_spec.source_vocab_size)
         batches = BatchIterator(dataset, RandomSampler(len(dataset), seed=config.RANDOM_SEED),
-                                config.OPTIM.BATCH_SIZE, device=device)
+                                config.OPTIM.BATCH_SIZE, device=device, **shard_of(parallel))
         params = nmn.init_nmn_params(torch.Generator().manual_seed(config.RANDOM_SEED),
                                      self.nmn_spec)
         super().__init__(config, batches, {"nmn": params}, serialization_dir, device=device,
-                         writer=writer)
+                         writer=writer, parallel=parallel)
         self._vocabulary = vocabulary
         self._pg_params = load_frozen_generator(config.CHECKPOINTS.QUESTION_CODING, self.pg_spec,
                                                 self._device)
@@ -97,11 +106,14 @@ class ModuleTrainingTrainer(_Trainer):
         programs = self.sample_programs(batch["question"])
         out = self.module_training_loss(self._params, batch, programs)
         loss = out["loss"].mean()
-        self._optimizer.zero_grad()
-        loss.backward()
-        self._optimizer.step()
-        return {"loss": loss.detach(),
-                "metrics": {k: v.float() for k, v in out["metrics"].items()}}
+        self._apply_gradients(loss)
+        metrics = out["metrics"]
+        rows = len(programs)
+        total, correct, invalid, n = global_sums(self._parallel, [
+            loss.detach().double() * rows, metrics["answer_accuracy"].double() * rows,
+            metrics["average_invalid"], rows])
+        return {"loss": total / n,
+                "metrics": {"answer_accuracy": correct / n, "average_invalid": invalid}}
 
     def model_specs(self) -> Dict[str, Any]:
         return {"nmn": self.nmn_spec}

@@ -8,6 +8,11 @@ A step is ``fused_lm_loss(...).mean()``, ``backward()``, clamp and Adam: on
 (``ops/kernels/seq2seq_train.py``), on the CPU their plain versions. With
 ``PROGRAM_PRIOR.DROPOUT > 0`` each step draws the LM's inter-layer dropout
 masks (the JAX package's ``program_prior_forward(train=True)``).
+
+With ``parallel`` (``parallel/mesh.py``) the trainer is one rank: K3f and
+K3b run on the rank's B / n rows, the gradients' mean over the ranks is the
+global batch's (the loss is a mean over equal shards), and the logged loss
+is the global batch's mean. Each rank draws its own dropout masks.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from probnmn_tpu_torch.models.program_prior import (
     lm_dropout_masks,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import fused_lm_loss
+from probnmn_tpu_torch.parallel.mesh import global_sums, shard_of
 from probnmn_tpu_torch.training._trainer import _Trainer
 
 
@@ -44,7 +50,7 @@ class ProgramPriorTrainer(_Trainer):
     r"""``dataset``: the training set; None reads ``config.DATA.TRAIN_TOKENS``."""
 
     def __init__(self, config: Config, serialization_dir: str, device="cuda",
-                 writer=None, dataset: Optional[ProgramPriorDataset] = None):
+                 writer=None, dataset: Optional[ProgramPriorDataset] = None, parallel=None):
         if config.PHASE != "program_prior":
             raise ValueError(f"Expected PHASE program_prior, found {config.PHASE}")
         device = resolve_device(device)
@@ -59,22 +65,23 @@ class ProgramPriorTrainer(_Trainer):
             RandomSampler(len(dataset), seed=config.RANDOM_SEED),
             config.OPTIM.BATCH_SIZE,
             device=device,
+            **shard_of(parallel),
         )
         params = init_program_prior_params(
             torch.Generator().manual_seed(config.RANDOM_SEED), self.spec
         )
         super().__init__(config, batches, {"program_prior": params}, serialization_dir,
-                         device=device, writer=writer)
+                         device=device, writer=writer, parallel=parallel)
         self._vocabulary = vocabulary
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         programs = batch["program"]
         masks = lm_dropout_masks(self.dropout_generator, self.spec, programs)
         loss = fused_lm_loss(self._params["program_prior"], self.spec, programs, masks).mean()
-        self._optimizer.zero_grad()
-        loss.backward()
-        self._optimizer.step()
-        return {"loss": loss.detach()}
+        self._apply_gradients(loss)
+        total, rows = global_sums(self._parallel, [loss.detach().double() * len(programs),
+                                                   len(programs)])
+        return {"loss": total / rows}
 
     def model_specs(self) -> Dict[str, Any]:
         return {"program_prior": self.spec}

@@ -2,9 +2,11 @@ r"""
 The flags the JAX package's CLIs share, as the port's CLIs take them:
 ``--gpu-ids`` is ignored and ``--cpu-workers`` accepted and unused, as there;
 ``--compilation-cache-dir`` roots the kernels' build cache
-(``utils/compilation_cache.py``); ``--num-devices`` and ``--model-parallel``
-take 1, since the data-parallel mesh is not ported (ROADMAP.md queue 1
-item 5).
+(``utils/compilation_cache.py``). ``--num-devices`` runs the train CLI's
+program_prior and module_training phases over that many ranks, one process a
+card (``parallel/mesh.py``); the other phases and CLIs take 1, and
+``--model-parallel`` takes 1, each refusal naming the piece of ROADMAP.md
+queue 1 item 5 that ports it.
 """
 from __future__ import annotations
 
@@ -12,37 +14,63 @@ import argparse
 import logging
 from typing import Optional
 
-MESH = "ROADMAP.md queue 1 item 5, the mesh"
+MESH = "ROADMAP.md queue 1 item 5"
+# The piece of the mesh item that ports --num-devices above 1 for each path
+# that does not take it yet.
+PIECES = {
+    "question_coding": "(b), question_coding and joint_training",
+    "joint_training": "(b), question_coding and joint_training",
+    "evaluate": "(c), the evaluate CLI",
+    "inference": "(d), serving over several cards",
+    "serve": "(d), serving over several cards",
+}
+MODEL_PARALLEL = "(e), the model axis"
 
 
 def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
                      model_parallel: bool = False, num_devices_default: Optional[int] = 1,
-                     cache_default: Optional[str] = "") -> None:
+                     cache_default: Optional[str] = "", num_devices_ported: bool = False
+                     ) -> None:
+    r"""``num_devices_ported``: the CLI trains over several ranks (the
+    train CLI), and the help of ``--num-devices`` says which phases take
+    more than one."""
     if gpu_ids:
         parser.add_argument("--gpu-ids", nargs="+", type=int, default=[0],
                             help="Ignored, as in the JAX CLIs (the device is --device).")
         parser.add_argument("--cpu-workers", type=int, default=0,
                             help="Accepted and unused, as in the JAX CLIs.")
     parser.add_argument("--num-devices", type=int, default=num_devices_default,
-                        help=f"Devices: 1 (the data-parallel mesh is {MESH}, not ported yet).")
+                        help=(f"Devices to train on, one process each: 0 is every card, N at "
+                              "most N (the largest count that divides OPTIM.BATCH_SIZE); with "
+                              "--device cpu, N CPU processes. program_prior and module_training "
+                              "take several; question_coding and joint_training take 1 "
+                              f"({MESH} {PIECES['question_coding']})."
+                              if num_devices_ported else
+                              f"Devices: 1 (several are {MESH}, not ported here yet)."))
     if model_parallel:
         parser.add_argument("--model-parallel", type=int, default=1,
-                            help=f"Devices a data shard: 1 ({MESH}, not ported yet).")
+                            help=f"Devices a data shard: 1 ({MESH} {MODEL_PARALLEL}, not "
+                            "ported yet).")
     parser.add_argument(
         "--compilation-cache-dir", default=cache_default,
         help="Root the CUDA kernels' build cache here ('auto': $PROBNMN_COMPILATION_CACHE or "
         "~/.cache/probnmn_tpu_torch/kernels), so that later runs load the built kernels.")
 
 
-def apply_shared_flags(args: argparse.Namespace) -> Optional[str]:
-    r"""Refuse a mesh; root the build cache where ``--compilation-cache-dir``
-    says. Returns the cache directory, or None."""
-    for flag in ("num_devices", "model_parallel"):
-        value = getattr(args, flag, None)
-        if value not in (None, 1):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {value}: only one device is ported; the "
-                f"data-parallel mesh is {MESH}")
+def apply_shared_flags(args: argparse.Namespace, mesh_piece: Optional[str] = None
+                       ) -> Optional[str]:
+    r"""Refuse ``--model-parallel`` above 1, and ``--num-devices`` other
+    than 1 where ``mesh_piece`` (a key of :data:`PIECES`) names the piece
+    that ports it (None: the caller takes it); root the build cache where
+    ``--compilation-cache-dir`` says. Returns the cache directory, or None."""
+    value = getattr(args, "model_parallel", None)
+    if value not in (None, 1):
+        raise NotImplementedError(f"--model-parallel {value}: not ported; it is {MESH} "
+                                  f"{MODEL_PARALLEL}")
+    value = getattr(args, "num_devices", None)
+    if mesh_piece is not None and value not in (None, 1):
+        raise NotImplementedError(f"--num-devices {value}: one device only for {mesh_piece}; "
+                                  f"more are {MESH} {PIECES[mesh_piece]}")
     if not getattr(args, "compilation_cache_dir", None):
         return None
     from probnmn_tpu_torch.utils.compilation_cache import enable_compilation_cache

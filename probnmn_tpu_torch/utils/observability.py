@@ -1,8 +1,9 @@
 r"""
 Training observability (counterpart of ``probnmn_tpu/utils/observability.py``):
 ``StepTimer``, :func:`profile_trace` and :func:`annotate` on ``torch.profiler``
-(the JAX package's are on ``jax.profiler``), and ``RecordingWriter``, an
-in-memory stand-in for the trainer's scalar writer.
+(the JAX package's are on ``jax.profiler``), ``RecordingWriter``, an
+in-memory stand-in for the trainer's scalar writer, and ``NullWriter``, the
+writer of a data-parallel rank other than rank 0, which writes nothing.
 """
 from __future__ import annotations
 
@@ -67,6 +68,17 @@ class RecordingWriter:
     def add_scalars(self, tag, values, step):
         for key, value in values.items():
             self.add_scalar(f"{tag}/{key}", value, step)
+
+
+class NullWriter:
+    r"""A scalar writer that drops every scalar: the ranks other than rank 0
+    of a data-parallel run (``parallel/mesh.py``) log nothing."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def add_scalars(self, tag, values, step):
+        pass
 
 
 @contextlib.contextmanager

@@ -10,8 +10,10 @@ iterators take ``transform=``, on the CPU.
   ``auto`` and ``$PROBNMN_COMPILATION_CACHE`` resolved as the JAX package
   resolves its XLA cache (``InferenceEngine(compilation_cache_dir=)``:
   tests/test_torch_port_serve_cli.py);
-  ``--num-devices`` and ``--model-parallel`` take 1 and refuse anything
-  else, naming the mesh's ROADMAP item.
+  ``--num-devices`` takes 1 where the mesh is not ported (the train CLI's
+  question_coding, evaluate, inference, serve) and ``--model-parallel``
+  takes 1, each refusing anything else by naming the mesh's ROADMAP item
+  (tests/test_torch_port_mesh.py trains program_prior at 2 ranks).
 - ``BatchIterator(transform=)`` and ``EpochIterator(transform=)`` give the
   JAX package's iterators' batches.
 """
@@ -93,7 +95,7 @@ def test_shared_flags_are_taken_as_the_jax_clis_take_them(fixture, tmp_path, bui
         "--compilation-cache-dir", cache]))
     assert np.isfinite(metrics["program_prior"]["perplexity"])
     for module, argv in (
-            (train, ["--phase", "program_prior", "--config-yml", fixture["config_path"]]),
+            (train, ["--phase", "question_coding", "--config-yml", fixture["config_path"]]),
             (evaluate, ["--phase", "program_prior", "--config-yml", fixture["config_path"],
                         "--checkpoint-path", "x.ckpt"]),
             (inference, ["--config-yml", fixture["config_path"], "--checkpoint-path", "x.ckpt"]),

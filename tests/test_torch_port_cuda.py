@@ -978,3 +978,69 @@ def test_masked_k1_matches_plain_version(cuda, dtype):
         assert float((got["predictions"] == want["predictions"]).float().mean()) >= 0.95
     with pytest.raises(ValueError, match="dropout masks"):
         sampling_encode(params, spec, src, compute_dtype=dtype, dropout_masks=masks[:, :, :10])
+
+
+def _pp_rank_on_card(parallel, config, run_dir, dataset, init):
+    r"""A rank of the two-card test below: three program_prior steps."""
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = ProgramPriorTrainer(config, run_dir, device=parallel.device,
+                                  writer=RecordingWriter(), dataset=dataset, parallel=parallel)
+    copy_into(trainer.params["program_prior"], tree_map(lambda t: t.to(parallel.device), init))
+    logs = [trainer.step(i) for i in range(3)]
+    flat = torch.cat([p.detach().reshape(-1) for p in tree_leaves(trainer.params["program_prior"])])
+    return {"logs": logs, "params": flat.cpu(), "device": str(parallel.device)}
+
+
+def test_program_prior_at_two_ranks_on_two_cards(cuda, tmp_path):
+    r"""The program_prior trainer at two ranks over NCCL, one card a rank,
+    against one rank on the card: three steps' losses within 2e-4
+    relative, the parameters where every step's |g| > 1e-5 within 1% of lr
+    a step (a tenth of them at least) and all within 2 lr a step, both
+    ranks' parameters equal."""
+    import os
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import ProgramPriorDataset
+    from probnmn_tpu_torch.parallel import mesh
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(str(tmp_path / "vocab"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = Config(os.path.join(repo, "configs", "program_prior.yml"),
+                    ["DATA.VOCABULARY", str(tmp_path / "vocab"), "OPTIM.BATCH_SIZE", 64])
+    dataset = ProgramPriorDataset.from_programs(sample_clevr_like_programs(vocab, 512, seed=7))
+    one = ProgramPriorTrainer(config, str(tmp_path / "one"), device=cuda,
+                              writer=RecordingWriter(), dataset=dataset)
+    params = one.params["program_prior"]
+    init = tree_map(lambda t: t.detach().cpu().clone(), params)
+    losses, smooth = [], None
+    for i in range(3):
+        losses.append(one.step(i)["loss"])
+        big = torch.cat([p.grad.reshape(-1).abs() > 1e-5 for p in tree_leaves(params)])
+        smooth = big if smooth is None else smooth & big
+    want = torch.cat([p.detach().reshape(-1) for p in tree_leaves(params)]).cpu()
+    ranks = mesh.launch(_pp_rank_on_card, 2, "cuda", str(tmp_path), timeout=300,
+                        collective_timeout=120,
+                        args=(config, str(tmp_path / "ranks"), dataset, init))
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:1"]
+    np.testing.assert_allclose([log["loss"] for log in ranks[0]["logs"]], losses, rtol=2e-4)
+    assert ranks[1]["logs"] == ranks[0]["logs"]
+    assert torch.equal(ranks[0]["params"], ranks[1]["params"])
+    lr = config.OPTIM.LR_INITIAL
+    got = ranks[0]["params"]
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    diff = (got - want).abs()
+    worst = torch.topk(diff, 3).indices.tolist()
+    where = [(i, float(got[i]), float(want[i]), bool(smooth[i])) for i in worst]
+    assert float(diff[smooth.cpu()].max()) <= 1e-2 * lr * 3, where
+    assert float(diff.max()) <= 2 * lr * 3, where
+    assert float(smooth.float().mean()) > 0.1  # 0.22 of the LM's at this width

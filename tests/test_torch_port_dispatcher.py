@@ -273,17 +273,22 @@ def test_at_most_depth_batches_in_flight(setup, monkeypatch, depth):
     (``_fetch`` slowed, as a card's would): the batches that entered
     ``_launch_padded_groups`` and have not left ``_fetch``, counted outside
     the engine, never exceed the depth; reserving the slot after the launch,
-    as the JAX engine does, gives depth + 1."""
+    as the JAX engine does, gives depth + 1. The fetches wait until depth
+    batches have entered the launch (with a timeout), so that the overlap
+    is reached however slowly a loaded host launches."""
     s = setup
     engine = _engine(s)
     pipeline, fetch, launch = engine._pipeline, engine._fetch, engine._launch_padded_groups
     lock = threading.Lock()
     seen = {"now": 0, "most": 0}
+    full = threading.Event()
 
     def counted_launch(*args):
         with lock:
             seen["now"] += 1
             seen["most"] = max(seen["most"], seen["now"])
+            if seen["now"] == depth:
+                full.set()
         return launch(*args)
 
     def slow_pipeline(*args):
@@ -291,6 +296,7 @@ def test_at_most_depth_batches_in_flight(setup, monkeypatch, depth):
         return pipeline(*args)
 
     def slow_fetch(launched):
+        full.wait(TIMEOUT)
         time.sleep(0.08)
         out = fetch(launched)
         with lock:

@@ -56,6 +56,8 @@ SLICE_MODULES = (
     "probnmn_tpu_torch.preprocess.extract_features",
     "probnmn_tpu_torch.utils.compilation_cache",
     "probnmn_tpu_torch.utils.cli_flags",
+    "probnmn_tpu_torch.parallel",
+    "probnmn_tpu_torch.parallel.mesh",
 )
 
 
