@@ -99,14 +99,19 @@ Phases (any failure raises, and the script exits non-zero with no result):
    questions over 512 random (1024, 14, 14) float32 images in memory
    (1,024 for validation), CLEVR-like programs and random questions and
    answers. At B=128 on CLEVR programs plus invalid and all-pad rows: K5's
-   final and flags equal K2's bit for bit and the plain version's within
-   K2's tolerances, in both dtypes; every K6 leaf within 1e-4 (float32) or
-   1e-1 (bfloat16) * max(1, max|g|) of autograd through the plain version
-   under a random cotangent (``interpreter_grads_plain_by_row``: the rows
-   whose d(stem) stands off recomputed alone, since a float32 ReLU input
-   within rounding of 0 falls on either side in the batched plain forward;
-   the flipped ReLU outputs printed), bitwise repeatable, with dx 0 on
-   invalid rows;
+   final and flags equal K2's bit for bit, its flags the plain version's,
+   its final within K2's tolerances of the plain version's (bfloat16) or of
+   the float64 branch's below (float32); every K6 leaf under a random cotangent
+   within 1e-4 * max(1, max|g|) in float32 of the float64 gradient of the
+   branch K5 and K6 took (``interpreter_grads_on_branch``: every step in
+   float64, each ReLU side, ``same``'s argmax and ``and`` / ``or``'s pick
+   read from K5's residuals and K6's workspace, since an input within
+   float32 rounding of a tie falls on either side by the sum order; each
+   decision float64 takes the other way must lie within 1e-5 of its tie,
+   the count printed), and within 1e-1 * max(1, max|g|) in bfloat16 of
+   autograd through the plain version (``interpreter_grads_plain_by_row``:
+   the rows whose d(stem) stands off recomputed alone), bitwise repeatable,
+   with dx 0 on invalid rows;
    its weight-gradient kernel and conv input gradients within 1e-5 of
    float64 sums over the operands it wrote to its workspace, and the
    weight-gradient kernel within 1e-5 of ``weight_grad_plain`` on the same
@@ -136,8 +141,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    1,024 for validation). K6's replay mode (K6r) at B=256 on CLEVR programs
    plus invalid and all-pad rows, in both dtypes: dx, every bank gradient
    and the workspace entries equal K6's over K5's residuals bit for bit;
-   K6r bitwise repeatable, within K6's tolerances of the plain version (rows
-   held alone as in phase 8), and
+   K6r bitwise repeatable, within K6's tolerances of its references as in
+   phase 8, and
    within 1e-5 of float64 sums over its own workspace and (its weight
    gradients) of ``weight_grad_plain``. The interpreter's
    memory for a forward and backward at B=256 in each mode; the float32
@@ -286,7 +291,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    profiler (module_training's through its own K1 sampling): K3f and K3b
    4 a rank, or K1 and its encoder 1 and K5 and K6 4 a rank, and the traced
    step's sweeps and kernels whole; then on each rank's rows K3f and K3b,
-   or K1, its encoder, K5 and K6 in both dtypes, against their plain
+   or K1, its encoder, K5 and K6 in both dtypes, at the parameters
+   after the steps, against their plain
    versions at the tolerances of phases 2, 6 and 8 (the JSON line's
    ``launches_mesh``, by rank, and ``max_abs_err_mesh``). Then
    module_training again at the shipped ``NMN.COMPUTE_DTYPE`` ('auto':
@@ -295,7 +301,29 @@ Phases (any failure raises, and the script exits non-zero with no result):
    within 2 rows of the batch and the invalid count equal, the first
    gradient within 1e-1 * max(1, max|g|) a leaf (ROADMAP's bf16 bound),
    the parameters within 2 lr a step, the evaluator's accuracy within 2
-   rows (JSON ``launches_mesh_bf16``).
+   rows (JSON ``launches_mesh_bf16``). Then question_coding and
+   joint_training (OBJECTIVE ours) at the shipped widths (vocabularies 92
+   / 44, D = H = 256, 2 layers, batch 256, so 128 rows a rank; joint over
+   256 images of (1024, 14, 14) in shared host memory with the NMN at C =
+   128 in float32), from random frozen models (``[mesh] semi-supervised
+   ranks: <backend>, ...``): the evaluator and 3 steps at one rank, then
+   at 2 ranks from the same parameters, every step scoring a z that is a
+   function of the row's question (``z_by_question``), so both runs score
+   the same z a row: the logged losses within 2e-4 relative, the
+   REINFORCE baseline equal on both ranks bit for bit and within 1e-5 of
+   one rank's, the first step's summed gradient within 1e-4 * max(1,
+   max|g|) a leaf, the parameters by the trainer-parity rule
+   (question_coding where every |g| > 1e-5 within 1% of lr a step; joint
+   2 lr a step), both ranks' parameters and logs equal, the evaluators
+   within 1e-5; a fourth step traced under the profiler samples its own z
+   with K1, and each rank's counters over the four steps read K1 and its
+   encoder 1, K3f 4, K4f 16, K4b 16 (and K5, K6 4 in joint); then on each
+   rank's rows of the next batch K1, its encoder, K3f, the four K4 passes
+   (and K5, K6 in float32), at the parameters after the steps, against
+   their plain versions at the
+   tolerances of phases 2-8 (JSON ``launches_mesh_qc``,
+   ``launches_mesh_jt``, ``max_abs_err_mesh_qc``,
+   ``max_abs_err_mesh_jt``).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -311,6 +339,7 @@ import time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 BATCH = 256
+T_START = time.perf_counter()
 
 
 def check(cond, message):
@@ -1637,19 +1666,25 @@ def weight_grad_check(torch, ws, banks, spec):
 def k5_k6_against_plain(torch, gen, name, dtype, params, spec, tables, feats, programs,
                         tag=""):
     r"""K5 and K6 in ``dtype`` on the NMN ``params`` over ``feats`` (through
-    the stem) and ``programs``: K5's final and flags equal K2's bit for bit
-    and the plain version's within K2's tolerances; every K6 leaf within
-    ``K6_TOL`` * max(1, max|g|) of autograd through the plain version under a
-    random cotangent drawn from ``gen`` (``interpreter_grads_plain_by_row``),
-    bitwise repeatable, dx 0 on invalid rows; its weight-gradient kernel and
-    conv input gradients within ``WS_TOL`` of float64 sums over its
-    workspace, and of ``weight_grad_plain``. Returns what it ran and found."""
+    the stem) and ``programs``: K5's final and flags equal K2's bit for bit,
+    its flags the plain version's and its final within K2's tolerances of
+    the plain version's (bfloat16) or of the float64 branch's (float32);
+    every K6 leaf under a
+    random cotangent drawn from ``gen`` within ``K6_TOL`` * max(1, max|g|)
+    of its reference: in float32 the float64 gradient of the branch K5 and
+    K6 took (``interpreter_grads_on_branch``; every decision float64 takes
+    the other way within ``BRANCH_TOL`` of its tie, every workspace entry
+    where the sweep order puts it), in bfloat16 autograd through the plain
+    version (``interpreter_grads_plain_by_row``); bitwise repeatable, dx 0
+    on invalid rows; its weight-gradient kernel and conv input gradients
+    within ``WS_TOL`` of float64 sums over its workspace, and of
+    ``weight_grad_plain``. Returns what it ran and found."""
     from probnmn_tpu_torch.models import nmn
     from probnmn_tpu_torch.models.nmn import cast_params
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
-        DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
-        execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain_by_row,
-        workspace_errors,
+        BRANCH_TOL, DIFF_BANKS, build_banks, execute_programs_kernel, execute_programs_plain,
+        execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_on_branch,
+        interpreter_grads_plain_by_row, workspace_errors,
     )
 
     batch = len(programs)
@@ -1661,19 +1696,34 @@ def k5_k6_against_plain(torch, gen, name, dtype, params, spec, tables, feats, pr
     torch.cuda.synchronize()
     check(torch.equal(final, out2) and torch.equal(invalid, inv2), f"K5{tag} {name} differs from K2")
     check(torch.equal(invalid, want_inv), f"K5{tag} {name} invalid flags differ")
-    err = float((final.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
-    check(err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale),
-          f"K5{tag} {name} error {err}")
     g = torch.randn(final.shape, generator=gen).to(final.device).to(dtype).float()
     ws = {}
     d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
                                                otraj, atraj, workspace=ws)
     again_banks, again_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs,
                                                        invalid, g, otraj, atraj)
-    w_banks, w_stem, alone = interpreter_grads_plain_by_row(banks, tables, spec, stem, programs,
-                                                            g, d_stem, K6_TOL[name])
+    if dtype == torch.float32:
+        # K5's final too against the branch's: the batched plain forward can
+        # take a tie the other way (same's argmax moves a whole step).
+        w_banks, w_stem, want, branch = interpreter_grads_on_branch(
+            banks, tables, spec, stem, programs, g, invalid, otraj, atraj, ws)
+        check(branch["far"] == 0 and branch["entries"] == 0 and branch["rows"] == 0,
+              f"K6{tag} {name} took decisions off float64's by more than {BRANCH_TOL} of their "
+              f"scale, or its workspace or rows are not where the sweep puts them: {branch}")
+        reference = (f"the float64 gradient of the branch K5 and K6 took ({branch['taken']} "
+                     f"decisions that float64 takes the other way, within {branch['gap']:.2e} "
+                     f"of their scale: ties broken by rounding)")
+    else:
+        w_banks, w_stem, alone = interpreter_grads_plain_by_row(
+            banks, tables, spec, stem, programs, g, d_stem, K6_TOL[name])
+        reference = ("autograd through the plain version, rows held to it run alone, with the "
+                     f"ReLU outputs whose sign the batched plain forward flips against K5's: "
+                     f"{alone or 'none'}")
     torch.cuda.synchronize()
+    err = float((final.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    check(err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale),
+          f"K5{tag} {name} error {err}")
     check(torch.equal(d_stem, again_stem) and all(
         torch.equal(d_banks[k], again_banks[k]) for k in DIFF_BANKS), f"K6{tag} {name} bits differ")
     check(not bool(invalid.any()) or float(d_stem[invalid].float().abs().max()) == 0.0,
@@ -1689,12 +1739,12 @@ def k5_k6_against_plain(torch, gen, name, dtype, params, spec, tables, feats, pr
           f"K6{tag} {name} against float64 sums over its own workspace: {tight}")
     wg_err, wg_empty = weight_grad_check(torch, ws, banks, spec)
     log(f"[K5{tag} {name}] B={batch}: equal to K2 bit for bit; invalid {int(invalid.sum())}/{batch} "
-        f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e})")
-    log(f"[K6{tag} {name}] rows held to the plain version run alone, with the ReLU outputs whose "
-        f"sign the batched plain forward flips against K5's: {alone or 'none'}")
-    log(f"[K6{tag} {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
-        f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
-        f"{worst[2]:.3e} (ratio {worst[0]:.3e}); bitwise repeatable; dx 0 on invalid rows")
+        f"as the plain version; max |final err| {err:.3e} (max |final| {scale:.3e}) against "
+        f"{'the float64 branch' if dtype == torch.float32 else 'the plain version'}")
+    log(f"[K6{tag} {name}] reference: {reference}")
+    log(f"[K6{tag} {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of its reference; "
+        f"worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| {worst[2]:.3e} (ratio "
+        f"{worst[0]:.3e}); bitwise repeatable; dx 0 on invalid rows")
     log(f"[K6{tag} {name}] against float64 sums over its own {tight['entries']} workspace entries "
         f"(error over the sum of |products|, limit {WS_TOL}): weight-gradient kernel "
         f"{tight['weight_grad']:.3e}; conv input gradients of {tight['chained']} chained "
@@ -2059,7 +2109,8 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
     from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
         DIFF_BANKS, build_banks, execute_programs_diff, execute_programs_kernel,
         execute_programs_train_kernel, interpreter_grads_kernel, interpreter_grads_plain,
-        interpreter_grads_plain_by_row, weight_grad_kernel, workspace_errors,
+        interpreter_grads_on_branch, interpreter_grads_plain_by_row, weight_grad_kernel,
+        workspace_errors,
     )
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
@@ -2135,8 +2186,20 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         r_banks, r_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
                                                    workspace=ws_replay)
         a_banks, a_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g)
-        w_banks, w_stem, alone = interpreter_grads_plain_by_row(banks, tables, spec, stem, programs,
-                                                                g, r_stem, K6_TOL[name])
+        if dtype == torch.float32:
+            w_banks, w_stem, _, branch = interpreter_grads_on_branch(
+                banks, tables, spec, stem, programs, g, invalid, otraj, atraj, ws_replay)
+            check(branch["far"] == 0 and branch["entries"] == 0 and branch["rows"] == 0,
+                  f"K6r {name} decisions or workspace off the float64 branch: {branch}")
+            reference = (f"the float64 gradient of the branch K5 and K6r took "
+                         f"({branch['taken']} decisions float64 takes the other way, within "
+                         f"{branch['gap']:.2e} of their scale)")
+        else:
+            w_banks, w_stem, alone = interpreter_grads_plain_by_row(
+                banks, tables, spec, stem, programs, g, r_stem, K6_TOL[name])
+            reference = ("autograd through the plain version, rows held to it run alone, with "
+                         f"the ReLU outputs whose sign the batched plain forward flips against "
+                         f"K5's: {alone or 'none'}")
         torch.cuda.synchronize()
         check(torch.equal(d_stem, r_stem) and all(torch.equal(d_banks[k], r_banks[k])
                                                   for k in DIFF_BANKS),
@@ -2161,10 +2224,9 @@ def train_joint_training(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_ckpt, m
         log(f"[K6r {name}] B={batch}, replay grid {grid}: dx, every bank gradient and the "
             f"{tight['entries']} workspace entries equal K6's bit for bit; bitwise repeatable; "
             f"invalid {int(invalid.sum())}/{batch}, dx 0 there")
-        log(f"[K6r {name}] rows held to the plain version run alone, with the ReLU outputs whose "
-            f"sign the batched plain forward flips against K5's: {alone or 'none'}")
-        log(f"[K6r {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of autograd through "
-            f"the plain version; worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
+        log(f"[K6r {name}] reference: {reference}")
+        log(f"[K6r {name}] every leaf within {K6_TOL[name]} * max(1, max|g|) of its reference; "
+            f"worst {worst[3]}: max |err| {worst[1]:.3e}, max |grad| "
             f"{worst[2]:.3e} (ratio {worst[0]:.3e}); against float64 sums over its own workspace "
             f"(limit {WS_TOL}): weight-gradient kernel {tight['weight_grad']:.3e}, conv input "
             f"gradients of {tight['chained']} chained entries {tight['input_grad']:.3e}")
@@ -4486,7 +4548,326 @@ def train_mesh(np, torch, smi):
         del one, params, evaluator, reference
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
-    log(f"[mesh] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[mesh] program_prior and module_training cases in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def z_by_question(torch, questions, table):
+    r"""A program for each row, a function of the row's question alone, so
+    that one rank and two score the same z a row: row i takes
+    ``table[sum_t q[i, t] * (t + 1) mod len(table)]``."""
+    weights = torch.arange(1, questions.shape[1] + 1, device=questions.device)
+    return table[(questions * weights).sum(1) % len(table)]
+
+
+SEMI_NAMES = {"fused_sampling_forward": "seq2seq_decode", "sampling_encode": "k1_encoder_sweep",
+              "lm_forward_cuda": "lm_forward", "tf_forward_cuda": "tf_forward",
+              "tf_backward_cuda": "tf_backward", "execute_programs_train_kernel": "nmn_train_forward",
+              "interpreter_grads_kernel": "nmn_backward"}
+
+
+def mesh_semi_rank(parallel, phase, config, run_dir, train_set, val_set, init, table, reference):
+    r"""One rank of phase 16's question_coding or joint_training case,
+    spawned by ``parallel.mesh.launch``: the evaluator on ``init``,
+    ``MESH_STEPS`` steps at z by question (:func:`z_by_question` over
+    ``table``) and one more traced under the profiler with the trainer's own
+    K1 sampling, the launch counters set to 0 before those steps and read
+    after; the baseline after each step; rank 0's first summed gradient and
+    parameters against the one-rank run's (``reference``); then each kernel
+    of the path against its plain version on the rank's rows of the next
+    batch (K5 and K6 at ``init``)."""
+    import torch
+
+    from probnmn_tpu_torch.data.pipeline import image_to_nhwc
+    from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
+    from probnmn_tpu_torch.evaluators.question_coding_evaluator import QuestionCodingEvaluator
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        execute_programs_train_kernel, interpreter_grads_kernel,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, sampling_encode,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
+        lm_forward_cuda, tf_backward_cuda, tf_forward_cuda,
+    )
+    from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
+    from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
+    from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank = parallel.device, parallel.rank
+    gen = torch.Generator().manual_seed(170 + rank)
+    joint = phase == "joint_training"
+    trainer = (JointTrainingTrainer if joint else QuestionCodingTrainer)(
+        config, run_dir, device=dev, writer=RecordingWriter(), dataset=train_set,
+        parallel=parallel)
+    copy_into(trainer.params, tree_map(lambda t: t.to(dev), init))
+    val = (JointTrainingEvaluator if joint else QuestionCodingEvaluator)(
+        config, trainer, dataset=val_set).evaluate(num_batches=2)
+    table = table.to(dev)
+    sampler = trainer.sample_programs
+    trainer.sample_programs = lambda questions, dropout_masks=None: z_by_question(
+        torch, questions, table)
+    counters = [fused_sampling_forward, sampling_encode, lm_forward_cuda, tf_forward_cuda,
+                tf_backward_cuda] + ([execute_programs_train_kernel, interpreter_grads_kernel]
+                                     if joint else [])
+    L = trainer.pg_spec.num_layers
+    names = ("k1_encoder_sweep", "seq2seq_sample_kernel", "lstm_fwd_sweep", "lstm_bwd_sweep") + (
+        ("nmn_interpreter_kernel", "nmn_backward_kernel") if joint else ())
+    want = dict(zip(names, (L, 1, 4 * L + trainer.prior_spec.num_layers, 4 * L, 1, 1)))
+
+    # The main path: MESH_STEPS steps at z by question, then one traced
+    # with the trainer's own K1.
+    for fn in counters:
+        fn.launches = 0
+    logs, baselines, grad_ratio = [], [], None
+    for i in range(MESH_STEPS):
+        logs.append(trainer.step(i))
+        baselines.append(float(trainer.baseline))
+        if i == 0 and parallel.is_writer:
+            got = [p.grad.reshape(-1) for p in tree_leaves(trainer.params)]
+            want_g = reference["grad"].to(dev).split([g.numel() for g in got])
+            grad_ratio = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                             for a, b in zip(got, want_g))
+    flat = torch.cat([p.detach().reshape(-1) for p in tree_leaves(trainer.params)])
+    compared = {"checksum": [float(flat.double().sum()), float(flat.double().abs().sum())]}
+    if parallel.is_writer:
+        smooth = reference["smooth"].to(dev)
+        diff = (flat - reference["params"].to(dev)).abs()
+        compared.update(smooth_err=float(diff[smooth].max()) if bool(smooth.any()) else 0.0,
+                        rest_err=float(diff.max()), smooth_share=float(smooth.float().mean()),
+                        grad_ratio=grad_ratio)
+    trainer.sample_programs = sampler
+    route = traced_route(torch, lambda: trainer.step(MESH_STEPS), names, want, tries=1)[-1]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    baselines.append(float(trainer.baseline))
+
+    # The path's kernels against their plain versions on the rank's rows of
+    # the next batch, z by question for all but K1.
+    batch = next(trainer._batches)
+    n_sup = batch[COUNT_KEY]
+    questions, programs = batch["question"], batch["program"]
+    detached = tree_map(lambda t: t.detach(), trainer.params)
+    pg_spec, unsup = trainer.pg_spec, questions[n_sup:]
+    tag = f"{phase} rank {rank}"
+    noise = (-torch.log(-torch.log(torch.rand(
+        pg_spec.max_decoding_steps, len(unsup), pg_spec.target_vocab_size,
+        generator=gen).clamp_min(1e-12)))).to(dev)
+    k1 = k1_against_plain(torch, detached["program_generator"], pg_spec, unsup, noise,
+                          tag=f"K1 {tag}")
+    enc, _ = k1_encoder_against_plain(torch, detached["program_generator"], pg_spec, unsup,
+                                      tag=f"K1 encoder {tag}")
+    errs = {"seq2seq_decode": k1["bfloat16"], "k1_encoder_sweep": enc["bfloat16"]}
+    z = z_by_question(torch, unsup, table)
+    dloss = (torch.rand(len(z), generator=gen) + 0.5).to(dev)
+    errs["lm_forward"], _ = k3_against_plain(torch, trainer.prior_params, trainer.prior_spec, z,
+                                             dloss, tag=f" {tag}")
+    errs["tf_forward"] = errs["tf_backward"] = 0.0
+    for name, params, spec, src, tgt, reinforce_norm in qc_passes(
+            detached, pg_spec, trainer.qr_spec, questions, programs, n_sup, z):
+        dl = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
+        f_err, b_err, _, _ = k4_pass_against_plain(torch, f"{name} {tag}", params, spec, src, tgt,
+                                                   reinforce_norm, dl)
+        errs["tf_forward"] = max(errs["tf_forward"], f_err)
+        errs["tf_backward"] = max(errs["tf_backward"], b_err)
+    if joint:
+        feats = image_to_nhwc(batch["image"][n_sup:]).contiguous()
+        checked = k5_k6_against_plain(torch, gen, "float32", torch.float32, detached["nmn"],
+                                      trainer.nmn_spec, trainer.tables, feats, z, tag=f" {tag}")
+        errs["nmn_train_forward"], errs["nmn_backward"] = checked["err"], checked["worst"]
+    return dict(logs=logs, baselines=baselines, val=val, launches=launches, route=route,
+                route_want=want, errs=errs, compared=compared, device=str(dev),
+                rows=len(questions), n_sup=n_sup)
+
+
+def train_mesh_semisupervised(np, torch, smi):
+    r"""Phase 16's question_coding and joint_training cases (OBJECTIVE ours)
+    at the shipped widths (vocabularies 92 / 44, D = H = 256, 2 layers,
+    batch 256; joint over 256 images of (1024, 14, 14) in shared host
+    memory with the NMN at C = 128 in float32), from random frozen models:
+    the evaluator and 3 steps at one rank on the card, then at 2 ranks from
+    the same parameters, each on its 128 rows, both scoring z by question;
+    held as the docstring's phase 16 says. Returns {kernel name: mesh keys
+    of the kernels line} (``launches_mesh_qc``, ``launches_mesh_jt`` by
+    rank, ``max_abs_err_mesh_qc``, ``max_abs_err_mesh_jt``)."""
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import JointTrainingDataset, QuestionCodingDataset
+    from probnmn_tpu_torch.data.readers import SharedFeatures
+    from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
+    from probnmn_tpu_torch.evaluators.question_coding_evaluator import QuestionCodingEvaluator
+    from probnmn_tpu_torch.models import nmn, program_generator, question_reconstructor
+    from probnmn_tpu_torch.models.program_prior import init_program_prior_params
+    from probnmn_tpu_torch.parallel import mesh
+    from probnmn_tpu_torch.training._trainer import tree_leaves, tree_map
+    from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
+    from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
+    from probnmn_tpu_torch.training.question_coding_trainer import QuestionCodingTrainer
+    from probnmn_tpu_torch.utils.checkpointing import save_objects
+    from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    cards = torch.cuda.device_count()
+    share = cards < MESH_RANKS
+    backend = ("gloo, both on card 0 (one card)" if share else
+               f"nccl, one card a rank ({cards} cards)")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_semi_")
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    gen = torch.Generator().manual_seed(161)
+    dev = torch.device("cuda")
+    t_cases = time.perf_counter()
+
+    # Random frozen models: the prior, the question_coding generator and
+    # reconstructor and the NMN, saved as the port's checkpoints.
+    ckpt = {name: os.path.join(work, f"{name}.ckpt")
+            for name in ("program_prior", "question_coding", "module_training")}
+    overrides = ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                 "CHECKPOINTS.PROGRAM_PRIOR", ckpt["program_prior"],
+                 "CHECKPOINTS.QUESTION_CODING", ckpt["question_coding"],
+                 "CHECKPOINTS.MODULE_TRAINING", ckpt["module_training"]]
+    qc_config = Config(os.path.join(repo, "configs", "question_coding_ours.yml"), overrides)
+    jt_config = Config(os.path.join(repo, "configs", "joint_training_ours.yml"),
+                       overrides + ["NMN.COMPUTE_DTYPE", "float32"])
+    save_objects(ckpt["program_prior"], {"program_prior": init_program_prior_params(
+        gen, make_prior_spec(jt_config, vocab))})
+    save_objects(ckpt["question_coding"], {
+        "program_generator": program_generator.init_params(
+            gen, program_generator.make_spec(vocab, jt_config)),
+        "question_reconstructor": question_reconstructor.init_params(
+            gen, question_reconstructor.make_spec(vocab, jt_config))})
+    save_objects(ckpt["module_training"], {"nmn": nmn.init_nmn_params(
+        gen, nmn.make_spec(vocab, jt_config))})
+    np.random.seed(qc_config.RANDOM_SEED)  # the supervision subsets, drawn once
+    supervision = dict(num_supervision=qc_config.SUPERVISION,
+                       supervision_question_max_length=qc_config.SUPERVISION_QUESTION_MAX_LENGTH)
+    qc_sets = (QuestionCodingDataset.from_tokens(*qc_questions(np, vocab, 4096, seed=26),
+                                                 **supervision),
+               QuestionCodingDataset.from_tokens(*qc_questions(np, vocab, 1024, seed=27),
+                                                 split="val"))
+    features = SharedFeatures.from_array(
+        np.random.default_rng(28).standard_normal((256, 1024, 14, 14), dtype=np.float32))
+    jt_sets = (JointTrainingDataset.from_arrays(*mt_arrays(np, vocab, 4096, 256, seed=29),
+                                                features, **supervision),
+               JointTrainingDataset.from_arrays(*mt_arrays(np, vocab, 1024, 256, seed=31),
+                                                features, split="val"))
+    # z by question: 62 CLEVR-like programs, a token soup and an all-pad row.
+    table_np = sample_clevr_like_programs(vocab, 64, seed=30)
+    table_np[-2] = np.random.RandomState(32).randint(0, vocab.get_vocab_size("programs"),
+                                                     table_np.shape[1])
+    table_np[-1] = 0
+    table = torch.from_numpy(table_np)
+    log(f"[mesh] semi-supervised ranks: {backend}; question_coding (OBJECTIVE ours, batch "
+        f"{qc_config.OPTIM.BATCH_SIZE}) and joint_training (ours, batch "
+        f"{jt_config.OPTIM.BATCH_SIZE}, NMN float32, 256 images of (1024, 14, 14) in shared "
+        f"memory) at 2 ranks against one, z by question over {len(table_np)} programs; card {smi}")
+    cases = {"question_coding": (qc_config, *qc_sets, QuestionCodingTrainer,
+                                 QuestionCodingEvaluator),
+             "joint_training": (jt_config, *jt_sets, JointTrainingTrainer,
+                                JointTrainingEvaluator)}
+    out = {}
+    for phase, (config, train_set, val_set, cls, evaluator_cls) in cases.items():
+        t0 = time.perf_counter()
+        short = "qc" if phase == "question_coding" else "jt"
+        one = cls(config, os.path.join(work, f"one_{short}"), device=dev,
+                  writer=RecordingWriter(), dataset=train_set)
+        table_dev = table.to(dev)
+        one.sample_programs = lambda questions, dropout_masks=None: z_by_question(
+            torch, questions, table_dev)
+        init = tree_map(lambda t: t.detach().cpu().clone(), one.params)
+        one_val = evaluator_cls(config, one, dataset=val_set).evaluate(num_batches=2)
+        one_logs, one_baselines, smooth = [], [], None
+        for i in range(MESH_STEPS):
+            one_logs.append(one.step(i))
+            one_baselines.append(float(one.baseline))
+            grads = torch.cat([p.grad.reshape(-1) for p in tree_leaves(one.params)])
+            if i == 0:
+                first_grad = grads.cpu()
+            smooth = grads.abs() > 1e-5 if smooth is None else smooth & (grads.abs() > 1e-5)
+        reference = {"params": torch.cat([p.detach().reshape(-1) for p in tree_leaves(one.params)])
+                     .cpu().share_memory_(), "smooth": smooth.cpu().share_memory_(),
+                     "grad": first_grad.share_memory_()}
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mesh.launch(mesh_semi_rank, MESH_RANKS, "cuda", work, share_card=share,
+                            timeout=900, collective_timeout=600,
+                            args=(phase, config, os.path.join(work, f"mesh_{short}"), train_set,
+                                  val_set, init, table, reference))
+        mesh_s = time.perf_counter() - t0
+        cmp = ranks[0]["compared"]
+        log(f"[mesh {phase}] one rank: {one_s:.1f} s (evaluator, {MESH_STEPS} steps); "
+            f"{MESH_RANKS} ranks on {[r['device'] for r in ranks]} at {ranks[0]['rows']} rows each "
+            f"({[r['n_sup'] for r in ranks]} supervised in the checked batch): {mesh_s:.1f} s "
+            f"(spawn, evaluator, {MESH_STEPS + 1} steps, kernel checks)")
+        for i, (got, want) in enumerate(zip(ranks[0]["logs"], one_logs)):
+            log(f"[mesh {phase}] step {i}: {MESH_RANKS} ranks {got} / one rank {want}")
+            for group, values in want.items():
+                for key, value in values.items():
+                    check(abs(got[group][key] - value) <= MESH_LOSS_RTOL * abs(value) + 1e-6,
+                          f"mesh {phase} step {i} {group}/{key}: {got[group][key]} against "
+                          f"{value}")
+        check(ranks[1]["logs"] == ranks[0]["logs"], f"mesh {phase}: the ranks logged otherwise")
+        baselines = [r["baselines"] for r in ranks]
+        log(f"[mesh {phase}] REINFORCE baseline after each step: ranks {baselines} (one rank "
+            f"{one_baselines}; the last after the traced step)")
+        check(baselines[0] == baselines[1], f"mesh {phase}: the ranks' baselines differ")
+        check(all(abs(a - b) <= 1e-5 for a, b in zip(baselines[0], one_baselines)),
+              f"mesh {phase}: baseline against one rank")
+        check(baselines[0][-1] != 0.0, f"mesh {phase}: the baseline did not move")
+        check(ranks[1]["compared"]["checksum"] == cmp["checksum"],
+              f"mesh {phase}: the ranks' parameters differ: {[r['compared'] for r in ranks]}")
+        # ROADMAP.md's trainer-parity rule, as program_prior's and the NMN's
+        # above: question_coding's parameters where every |g| > 1e-5 within
+        # 1% of lr a step; joint's (the NMN's plateau) 2 lr a step.
+        lr = config.OPTIM.LR_INITIAL
+        limit = (1e-2 if phase == "question_coding" else 2) * lr * MESH_STEPS
+        log(f"[mesh {phase}] the first step's summed gradient against one rank's: worst leaf max "
+            f"|dev| / max(1, max|g|) {cmp['grad_ratio']:.3e} (limit 1e-4)")
+        log(f"[mesh {phase}] params after {MESH_STEPS} steps against one rank: where every "
+            f"step's |g| > 1e-5 ({cmp['smooth_share']:.4f} of them) max |dev| "
+            f"{cmp['smooth_err']:.3e} (limit {limit:.1e}); all {cmp['rest_err']:.3e} (limit "
+            f"{2 * lr * MESH_STEPS:.1e}); the ranks' parameters equal (checksums "
+            f"{cmp['checksum']})")
+        check(cmp["grad_ratio"] <= 1e-4, f"mesh {phase} first gradient against one rank: {cmp}")
+        check(cmp["smooth_err"] <= limit and cmp["rest_err"] <= 2 * lr * MESH_STEPS,
+              f"mesh {phase} params against one rank: {cmp}")
+        for model, metrics in one_val.items():
+            for key, value in metrics.items():
+                got = [r["val"][model][key] for r in ranks]
+                log(f"[mesh {phase}] evaluator {model}/{key}: {MESH_RANKS} ranks {got}, one "
+                    f"rank {value}")
+                check(all(abs(g - value) <= MESH_VAL_RTOL * max(1.0, abs(value)) for g in got),
+                      f"mesh {phase} evaluator {model}/{key}")
+        for r in ranks:
+            log(f"[mesh {phase}] rank launches over the main path: {r['launches']}; one traced "
+                f"step under the profiler: {r['route']}; kernels against plain at "
+                f"{r['rows']} rows: {r['errs']}")
+            check(r["route"] == r["route_want"],
+                  f"mesh {phase} traced step {r['route']}, not {r['route_want']}")
+        # 3 steps and a traced one: K3f once, K4f and K4b four times a step
+        # (K5 and K6 once in joint); K1 and its encoder in the traced step.
+        steps = MESH_STEPS + 1
+        want = {"fused_sampling_forward": 1, "sampling_encode": 1, "lm_forward_cuda": steps,
+                "tf_forward_cuda": 4 * steps, "tf_backward_cuda": 4 * steps}
+        if phase == "joint_training":
+            want.update(execute_programs_train_kernel=steps, interpreter_grads_kernel=steps)
+        for r in ranks:
+            check(r["launches"] == want, f"mesh {phase} launches {r['launches']}")
+        for counter, launched in want.items():
+            name = SEMI_NAMES[counter]
+            out.setdefault(name, {}).update({
+                f"launches_mesh_{short}": [r["launches"][counter] for r in ranks],
+                f"max_abs_err_mesh_{short}": max(r["errs"][name] for r in ranks)})
+        del one, init, reference
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[mesh] semi-supervised cases in {time.perf_counter() - t_cases:.1f} s")
     return out
 
 
@@ -4872,7 +5253,12 @@ def main():
     dropout = train_with_dropout(np, torch, dev, smi)
 
     # ---------------------------------------------------------------- 16. the mesh
+    t16 = time.perf_counter()
     mesh_keys = train_mesh(np, torch, smi)
+    for name, keys in train_mesh_semisupervised(np, torch, smi).items():
+        mesh_keys.setdefault(name, {}).update(keys)
+    log(f"[mesh] phase 16 in {time.perf_counter() - t16:.1f} s; the run so far "
+        f"{time.perf_counter() - T_START:.1f} s")
 
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:

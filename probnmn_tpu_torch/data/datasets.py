@@ -215,7 +215,9 @@ class JointTrainingDataset:
     train and val splits give {"question", "answer", "program", "image",
     "supervision"}, the test split {"question_index", "question", "image"}.
     The supervision subset is drawn as :class:`QuestionCodingDataset` draws
-    it, from the global numpy seed."""
+    it, from the global numpy seed. ``shared_features`` (in memory) reads
+    the features into shared memory, one copy for every rank of a
+    data-parallel launch, as :class:`ModuleTrainingDataset` does."""
 
     def __init__(
         self,
@@ -224,13 +226,14 @@ class JointTrainingDataset:
         num_supervision: int = 699989,
         supervision_question_max_length: int = 30,
         in_memory: bool = True,
+        shared_features: bool = False,
     ):
         tokens = ClevrTokensReader(tokens_h5path)
         test = tokens.split == "test"
         self._setup(None if test else tokens.programs, tokens.questions,
                     None if test else tokens.answers, tokens.image_indices,
-                    ClevrImageFeaturesReader(features_h5path, in_memory), tokens.split,
-                    num_supervision, supervision_question_max_length)
+                    ClevrImageFeaturesReader(features_h5path, in_memory, shared_features),
+                    tokens.split, num_supervision, supervision_question_max_length)
 
     @classmethod
     def from_arrays(
@@ -245,13 +248,14 @@ class JointTrainingDataset:
         supervision_question_max_length: int = 30,
     ) -> "JointTrainingDataset":
         r"""A dataset over in-memory (N, Lp) programs, (N, Lq) questions, (N,)
-        answers and (N,) indices into ``features`` (M, C, H, W); the test
-        split takes None for programs and answers."""
+        answers and (N,) indices into ``features`` (M, C, H, W; an array or a
+        :class:`SharedFeatures`); the test split takes None for programs and
+        answers."""
         dataset = cls.__new__(cls)
         dataset._setup(None if programs is None else np.asarray(programs), np.asarray(questions),
                        None if answers is None else np.asarray(answers), np.asarray(image_indices),
-                       np.asarray(features), split, num_supervision,
-                       supervision_question_max_length)
+                       features if isinstance(features, SharedFeatures) else np.asarray(features),
+                       split, num_supervision, supervision_question_max_length)
         return dataset
 
     def _setup(self, programs, questions, answers, image_indices, features, split,

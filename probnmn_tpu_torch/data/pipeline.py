@@ -11,7 +11,10 @@ Host -> device batch pipeline (counterpart of ``probnmn_tpu/data/pipeline.py``).
   "supervision") each batch is stable-sorted by that field, descending, and
   carries the host-side count of its nonzero rows under ``_num_<key>``, a
   plain int that never goes to the card: the trainer takes the exact
-  supervised and unsupervised subsets with it.
+  supervised and unsupervised subsets with it. With ``world_size`` above 1
+  it also carries ``_num_<key>_global``, the count over the whole global
+  batch, which the trainers divide their sums by (at ``world_size`` 1 the
+  batch is the global batch and ``_num_<key>`` is that count).
 - :class:`EpochIterator`: one pass for evaluation, dropping the final partial
   batch unless ``include_last=True`` (test-split inference, which must cover
   every row).
@@ -29,6 +32,17 @@ is the whole batch. Both take ``transform``, a function of a host batch (a dict 
 arrays) that returns the batch to use, applied on the host right after the
 gather and before the sort and the copy to the card, as the JAX package
 applies it.
+
+A sorted batch over ranks: each rank sorts its own block supervised-first,
+so every rank holds a random mix of both subsets. The JAX package sorts the
+global batch and then splits it, which at 2 ranks puts nearly all the
+unsupervised rows on one device; here that rank alone would run K1, the
+REINFORCE passes and K3f while the other waits at the all-reduce. Either
+layout gives the same step, because the trainers' means are sums over the
+global batch divided by its counts. Every rank walks the same global
+batches (one sampler, one seed), so each counts the global batch's nonzero
+rows on the host from the global indices and the dataset's
+``get_<key>_list()``, with no collective.
 """
 from __future__ import annotations
 
@@ -84,11 +98,10 @@ class BatchIterator:
     def __init__(self, dataset, sampler, batch_size: int, device="cuda",
                  sort_descending_by: Optional[str] = None,
                  transform: Optional[Callable] = None, rank: int = 0, world_size: int = 1):
-        if sort_descending_by is not None and world_size > 1:
-            raise NotImplementedError(
-                "a batch sorted by supervision over several ranks (question_coding and "
-                "joint_training) is ROADMAP.md queue 1 item 5, piece (b)")
         self._rows = rank_rows(batch_size, rank, world_size)
+        # Every row's value of the sort key, for the global batch's count.
+        self._key_values = (np.asarray(getattr(dataset, f"get_{sort_descending_by}_list")())
+                            if sort_descending_by is not None and world_size > 1 else None)
         self._dataset = dataset
         self._sampler = sampler
         self._batch_size = batch_size
@@ -112,13 +125,15 @@ class BatchIterator:
         return out
 
     def _index_stream(self) -> Iterator[np.ndarray]:
+        r"""The global batches' indices."""
         while True:
             order = self._sampler.epoch()
             for start in range(0, len(order) - self._batch_size + 1, self._batch_size):
-                yield order[start : start + self._batch_size][self._rows]
+                yield order[start : start + self._batch_size]
 
     def _host_batches(self) -> Iterator[Dict[str, Any]]:
-        for indices in self._index_stream():
+        for global_indices in self._index_stream():
+            indices = global_indices[self._rows]
             batch = self._dataset.get_batch(indices)
             if self._transform is not None:
                 batch = self._transform(batch)
@@ -126,7 +141,14 @@ class BatchIterator:
                 key_values = np.asarray(batch[self._sort_key])
                 order = np.argsort(-key_values.astype(np.int64), kind="stable")
                 batch = {k: v[order] for k, v in batch.items()}
-                batch["_num_" + self._sort_key] = int(np.count_nonzero(key_values))
+                count = int(np.count_nonzero(key_values))
+                batch["_num_" + self._sort_key] = count
+                if self._key_values is not None:
+                    if count != int(np.count_nonzero(self._key_values[indices])):
+                        raise ValueError(f"the transform changed {self._sort_key!r}, which the "
+                                         "ranks count from the dataset")
+                    batch[f"_num_{self._sort_key}_global"] = int(
+                        np.count_nonzero(self._key_values[global_indices]))
             yield batch
 
     def _put(self, batch):

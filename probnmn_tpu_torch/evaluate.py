@@ -13,9 +13,15 @@ checkpoint (the port's, the JAX package's ``.ckpt`` or the reference's
 evaluates that many batches instead of the whole split. Scalars go to an
 in-memory writer, so evaluating writes nothing beside the checkpoint. The
 JAX CLI's other flags: ``--gpu-ids`` is ignored, ``--cpu-workers`` accepted
-and unused, ``--compilation-cache-dir`` roots the kernels' build cache and
-``--num-devices`` takes 1 (``utils/cli_flags.py``). A config with
-``DROPOUT > 0`` evaluates as the JAX evaluators do: without dropout.
+and unused and ``--compilation-cache-dir`` roots the kernels' build cache
+(``utils/cli_flags.py``). A config with ``DROPOUT > 0`` evaluates as the
+JAX evaluators do: without dropout.
+
+``--num-devices N`` evaluates over N ranks (``parallel/mesh.py``), launched
+as ``train.fit`` launches them: the datasets built once
+(``train.launcher_datasets``), each rank loads the checkpoint and evaluates
+its rows of every global batch, the metrics' counters are summed over the
+ranks, and rank 0 logs and returns the metrics.
 """
 import argparse
 import logging
@@ -51,14 +57,13 @@ parser.add_argument(
 )
 parser.add_argument("--num-val-batches", type=int, default=None,
                     help="Batches to evaluate (default: the whole val split).")
-add_shared_flags(parser)
+add_shared_flags(parser, num_devices_ported=True)
 
 
 def main(args):
-    r"""Returns the evaluator's metrics."""
+    r"""Returns the evaluator's metrics (rank 0's, over several ranks)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    logger = logging.getLogger(__name__)
-    apply_shared_flags(args, "evaluate")
+    apply_shared_flags(args)
     config = Config(args.config_yml, args.config_override)
     if args.phase != config.PHASE:
         raise ValueError(
@@ -66,17 +71,38 @@ def main(args):
             f"found {config.PHASE}"
         )
     print(config)
+    world = train.world_of(args, config)
+    if world == 1:
+        return _evaluate(None, args, config)
+    train_dataset, val_dataset = train.launcher_datasets(args.phase, config,
+                                                         args.streaming_features)
+    serialization_dir = os.path.dirname(os.path.abspath(args.checkpoint_path))
+    return train.launch_ranks(_evaluate_rank, args, world, serialization_dir,
+                              (args, config, train_dataset, val_dataset))[0]
+
+
+def _evaluate_rank(parallel, args, config, train_dataset, val_dataset):
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    apply_shared_flags(args)  # the build cache's root, in this process too
+    return _evaluate(parallel, args, config, train_dataset, val_dataset)
+
+
+def _evaluate(parallel, args, config, train_dataset=None, val_dataset=None):
     # The supervision subset of the train set the trainer builds depends on
     # this global seed (reference train.py:104-110).
     np.random.seed(config.RANDOM_SEED)
-
     serialization_dir = os.path.dirname(os.path.abspath(args.checkpoint_path))
-    trainer, evaluator = train.build(args.phase, config, serialization_dir, args.device,
+    trainer, evaluator = train.build(args.phase, config, serialization_dir,
+                                     args.device if parallel is None else parallel.device,
                                      in_memory_features=not args.streaming_features,
-                                     writer=RecordingWriter())
+                                     writer=RecordingWriter(), train_dataset=train_dataset,
+                                     val_dataset=val_dataset, parallel=parallel)
     trainer.load_checkpoint(args.checkpoint_path)
 
     val_metrics = evaluator.evaluate(num_batches=args.num_val_batches)
+    if not trainer.is_writer:
+        return None
+    logger = logging.getLogger(__name__)
     for model_name, metrics in val_metrics.items():
         if not isinstance(metrics, dict):
             continue

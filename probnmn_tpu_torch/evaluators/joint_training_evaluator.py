@@ -18,7 +18,9 @@ batch.
 The decodes are plain PyTorch in float32, as the JAX evaluator leaves them
 to XLA. The NMN runs ``fast_forward_from_tables``: kernel K2 on ``cuda`` over
 banks rebuilt from the live params at the start of each pass, its plain
-version on the CPU.
+version on the CPU. When the trainer is a rank of a data-parallel run each
+batch is the rank's rows of the global batch, and ``_collect`` sums every
+metric's counters over the ranks in one all-reduce.
 """
 from __future__ import annotations
 
@@ -31,7 +33,13 @@ from probnmn_tpu_torch.evaluators._evaluator import _Evaluator
 from probnmn_tpu_torch.evaluators.question_coding_evaluator import _Seq2SeqMetrics
 from probnmn_tpu_torch.models import nmn
 from probnmn_tpu_torch.models.seq2seq import GREEDY, seq2seq_forward
-from probnmn_tpu_torch.utils.metrics import Average, BooleanAccuracy, SequenceAccuracy
+from probnmn_tpu_torch.parallel.mesh import shard_of
+from probnmn_tpu_torch.utils.metrics import (
+    Average,
+    BooleanAccuracy,
+    SequenceAccuracy,
+    reduce_metrics,
+)
 
 
 class JointTrainingEvaluator(_Evaluator):
@@ -50,7 +58,8 @@ class JointTrainingEvaluator(_Evaluator):
         self._nmn_spec = trainer.nmn_spec
         dataset.check_tokens(self._pg_spec.target_vocab_size, self._pg_spec.source_vocab_size)
         super().__init__(
-            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device)
+            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device,
+                                           **shard_of(trainer.parallel))
         )
         self._pg_metrics = _Seq2SeqMetrics(SequenceAccuracy())
         self._answer_accuracy = BooleanAccuracy()
@@ -75,9 +84,14 @@ class JointTrainingEvaluator(_Evaluator):
             nmn_params["classifier"], image_to_nhwc(batch["image"]), programs, batch["answer"])
         self._pg_metrics.update(pg_out)
         self._answer_accuracy(out["predictions"].cpu().numpy(), batch["answer"].cpu().numpy())
-        self._average_invalid(float(out["invalid"].sum()))
+        # A count over the global batch: each of the n ranks adds n times its
+        # rows' count, so that the ranks' summed counters average to the
+        # global batch's.
+        self._average_invalid(float(out["invalid"].sum()) * self._trainer.world_size)
 
     def _collect(self) -> Dict[str, Any]:
+        reduce_metrics(self._trainer.parallel, self._pg_metrics.accumulators + [
+            self._answer_accuracy, self._average_invalid])
         return {
             "program_generator": self._pg_metrics.collect(),
             "question_reconstructor": {},

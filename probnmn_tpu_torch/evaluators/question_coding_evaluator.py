@@ -9,7 +9,10 @@ reconstructor (reference ``question_reconstructor.py:48``).
 
 The forward is ``seq2seq_forward(..., target_tokens=...)`` in plain PyTorch
 on the trainer's device: the JAX package leaves it to XLA too, so it is not
-a kernel.
+a kernel. When the trainer is a rank of a data-parallel run each batch is
+the rank's rows of the global batch, and ``_collect`` sums every metric's
+counters over the ranks in one all-reduce, so every rank reports the whole
+split's metrics; rank 0 alone logs the decoded examples.
 """
 from __future__ import annotations
 
@@ -24,12 +27,14 @@ from probnmn_tpu_torch.data.pipeline import EpochIterator
 from probnmn_tpu_torch.data.vocabulary import Vocabulary
 from probnmn_tpu_torch.evaluators._evaluator import _Evaluator
 from probnmn_tpu_torch.models.seq2seq import GREEDY, seq2seq_forward
+from probnmn_tpu_torch.parallel.mesh import shard_of
 from probnmn_tpu_torch.utils.metrics import (
     Average,
     BleuScore,
     SemanticQuestionReconstructionAccuracy,
     SequenceAccuracy,
     UnigramRecall,
+    reduce_metrics,
 )
 
 logger = logging.getLogger(__name__)
@@ -57,6 +62,10 @@ class _Seq2SeqMetrics:
         self.sequence_accuracy(clipped, relevant_targets, relevant_mask)
         self.unigram_recall(clipped, relevant_targets, relevant_mask)
 
+    @property
+    def accumulators(self):
+        return [self.bleu, self.log2_perplexity, self.sequence_accuracy, self.unigram_recall]
+
     def collect(self) -> Dict[str, float]:
         metrics = self.bleu.get_metric(reset=True)
         metrics.update(
@@ -79,7 +88,8 @@ class QuestionCodingEvaluator(_Evaluator):
         self._qr_spec = trainer.qr_spec
         dataset.check_tokens(self._pg_spec.target_vocab_size, self._pg_spec.source_vocab_size)
         super().__init__(
-            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device)
+            config, trainer, EpochIterator(dataset, config.OPTIM.BATCH_SIZE, device=trainer.device,
+                                           **shard_of(trainer.parallel))
         )
         self._vocabulary = Vocabulary.from_files(config.DATA.VOCABULARY)
         self._pg_metrics = _Seq2SeqMetrics(SequenceAccuracy())
@@ -100,7 +110,7 @@ class QuestionCodingEvaluator(_Evaluator):
         self._pg_metrics.update(pg_out)
         self._qr_metrics.update(qr_out)
 
-        if not self._printed:
+        if not self._printed and self._trainer.is_writer:
             self._printed = True
             rows = zip(batch["program"][:NUM_LOGGED].cpu().numpy(),
                        pg_out["predictions"][:NUM_LOGGED].cpu().numpy(),
@@ -118,6 +128,8 @@ class QuestionCodingEvaluator(_Evaluator):
         )
 
     def _collect(self) -> Dict[str, Any]:
+        reduce_metrics(self._trainer.parallel,
+                       self._pg_metrics.accumulators + self._qr_metrics.accumulators)
         return {
             "program_generator": self._pg_metrics.collect(),
             "question_reconstructor": self._qr_metrics.collect(),

@@ -224,8 +224,10 @@ def execute_programs_plain(
     and ``atraj`` (B, T, 2, H*W, C), zero where a step ran no two-conv chain.
     Each step runs every module kind for the rows whose token has that kind;
     rows stop changing at their first invalid op. Values are kept float32 and
-    rounded to the compute dtype where the kernel stores them. Differentiable
-    in ``stem_feats`` and the banks (K6's plain version differentiates it).
+    rounded to the compute dtype where the kernel stores them; a float64
+    ``stem_feats`` runs every step in float64 (the witness K6's float32 check
+    is weighed against, ``tools/k6_kinks.py``). Differentiable in
+    ``stem_feats`` and the banks (K6's plain version differentiates it).
     """
     batch, h, w, c = stem_feats.shape
     dtype = stem_feats.dtype
@@ -235,10 +237,11 @@ def execute_programs_plain(
     def rd(v):
         return as_operand(v, dtype)
 
-    x = stem_feats.float()
-    w3 = {"w": banks["w3"].float(), "b": banks["b3"]}
-    cmp_bank = {"w": banks["wcmp"].float(), "b": banks["bcmp"]}
-    w1, b1 = banks["w1"].float(), banks["b1"]
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    x = stem_feats.to(acc)
+    w3 = {"w": banks["w3"].to(acc), "b": banks["b3"].to(acc)}
+    cmp_bank = {"w": banks["wcmp"].to(acc), "b": banks["bcmp"].to(acc)}
+    w1, b1 = banks["w1"].to(acc), banks["b1"].to(acc)
     tab = {k: v.to(device=device, dtype=torch.long) for k, v in tables.items()}
 
     out = x.clone()
@@ -327,9 +330,9 @@ def execute_programs_plain(
             vec = xs.reshape(rows.numel(), h * w, c)[torch.arange(rows.numel(), device=device), am]
             xsel = rd(xs * vec[:, None, None, :])
             logit = (
-                torch.einsum("nhwc,nc->nhw", xsel, banks["same_wf"].float()[ss])
-                + attn * banks["same_wa"][ss][:, None, None]
-                + banks["same_b"][ss][:, None, None]
+                torch.einsum("nhwc,nc->nhw", xsel, banks["same_wf"].to(acc)[ss])
+                + attn * banks["same_wa"].to(acc)[ss][:, None, None]
+                + banks["same_b"].to(acc)[ss][:, None, None]
             )
             new_out[rows] = _broadcast(rd(torch.sigmoid(logit)), c)
 
@@ -421,6 +424,229 @@ def interpreter_grads_plain_by_row(banks, tables, spec, stem_feats, programs, g_
                                                          programs[one], g_final[one])
         w_banks = {k: w_banks[k] + row_banks[k] for k in DIFF_BANKS}
     return w_banks, w_stem, {row: int(flips[row]) for row in rows}
+
+
+# A decision of K5 / K6 that float64 takes the other way counts as a tie
+# broken by rounding when its float64 margin lies within this share of its
+# scale (the ReLU input against its sum of |products|, the argmax and
+# min / max gaps against the larger value).
+BRANCH_TOL = 1e-5
+
+
+def _branch_entries(tab, rev, start: int, base: int) -> Dict[Tuple[int, Any], int]:
+    r"""K6's workspace entry of each conv of one valid row, in its sweep
+    order (the last step first; a chain's last conv first; compare's second
+    conv, first conv, then the projection's two entries): {(step, layer or
+    "proj"): entry}."""
+    entry, out = base, {}
+    for t in range(len(rev) - 1, start - 1, -1):
+        kind = int(tab["kind"][rev[t]])
+        if kind in (ATTENTION, QUERY, RELATE):
+            for layer in reversed(range(5 if kind == RELATE else 2)):
+                out[(t, layer)] = entry
+                entry += 1
+        elif kind == COMPARE:
+            out[(t, 1)], out[(t, 0)], out[(t, "proj")] = entry, entry + 1, entry + 2
+            entry += 4
+    return out
+
+
+def interpreter_grads_on_branch(banks, tables, spec, stem_feats, programs, g_final, invalid,
+                                otraj=None, atraj=None, workspace=None, tol: float = BRANCH_TOL):
+    r"""K6's float32 reference: the gradient in float64 of the branch of the
+    interpreter that K5 and K6 took. The interpreter is smooth between its
+    discrete decisions (each ReLU's side, ``same``'s argmax, ``and`` /
+    ``or``'s pick); at an input within float32 rounding of a tie, K5's sums
+    (or a plain forward's, in another order) can fall on either side, which
+    moves an element's gradient by up to its upstream gradient, far above
+    the rounding of the rest. So each valid row runs alone, every step in
+    float64 from the float32 banks, stem and cotangent, but takes each
+    decision as the kernels took it: the ReLU sides from K5's ``atraj``
+    (two-conv chains) and K6's ``workspace`` (relate's chains from each
+    conv's input, its last conv from where K6 passed a gradient, compare's
+    projection), ``same``'s argmax and the min / max picks from K5's
+    ``otraj`` (ties split 0.5 / 0.5). Given none of them, each decision is
+    float64's own. A decision float64 takes the other way counts in the
+    report as ``taken`` when its float64 margin lies within ``tol`` of its
+    scale, else as ``far``: a kernel's fault. ``entries`` counts workspace
+    entries whose target differs from the conv's slot (the sweep order
+    assumed here is the kernel's), ``rows`` the rows ``invalid`` passes
+    that the tag machine here finds invalid; both are faults too.
+
+    Returns (d_banks of :data:`DIFF_BANKS`, d_stem and the final encodings
+    of that branch in float64, zero on the rows ``invalid`` flags, and the
+    report {"taken", "gap" (the largest taken margin over its scale),
+    "far", "far_gap", "entries", "rows"})."""
+    f64 = torch.float64
+    device = stem_feats.device
+    batch, h, w, c = stem_feats.shape
+    steps = programs.shape[1]
+    tab = {k: v.cpu().long().numpy() for k, v in tables.items()}
+    progs = programs.cpu().long().numpy()
+    inv = invalid.cpu().numpy().astype(bool)
+    leaves = {k: banks[k].detach().to(f64).requires_grad_(True) for k in DIFF_BANKS}
+    absolute = {k: leaves[k].detach().abs() for k in ("w3", "b3", "wcmp", "bcmp")}
+    stem = stem_feats.detach().to(f64).requires_grad_(True)
+    g = g_final.detach().to(device=device, dtype=f64)
+    finals = torch.zeros(batch, h, w, c, dtype=f64, device=device)
+    report = {"entries": 0, "rows": 0}
+    # taken, far, the largest taken and far shares: summed on the device,
+    # read once at the end.
+    tally = torch.zeros(4, dtype=f64, device=device)
+    if workspace is not None:
+        per_token = (tab["chain_len"] + 2 * (tab["kind"] == COMPARE)).astype(np.int64)
+        upper = per_token[progs].sum(1) * ~inv
+        bases = np.cumsum(upper) - upper
+        ws_inp, ws_g = workspace["inp"], workspace["g"]
+        ws_tag = workspace["tag"].cpu().numpy()
+    s3 = banks["w3"].shape[0]
+
+    def decide(own, hint, margin, scale, known=None):
+        r"""The kernels' decision where given (``known``: where it is
+        read), float64's elsewhere; counts where they differ."""
+        if hint is None:
+            return own
+        differ = hint != own
+        if known is not None:
+            differ = differ & known
+        count(differ, margin / scale.clamp_min(1e-300))
+        return torch.where(differ, hint, own)
+
+    def count(differ, share):
+        near = differ & (share <= tol)
+        far = differ & ~near
+        zero = torch.zeros((), dtype=f64, device=device)
+        tally.add_(torch.stack([near.sum().to(f64), far.sum().to(f64), zero, zero]))
+        tally[2:] = torch.maximum(tally[2:], torch.stack([
+            torch.where(near, share, zero).max(), torch.where(far, share, zero).max()]))
+
+    def relu_layer(a, slot, d, hint, known=None):
+        pre = gconv.gathered_conv3x3(a[None], {"w": leaves["w3"], "b": leaves["b3"]},
+                                     torch.tensor([slot], device=device), d)[0]
+        scale = gconv.gathered_conv3x3(a.detach().abs()[None],
+                                       {"w": absolute["w3"], "b": absolute["b3"]},
+                                       torch.tensor([slot], device=device), d)[0]
+        mask = decide(pre.detach() > 0, hint, pre.detach().abs(), scale, known)
+        return pre * mask
+
+    def pick(a, other, kind, hint_a, hint_other):
+        r"""and / or's weight of ``a`` (1, 0, or 0.5 at a tie)."""
+        def weight(p, q):
+            return ((p < q) if kind == AND else (p > q)).to(f64) + 0.5 * (p == q).to(f64)
+        own = weight(a.detach(), other.detach())
+        if hint_a is None:
+            return own
+        hint = weight(hint_a, hint_other)
+        scale = torch.maximum(a.detach().abs(), other.detach().abs())
+        return decide(own, hint, (a.detach() - other.detach()).abs(), scale)
+
+    for b in range(batch):
+        if inv[b]:
+            continue
+        rev = progs[b, ::-1]
+        start = int(np.argmax(rev != 0)) if (rev != 0).any() else steps
+        entries = {}
+        if workspace is not None:
+            entries = _branch_entries(tab, rev, start, int(bases[b]))
+        x = stem[b]
+        out, saved = x, torch.zeros_like(x)
+        out_tag, saved_tag, last_scene, valid = TAG_FEAT, TAG_NONE, -1, True
+
+        def ws_entry(t, layer, slot):
+            e = entries[(t, layer)]
+            report["entries"] += int(ws_tag[e] != slot)
+            return e
+
+        for t in range(start, steps):
+            tok = int(rev[t])
+            kind, head = int(tab["kind"][tok]), int(tab["head_slot"][tok])
+            if kind == SCENE:
+                saved, saved_tag, last_scene = out, out_tag, t
+                out, out_tag = torch.ones_like(x), TAG_ATTN
+            elif kind in (AND, OR):
+                if saved_tag == TAG_NONE:
+                    valid = False
+                    break
+                hints = ((otraj[b, t].to(f64).reshape(h, w, c),
+                          otraj[b, last_scene].to(f64).reshape(h, w, c))
+                         if otraj is not None else (None, None))
+                wt = pick(out, saved, kind, *hints)
+                both_attn = out_tag == TAG_ATTN and saved_tag == TAG_ATTN
+                out = wt * out + (1 - wt) * saved
+                out_tag = TAG_ATTN if both_attn else TAG_FEAT
+            elif kind in (ATTENTION, QUERY, RELATE):
+                if out_tag != TAG_ATTN:
+                    valid = False
+                    break
+                relate = kind == RELATE
+                a = x * out
+                dilations = RELATE_DILATIONS if relate else (1, 1)
+                for layer, d in enumerate(dilations):
+                    slot = int(tab["slot3"][tok, layer])
+                    hint = known = None
+                    if not relate and atraj is not None:
+                        hint = atraj[b, t, layer].reshape(h, w, c) > 0
+                    elif relate and workspace is not None and layer < 4:
+                        nxt = int(tab["slot3"][tok, layer + 1])
+                        hint = ws_inp[ws_entry(t, layer + 1, nxt)].reshape(h, w, c) > 0
+                    elif relate and workspace is not None:
+                        # K6 passed a gradient where its mask was 1; where a
+                        # pixel passed none, its mask is not read here.
+                        gz = ws_g[ws_entry(t, layer, slot)].reshape(h, w, c) != 0
+                        hint = gz
+                        known = gz.any(-1, keepdim=True).expand_as(gz) & (
+                            leaves["w1"].detach()[head] != 0)
+                    a = relu_layer(a, slot, d, hint, known)
+                if head >= 0:
+                    logit = torch.einsum("hwc,c->hw", a, leaves["w1"][head]) + leaves["b1"][head]
+                    out, out_tag = torch.sigmoid(logit)[..., None].expand(h, w, c), TAG_ATTN
+                else:
+                    out, out_tag = a, TAG_FEAT
+            elif kind == COMPARE:
+                if out_tag != TAG_FEAT or saved_tag != TAG_FEAT:
+                    valid = False
+                    break
+                cs = int(tab["cmp_slot"][tok])
+                both = torch.cat([out, saved], dim=-1)
+                pre = both @ leaves["wcmp"][cs] + leaves["bcmp"][cs]
+                scale = both.detach().abs() @ absolute["wcmp"][cs] + absolute["bcmp"][cs]
+                hint = None
+                if workspace is not None:
+                    ws_entry(t, "proj", s3 + 2 * cs)
+                    e = ws_entry(t, 0, int(tab["slot3"][tok, 0]))
+                    hint = ws_inp[e].reshape(h, w, c) > 0
+                a = pre * decide(pre.detach() > 0, hint, pre.detach().abs(), scale)
+                for layer in range(2):
+                    hint = atraj[b, t, layer].reshape(h, w, c) > 0 if atraj is not None else None
+                    a = relu_layer(a, int(tab["slot3"][tok, layer]), 1, hint)
+                out, out_tag = a, TAG_FEAT
+            elif kind == SAME:
+                if out_tag != TAG_ATTN:
+                    valid = False
+                    break
+                ss = int(tab["same_slot"][tok])
+                attn = out[..., 0].reshape(-1)
+                am = attn.detach().argmax()
+                if otraj is not None:
+                    hint_am = otraj[b, t].reshape(h * w, c)[:, 0].argmax()
+                    top = attn.detach()[am]
+                    count(hint_am != am, (top - attn.detach()[hint_am]) / top.abs())
+                    am = hint_am
+                vec = x.reshape(h * w, c)[am]
+                logit = (torch.einsum("hwc,c->hw", x * vec, leaves["same_wf"][ss])
+                         + out[..., 0] * leaves["same_wa"][ss] + leaves["same_b"][ss])
+                out, out_tag = torch.sigmoid(logit)[..., None].expand(h, w, c), TAG_ATTN
+        if not valid or out_tag != TAG_FEAT:
+            report["rows"] += 1  # a row K5 ran as valid
+            continue
+        finals[b] = out.detach()
+        (out * g[b]).sum().backward()
+    taken, far, gap, far_gap = tally.tolist()
+    report.update(taken=int(taken), gap=gap, far=int(far), far_gap=far_gap)
+    d_banks = {k: leaves[k].grad if leaves[k].grad is not None else torch.zeros_like(leaves[k])
+               for k in DIFF_BANKS}
+    d_stem = stem.grad if stem.grad is not None else torch.zeros_like(stem)
+    return d_banks, d_stem, finals, report
 
 
 def interpreter_plan_plain(tables: Dict[str, torch.Tensor], programs: torch.Tensor

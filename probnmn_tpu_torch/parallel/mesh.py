@@ -7,9 +7,13 @@ the parameters; under jit, GSPMD inserts the gradient all-reduce. Here each
 rank is a process of its own that holds the parameters, gathers the
 contiguous rows ``[rank * B / n, (rank + 1) * B / n)`` of every global batch
 (``data/pipeline.py``), runs the kernels on them, and joins the others in
-one all-reduce of every gradient before the optimizer's step. The losses are
-means over equal shards, so the mean of the ranks' gradients is the
-gradient of the global batch, up to the order of the sums.
+one all-reduce of every gradient before the optimizer's step. In
+program_prior and module_training the losses are means over equal shards,
+so the mean of the ranks' gradients is the gradient of the global batch, up
+to the order of the sums. In question_coding and joint_training the means
+are over subsets (the supervised rows, the unsupervised ones) whose counts
+differ from rank to rank: each rank divides its rows' sums by the global
+batch's counts, and the ranks' gradients are summed.
 
 - :func:`auto_world` keeps ``auto_mesh``'s policy: None or 1 gives one
   process, 0 every device, N ``min(N, available)``; then the count drops to
@@ -83,13 +87,20 @@ def rank_seed(seed: int, rank: int) -> int:
     return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
 
 
+def global_sum_vector(parallel: Optional["DataParallel"], values: Sequence[Any],
+                      device: torch.device) -> torch.Tensor:
+    r"""``values`` (0-dim tensors or numbers) summed over the ranks, as one
+    float64 tensor with no host sync: one all-reduce under ``parallel`` (on
+    the rank's device), the values themselves on ``device`` in one process
+    (None)."""
+    if parallel is not None:
+        return parallel.all_reduce_sums(values)
+    return torch.stack([torch.as_tensor(v, dtype=torch.float64, device=device) for v in values])
+
+
 def global_sums(parallel: Optional["DataParallel"], values: Sequence[Any]) -> List[float]:
-    r"""``values`` (0-dim tensors or numbers) summed over the ranks, as host
-    floats: one all-reduce under ``parallel``, the values themselves in one
-    process (None)."""
-    if parallel is None:
-        return [float(v) for v in values]
-    return parallel.all_reduce_sums(values).tolist()
+    r"""``values`` summed over the ranks as host floats (:func:`global_sum_vector`)."""
+    return global_sum_vector(parallel, values, torch.device("cpu")).tolist()
 
 
 def shard_of(parallel: Optional["DataParallel"]) -> dict:
@@ -115,15 +126,18 @@ class DataParallel:
         return self.rank == 0
 
     @torch.no_grad()
-    def all_reduce_grads(self, params: Sequence[torch.Tensor]) -> None:
-        r"""Every parameter's ``.grad`` becomes the mean over the ranks: one
-        all-reduce of all gradients flattened into one buffer, divided by the
-        world size. A parameter without a gradient takes part as zeros (the
-        optimizer steps on zeros there, as under ``jax.grad``)."""
+    def all_reduce_grads(self, params: Sequence[torch.Tensor], average: bool = True) -> None:
+        r"""Every parameter's ``.grad`` becomes the mean over the ranks
+        (``average``; the losses are means over equal shards) or their sum
+        (``average=False``; each rank's loss is its rows' sums over the
+        global batch's counts): one all-reduce of all gradients flattened
+        into one buffer. A parameter without a gradient takes part as zeros
+        (the optimizer steps on zeros there, as under ``jax.grad``)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
-        flat.div_(self.world_size)
+        if average:
+            flat.div_(self.world_size)
         offset = 0
         for p, g in zip(params, grads):
             n = g.numel()

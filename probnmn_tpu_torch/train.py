@@ -22,16 +22,18 @@ ignored, ``--cpu-workers`` accepted and unused, ``--compilation-cache-dir``
 roots the kernels' build cache, and ``--model-parallel`` takes 1
 (``utils/cli_flags.py``).
 
-``--num-devices N`` trains program_prior and module_training data-parallel
+``--num-devices N`` trains any of the four phases data-parallel
 (``parallel/mesh.py``), as the JAX CLI's mesh does: N ranks, ``auto_mesh``'s
 count (0 is every card; the count drops to the largest that divides
 ``OPTIM.BATCH_SIZE``), one process a card over NCCL on ``cuda`` and CPU
 processes over gloo with ``--device cpu``. The launcher builds the kernels
-once and reads module_training's in-memory features once into shared host
-memory; each rank trains on its rows of every global batch with one
-gradient all-reduce a step, and rank 0 alone writes checkpoints, scalars
-and the ``--profile-dir`` trace. question_coding and joint_training take
-one device (ROADMAP.md queue 1 item 5, piece (b)).
+once and the datasets once (:func:`launcher_datasets`: question_coding's and
+joint_training's supervision subset is drawn there, so every rank holds the
+same one; module_training's and joint_training's in-memory features go into
+shared host memory); each rank trains on its rows of every global batch
+with one gradient all-reduce a step (and, in question_coding and
+joint_training, one all-reduce of the logged sums), and rank 0 alone
+writes checkpoints, scalars and the ``--profile-dir`` trace.
 """
 import argparse
 import logging
@@ -47,8 +49,6 @@ from probnmn_tpu_torch.utils.cli_flags import add_shared_flags, apply_shared_fla
 from probnmn_tpu_torch.utils.observability import annotate, profile_trace
 
 PHASES = ["program_prior", "question_coding", "module_training", "joint_training"]
-# The phases that train over several ranks.
-MESH_PHASES = ("program_prior", "module_training")
 
 parser = argparse.ArgumentParser(description="Train a specified phase of ProbNMN (PyTorch/CUDA).")
 parser.add_argument("--phase", required=True, choices=PHASES)
@@ -94,11 +94,8 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
     writer (None: tensorboardX over ``serialization_dir``); ``train_dataset``
     and ``val_dataset`` are the phase's datasets (None: read from the H5 files
     that ``config.DATA`` names); ``parallel`` makes the trainer a rank of a
-    data-parallel run (program_prior and module_training)."""
-    if parallel is not None and phase not in MESH_PHASES:
-        raise NotImplementedError(f"{phase} over several ranks is ROADMAP.md queue 1 item 5, "
-                                  "piece (b)")
-    data = dict(writer=writer, dataset=train_dataset)
+    data-parallel run."""
+    data = dict(writer=writer, dataset=train_dataset, parallel=parallel)
     if phase == "joint_training":
         from probnmn_tpu_torch.evaluators.joint_training_evaluator import JointTrainingEvaluator
         from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
@@ -114,8 +111,7 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
         from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
 
         trainer = ModuleTrainingTrainer(config, serialization_dir, device=device,
-                                        in_memory_features=in_memory_features,
-                                        parallel=parallel, **data)
+                                        in_memory_features=in_memory_features, **data)
         return trainer, ModuleTrainingEvaluator(config, trainer, dataset=val_dataset,
                                                 in_memory_features=in_memory_features)
     if phase == "question_coding":
@@ -129,15 +125,14 @@ def build(phase: str, config: Config, serialization_dir: str, device: str,
     from probnmn_tpu_torch.evaluators.program_prior_evaluator import ProgramPriorEvaluator
     from probnmn_tpu_torch.training.program_prior_trainer import ProgramPriorTrainer
 
-    trainer = ProgramPriorTrainer(config, serialization_dir, device=device, parallel=parallel,
-                                  **data)
+    trainer = ProgramPriorTrainer(config, serialization_dir, device=device, **data)
     return trainer, ProgramPriorEvaluator(config, trainer, dataset=val_dataset)
 
 
 def main(args):
     r"""Returns what :func:`fit` returns."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    apply_shared_flags(args, None if args.phase in MESH_PHASES else args.phase)
+    apply_shared_flags(args)
     config = Config(args.config_yml, args.config_override)
     if args.phase != config.PHASE:
         raise ValueError(
@@ -151,38 +146,78 @@ def main(args):
     return fit(args, config)
 
 
+def world_of(args, config: Config) -> int:
+    r"""The ranks that ``--num-devices`` gives ``config`` on ``--device``."""
+    device_type = resolve_device(args.device).type
+    return mesh.auto_world(args.num_devices, config.OPTIM.BATCH_SIZE,
+                           mesh.available_devices(device_type, args.num_devices))
+
+
+def launcher_datasets(phase: str, config: Config, streaming: bool, train_dataset=None,
+                      val_dataset=None):
+    r"""(train, val) datasets of ``phase`` built once in the launcher of
+    several ranks, where the caller gave none: question_coding's and
+    joint_training's train set draws its supervision subset here, from the
+    global numpy seed set to ``RANDOM_SEED`` as one process sets it, so every
+    rank holds the same subset; module_training's and joint_training's
+    in-memory features are read once into shared host memory. program_prior
+    returns what it was given."""
+    from probnmn_tpu_torch.data import datasets
+
+    np.random.seed(config.RANDOM_SEED)
+    d, in_memory = config.DATA, not streaming
+    supervision = dict(num_supervision=config.SUPERVISION,
+                       supervision_question_max_length=config.SUPERVISION_QUESTION_MAX_LENGTH)
+    if phase == "question_coding":
+        if train_dataset is None:
+            train_dataset = datasets.QuestionCodingDataset(d.TRAIN_TOKENS, **supervision)
+        if val_dataset is None:
+            val_dataset = datasets.QuestionCodingDataset(d.VAL_TOKENS)
+    elif phase == "joint_training":
+        features = dict(in_memory=in_memory, shared_features=in_memory)
+        if train_dataset is None:
+            train_dataset = datasets.JointTrainingDataset(d.TRAIN_TOKENS, d.TRAIN_FEATURES,
+                                                          **supervision, **features)
+        if val_dataset is None:
+            val_dataset = datasets.JointTrainingDataset(d.VAL_TOKENS, d.VAL_FEATURES, **features)
+    elif phase == "module_training" and in_memory:
+        if train_dataset is None:
+            train_dataset = datasets.ModuleTrainingDataset(d.TRAIN_TOKENS, d.TRAIN_FEATURES,
+                                                           shared_features=True)
+        if val_dataset is None:
+            val_dataset = datasets.ModuleTrainingDataset(d.VAL_TOKENS, d.VAL_FEATURES,
+                                                         shared_features=True)
+    return train_dataset, val_dataset
+
+
+def launch_ranks(fn, args, world: int, run_dir: str, rank_args: tuple):
+    r"""``fn(parallel, *rank_args)`` on ``world`` ranks on ``--device``, the
+    kernels built once here first on ``cuda`` (so that the ranks load the
+    library and no rank runs nvcc); each rank's results, by rank."""
+    device_type = resolve_device(args.device).type
+    if device_type == "cuda":
+        from probnmn_tpu_torch.ops.kernels import _build
+
+        _build.build()
+    return mesh.launch(fn, world, device_type, run_dir, args=rank_args)
+
+
 def fit(args, config: Config, train_dataset=None, val_dataset=None, writer=None):
     r"""Train ``config``'s phase from the CLI's parsed ``args``: in this
-    process, or with ``--num-devices`` above 1 (program_prior and
-    module_training) over that many ranks through
+    process, or with ``--num-devices`` above 1 over that many ranks through
     :func:`parallel.mesh.launch`. ``train_dataset`` and ``val_dataset``
     stand in for the H5 files (None: read them); ``writer`` is rank 0's
     scalar writer (None: tensorboardX), which must pickle where there are
     several ranks. Returns rank 0's ``writer`` once trained."""
-    device_type = resolve_device(args.device).type
-    world = mesh.auto_world(args.num_devices, config.OPTIM.BATCH_SIZE,
-                            mesh.available_devices(device_type, args.num_devices))
+    world = world_of(args, config)
     if world == 1:
         return _train(None, args, config, train_dataset, val_dataset, writer)
     logging.getLogger(__name__).info("Training %s over %d ranks on %s", args.phase, world,
-                                     device_type)
-    if args.phase == "module_training" and not args.streaming_features:
-        # One copy of the features in shared host memory, whatever the ranks.
-        from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset
-
-        if train_dataset is None:
-            train_dataset = ModuleTrainingDataset(config.DATA.TRAIN_TOKENS,
-                                                  config.DATA.TRAIN_FEATURES, shared_features=True)
-        if val_dataset is None:
-            val_dataset = ModuleTrainingDataset(config.DATA.VAL_TOKENS, config.DATA.VAL_FEATURES,
-                                                shared_features=True)
-    if device_type == "cuda":
-        # Built once here, so that the ranks load the library and no rank runs nvcc.
-        from probnmn_tpu_torch.ops.kernels import _build
-
-        _build.build()
-    return mesh.launch(_train_rank, world, device_type, args.serialization_dir,
-                       args=(args, config, train_dataset, val_dataset, writer))[0]
+                                     args.device)
+    train_dataset, val_dataset = launcher_datasets(args.phase, config, args.streaming_features,
+                                                   train_dataset, val_dataset)
+    return launch_ranks(_train_rank, args, world, args.serialization_dir,
+                        (args, config, train_dataset, val_dataset, writer))[0]
 
 
 def _train_rank(parallel, args, config, train_dataset, val_dataset, writer):

@@ -35,9 +35,11 @@ seeded from ``RANDOM_SEED`` that nothing else draws from.
 ``parallel`` (a ``parallel/mesh.py`` ``DataParallel``; None is one process)
 makes the trainer one rank of a data-parallel run: its batches are the
 rank's rows of each global batch, the phase trainers all-reduce the
-gradients before Adam's step (:meth:`_apply_gradients`; the clamp then acts
-on the global gradient, as the JAX package's does) and the logged values as
-sums over the global batch, rank 0's parameters are broadcast before the
+gradients before Adam's step (:meth:`_apply_gradients`: their mean where the loss is a mean over equal
+shards, their sum where each rank's loss is its rows' share of the global
+batch's means, as in question_coding and joint_training; the clamp then
+acts on the global gradient, as the JAX package's does) and the logged
+values as sums over the global batch, rank 0's parameters are broadcast before the
 first step, the trainer's generators are seeded by (``RANDOM_SEED``, rank),
 and rank 0 alone writes checkpoints, scalars and the JAX ``.ckpt``. Every
 rank reads a checkpoint it resumes from and runs the plateau scheduler on
@@ -219,13 +221,17 @@ class _Trainer:
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def _apply_gradients(self, loss: torch.Tensor) -> None:
-        r"""``backward()`` of ``loss``, the gradients' mean over the ranks
-        where there are several, then the clamp and Adam's step."""
+    def _apply_gradients(self, loss: torch.Tensor, average: bool = True) -> None:
+        r"""``backward()`` of ``loss``, the gradients' mean (``average``) or
+        sum over the ranks where there are several, then the clamp and
+        Adam's step. A ``loss`` that needs no gradient (a rank whose rows
+        feed no trainable pass) skips the backward and still joins the
+        all-reduce, with zeros."""
         self._optimizer.zero_grad()
-        loss.backward()
+        if loss.requires_grad:
+            loss.backward()
         if self._parallel is not None:
-            self._parallel.all_reduce_grads(tree_leaves(self._params))
+            self._parallel.all_reduce_grads(tree_leaves(self._params), average=average)
         self._optimizer.step()
 
     def _log_output(self, output_dict: Dict[str, Any]) -> None:
@@ -348,6 +354,11 @@ class _Trainer:
     def parallel(self):
         r"""The rank's ``DataParallel`` handle, or None for one process."""
         return self._parallel
+
+    @property
+    def world_size(self) -> int:
+        r"""The ranks of the run: 1 for one process."""
+        return 1 if self._parallel is None else self._parallel.world_size
 
     @property
     def is_writer(self) -> bool:

@@ -15,7 +15,7 @@ sort_descending_by="supervision")``) runs, with OBJECTIVE ``ours``:
   answer log-likelihood at z over the rows' image features
   (``nmn_forward_fast``: K5 forward and K6 backward, or K2 and K6's replay
   mode, see below); then ``joint_training_reward`` and
-  ``elbo_with_reinforce``;
+  ``elbo_rows``;
 - on the supervised rows ``[:n_sup]``: PG and QR teacher-forced (K4, twice);
 - total = γ·nmn − elbo + α·(pg_sup + qr_sup); ``backward()``, clamp, Adam
   over PG, QR and the NMN.
@@ -42,6 +42,16 @@ The NMN's backward: by default K5 stores the residuals K6 reads (about 1 GB
 at batch 256 in bfloat16); ``replay=True`` or ``PROBNMN_NMN_REPLAY_BWD=1``
 (the JAX package's switch) runs K2, which stores none, and K6 in replay
 mode, with the same gradients.
+
+Every mean is a subset's sum over the global batch's count, as in the
+question_coding trainer, whose data-parallel scheme this trainer keeps with
+``parallel``: a rank's block of each global batch, sorted supervised-first
+inside it; its rows' sums over the global counts, the ranks' gradients
+summed; one all-reduce of a fixed float64 vector (:data:`JT_SUMS`) after
+the backward for the logs and the baseline, the same on every rank. The
+NMN's K5 and K6 run on the rank's unsupervised rows. The launcher hands
+every rank one copy of the features in shared memory
+(``JointTrainingDataset(shared_features=True)``).
 """
 from __future__ import annotations
 
@@ -57,21 +67,31 @@ from probnmn_tpu_torch.data.vocabulary import Vocabulary
 from probnmn_tpu_torch.device import resolve_device
 from probnmn_tpu_torch.models import nmn, program_generator, question_reconstructor
 from probnmn_tpu_torch.modules.elbo import (
-    elbo_with_reinforce,
+    elbo_rows,
     joint_training_reward,
-    masked_mean,
-    reinforce,
+    mean_over,
+    reinforce_rows,
 )
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import fused_tf_loss, pack_lm_weights
+from probnmn_tpu_torch.parallel.mesh import shard_of
 from probnmn_tpu_torch.training._trainer import _Trainer, load_frozen
 from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
 from probnmn_tpu_torch.training.question_coding_trainer import (
     COUNT_KEY,
+    ELBO_LOGS,
     SORT_KEY,
+    SUP_LOGS,
     QuestionCodingTrainer,
     frozen_prior_logprobs,
+    global_means,
     load_frozen_prior,
+    subset_counts,
 )
+
+# The sums a step all-reduces, in order: question_coding's and the NMN's loss.
+JT_SUMS = ("nmn", "program_generation_gt", "question_reconstruction_gt",
+           "reconstruction_likelihood", "kl_divergence", "elbo", "reinforce_reward",
+           "centered_reward")
 
 
 class JointTrainingTrainer(_Trainer):
@@ -79,11 +99,13 @@ class JointTrainingTrainer(_Trainer):
     and ``config.DATA.TRAIN_FEATURES`` (the supervision subset drawn from the
     global numpy seed; features in host memory, or streamed with
     ``in_memory_features=False``). ``replay`` selects the NMN's backward
-    (None: ``PROBNMN_NMN_REPLAY_BWD``)."""
+    (None: ``PROBNMN_NMN_REPLAY_BWD``). ``parallel``: the rank's
+    ``DataParallel`` handle, or None for one process."""
 
     def __init__(self, config: Config, serialization_dir: str, device="cuda", writer=None,
                  dataset: Optional[JointTrainingDataset] = None,
-                 in_memory_features: bool = True, replay: Optional[bool] = None):
+                 in_memory_features: bool = True, replay: Optional[bool] = None,
+                 parallel=None):
         if config.PHASE != "joint_training":
             raise ValueError(f"Expected PHASE joint_training, found {config.PHASE}")
         if config.OBJECTIVE not in ("baseline", "ours"):
@@ -110,6 +132,7 @@ class JointTrainingTrainer(_Trainer):
             config.OPTIM.BATCH_SIZE,
             device=device,
             sort_descending_by=SORT_KEY,
+            **shard_of(parallel),
         )
         # Templates of the right shapes; every trainable param is read from a
         # checkpoint of the port's earlier phases (reference :85-90).
@@ -126,7 +149,8 @@ class JointTrainingTrainer(_Trainer):
             "nmn": load_frozen(mt_path, "nmn", nmn.init_nmn_params(gen, self.nmn_spec), device,
                                self.nmn_spec, vocabulary),
         }
-        super().__init__(config, batches, models, serialization_dir, device=device, writer=writer)
+        super().__init__(config, batches, models, serialization_dir, device=device, writer=writer,
+                         parallel=parallel)
         self._vocabulary = vocabulary
         self._replay = replay
         self._tables = nmn.build_tables(self.nmn_spec, self._device)
@@ -150,66 +174,80 @@ class JointTrainingTrainer(_Trainer):
         for its unsupervised rows (None when there are none), under the
         passes' ``dropout_masks`` (``question_coding_dropout_masks``' keys;
         None: no dropout). The logs are detached 0-dim tensors under the JAX
-        trainer's keys."""
+        trainer's keys. On a rank the total is the rank's share of the
+        global batch's, and the baseline and logs are the global batch's,
+        after one all-reduce."""
+        total, sums = self.joint_training_sums(params, batch, z, baseline, dropout_masks)
+        new_baseline, logs = self.logs_of_sums(sums, batch, baseline)
+        return total, new_baseline, logs
+
+    def joint_training_sums(
+        self, params: Dict[str, Any], batch: Dict[str, Any], z: Optional[torch.Tensor],
+        baseline: torch.Tensor, dropout_masks: Optional[Dict[str, Any]] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        r"""(this batch's share of the global total loss, the detached sums
+        over its rows of every :data:`JT_SUMS` term): each mean is the rows'
+        sum over the global batch's count of the subset."""
         masks = dropout_masks or {}
         c = self._C
         n_sup = batch[COUNT_KEY]
+        sup_count, unsup_count = subset_counts(batch, self.world_size)
         questions, programs = batch["question"], batch["program"]
         pg, qr = params["program_generator"], params["question_reconstructor"]
         zero = torch.zeros((), dtype=torch.float32, device=questions.device)
+        sums = {key: zero.double() for key in JT_SUMS}
 
         nmn_loss = elbo = zero
-        new_baseline = baseline
-        diagnostics = {"reconstruction_likelihood": zero, "kl_divergence": zero,
-                       "reinforce_reward": zero}
         if z is not None:
             q_unsup = questions[n_sup:]
             pg_loss = fused_tf_loss(pg, self.pg_spec, q_unsup, z, True, masks.get("pg_unsup"))
             nmn_out = nmn.nmn_forward_fast(
                 params["nmn"], self.nmn_spec, image_to_nhwc(batch["image"][n_sup:]), z,
                 batch["answer"][n_sup:], tables=self._tables, replay=self._replay)
-            ones = torch.ones_like(pg_loss)
-            nmn_loss = masked_mean(nmn_out["loss"], ones)
+            nmn_loss = mean_over(nmn_out["loss"].sum(), unsup_count)
+            sums["nmn"] = nmn_out["loss"].detach().double().sum()
             logprobs_answering = -nmn_out["loss"]
             if c.OBJECTIVE == "baseline":
-                reinforce_term, new_baseline = reinforce(pg_loss, logprobs_answering, baseline,
-                                                         c.DELTA, mask=ones)
-                elbo = masked_mean(reinforce_term, ones)
-                diagnostics = {"reinforce_reward": masked_mean(logprobs_answering, ones)}
+                rows, elbo_sums = reinforce_rows(pg_loss, logprobs_answering, baseline)
             else:
-                logprobs_generation = -pg_loss
                 logprobs_reconstruction = -fused_tf_loss(qr, self.qr_spec, z, q_unsup,
                                                          dropout_masks=masks.get("qr_unsup"))
                 logprobs_prior = frozen_prior_logprobs(self._prior_params, self._prior_packed,
                                                        self.prior_spec, z)
-                reward = joint_training_reward(logprobs_reconstruction, logprobs_generation,
+                reward = joint_training_reward(logprobs_reconstruction, -pg_loss,
                                                logprobs_prior, logprobs_answering, c.BETA,
                                                c.GAMMA)
-                diagnostics, new_baseline = elbo_with_reinforce(
-                    logprobs_generation, logprobs_reconstruction, reward, baseline, c.BETA,
-                    c.DELTA, mask=ones,
-                )
-                elbo = diagnostics.pop("elbo")
-                diagnostics.pop("elbo_per_example")
-        elif c.OBJECTIVE == "baseline":
-            diagnostics = {"reinforce_reward": zero}
+                rows, elbo_sums = elbo_rows(-pg_loss, logprobs_reconstruction, reward, baseline,
+                                            c.BETA)
+            elbo = mean_over(rows.sum(), unsup_count)
+            sums.update(elbo_sums)
 
         total = c.GAMMA * nmn_loss - elbo
-        losses = {"nmn": nmn_loss}
-        if c.OBJECTIVE == "ours":
-            pg_loss_sup = qr_loss_sup = zero
-            if n_sup > 0:
-                q_sup, p_sup = questions[:n_sup], programs[:n_sup]
-                ones = torch.ones(n_sup, dtype=torch.float32, device=questions.device)
-                pg_loss_sup = masked_mean(fused_tf_loss(
-                    pg, self.pg_spec, q_sup, p_sup, dropout_masks=masks.get("pg_sup")), ones)
-                qr_loss_sup = masked_mean(fused_tf_loss(
-                    qr, self.qr_spec, p_sup, q_sup, dropout_masks=masks.get("qr_sup")), ones)
-            losses.update(question_reconstruction_gt=qr_loss_sup, program_generation_gt=pg_loss_sup)
-            total = total + c.ALPHA * (pg_loss_sup + qr_loss_sup)
-        logs = {"loss": {k: v.detach() for k, v in losses.items()},
-                "elbo": {k: v.detach() for k, v in dict(diagnostics, elbo=elbo).items()}}
-        return total, new_baseline.detach(), logs
+        if c.OBJECTIVE == "ours" and n_sup > 0:
+            q_sup, p_sup = questions[:n_sup], programs[:n_sup]
+            pg_rows = fused_tf_loss(pg, self.pg_spec, q_sup, p_sup,
+                                    dropout_masks=masks.get("pg_sup"))
+            qr_rows = fused_tf_loss(qr, self.qr_spec, p_sup, q_sup,
+                                    dropout_masks=masks.get("qr_sup"))
+            total = total + c.ALPHA * (mean_over(pg_rows.sum(), sup_count)
+                                       + mean_over(qr_rows.sum(), sup_count))
+            sums["program_generation_gt"] = pg_rows.detach().double().sum()
+            sums["question_reconstruction_gt"] = qr_rows.detach().double().sum()
+        return total, sums
+
+    def logs_of_sums(self, sums: Dict[str, torch.Tensor], batch: Dict[str, Any],
+                     baseline: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+        r"""(new baseline, logs) from this batch's :data:`JT_SUMS`
+        (``global_means``)."""
+        new_baseline, means = global_means(self._parallel, sums, JT_SUMS, batch, self.world_size,
+                                           baseline, self._C.DELTA)
+        losses = {"nmn": means["nmn"]}
+        elbo_keys = ("reinforce_reward", "elbo")
+        if self._C.OBJECTIVE == "ours":
+            losses.update({key: means[key] for key in SUP_LOGS})
+            elbo_keys = ELBO_LOGS
+        return new_baseline, {"loss": losses, "elbo": {key: means[key] for key in elbo_keys}}
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         n_sup = batch[COUNT_KEY]
@@ -217,12 +255,9 @@ class JointTrainingTrainer(_Trainer):
         z = None
         if batch["question"].shape[0] > n_sup:
             z = self.sample_programs(batch["question"][n_sup:], masks["pg_unsup"])
-        total, self._baseline, logs = self.joint_training_objective(
-            self._params, batch, z, self._baseline, masks)
-        self._optimizer.zero_grad()
-        if total.requires_grad:
-            total.backward()
-        self._optimizer.step()
+        total, sums = self.joint_training_sums(self._params, batch, z, self._baseline, masks)
+        self._apply_gradients(total, average=False)
+        self._baseline, logs = self.logs_of_sums(sums, batch, self._baseline)
         return logs
 
     def model_specs(self) -> Dict[str, Any]:

@@ -2,11 +2,11 @@ r"""
 The flags the JAX package's CLIs share, as the port's CLIs take them:
 ``--gpu-ids`` is ignored and ``--cpu-workers`` accepted and unused, as there;
 ``--compilation-cache-dir`` roots the kernels' build cache
-(``utils/compilation_cache.py``). ``--num-devices`` runs the train CLI's
-program_prior and module_training phases over that many ranks, one process a
-card (``parallel/mesh.py``); the other phases and CLIs take 1, and
-``--model-parallel`` takes 1, each refusal naming the piece of ROADMAP.md
-queue 1 item 5 that ports it.
+(``utils/compilation_cache.py``). ``--num-devices`` runs the train and
+evaluate CLIs over that many ranks in all four phases, one process a card
+(``parallel/mesh.py``); the serving CLIs take 1, and ``--model-parallel``
+takes 1, each refusal naming the piece of ROADMAP.md queue 1 item 5 that
+ports it.
 """
 from __future__ import annotations
 
@@ -18,9 +18,6 @@ MESH = "ROADMAP.md queue 1 item 5"
 # The piece of the mesh item that ports --num-devices above 1 for each path
 # that does not take it yet.
 PIECES = {
-    "question_coding": "(b), question_coding and joint_training",
-    "joint_training": "(b), question_coding and joint_training",
-    "evaluate": "(c), the evaluate CLI",
     "inference": "(d), serving over several cards",
     "serve": "(d), serving over several cards",
 }
@@ -31,20 +28,18 @@ def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
                      model_parallel: bool = False, num_devices_default: Optional[int] = 1,
                      cache_default: Optional[str] = "", num_devices_ported: bool = False
                      ) -> None:
-    r"""``num_devices_ported``: the CLI trains over several ranks (the
-    train CLI), and the help of ``--num-devices`` says which phases take
-    more than one."""
+    r"""``num_devices_ported``: the CLI runs over several ranks (the train
+    and evaluate CLIs), and the help of ``--num-devices`` says so."""
     if gpu_ids:
         parser.add_argument("--gpu-ids", nargs="+", type=int, default=[0],
                             help="Ignored, as in the JAX CLIs (the device is --device).")
         parser.add_argument("--cpu-workers", type=int, default=0,
                             help="Accepted and unused, as in the JAX CLIs.")
     parser.add_argument("--num-devices", type=int, default=num_devices_default,
-                        help=(f"Devices to train on, one process each: 0 is every card, N at "
+                        help=("Devices to run on, one process each: 0 is every card, N at "
                               "most N (the largest count that divides OPTIM.BATCH_SIZE); with "
-                              "--device cpu, N CPU processes. program_prior and module_training "
-                              "take several; question_coding and joint_training take 1 "
-                              f"({MESH} {PIECES['question_coding']})."
+                              "--device cpu, N CPU processes. All four phases train and "
+                              "evaluate over several."
                               if num_devices_ported else
                               f"Devices: 1 (several are {MESH}, not ported here yet)."))
     if model_parallel:

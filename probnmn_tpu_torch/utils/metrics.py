@@ -13,15 +13,22 @@ Host-side numpy metric accumulators, copies of ``probnmn_tpu/utils/metrics.py``
 - ``BooleanAccuracy``: elementwise exact match (answer accuracy).
 - ``SemanticQuestionReconstructionAccuracy``: CLEVR synonym rewrites, then
   sequence accuracy (reference ``probnmn/utils/metrics.py:9-118``).
+
+Each accumulator gives its counters as a flat list of floats (``counters``)
+and takes such a list back (``restore``), so that an evaluator over several
+ranks sums every metric's counters in one all-reduce
+(:func:`reduce_metrics`). ``Average`` of per-batch means over ranks is the
+mean over the global batches, since every rank holds as many rows.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from probnmn_tpu_torch.data.vocabulary import Vocabulary
+from probnmn_tpu_torch.parallel.mesh import global_sums
 
 
 class Average:
@@ -38,6 +45,12 @@ class Average:
         if reset:
             self._total, self._count = 0.0, 0
         return value
+
+    def counters(self) -> List[float]:
+        return [self._total, float(self._count)]
+
+    def restore(self, values: Sequence[float]) -> None:
+        self._total, self._count = float(values[0]), int(values[1])
 
 
 class BooleanAccuracy:
@@ -56,6 +69,12 @@ class BooleanAccuracy:
         if reset:
             self._correct, self._total = 0, 0
         return value
+
+    def counters(self) -> List[float]:
+        return [float(self._correct), float(self._total)]
+
+    def restore(self, values: Sequence[float]) -> None:
+        self._correct, self._total = int(values[0]), int(values[1])
 
 
 class SequenceAccuracy:
@@ -87,6 +106,12 @@ class SequenceAccuracy:
         if reset:
             self._correct, self._total = 0.0, 0
         return value
+
+    def counters(self) -> List[float]:
+        return [self._correct, float(self._total)]
+
+    def restore(self, values: Sequence[float]) -> None:
+        self._correct, self._total = float(values[0]), int(values[1])
 
 
 class UnigramRecall:
@@ -124,6 +149,12 @@ class UnigramRecall:
             self._total, self._count = 0.0, 0
         return value
 
+    def counters(self) -> List[float]:
+        return [self._total, float(self._count)]
+
+    def restore(self, values: Sequence[float]) -> None:
+        self._total, self._count = float(values[0]), int(values[1])
+
 
 class BleuScore:
     r"""Corpus BLEU with uniform 4-gram weights; ngrams containing any excluded
@@ -139,6 +170,17 @@ class BleuScore:
         self._totals = [0] * self._max_order
         self._pred_len = 0
         self._gold_len = 0
+
+    def counters(self) -> List[float]:
+        r"""The n-gram matches and totals, then the two lengths."""
+        return [float(v) for v in (*self._matches, *self._totals, self._pred_len,
+                                   self._gold_len)]
+
+    def restore(self, values: Sequence[float]) -> None:
+        n = self._max_order
+        values = [int(v) for v in values]
+        self._matches, self._totals = values[:n], values[n:2 * n]
+        self._pred_len, self._gold_len = values[2 * n:]
 
     def _ngrams(self, row: np.ndarray, n: int) -> Counter:
         counts: Counter = Counter()
@@ -235,3 +277,17 @@ class SemanticQuestionReconstructionAccuracy(SequenceAccuracy):
         predictions = self._canonicalize(predictions, max_length)
         gold = self._canonicalize(np.asarray(gold_questions), max_length)
         super().__call__(predictions[:, None, :], gold, mask)
+
+
+def reduce_metrics(parallel, metrics: Sequence) -> None:
+    r"""Sum the counters of ``metrics`` over the ranks of ``parallel`` (a
+    ``parallel/mesh.py`` ``DataParallel``; None: one process, nothing to
+    do) in one all-reduce and restore each metric to the sums."""
+    if parallel is None:
+        return
+    counters = [metric.counters() for metric in metrics]
+    flat = global_sums(parallel, [v for values in counters for v in values])
+    offset = 0
+    for metric, values in zip(metrics, counters):
+        metric.restore(flat[offset:offset + len(values)])
+        offset += len(values)

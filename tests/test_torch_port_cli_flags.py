@@ -10,10 +10,12 @@ iterators take ``transform=``, on the CPU.
   ``auto`` and ``$PROBNMN_COMPILATION_CACHE`` resolved as the JAX package
   resolves its XLA cache (``InferenceEngine(compilation_cache_dir=)``:
   tests/test_torch_port_serve_cli.py);
-  ``--num-devices`` takes 1 where the mesh is not ported (the train CLI's
-  question_coding, evaluate, inference, serve) and ``--model-parallel``
-  takes 1, each refusing anything else by naming the mesh's ROADMAP item
-  (tests/test_torch_port_mesh.py trains program_prior at 2 ranks).
+  ``--num-devices`` passes the flag check on the train and evaluate CLIs
+  and takes 1 where the mesh is not ported (inference, serve), and
+  ``--model-parallel`` takes 1, each refusing anything else by naming the
+  mesh's ROADMAP item (tests/test_torch_port_mesh.py and
+  tests/test_torch_port_mesh_semisupervised.py train and evaluate at 2
+  ranks).
 - ``BatchIterator(transform=)`` and ``EpochIterator(transform=)`` give the
   JAX package's iterators' batches.
 """
@@ -94,10 +96,15 @@ def test_shared_flags_are_taken_as_the_jax_clis_take_them(fixture, tmp_path, bui
         "--gpu-ids", "3", "--cpu-workers", "2", "--num-devices", "1",
         "--compilation-cache-dir", cache]))
     assert np.isfinite(metrics["program_prior"]["perplexity"])
+    # train and evaluate take several devices in every phase: the flag check passes.
     for module, argv in (
             (train, ["--phase", "question_coding", "--config-yml", fixture["config_path"]]),
             (evaluate, ["--phase", "program_prior", "--config-yml", fixture["config_path"],
-                        "--checkpoint-path", "x.ckpt"]),
+                        "--checkpoint-path", "x.ckpt"])):
+        assert cli_flags.apply_shared_flags(module.parser.parse_args(
+            argv + ["--num-devices", "2"])) is None
+        assert module.parser.parse_args(argv).num_devices == 1
+    for module, argv in (
             (inference, ["--config-yml", fixture["config_path"], "--checkpoint-path", "x.ckpt"]),
             (serve, ["--config-yml", fixture["config_path"], "--checkpoint", "x.ckpt"])):
         args = module.parser.parse_args(argv + ["--num-devices", "2"])

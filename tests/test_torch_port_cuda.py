@@ -19,7 +19,8 @@ from probnmn_tpu_torch.ops.kernels.gemm import (
 from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     DIFF_BANKS, build_banks, build_tables, execute_programs_diff, execute_programs_kernel,
     execute_programs_plain, execute_programs_train_kernel, interpreter_grads_kernel,
-    interpreter_grads_plain, interpreter_grads_plain_by_row, interpreter_plan,
+    interpreter_grads_on_branch, interpreter_grads_plain, interpreter_grads_plain_by_row,
+    interpreter_plan,
     interpreter_plan_plain, weight_grad_kernel, weight_grad_plain, weight_grad_plan,
     workspace_errors,
 )
@@ -756,6 +757,34 @@ def test_phase8_float32_k6_input(cuda, tmp_path):
     for name, got, want in [("stem", d_stem, w_stem)] + [(k, d_banks[k], w_banks[k])
                                                           for k in DIFF_BANKS]:
         err = float((got - want).abs().max())
+        assert err <= GRAD_TOL[torch.float32] * max(1.0, float(want.abs().max())), (name, err)
+
+
+def test_phase8_float32_k6_input_on_the_float64_branch(cuda, tmp_path):
+    r"""The same input held as chip_smoke.py now holds float32 K6: against
+    the float64 gradient of the branch K5 and K6 took
+    (interpreter_grads_on_branch), which reads relate's last ReLU side
+    from where K6 passed a gradient (row 104's tie lies there). No
+    decision is off float64's by more than BRANCH_TOL of its scale; every
+    workspace entry is where the sweep puts it; K5's final and every K6
+    leaf are within 1e-4 of their scale."""
+    from tools.k6_flips import STATE, phase8_input
+
+    spec, tables, banks, stem, programs, g = phase8_input(
+        np, torch, cuda, make_clevr_like_vocabulary(), torch.from_numpy(np.load(STATE)),
+        str(tmp_path))
+    final, invalid, otraj, atraj = execute_programs_train_kernel(banks, tables, spec, stem, programs)
+    ws = {}
+    d_banks, d_stem = interpreter_grads_kernel(banks, tables, spec, stem, programs, invalid, g,
+                                               otraj, atraj, workspace=ws)
+    w_banks, w_stem, w_final, report = interpreter_grads_on_branch(
+        banks, tables, spec, stem, programs, g, invalid, otraj, atraj, ws)
+    assert report["far"] == 0 and report["entries"] == 0 and report["rows"] == 0, report
+    assert float((final.double() - w_final).abs().max()) <= 1e-4 * max(
+        1.0, float(w_final.abs().max()))
+    for name, got, want in [("stem", d_stem, w_stem)] + [(k, d_banks[k], w_banks[k])
+                                                          for k in DIFF_BANKS]:
+        err = float((got.double() - want).abs().max())
         assert err <= GRAD_TOL[torch.float32] * max(1.0, float(want.abs().max())), (name, err)
 
 

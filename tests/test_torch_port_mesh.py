@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from probnmn_tpu_torch import evaluate, inference, interop, serve, train
+from probnmn_tpu_torch import inference, interop, serve, train
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset, ProgramPriorDataset
 from probnmn_tpu_torch.data.pipeline import BatchIterator, EpochIterator
@@ -472,20 +472,14 @@ def test_train_cli_at_two_ranks_writes_one_checkpoint_and_resumes(fx, tmp_path):
 
 # ------------------------------------------------------------------ (6) refusals -------
 @pytest.mark.parametrize("what, piece", [
-    ("question_coding", r"\(b\)"), ("joint_training", r"\(b\)"), ("evaluate", r"\(c\)"),
     ("inference", r"\(d\)"), ("serve", r"\(d\)"), ("model_parallel", r"\(e\)")])
 def test_paths_not_ported_refuse_more_devices_naming_their_piece(fx, what, piece):
     path = fx["program_prior"]["path"]
     flag = "--model-parallel" if what == "model_parallel" else "--num-devices"
-    if what in ("question_coding", "joint_training", "model_parallel"):
-        phase = "program_prior" if what == "model_parallel" else what
-        args = train.parser.parse_args(["--phase", phase, "--config-yml", path, "--device",
-                                        "cpu", flag, "2"])
+    if what == "model_parallel":
+        args = train.parser.parse_args(["--phase", "program_prior", "--config-yml", path,
+                                        "--device", "cpu", flag, "2"])
         call = lambda: train.main(args)  # noqa: E731
-    elif what == "evaluate":
-        args = evaluate.parser.parse_args(["--phase", "program_prior", "--config-yml", path,
-                                           "--checkpoint-path", "x.ckpt", flag, "2"])
-        call = lambda: evaluate.main(args)  # noqa: E731
     elif what == "inference":
         args = inference.parser.parse_args(["--config-yml", path, "--checkpoint-path",
                                             "x.ckpt", flag, "2"])

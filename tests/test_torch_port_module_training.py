@@ -64,6 +64,7 @@ from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
     execute_programs_plain,
     execute_programs_train_kernel,
     interpreter_grads_kernel,
+    interpreter_grads_on_branch,
     interpreter_grads_plain,
     workspace_errors,
 )
@@ -199,6 +200,58 @@ def test_backward_plain_matches_jax(small):
     again, d_stem2 = interpreter_grads_plain(s["banks"], s["tables"], s["spec"], stem, programs,
                                              torch.from_numpy(g_final))
     assert torch.equal(d_stem, d_stem2)
+
+
+def test_branch_reference_matches_float64_autograd_and_jax(small):
+    r"""K6's float32 reference on the card, the float64 gradient of the
+    branch K5 and K6 took (interpreter_grads_on_branch): with float64's own
+    decisions it is autograd through the plain machine in float64; with
+    the float32 forward's residuals as the decisions it stays within float32
+    rounding of it and of the JAX backward; a residual whose ReLU side is
+    far from its tie is reported as a fault."""
+    s = small
+    stem = torch.from_numpy(np.asarray(s["jstem"]))
+    programs = torch.from_numpy(s["programs"])
+    g = torch.from_numpy(np.random.RandomState(5).randn(*stem.shape).astype(np.float32))
+    _, invalid, otraj, atraj = execute_programs_train_kernel(s["banks"], s["tables"], s["spec"],
+                                                             stem, programs)
+    banks64 = {k: v.double() for k, v in s["banks"].items()}
+    want_banks, want_stem = interpreter_grads_plain(banks64, s["tables"], s["spec"], stem.double(),
+                                                    programs, g.double())
+    assert want_stem.dtype == torch.float64
+    own_banks, own_stem, own_final, report = interpreter_grads_on_branch(
+        s["banks"], s["tables"], s["spec"], stem, programs, g, invalid)
+    want_final, _ = execute_programs_plain(banks64, s["tables"], s["spec"], stem.double(),
+                                           programs)
+    np.testing.assert_allclose(own_final.numpy(), want_final.numpy(), atol=1e-12, rtol=0)
+    assert report == {"taken": 0, "gap": 0.0, "far": 0, "far_gap": 0.0, "entries": 0, "rows": 0}
+    for name, got, want in [("stem", own_stem, want_stem)] + [
+            (k, own_banks[k], want_banks[k]) for k in DIFF_BANKS]:
+        assert float(want.abs().max()) > 0, name
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-12, rtol=1e-9, err_msg=name)
+    got_banks, got_stem, _, report = interpreter_grads_on_branch(
+        s["banks"], s["tables"], s["spec"], stem, programs, g, invalid, otraj, atraj)
+    assert report["far"] == 0 and report["entries"] == 0 and report["rows"] == 0, report
+    for name, got, want in [("stem", got_stem, want_stem)] + [
+            (k, got_banks[k], want_banks[k]) for k in DIFF_BANKS]:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, err_msg=name,
+                                   atol=1e-6 * max(1.0, float(want.abs().max())))
+    jfinal, jinvalid, jotraj, jatraj = jni._execute_train_fwd_pallas(
+        s["jbanks"], s["jtables"], s["jstem"], jnp.asarray(s["programs"]), interpret=True)
+    jd_banks, jd_stem = jni._execute_bwd_pallas(
+        s["jbanks"], s["jtables"], s["jstem"], jnp.asarray(s["programs"]), jinvalid,
+        jnp.asarray(g.numpy()), interpret=True, otraj=jotraj, atraj=jatraj)
+    np.testing.assert_allclose(got_stem.numpy(), np.asarray(jd_stem), **STEM_TOL)
+    want = _jax_banks_as_port(jd_banks, s["spec"].module_channels)
+    for key in DIFF_BANKS:
+        np.testing.assert_allclose(got_banks[key].numpy(), want[key], err_msg=key, **BANK_TOL)
+    # A ReLU side far from its tie is a fault, not a tie broken by rounding.
+    wrong = atraj.clone()
+    b, t, layer, *rest = (wrong > 0.1 * float(wrong.max())).nonzero()[0].tolist()
+    wrong[(b, t, layer, *rest)] *= -1
+    *_, report = interpreter_grads_on_branch(s["banks"], s["tables"], s["spec"], stem, programs,
+                                             g, invalid, otraj, wrong)
+    assert report["far"] == 1 and report["far_gap"] > 1e-3, report
 
 
 def _grads_close(got, want, tree_tol=BANK_TOL):

@@ -269,15 +269,21 @@ def test_elbo_functions_match_jax(mask_kind):
     want_diag, want_baseline = jelbo.elbo_with_reinforce(
         jnp.asarray(gen), jnp.asarray(rec), jnp.asarray(want_reward), jnp.float32(0.7), 0.1, 0.99,
         mask=None if mask is None else jnp.asarray(mask))
-    got_diag, got_baseline = elbo.elbo_with_reinforce(
-        t(gen), t(rec), got_reward, torch.tensor(0.7), 0.1, 0.99,
-        mask=None if mask is None else t(mask))
-    assert sorted(got_diag) == sorted(want_diag)
-    for key, value in want_diag.items():
-        np.testing.assert_allclose(got_diag[key].numpy(), np.asarray(value), atol=1e-5, err_msg=key)
+    # The port sums over the subset's rows and divides by its count.
+    rows = np.arange(7) if mask is None else np.flatnonzero(mask)
+    got_elbo, sums = elbo.elbo_rows(t(gen[rows]), t(rec[rows]), got_reward[rows],
+                                    torch.tensor(0.7), 0.1)
+    got_baseline = elbo.baseline_update(torch.tensor(0.7), sums["centered_reward"], len(rows),
+                                        0.99)
+    for key in ("reconstruction_likelihood", "kl_divergence", "elbo", "reinforce_reward"):
+        np.testing.assert_allclose(float(elbo.mean_over(sums[key], len(rows))),
+                                   np.asarray(want_diag[key]), atol=1e-5, err_msg=key)
+    np.testing.assert_allclose(got_elbo.numpy(), np.asarray(want_diag["elbo_per_example"])[rows],
+                               atol=1e-5)
     np.testing.assert_allclose(float(got_baseline), float(want_baseline), atol=1e-6)
     if mask_kind == "empty":  # an empty subset: means of 0, the baseline holds
-        assert float(got_baseline) == pytest.approx(0.7) and float(got_diag["elbo"]) == 0.0
+        assert float(got_baseline) == pytest.approx(0.7)
+        assert float(elbo.mean_over(sums["elbo"], 0)) == 0.0
     answering = rs.randn(7).astype(np.float32)
     np.testing.assert_allclose(
         elbo.joint_training_reward(t(rec), t(gen), t(prior), t(answering), 0.1, 2.0).numpy(),

@@ -19,9 +19,10 @@ programs, the module_training trainer's NMN parameters, the features and
 the cotangent from ``gen``), it prints:
 
 - each leaf's error against ``interpreter_grads_plain`` (autograd through
-  the batched plain machine, phase 8's old reference) and against
-  ``interpreter_grads_plain_by_row`` (phase 8's reference now), beside its
-  limit K6_TOL * max(1, max |g|);
+  the batched plain machine, phase 8's first reference) and against
+  ``interpreter_grads_plain_by_row`` (its second; phase 8 now holds float32
+  K6 to ``interpreter_grads_on_branch``, see ``tools/k6_kinks.py``), beside
+  its limit K6_TOL * max(1, max |g|);
 - which rows carry the difference: K6 on a group of rows against the
   batched plain version under a cotangent zeroed off the group, groups of 8,
   then each row of a group above a fifth of a limit;

@@ -12,14 +12,18 @@ at production geometry:
 For each case (program_prior at batch 256; module_training at batch 128 on
 mini-CLEVR's 16-channel features; module_training on 512 random images of
 the shipped (1024, 14, 14) features, whose host gather sets the step's
-clock) and each world size: ``--steps`` steps through the CLI's loop with
+clock; question_coding and joint_training, OBJECTIVE ours, at batch 256,
+joint on mini-CLEVR's 16-channel features) and each world size: ``--steps`` steps through the CLI's loop with
 rank 0's ``--profile-dir`` trace of 5 steps, the rolling step time and
 examples/s rank 0's trainer logs at its last 50-step mark
 (``train/step_time_ms``, ``train/examples_per_sec``, ``train/prefetch_wait_ms``)
 and the device's idle share over the traced steps (1 - the union of the
 kernels' and copies' intervals over the span of the ``train_step_*``
-ranges). The frozen generator of module_training is random. The features
-go to the ranks as one copy in shared memory. Prints one JSON line and
+ranges). The frozen models (module_training's generator; the prior of
+question_coding and joint_training, joint's generator, reconstructor and
+NMN) are random. The features go to the ranks as one copy in shared
+memory, and the supervision subsets are drawn once, as ``train.fit``'s
+launcher draws them. Prints one JSON line and
 writes it to ``--out``, beside the card's name and power limit.
 """
 import argparse
@@ -40,9 +44,18 @@ import torch  # noqa: E402
 from probnmn_tpu_torch import mini_clevr_run, train  # noqa: E402
 from probnmn_tpu_torch.config import Config  # noqa: E402
 from probnmn_tpu_torch.data import mini_clevr  # noqa: E402
-from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset  # noqa: E402
+from probnmn_tpu_torch.data.datasets import (  # noqa: E402
+    JointTrainingDataset,
+    ModuleTrainingDataset,
+)
 from probnmn_tpu_torch.data.readers import SharedFeatures  # noqa: E402
-from probnmn_tpu_torch.models import program_generator  # noqa: E402
+from probnmn_tpu_torch.models import (  # noqa: E402
+    nmn,
+    program_generator,
+    question_reconstructor,
+)
+from probnmn_tpu_torch.models.program_prior import init_program_prior_params  # noqa: E402
+from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec  # noqa: E402
 from probnmn_tpu_torch.utils.checkpointing import save_objects  # noqa: E402
 from probnmn_tpu_torch.utils.observability import RecordingWriter  # noqa: E402
 
@@ -50,7 +63,8 @@ parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 parser.add_argument("--worlds", type=int, nargs="+", default=[1, 2, 4])
 parser.add_argument("--steps", type=int, default=300)
 parser.add_argument("--cases", nargs="+",
-                    default=["program_prior", "module_training", "module_training_1024"])
+                    default=["program_prior", "module_training", "module_training_1024",
+                             "question_coding", "joint_training"])
 parser.add_argument("--train-images", type=int, default=3000)
 parser.add_argument("--device", default="cuda")
 parser.add_argument("--mini-clevr-args", default="",
@@ -85,12 +99,22 @@ def idle_share(trace_path):
             "traced_steps": len({e["name"] for e in steps})}
 
 
-def case_data(case, splits):
+def case_data(case, splits, supervision):
     r"""(phase, config overrides, train set, val set) of a case."""
-    phase = "program_prior" if case == "program_prior" else "module_training"
-    if phase == "program_prior":
-        return phase, [], mini_clevr.phase_dataset(splits["train"], phase), \
+    phase = case if case != "module_training_1024" else "module_training"
+    if phase in ("program_prior", "question_coding"):
+        np.random.seed(0)  # the supervision subset, drawn once
+        return phase, [], mini_clevr.phase_dataset(splits["train"], phase, supervision), \
             mini_clevr.phase_dataset(splits["val"], phase)
+    if phase == "joint_training":
+        features = SharedFeatures.from_array(splits["train"].features)
+        np.random.seed(0)
+        sets = [JointTrainingDataset.from_arrays(
+            split.programs, split.questions, split.answers, split.image_indices,
+            features if split.split == "train" else split.features, split=split.split,
+            num_supervision=supervision, supervision_question_max_length=40)
+            for split in (splits["train"], splits["val"])]
+        return phase, [], sets[0], sets[1]
     train_split, val_split = splits["train"], splits["val"]
     if case == "module_training_1024":
         images = 512
@@ -113,6 +137,25 @@ def case_data(case, splits):
     return phase, overrides, sets[0], sets[1]
 
 
+def frozen_checkpoints(vocab, config, work):
+    r"""Random frozen models of the later phases, saved as the port's
+    checkpoints in ``work``; the config overrides that name them."""
+    gen = torch.Generator().manual_seed(0)
+    paths = {name: os.path.join(work, f"{name}.ckpt")
+             for name in ("PROGRAM_PRIOR", "QUESTION_CODING", "MODULE_TRAINING")}
+    if not os.path.exists(paths["PROGRAM_PRIOR"]):
+        save_objects(paths["PROGRAM_PRIOR"], {"program_prior": init_program_prior_params(
+            gen, make_prior_spec(config, vocab))})
+        save_objects(paths["QUESTION_CODING"], {
+            "program_generator": program_generator.init_params(
+                gen, program_generator.make_spec(vocab, config)),
+            "question_reconstructor": question_reconstructor.init_params(
+                gen, question_reconstructor.make_spec(vocab, config))})
+        save_objects(paths["MODULE_TRAINING"], {"nmn": nmn.init_nmn_params(
+            gen, nmn.make_spec(vocab, config))})
+    return [item for name, path in paths.items() for item in (f"CHECKPOINTS.{name}", path)]
+
+
 def main():
     args = parser.parse_args()
     smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,18 +173,14 @@ def main():
           f"{args.train_images} images in {time.perf_counter() - t0:.1f} s", flush=True)
     mc_args = mini_clevr_run.parser.parse_args(["--root", root, "--runs", work,
                                                 *args.mini_clevr_args.split()])
-    qc_ckpt = os.path.join(work, "generator.ckpt")
     results = {"device": smi, "torch": torch.__version__, "steps": args.steps, "cases": {}}
     for case in args.cases:
-        phase, overrides, train_set, val_set = case_data(case, splits)
+        phase, overrides, train_set, val_set = case_data(case, splits, mc_args.supervision)
         yml = os.path.join(work, f"{case}.yml")
-        mini_clevr_run.phase_config(mc_args, phase, args.steps).dump(yml)
-        config = Config(yml, ["CHECKPOINTS.QUESTION_CODING", qc_ckpt, *overrides])
+        base = mini_clevr_run.phase_config(mc_args, phase, args.steps)
+        base.dump(yml)
+        config = Config(yml, [*frozen_checkpoints(vocab, base, work), *overrides])
         config.dump(yml)
-        if phase == "module_training" and not os.path.exists(qc_ckpt):
-            spec = program_generator.make_spec(vocab, config)
-            save_objects(qc_ckpt, {"program_generator": program_generator.init_params(
-                torch.Generator().manual_seed(0), spec)})
         for world in args.worlds:
             run_dir = os.path.join(work, f"{case}_{world}")
             trace_dir = os.path.join(run_dir, "trace")
