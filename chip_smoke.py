@@ -324,12 +324,37 @@ Phases (any failure raises, and the script exits non-zero with no result):
    tolerances of phases 2-8 (JSON ``launches_mesh_qc``,
    ``launches_mesh_jt``, ``max_abs_err_mesh_qc``,
    ``max_abs_err_mesh_jt``).
+17. Serving over several cards (``InferenceEngine(num_devices=2)``, one
+   replica a card in one process), at full width (B = 256, (1024, 14, 14)
+   features): the two shards on cards 0 and 1 where there are two cards,
+   else both on card 0 (``share_card``; the ``[serve-cards]`` lines say
+   which). float32 greedy and sampling answers equal to one card's, every
+   row, with the sampling generator leaning toward a valid program by a
+   margin the Gumbel draws overturn on some rows; K1 in float32 at a row
+   base over half the batch gives the full batch's rows and the plain
+   version's on the host's copy of those rows of the stream (>= 99% of the
+   rows). bf16 sampling: one ``predict`` with the counters at 0 launches
+   K1, its encoder, the plan and K2 once a shard, and under the profiler two
+   sweeps, one decoder, one plan and one K2 a shard; each shard's K1 (at its
+   row base) and K2 against their plain versions at phase 13's tolerances;
+   the answers that differ from one card's counted (bf16 answers may move
+   with the rows a launch sees). The dispatcher: 2,048 requests at depth 2
+   from 8 client threads, every future answered, at most 2 batches in
+   flight, each kernel launched once a shard a batch, each batch's shards
+   given its requests' rows on their own cards (JSON ``launches_cards``,
+   ``max_abs_err_cards``, ``row_base_cards``). The NMN's classifier is
+   rescaled so that its answers follow the image, and the float32 greedy
+   engine over two shards also takes the 2,048 requests through its
+   dispatcher, each answer equal to one card's ``predict``.
+   ``python3 chip_smoke.py --serve-cards`` runs this phase alone, after the
+   build.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
 """
 import json
 import os
+from contextlib import contextmanager
 import subprocess
 import sys
 import time
@@ -516,14 +541,16 @@ def random_questions(np, vocab, n, length, seed):
     return q.astype(np.int64)
 
 
-def scripted_generator(torch, params, spec, vocab, program):
+def scripted_generator(torch, params, spec, vocab, program, margin=30.0):
     r"""A copy of the ProgramGenerator ``params`` whose decoder emits
     ``program`` (prefix tokens, each at most once) and then @end@, whatever
     the question: the decoder cell's input and output gates are held open and
     its forget gate shut, so its hidden state encodes the previous token
     alone, and the output projection maps that token to the next one with a
-    logit margin of ~23, which no Gumbel draw overcomes. The encoder keeps
-    its random weights. This gives the engine programs that run."""
+    logit margin of ~0.76 ``margin`` (~23 by default, which no Gumbel draw
+    overcomes; a smaller one lets the draws turn some rows aside). The
+    encoder keeps its random weights. This gives the engine programs that
+    run."""
     H, D, V = spec.hidden_size, spec.input_size, spec.target_vocab_size
     tokens = ([spec.start_index] + [vocab.get_token_index(t, "programs") for t in program]
               + [spec.end_index])
@@ -535,7 +562,7 @@ def scripted_generator(torch, params, spec, vocab, program):
     bias[:H], bias[H:2 * H], bias[3 * H:] = 20.0, -20.0, 20.0  # gates i open, f shut, o open
     proj = torch.zeros(V, H)
     for prev, nxt in zip(tokens, tokens[1:] + [spec.end_index]):
-        proj[nxt, prev] = 30.0
+        proj[nxt, prev] = margin
     return dict(
         params,
         target_embedding=torch.eye(V, D),
@@ -3291,7 +3318,8 @@ def serve_online(np, torch, dev, smi):
                 want_im[cursor:cursor + len(img)] = torch.from_numpy(img)
                 cursor += len(qg)
             if dev.type == "cuda":  # the CPU engine computes on its staging buffer itself
-                got_q, got_im = launched.keep[0].cpu(), launched.keep[1].cpu()
+                got_q = torch.cat([shard[0].cpu() for shard in launched.keep])
+                got_im = torch.cat([shard[1].cpu() for shard in launched.keep])
                 staged_bad += int(not (torch.equal(got_q, want_q) and torch.equal(
                     got_im.view(torch.int16), want_im.view(torch.int16))))
             again += sum(a != b for a, b in zip(
@@ -4871,6 +4899,427 @@ def train_mesh_semisupervised(np, torch, smi):
     return out
 
 
+# Phase 17: serving over several cards. The sampling engines' generator leans
+# toward SERVE_PROGRAM with a margin (~6.8) that the Gumbel draws overturn on
+# about a quarter of the rows, so the answers show which rows of the batch's
+# Philox stream each shard drew; the classifier is rescaled so that the
+# answers follow the image (:func:`image_sensitive_classifier`), so they show
+# which image each row was given.
+CARDS = 2
+CARDS_MARGIN = 9.0
+CARDS_REQUESTS = 2048
+
+
+@contextmanager
+def strict_float32(torch):
+    r"""No TF32 in cuBLAS or cuDNN inside (``main`` turns it off for the
+    whole run; the card tests call phase 17's helpers alone)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def image_sensitive_classifier(torch, nmn_params, nmn_spec, programs, images, dev):
+    r"""``nmn_params`` with the classifier's last layer rescaled so that
+    each answer's logit has mean 0 and standard deviation 1 over the rows
+    of ``images`` under ``programs`` (float32 on ``dev``). A random NMN
+    answers nearly the same whatever the features; this one's answers
+    follow the image."""
+    from probnmn_tpu_torch.data.pipeline import image_to_nhwc
+    from probnmn_tpu_torch.models import nmn
+    from probnmn_tpu_torch.models.nmn import cast_params
+
+    params = cast_params(nmn_params, torch.float32, dev)
+    with strict_float32(torch):
+        stem = nmn.apply_stem(params["stem"], image_to_nhwc(torch.from_numpy(images).to(dev)))
+        final, invalid = nmn.execute_programs(params, nmn_spec, stem.contiguous(),
+                                              programs.to(dev))
+        logits = nmn.apply_classifier(params["classifier"], final)[~invalid].double().cpu()
+    mean, std = logits.mean(0), logits.std(0).clamp_min(1e-6)
+    lin2 = nmn_params["classifier"]["lin2"]
+    lin2 = {"w": (lin2["w"].double() / std[:, None]).float(),
+            "b": ((lin2["b"].double() - mean) / std).float()}
+    return dict(nmn_params, classifier=dict(nmn_params["classifier"], lin2=lin2))
+
+
+def cards_inputs(np, torch, batch):
+    r"""Phase 17's models and inputs at full width, from generators of its
+    own: (vocabulary, the two specs, the random generator scripted to emit
+    :data:`SERVE_PROGRAM`, the same leaning toward it with the margin
+    :data:`CARDS_MARGIN`, random NMN parameters whose classifier is rescaled
+    on these images under that program, ``batch`` random questions with an
+    all-pad row in each half, (1024, 14, 14) features, a seed)."""
+    from probnmn_tpu_torch.models import nmn, program_generator
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.models.seq2seq import GREEDY, seq2seq_forward
+    from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH, make_clevr_like_vocabulary
+
+    vocab = make_clevr_like_vocabulary()
+    gen = torch.Generator().manual_seed(17)
+    pg_spec, nmn_spec = program_generator.make_spec(vocab), nmn.make_spec(vocab)
+    random_pg = program_generator.init_params(gen, pg_spec)
+    scripted = scripted_generator(torch, random_pg, pg_spec, vocab, SERVE_PROGRAM)
+    soft = scripted_generator(torch, random_pg, pg_spec, vocab, SERVE_PROGRAM, CARDS_MARGIN)
+    questions = random_questions(np, vocab, batch, MAX_QUESTION_LENGTH, seed=1701)
+    questions[batch // 2 + 1] = 0  # all padding, as row 1: one in each shard
+    images = torch.randn(batch, nmn_spec.feature_channels, nmn_spec.height, nmn_spec.width,
+                         generator=torch.Generator().manual_seed(1702)).numpy()
+    dev = torch.device("cuda", 0)
+    programs = seq2seq_forward(cast_params(scripted, torch.float32, dev), pg_spec,
+                               torch.from_numpy(questions).to(dev), GREEDY)["predictions"]
+    nmn_params = image_sensitive_classifier(torch, nmn.init_nmn_params(gen, nmn_spec), nmn_spec,
+                                            programs, images, dev)
+    return vocab, pg_spec, nmn_spec, scripted, soft, nmn_params, questions, images, 1703
+
+
+def cards_requests(np, vocab, images, n):
+    r"""``n`` dispatcher requests: random questions, each with one of
+    ``images`` (copied), from generators of their own."""
+    from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH
+
+    rs = np.random.RandomState(1704)
+    return (random_questions(np, vocab, n, MAX_QUESTION_LENGTH, seed=1705),
+            images[rs.randint(0, len(images), n)])
+
+
+def cards_dispatch(np, engine, questions, images, depth=2, clients=8):
+    r"""The rows of ``questions`` and ``images`` through ``engine``'s
+    dispatcher at ``depth``, from ``clients`` threads, each calling
+    ``submit_many`` on groups of 1-64 rows; returns (the answers in row
+    order, seconds on the host clock)."""
+    import threading
+
+    rs = np.random.RandomState(1706)
+    n = len(questions)
+    units, i = [], 0
+    while i < n:
+        j = min(i + int(rs.randint(1, 65)), n)
+        units.append((i, j))
+        i = j
+    futures = [None] * n
+
+    def client(t):
+        for a, b in units[t::clients]:
+            futures[a:b] = engine.submit_many(questions[a:b], images[a:b])
+
+    engine.start(max_batch_delay=0.005, pipeline_depth=depth)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        got = [f.result(timeout=120) for f in futures]
+        seconds = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    return got, seconds
+
+
+def cards_float32_check(np, torch, vocab, pg_spec, nmn_spec, scripted, soft, nmn_params,
+                        questions, images, seed, share, requests):
+    r"""Phase 17's float32 check: engines over :data:`CARDS` shards (one a
+    card, or all on card 0 with ``share``) against one card, greedy over
+    ``scripted`` and sampling over ``soft`` (a generator the draws turn
+    aside): every answer equal, with answers that vary with the image (a
+    shard given another shard's rows would answer otherwise). Then the
+    greedy engine over the shards takes ``requests`` (questions, images)
+    through its dispatcher at depth 2: every answer equal to the one-card
+    engine's ``predict`` on the same requests. Returns each decoding's
+    answers at :data:`CARDS` shards."""
+    from probnmn_tpu_torch.serving import InferenceEngine
+
+    out = {}
+    half = len(questions) // 2
+    with strict_float32(torch):
+        for decoding, pg in (("greedy", scripted), ("sampling", soft)):
+            engines = [InferenceEngine(vocab, pg_spec, nmn_spec, pg, nmn_params,
+                                       batch_size=len(questions), decoding=decoding,
+                                       device="cuda", compute_dtype="float32", num_devices=n,
+                                       share_card=share) for n in (1, CARDS)]
+            check([e.num_devices for e in engines] == [1, CARDS],
+                  f"shards made {[e.num_devices for e in engines]}")
+            answers = [e.predict(questions, images, seed=seed) for e in engines]
+            differ = sum(a != b for a, b in zip(*answers))
+            unknown = answers[1].count("@@UNKNOWN@@")
+            # What a shard given the other half's rows would get wrong.
+            crossed = sum(a != b for a, b in zip(answers[0][:half], answers[0][half:]))
+            log(f"[serve-cards] float32 {decoding}, {len(questions)} rows: {differ} answers "
+                f"differ between 1 and {CARDS} shards; {unknown} @@UNKNOWN@@, "
+                f"{len(set(answers[1]))} distinct answers, {crossed} of {half} rows answered "
+                f"otherwise than the row {half} away")
+            check(differ == 0, f"float32 {decoding}: {differ} answers differ over {CARDS} shards")
+            check(len(answers[1]) == len(questions), "answer count over the shards")
+            check(crossed >= half // 2, f"float32 {decoding}: the answers barely follow the "
+                  f"image ({crossed} of {half} rows differ from the row {half} away)")
+            out[decoding] = answers[1]
+            if decoding == "greedy":
+                want = engines[0].predict(*requests)
+                got, seconds = cards_dispatch(np, engines[1], *requests)
+                off = sum(a != b for a, b in zip(got, want))
+                log(f"[serve-cards] float32 greedy dispatcher, depth 2 over {CARDS} shards: "
+                    f"{len(got)} requests in {seconds:.3f} s, {off} answers differ from one "
+                    f"card's predict, {len(set(got))} distinct answers, most in flight "
+                    f"{engines[1].stats()['max_in_flight']}")
+                check(len(got) == len(want) and off == 0,
+                      f"float32 dispatcher: {off} answers differ from one card's predict")
+            del engines
+    check("@@UNKNOWN@@" not in out["greedy"], "the scripted program did not run")
+    check(0 < out["sampling"].count("@@UNKNOWN@@") < len(questions),
+          "the draws left every row valid or none: the answers cannot show the shards' rows")
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_row_base_check(np, torch, pg_dev, pg_spec, q_dev, seed):
+    r"""K1 in float32 at ``row_base`` r over rows [r, r + B / 2) against the
+    full batch's K1 (the same rows of one Philox stream) and against the
+    plain version on the host's copy of those rows of the stream: rows
+    identical on >= 99% of the rows each time. Returns the fractions."""
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
+    )
+
+    T, V = pg_spec.max_decoding_steps, pg_spec.target_vocab_size
+    batch = len(q_dev)
+    half = batch // 2
+    full = fused_sampling_forward(pg_dev, pg_spec, q_dev, seed=seed,
+                                  compute_dtype=torch.float32)["predictions"]
+    out = {}
+    for lo in (0, half):
+        part = fused_sampling_forward(pg_dev, pg_spec, q_dev[lo:lo + half], seed=seed,
+                                      row_base=lo, compute_dtype=torch.float32)["predictions"]
+        noise = torch.from_numpy(philox_gumbel(seed, T, half, V, lo)).to(q_dev.device)
+        plain = sampling_forward_with_noise(pg_dev, pg_spec, q_dev[lo:lo + half], noise,
+                                            compute_dtype=torch.float32)["predictions"]
+        torch.cuda.synchronize()
+        as_full = float((part == full[lo:lo + half]).all(dim=1).float().mean())
+        as_plain = float((part == plain).all(dim=1).float().mean())
+        log(f"[serve-cards] K1 float32 row_base {lo}, {half} rows: rows equal to the full "
+            f"batch's {as_full:.4f}, to the plain version on the host's stream {as_plain:.4f}")
+        check(as_full >= 0.99 and as_plain >= 0.99, f"K1 at row_base {lo} draws other rows")
+        out[str(lo)] = {"as_full_batch": as_full, "as_plain": as_plain}
+    return out
+
+
+def shard_against_plain(np, torch, engine, shard, nmn_params, nmn_spec, pg_spec, questions,
+                        images, seed):
+    r"""One bf16 shard of ``engine`` on its card: K1 on the shard's rows of
+    ``questions`` at its ``row_base`` against the plain version on the
+    host's copy of those rows of the Philox stream (tokens >= 95% equal),
+    then K2 on the kernel's programs against its plain version (flags
+    equal, outputs within 2e-2 of max |out|): phase 13's tolerances.
+    Returns (K1's largest logprob error on identical rows, K2's error)."""
+    from probnmn_tpu_torch.data.pipeline import image_to_nhwc
+    from probnmn_tpu_torch.models import nmn
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        build_banks, build_tables, execute_programs_kernel, execute_programs_plain,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, philox_gumbel, sampling_forward_with_noise,
+    )
+
+    replica = engine._replicas[shard]
+    card, dt = replica.device, engine.compute_dtype
+    rows = len(questions) // engine.num_devices
+    lo = shard * rows
+    T, V = pg_spec.max_decoding_steps, pg_spec.target_vocab_size
+    with torch.cuda.device(card):
+        q = torch.from_numpy(questions[lo:lo + rows]).to(card)
+        got = fused_sampling_forward(replica.pg_params, pg_spec, q, seed=seed, row_base=lo,
+                                     compute_dtype=dt, packed=replica.pg_packed)
+        noise = torch.from_numpy(philox_gumbel(seed, T, rows, V, lo)).to(card)
+        want = sampling_forward_with_noise(replica.pg_params, pg_spec, q, noise, compute_dtype=dt)
+        feats = image_to_nhwc(torch.from_numpy(images[lo:lo + rows])).to(card)
+        stem = nmn.apply_stem(cast_params(nmn_params["stem"], dt, card), feats.to(dt)).contiguous()
+        banks = build_banks(cast_params(nmn_params, torch.float32, card), nmn_spec, dt)
+        tables = build_tables(nmn_spec, card)
+        out_k, inv_k = execute_programs_kernel(banks, tables, nmn_spec, stem, got["predictions"])
+        out_p, inv_p = execute_programs_plain(banks, tables, nmn_spec, stem, got["predictions"])
+        torch.cuda.synchronize(card)
+    same = (got["predictions"] == want["predictions"]).all(dim=1)
+    agree = float((got["predictions"] == want["predictions"]).float().mean())
+    k1_err = float((got["logprobs"] - want["logprobs"])[same].abs().max())
+    k2_err = float((out_k.float() - out_p.float()).abs().max())
+    scale = float(out_p.float().abs().max())
+    log(f"[serve-cards] shard {shard} on {card} (rows {lo}-{lo + rows - 1}), bf16: K1 token "
+        f"agreement {agree:.4f}, identical rows {int(same.sum())}/{rows}, max |logprob err| "
+        f"{k1_err:.3e}; K2 invalid {int(inv_k.sum())}/{rows} (plain {int(inv_p.sum())}), max "
+        f"|out err| {k2_err:.3e}, max |out| {scale:.3e}")
+    check(agree >= 0.95, f"shard {shard}: K1 bf16 token agreement {agree}")
+    check(torch.isfinite(got["loss"]).all(), f"shard {shard}: K1 loss not finite")
+    check(torch.equal(inv_k, inv_p), f"shard {shard}: K2 invalid flags differ")
+    check(torch.isfinite(out_k.float()).all(), f"shard {shard}: K2 output not finite")
+    check(k2_err <= 2e-2 * scale, f"shard {shard}: K2 bf16 error {k2_err}")
+    return k1_err, k2_err
+
+
+def serve_cards(np, torch, smi):
+    r"""Phase 17: the serving engine over :data:`CARDS` shards at full width
+    (B = 256, (1024, 14, 14) features), one card a shard where there are two
+    cards or more, else both on card 0 (``share_card``), on inputs and
+    weights from a generator of its own. (a) float32, greedy and sampling:
+    every answer equal to one card's, and the greedy dispatcher's 2,048
+    answers equal to one card's ``predict`` (:func:`cards_float32_check`);
+    K1 at a row base draws the rows of the full batch's stream
+    (:func:`k1_row_base_check`). (b) bf16 sampling, the shipped path: one
+    ``predict`` with the counters at 0 (K1, its encoder, the plan and K2
+    once a shard) and traced (two sweeps, one decoder, one plan and one K2
+    launch a shard); each shard's K1 and K2 against their plain versions
+    (:func:`shard_against_plain`); the answers that differ from one card's
+    counted. (c) the same 2,048 requests through the bf16 dispatcher at
+    depth 2 from 8 client threads (``submit_many`` in groups of 1-64):
+    every future answered, each batch's shards given its requests' rows on
+    their own cards, at most 2 batches in flight, the counters one launch a
+    shard a batch. Returns {kernel name: ``launches_cards``,
+    ``max_abs_err_cards``} for the kernels line."""
+    from probnmn_tpu_torch.models.nmn import cast_params
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        execute_programs_kernel, interpreter_plan,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward, sampling_encode
+    from probnmn_tpu_torch.serving import InferenceEngine
+
+    t17 = time.perf_counter()
+    share = torch.cuda.device_count() < CARDS
+    where = "both on card 0 (one card)" if share else f"cards 0-{CARDS - 1}"
+    log(f"[serve-cards] {CARDS} shards, {where}; {torch.cuda.device_count()} cards: {smi}")
+    (vocab, pg_spec, nmn_spec, scripted, soft, nmn_params, questions, images,
+     seed) = cards_inputs(np, torch, BATCH)
+
+    # ------------------------------------------------------------ (a) float32
+    requests = cards_requests(np, vocab, images, CARDS_REQUESTS)
+    answers32 = cards_float32_check(np, torch, vocab, pg_spec, nmn_spec, scripted, soft,
+                                    nmn_params, questions, images, seed, share, requests)
+    dev = torch.device("cuda", 0)
+    row_base = k1_row_base_check(np, torch, cast_params(soft, torch.float32, dev), pg_spec,
+                                 torch.from_numpy(questions).to(dev), seed)
+
+    # ------------------------------------------------------------ (b) bf16
+    counters = {"seq2seq_decode": fused_sampling_forward, "k1_encoder_sweep": sampling_encode,
+                "nmn_interpreter": execute_programs_kernel, "nmn_plan": interpreter_plan}
+
+    def sync():
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
+
+    def reset():
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        sync()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    one = InferenceEngine(vocab, pg_spec, nmn_spec, soft, nmn_params, batch_size=BATCH,
+                          device="cuda")
+    want = one.predict(questions, images, seed=seed)
+    del one
+    engine = InferenceEngine(vocab, pg_spec, nmn_spec, soft, nmn_params, batch_size=BATCH,
+                             device="cuda", num_devices=CARDS, share_card=share)
+    check(engine.compute_dtype == torch.bfloat16 and engine.num_devices == CARDS,
+          f"bf16 engine over {engine.num_devices} shards")
+    check(all(b % CARDS == 0 for b in engine._buckets) and engine._buckets[-1] == BATCH,
+          f"buckets {engine._buckets}")
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    reset()
+    answers = engine.predict(questions, images, seed=seed)
+    predict_launches = read()
+    differ = sum(a != b for a, b in zip(answers, want))
+    log(f"[serve-cards] bf16 predict over {CARDS} shards (warmup over buckets {engine._buckets} "
+        f"{warmup_s:.2f} s): launches {predict_launches}; {differ} of {BATCH} answers differ from one card's (bf16 rows may answer otherwise with the "
+        f"rows a launch sees, PERF.md §7); {answers.count('@@UNKNOWN@@')} @@UNKNOWN@@ against "
+        f"{answers32['sampling'].count('@@UNKNOWN@@')} in float32")
+    check(all(n == CARDS for n in predict_launches.values()),
+          f"predict over {CARDS} shards launched {predict_launches}")
+    check(len(answers) == BATCH, "bf16 answer count")
+    want_route = {"k1_encoder_sweep": pg_spec.num_layers * CARDS, "seq2seq_sample_kernel": CARDS,
+                  "nmn_plan_kernel": CARDS, "nmn_interpreter_kernel": CARDS}
+    routes = traced_route(torch, lambda: engine.predict(questions, images, seed=seed),
+                          tuple(want_route), want_route)
+    log(f"[serve-cards] one predict under the profiler, each trace (late in a run the profiler "
+        f"can drop a trace's first kernels): {routes}")
+    check(routes[-1] == want_route, f"the traced predict is not one K1 and one K2 a shard: "
+          f"{routes[-1]}")
+    errs = [shard_against_plain(np, torch, engine, k, nmn_params, nmn_spec, pg_spec, questions,
+                                images, seed) for k in range(CARDS)]
+
+    # ------------------------------------------------------------ (c) dispatcher
+    # Every batch recorded with what the shards received: each shard's rows
+    # on its own card, together the batch's requests cast as staged.
+    records = []
+    launch = engine._launch_padded_groups
+
+    def recording_launch(q_groups, im_groups, batch_seed, pad_to):
+        launched = launch(q_groups, im_groups, batch_seed, pad_to)
+        records.append((q_groups, im_groups, pad_to, launched))
+        return launched
+
+    before = engine.stats()
+    reset()
+    engine._launch_padded_groups = recording_launch
+    try:
+        got, seconds = cards_dispatch(np, engine, *requests)
+    finally:
+        del engine._launch_padded_groups
+    ran = read()
+    after = engine.stats()
+    batches = after["batches"] - before["batches"]
+    staged_bad, misplaced = 0, 0
+    cards = [torch.device("cuda", 0 if share else k) for k in range(CARDS)]
+    for q_groups, im_groups, pad_to, launched in records:
+        want_q = torch.zeros((pad_to, q_groups[0].shape[1]), dtype=torch.int64)
+        want_im = torch.zeros((pad_to,) + im_groups[0].shape[1:], dtype=engine.compute_dtype)
+        cursor = 0
+        for qg, img in zip(q_groups, im_groups):
+            want_q[cursor:cursor + len(qg)] = torch.from_numpy(qg)
+            want_im[cursor:cursor + len(img)] = torch.from_numpy(img)
+            cursor += len(qg)
+        if engine._replicas[0].device.type != "cuda":  # the CPU engine runs on its buffer
+            continue
+        misplaced += int([(shard[0].device, shard[1].device) for shard in launched.keep]
+                         != [(card, card) for card in cards])
+        got_q = torch.cat([shard[0].cpu() for shard in launched.keep])
+        got_im = torch.cat([shard[1].cpu() for shard in launched.keep])
+        staged_bad += int(not (torch.equal(got_q, want_q) and torch.equal(
+            got_im.view(torch.int16), want_im.view(torch.int16))))
+    del records
+    log(f"[serve-cards] bf16 dispatcher depth 2 over {CARDS} shards: {len(got)} requests in "
+        f"{seconds:.3f} s ({len(got) / seconds:.1f} q/s, host clock, one call, not a "
+        f"measurement), {batches} batches, {staged_bad} whose shards did not receive their "
+        f"requests' rows, {misplaced} whose shards' rows were not on {', '.join(map(str, cards))}, most in "
+        f"flight {after['max_in_flight']}, launches "
+        f"{ran}, queue depth {after['queue_depth']}")
+    check(len(got) == CARDS_REQUESTS and all(isinstance(a, str) for a in got),
+          "dispatcher answers")
+    check(staged_bad == 0 and misplaced == 0, f"dispatcher batches: {staged_bad} reached the "
+          f"shards altered, {misplaced} on other cards")
+    check(after["requests"] - before["requests"] == CARDS_REQUESTS and after["queue_depth"] == 0,
+          f"stats {after}")
+    check(1 <= after["max_in_flight"] <= 2, f"{after['max_in_flight']} batches in flight")
+    check(all(n == CARDS * batches for n in ran.values()),
+          f"{batches} dispatcher batches over {CARDS} shards launched {ran}")
+    del engine
+    torch.cuda.empty_cache()
+    log(f"[serve-cards] phase 17 in {time.perf_counter() - t17:.1f} s; the run so far "
+        f"{time.perf_counter() - T_START:.1f} s")
+    out = {name: {"launches_cards": {
+        "shards": CARDS, "share_card": share, "predict": predict_launches[name],
+        "dispatcher": ran[name], "dispatcher_batches": batches}} for name in counters}
+    out["seq2seq_decode"]["max_abs_err_cards"] = max(e[0] for e in errs)
+    out["seq2seq_decode"]["row_base_cards"] = row_base
+    out["nmn_interpreter"]["max_abs_err_cards"] = max(e[1] for e in errs)
+    return out
+
+
 def _leaves(torch, tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -4885,6 +5334,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:] not in ([], ["--serve-cards"]):
+        print("usage: chip_smoke.py [--serve-cards]", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from probnmn_tpu_torch.models import nmn, program_generator
     from probnmn_tpu_torch.models.nmn import cast_params
@@ -4922,6 +5374,12 @@ def main():
     for line in str(_build.BUILD_INFO["log"]).splitlines():
         if any(key in line for key in ("Compiling entry", "Used", "spill", "==")):
             log(f"[ptxas] {line.strip()}")
+
+    if sys.argv[1:] == ["--serve-cards"]:
+        # Phase 17 alone: its lines and its part of the kernels line, no ok line.
+        print(json.dumps({"serve_cards": serve_cards(np, torch, smi)}), flush=True)
+        print(nvidia_smi_line(), flush=True)
+        return 0
 
     vocab = make_clevr_like_vocabulary()
     gen = torch.Generator().manual_seed(0)
@@ -5260,6 +5718,9 @@ def main():
     log(f"[mesh] phase 16 in {time.perf_counter() - t16:.1f} s; the run so far "
         f"{time.perf_counter() - T_START:.1f} s")
 
+    # ---------------------------------------------------------------- 17. serving over cards
+    cards = serve_cards(np, torch, smi)
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -5316,6 +5777,7 @@ def main():
             entry["max_abs_err_buckets"] = online_errs[entry["name"]]
         entry.update(dropout.get(entry["name"], {}))
         entry.update(mesh_keys.get(entry["name"], {}))
+        entry.update(cards.get(entry["name"], {}))
     kernels.append(extract)
     kernels[0]["from_checkpoint_times"] = serve_times
     kernels[0]["serve_online"] = online_times

@@ -91,7 +91,9 @@
 //
 // Noise: an explicit (T, B, stride) float32 tensor, or Philox4x32-10 with
 // counter (v / 4, step, row, 0) and key seed, word v % 4, mapped to Gumbel as
-// u = (bits >> 8) * 2^-24 + 1e-12, g = -log(-log(u)).
+// u = (bits >> 8) * 2^-24 + 1e-12, g = -log(-log(u)). The row word is
+// row_base + b: a launch over rows [r, r + B) of a larger batch draws those
+// rows of the larger batch's stream.
 
 #include "cluster_sweep.cuh"
 #include "common.cuh"
@@ -540,6 +542,7 @@ struct DecoderArgs {
   const float* noise;  // (T, B, noise_stride), or null: Philox
   int noise_stride;
   unsigned long long seed;
+  int row_base;  // the Philox counter's row word is row_base + b
   const void* tgt_emb;  // (V, D)
   const void* w_ih;     // (H + D, 4H)
   const void* w_hh;     // (H, 4H)
@@ -1028,7 +1031,7 @@ __global__ void __launch_bounds__(kDecThreads, 1) seq2seq_sample_kernel(const De
         if (live(o))
           gum[e] = a.noise != nullptr
                        ? a.noise[(static_cast<ll>(t - 1) * B + b) * a.noise_stride + v]
-                       : philox_gumbel(a.seed, b, t - 1, v);
+                       : philox_gumbel(a.seed, a.row_base + b, t - 1, v);
       }
       if constexpr (kBf) {
         if (a.proj_res) {  // one 16-row m-tile of the owned rows, a warp an 8-column n-tile
@@ -1540,10 +1543,11 @@ extern "C" int probnmn_k1_encoder_plan(int dtype, int batch, int input_size, int
 // seq2seq_sample_kernel. Launches on `stream`; returns cudaGetLastError().
 extern "C" int probnmn_k1_decode(
     int dtype, const void* src, int batch, int raw_len, const void* noise, int noise_stride,
-    unsigned long long seed, const void* tgt_emb, const void* dec_wih, const void* dec_whh,
-    const void* dec_bias, const void* proj_w, const void* proj_b, const void* enc_out,
-    const void* h0, void* preds, void* loss, void* logprobs, int input_size, int hidden,
-    int vocab, int num_steps, int pad, int unk, int start, int end, void* stream) {
+    unsigned long long seed, int row_base, const void* tgt_emb, const void* dec_wih,
+    const void* dec_whh, const void* dec_bias, const void* proj_w, const void* proj_b,
+    const void* enc_out, const void* h0, void* preds, void* loss, void* logprobs,
+    int input_size, int hidden, int vocab, int num_steps, int pad, int unk, int start, int end,
+    void* stream) {
   if (batch <= 0) return 0;
   DecoderArgs a{};
   a.src = static_cast<const int*>(src);
@@ -1552,6 +1556,7 @@ extern "C" int probnmn_k1_decode(
   a.noise = static_cast<const float*>(noise);
   a.noise_stride = noise_stride;
   a.seed = seed;
+  a.row_base = row_base;
   a.tgt_emb = tgt_emb;
   a.w_ih = dec_wih;
   a.w_hh = dec_whh;

@@ -57,7 +57,7 @@ parser.add_argument(
 )
 parser.add_argument("--num-val-batches", type=int, default=None,
                     help="Batches to evaluate (default: the whole val split).")
-add_shared_flags(parser, num_devices_ported=True)
+add_shared_flags(parser)
 
 
 def main(args):

@@ -11,10 +11,13 @@ one entry for every test row.
     python -m probnmn_tpu_torch.inference --config-yml checkpoints/jt/config.yml \
         --checkpoint-path checkpoints/jt/checkpoint_best.ckpt
 
-``--device`` is ``cuda`` (the default) or ``cpu``. The JAX CLI's other
-flags: ``--gpu-ids`` is ignored, ``--cpu-workers`` accepted and unused,
-``--compilation-cache-dir`` roots the kernels' build cache and
-``--num-devices`` takes 1 (``utils/cli_flags.py``).
+``--device`` is ``cuda`` (the default) or ``cpu``. ``--num-devices N``
+shards each batch over N cards in this process, one replica a card (0:
+every card; the largest count <= N that divides the batch size), with the
+answers one card gives. The JAX CLI's other flags: ``--gpu-ids`` is
+ignored, ``--cpu-workers`` accepted and unused and
+``--compilation-cache-dir`` roots the kernels' build cache
+(``utils/cli_flags.py``).
 """
 import argparse
 import json
@@ -70,7 +73,7 @@ def main(args):
     from probnmn_tpu_torch.serving import InferenceEngine
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    apply_shared_flags(args, "inference")
+    apply_shared_flags(args)
     config = Config(args.config_yml, args.config_override)
     np.random.seed(config.RANDOM_SEED)
 
@@ -78,7 +81,7 @@ def main(args):
                                    in_memory=not args.streaming_features)
     engine = InferenceEngine.from_checkpoint(
         config, args.checkpoint_path, decoding=args.decoding_strategy,
-        beam_size=args.beam_size, device=args.device)
+        beam_size=args.beam_size, device=args.device, num_devices=args.num_devices)
     output_path = args.checkpoint_path.rsplit(".", 1)[0] + "_predictions.json"
     predictions = run_inference(engine, dataset, config.OPTIM.BATCH_SIZE, output_path)
     logging.getLogger(__name__).info("Wrote %d predictions to %s", len(predictions), output_path)

@@ -132,6 +132,7 @@ def library() -> ctypes.CDLL:
         _INT,                                   # dtype: 0 float32, 1 bfloat16
         _VOID_P, _INT, _INT,                    # src (B, L) int32, B, L
         _VOID_P, _INT, ctypes.c_uint64,         # noise (T, B, stride) f32 or NULL, stride, seed
+        _INT,                                   # row_base: the Philox row of row 0
         _VOID_P,                                # target embedding
         _VOID_P, _VOID_P, _VOID_P,              # decoder w_ih^T, w_hh^T, bias
         _VOID_P, _VOID_P,                       # projection w^T, bias

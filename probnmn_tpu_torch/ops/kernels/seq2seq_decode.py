@@ -29,9 +29,12 @@ its bits. Matmul operands are rounded to the compute type and summed in
 float32, as the TPU kernel did.
 
 The TPU's hardware PRNG becomes Philox4x32-10 with counter (v // 4, step,
-row, 0) and key ``seed``, so draws do not depend on the block layout, and
-:func:`philox_gumbel` reproduces them on the host: the plain version fed that
-noise samples the same tokens. ``noise=`` (T, B, >=V) float32 drives both from
+row_base + row, 0) and key ``seed``, so draws do not depend on the block
+layout, and :func:`philox_gumbel` reproduces them on the host: the plain
+version fed that noise samples the same tokens. ``row_base`` (0 by default)
+lets a launch over rows [r, r + B) of a larger batch draw those rows of the
+larger batch's stream: the serving engine's shards on several cards draw
+what one card would. ``noise=`` (T, B, >=V) float32 drives both from
 explicit noise instead, for token-for-token comparisons.
 
 A training call (question_coding's and joint_training's z ~ q(z|x), the
@@ -60,16 +63,19 @@ _MASK32 = np.uint64(0xFFFFFFFF)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def philox_gumbel(seed: int, num_steps: int, batch: int, vocab: int) -> np.ndarray:
+def philox_gumbel(seed: int, num_steps: int, batch: int, vocab: int,
+                  row_base: int = 0) -> np.ndarray:
     r"""(num_steps, batch, vocab) float32 Gumbel noise: the kernel's Philox
-    stream. Word ``v % 4`` of Philox4x32-10 at counter (v // 4, step, row, 0)
-    with key (seed low, seed high) gives ``u = (bits >> 8) * 2**-24 + 1e-12``
-    and ``g = -log(-log(u))``, the TPU kernel's uniform-to-Gumbel map."""
+    stream. Word ``v % 4`` of Philox4x32-10 at counter (v // 4, step,
+    row_base + row, 0) with key (seed low, seed high) gives ``u = (bits >> 8)
+    * 2**-24 + 1e-12`` and ``g = -log(-log(u))``, the TPU kernel's
+    uniform-to-Gumbel map."""
     groups = -(-vocab // 4)
     c0 = np.broadcast_to(np.arange(groups, dtype=np.uint64)[None, None, :],
                          (num_steps, batch, groups))
     c1 = np.broadcast_to(np.arange(num_steps, dtype=np.uint64)[:, None, None], c0.shape)
-    c2 = np.broadcast_to(np.arange(batch, dtype=np.uint64)[None, :, None], c0.shape)
+    c2 = np.broadcast_to(np.arange(row_base, row_base + batch, dtype=np.uint64)[None, :, None],
+                         c0.shape)
     c3 = np.zeros(c0.shape, np.uint64)
     k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
     for _ in range(10):
@@ -376,6 +382,7 @@ def fused_sampling_forward(
     source_tokens: torch.Tensor,
     *,
     seed: Optional[int] = None,
+    row_base: int = 0,
     noise: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     packed: Optional[Dict[str, torch.Tensor]] = None,
@@ -386,9 +393,10 @@ def fused_sampling_forward(
     directly: it is also the counterpart of the JAX package's
     ``models/seq2seq.py::sampling_forward_serving``.
 
-    Noise comes from ``noise`` (T, B, >=V) float32 when given, else from the
-    Philox stream of ``seed``. ``dropout_masks`` (L-1, B, L+1, H): the
-    encoder's inter-layer dropout of a training call. A CPU
+    Noise comes from ``noise`` (T, B, >=V) float32 when given, else from
+    rows ``row_base`` .. ``row_base + B`` of the Philox stream of ``seed``.
+    ``dropout_masks`` (L-1, B, L+1, H): the encoder's inter-layer dropout
+    of a training call. A CPU
     ``source_tokens`` runs the plain version; a CUDA one runs
     :func:`sampling_encode`'s sweeps, then the decoder kernel (and raises if
     it cannot).
@@ -401,7 +409,7 @@ def fused_sampling_forward(
     device = source_tokens.device
     if device.type == "cpu":
         if noise is None:
-            noise = torch.from_numpy(philox_gumbel(seed, num_steps, batch, vocab))
+            noise = torch.from_numpy(philox_gumbel(seed, num_steps, batch, vocab, row_base))
         return sampling_forward_with_noise(params, spec, source_tokens, noise, compute_dtype,
                                            dropout_masks)
     if device.type != "cuda":
@@ -424,7 +432,7 @@ def fused_sampling_forward(
         src.data_ptr(), batch, raw_len,
         noise.data_ptr() if noise is not None else None,
         noise.shape[2] if noise is not None else 0,
-        (seed or 0) & 0xFFFFFFFFFFFFFFFF,
+        (seed or 0) & 0xFFFFFFFFFFFFFFFF, row_base,
         p["tgt_emb"].data_ptr(),
         p["dec_wih"].data_ptr(), p["dec_whh"].data_ptr(), p["dec_bias"].data_ptr(),
         p["proj_w"].data_ptr(), p["proj_b"].data_ptr(),

@@ -25,8 +25,10 @@ the file only inline ``features`` are served.
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; the checkpoint may be the
 port's, the JAX package's ``.ckpt`` or the reference's ``.pth``.
-``--compilation-cache-dir`` roots the kernels' build cache, and
-``--num-devices`` takes 1 (``utils/cli_flags.py``).
+``--num-devices N`` shards each batch over N cards in this process, one
+replica a card (default 1; 0: every card), and
+``--compilation-cache-dir`` roots the kernels' build cache
+(``utils/cli_flags.py``).
 """
 import argparse
 import json
@@ -81,7 +83,7 @@ class ServingContext:
     def __init__(self, args):
         from probnmn_tpu_torch.serving import InferenceEngine
 
-        apply_shared_flags(args, "serve")
+        apply_shared_flags(args)
         config = Config(args.config_yml, args.config_override)
         # Inline 'features' must have the NMN's feature geometry: any other
         # shape would fail the whole coalesced batch.
@@ -90,6 +92,7 @@ class ServingContext:
             config, args.checkpoint, batch_size=args.batch_size or None,
             compute_dtype=None if args.compute_dtype == "auto" else args.compute_dtype,
             decoding=args.decoding, beam_size=args.beam_size, device=args.device,
+            num_devices=args.num_devices,
         )
         self.max_question_length = args.max_question_length
         features_path = args.features_h5 or config.DATA.TEST_FEATURES
@@ -226,9 +229,9 @@ def main(args):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     ctx = ServingContext(args)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(ctx))
-    logger.info("serving on http://%s:%d (batch=%d, decoding=%s, device=%s)",
+    logger.info("serving on http://%s:%d (batch=%d, decoding=%s, device=%s, cards=%d)",
                 args.host, server.server_address[1], ctx.engine.batch_size, args.decoding,
-                args.device)
+                args.device, ctx.engine.num_devices)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -26,8 +26,20 @@ is its batch script, reference ``inference.py:74-95``).
   enqueue requests and return futures; :meth:`start` runs a dispatcher that
   coalesces them up to ``batch_size`` or a deadline, pads each batch to the
   smallest *bucket* of a short ladder (``batch_size // 4**k``, e.g.
-  4/16/64/256) and launches it on the engine's own CUDA stream, with up to
+  4/16/64/256) and launches it on the engine's own CUDA streams, with up to
   ``pipeline_depth`` batches dispatched and not yet fetched.
+- **Several cards** (``num_devices``, the JAX engine's data mesh): one
+  process, one *replica* a card (its stream, K1's packed weights, the NMN's
+  banks and tables). Each padded batch is split into equal contiguous
+  shards, shard k on card k, each launched under that card's device guard
+  (the kernels launch on the calling thread's current device); the batch's
+  answers meet in one pinned host buffer and it keeps one sync point. The
+  count follows the JAX policy (``parallel/mesh.py::auto_world``), and the
+  bucket ladder keeps only sizes the count divides. The batch draws one
+  Philox seed and shard k draws rows ``[k B / n, (k + 1) B / n)`` of its
+  stream (K1's ``row_base``), so sampling answers do not depend on the
+  card count. ``share_card=True`` puts every shard on the engine's card (a
+  one-card rehearsal); on the CPU the shards run one after another.
 
 - **From a checkpoint.** :meth:`InferenceEngine.from_checkpoint` reads the
   ProgramGenerator and the NMN from a checkpoint of the port, of the JAX
@@ -37,14 +49,13 @@ is its batch script, reference ``inference.py:74-95``).
   cache there (``utils/compilation_cache.py``; ``"auto"`` resolves as the JAX
   package resolves its XLA cache), so that a restarted process loads the
   kernels instead of building them.
-
-Not ported: the multi-device mesh.
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from concurrent.futures import Future
 from queue import Empty, Queue
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -60,21 +71,34 @@ from probnmn_tpu_torch.models import program_generator
 from probnmn_tpu_torch.models.nmn import cast_params, resolve_compute_dtype
 from probnmn_tpu_torch.models.seq2seq import GREEDY, beam_search_forward, seq2seq_forward
 from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward, pack_weights
+from probnmn_tpu_torch.parallel.mesh import auto_world, available_devices
 
 _SEED_RANGE = 2 ** 62
 
 
 class _Launched(NamedTuple):
-    r"""A dispatched batch: its answers (on ``cuda`` a pinned host copy
-    enqueued behind the pipeline), the event recorded after that copy (None
-    on the CPU), the valid rows and the padded size, and the device tensors
-    made on the engine's stream, held until :meth:`InferenceEngine._finish`
-    returns."""
+    r"""A dispatched batch: its answers (on ``cuda`` a pinned host buffer
+    each shard copies its rows into behind its pipeline), the events each
+    shard recorded after its copy (none on the CPU), the valid rows and the
+    padded size, and the device tensors made on the shards' streams, held
+    until :meth:`InferenceEngine._finish` returns."""
     answers: torch.Tensor
-    done: Optional[torch.cuda.Event]
+    done: tuple
     n: int
     pad_to: int
     keep: tuple
+
+
+class _Replica(NamedTuple):
+    r"""One card's copy of the model: its device, its own stream (None on
+    the CPU), the float32 ProgramGenerator parameters, K1's packed weights
+    (sampling on ``cuda``; else None) and the NMN forward with its banks and
+    tables on that card."""
+    device: torch.device
+    stream: Optional[torch.cuda.Stream]
+    pg_params: Dict[str, Any]
+    pg_packed: Optional[Dict[str, torch.Tensor]]
+    nmn_forward: Any
 
 
 class InferenceEngine:
@@ -92,6 +116,8 @@ class InferenceEngine:
         compute_dtype: Optional[str] = None,
         beam_size: int = 1,
         compilation_cache_dir: Optional[str] = None,
+        num_devices: Optional[int] = None,
+        share_card: bool = False,
     ):
         r"""``decoding``: ``"sampling"`` (the reference inference default,
         ``inference.py:80``), ``"greedy"`` (the reference evaluators') or
@@ -100,7 +126,12 @@ class InferenceEngine:
         spec's, else bfloat16 on ``cuda`` and float32 on ``cpu``).
         ``compilation_cache_dir``: where the kernels' build cache lives
         (``"auto"``: ``$PROBNMN_COMPILATION_CACHE`` or the default; None:
-        ``build/torch_kernels`` beside the package)."""
+        ``build/torch_kernels`` beside the package).
+        ``num_devices``: cards to shard each batch over, one replica a card
+        (None or 1: one; 0: every card; N: the largest count <= N that
+        divides ``batch_size``; on the CPU, N shards in turn).
+        Over several cards shard k lives on ``cuda:k``, so ``device`` must
+        then name card 0; ``share_card``: every shard on ``device``'s card."""
         if decoding not in ("sampling", "greedy", "beam"):
             raise ValueError(f"unknown decoding strategy: {decoding!r}")
         if beam_size < 1:
@@ -120,39 +151,38 @@ class InferenceEngine:
         dtype = resolve_compute_dtype(compute_dtype or nmn_spec.compute_dtype, self._device)
         self._compute_dtype = dtype
 
-        self._pg_params = cast_params(pg_params, torch.float32, self._device)
-        # The sampling kernel's weight layout, packed once.
-        self._pg_packed = (
-            pack_weights(self._pg_params, pg_spec, dtype, self._device)
-            if self._device.type == "cuda" and decoding == "sampling" else None
-        )
-        self._nmn_forward = nmn_lib.make_fast_inference_fn(
-            cast_params(nmn_params, torch.float32, self._device), nmn_spec,
-            device=self._device, dtype=dtype,
-        )
         self._cuda = self._device.type == "cuda"
-        # Every batch runs on the engine's own stream; the weights above were
-        # made on the default one.
-        self._stream = torch.cuda.Stream(self._device) if self._cuda else None
-        if self._cuda:
-            torch.cuda.synchronize(self._device)
+        available = ((num_devices or 1) if share_card
+                     else available_devices(self._device.type, num_devices))
+        shards = auto_world(num_devices, batch_size, available)
+        spread = self._cuda and not share_card and shards > 1
+        if spread and self._device.index not in (None, 0):
+            raise ValueError(f"shards over {shards} cards start at cuda:0; {self._device} "
+                             f"names another card")
+        self._replicas = [
+            self._make_replica(torch.device("cuda", k) if spread else self._device,
+                               pg_params, nmn_params)
+            for k in range(shards)
+        ]
 
-        # Bucket ladder batch_size // 4**k, floored at 2 (a size-1 bucket buys
-        # negligible latency over the next one up): the dispatcher pads each
-        # batch to the smallest bucket covering it; predict() pads to the
-        # full batch.
-        bucket_floor = 2
+        # Bucket ladder batch_size // 4**k that the shard count divides,
+        # floored at max(2, shards) (a size-1 bucket buys negligible latency
+        # over the next one up), the full batch always in: the dispatcher
+        # pads each batch to the smallest bucket covering it; predict() pads
+        # to the full batch.
+        bucket_floor = max(2, shards)
         buckets = []
         b = batch_size
         while b >= bucket_floor or b == batch_size:
-            buckets.append(b)
+            if b % shards == 0:
+                buckets.append(b)
             if b // 4 < bucket_floor:
                 break
             b //= 4
         self._buckets = sorted(set(buckets))
 
         # Batches are enqueued one at a time (predict callers and the
-        # dispatcher share the stream); each stages its own buffer first.
+        # dispatcher share the streams); each stages its own buffer first.
         self._launch_lock = threading.Lock()
 
         # Micro-batching state.
@@ -172,6 +202,24 @@ class InferenceEngine:
         self._max_in_flight = 0
         self._started_at = time.monotonic()
 
+    def _make_replica(self, device: torch.device, pg_params, nmn_params) -> _Replica:
+        r"""The model on ``device``; every batch runs on the replica's own
+        stream, and its weights are made on the card's default one."""
+        with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
+            pg = cast_params(pg_params, torch.float32, device)
+            # The sampling kernel's weight layout, packed once.
+            packed = (pack_weights(pg, self._pg_spec, self._compute_dtype, device)
+                      if device.type == "cuda" and self._decoding == "sampling" else None)
+            nmn_forward = nmn_lib.make_fast_inference_fn(
+                cast_params(nmn_params, torch.float32, device), self._nmn_spec,
+                device=device, dtype=self._compute_dtype,
+            )
+            stream = None
+            if device.type == "cuda":
+                stream = torch.cuda.Stream(device)
+                torch.cuda.synchronize(device)
+        return _Replica(device, stream, pg, packed, nmn_forward)
+
     @classmethod
     def from_checkpoint(
         cls,
@@ -183,13 +231,14 @@ class InferenceEngine:
         beam_size: int = 1,
         device="cuda",
         compilation_cache_dir: Optional[str] = None,
+        num_devices: Optional[int] = None,
     ) -> "InferenceEngine":
         r"""An engine over the ``program_generator`` and ``nmn`` of a
         checkpoint (a joint_training one holds both): the port's, the JAX
         package's ``.ckpt`` or the reference's ``.pth``, told apart by their
         content (the JAX package's ``from_checkpoint``). The vocabulary, the
         specs, the batch size (unless given) and the sampling seed come from
-        ``config``."""
+        ``config``; ``num_devices`` as in the engine."""
         from probnmn_tpu_torch.training._trainer import load_models
 
         vocabulary = Vocabulary.from_files(config.DATA.VOCABULARY)
@@ -202,6 +251,7 @@ class InferenceEngine:
             batch_size=batch_size or config.OPTIM.BATCH_SIZE, rng_seed=config.RANDOM_SEED,
             decoding=decoding, device=device, compute_dtype=compute_dtype,
             beam_size=beam_size, compilation_cache_dir=compilation_cache_dir,
+            num_devices=num_devices,
         )
 
     @property
@@ -215,6 +265,11 @@ class InferenceEngine:
     @property
     def compute_dtype(self) -> torch.dtype:
         return self._compute_dtype
+
+    @property
+    def num_devices(self) -> int:
+        r"""The shards each batch is split over, one replica each."""
+        return len(self._replicas)
 
     # ------------------------------------------------------------------ sync
     def predict(
@@ -316,48 +371,66 @@ class InferenceEngine:
         seed: Optional[int],
         pad_to: int,
     ) -> _Launched:
-        r"""Stage the request groups (:meth:`_stage`), copy the buffer to the
-        device without blocking and enqueue the pipeline and the answers'
-        copy to pinned host memory on the engine's stream; returns without a
-        sync (:meth:`_finish` is the batch's one sync point). The seed is
-        drawn from the engine's generator unless given."""
+        r"""Stage the request groups (:meth:`_stage`); for each shard, under
+        its card's device guard and on its stream, copy its rows of the
+        buffer to the card without blocking and enqueue the pipeline and its
+        answers' copy into one pinned host buffer; returns without a sync
+        (:meth:`_finish` is the batch's one sync point). The seed is drawn
+        from the engine's generator unless given."""
         n = sum(g.shape[0] for g in q_groups)
         if seed is None:
             with self._lock:
                 seed = self._draw_seed(self._generator)
         questions, images = self._stage(q_groups, im_groups, pad_to)
+        rows = pad_to // len(self._replicas)
         if not self._cuda:
             with self._launch_lock:
-                return _Launched(self._pipeline(questions, images, seed), None, n, pad_to, ())
-        with self._launch_lock, torch.cuda.stream(self._stream):
-            q = questions.to(self._device, non_blocking=True)
-            im = images.to(self._device, non_blocking=True)
-            answers = self._pipeline(q, im, seed)
-            host = torch.empty(answers.shape, dtype=answers.dtype, pin_memory=True)
-            host.copy_(answers, non_blocking=True)
-            done = torch.cuda.Event(blocking=True)
-            done.record(self._stream)
-        return _Launched(host, done, n, pad_to, (q, im, answers))
+                answers = torch.cat([
+                    self._pipeline(questions[lo:lo + rows], images[lo:lo + rows], seed, k, lo)
+                    for k, lo in enumerate(range(0, pad_to, rows))])
+            return _Launched(answers, (), n, pad_to, ())
+        host = torch.empty(pad_to, dtype=torch.int64, pin_memory=True)
+        done, keep = [], []
+        with self._launch_lock:
+            for k, replica in enumerate(self._replicas):
+                lo = k * rows
+                # The kernels launch on the thread's current device: the
+                # guard, not the stream, makes it this card.
+                with torch.cuda.device(replica.device), torch.cuda.stream(replica.stream):
+                    q = questions[lo:lo + rows].to(replica.device, non_blocking=True)
+                    im = images[lo:lo + rows].to(replica.device, non_blocking=True)
+                    answers = self._pipeline(q, im, seed, k, lo)
+                    host[lo:lo + rows].copy_(answers, non_blocking=True)
+                    event = torch.cuda.Event(blocking=True)
+                    event.record(replica.stream)
+                done.append(event)
+                keep.append((q, im, answers))
+        return _Launched(host, tuple(done), n, pad_to, tuple(keep))
 
-    def _pipeline(self, questions: torch.Tensor, images: torch.Tensor, seed: int) -> torch.Tensor:
+    def _pipeline(self, questions: torch.Tensor, images: torch.Tensor, seed: int,
+                  shard: int = 0, row_base: int = 0) -> torch.Tensor:
+        r"""Answers of one shard's rows on its replica; ``row_base``: the
+        shard's first row in the batch (its rows of the batch's Philox
+        stream)."""
+        replica = self._replicas[shard]
         if self._decoding == "beam":
             programs = beam_search_forward(
-                self._pg_params, self._pg_spec, questions, self._beam_size)["predictions"]
+                replica.pg_params, self._pg_spec, questions, self._beam_size)["predictions"]
         elif self._decoding == GREEDY:
             programs = seq2seq_forward(
-                self._pg_params, self._pg_spec, questions, GREEDY
+                replica.pg_params, self._pg_spec, questions, GREEDY
             )["predictions"]
         else:
             programs = fused_sampling_forward(
-                self._pg_params, self._pg_spec, questions, seed=seed,
-                compute_dtype=self._compute_dtype, packed=self._pg_packed,
+                replica.pg_params, self._pg_spec, questions, seed=seed, row_base=row_base,
+                compute_dtype=self._compute_dtype, packed=replica.pg_packed,
             )["predictions"]
-        return self._nmn_forward(image_to_nhwc(images), programs)["predictions"]
+        return replica.nmn_forward(image_to_nhwc(images), programs)["predictions"]
 
     def _fetch(self, launched: _Launched) -> List[int]:
-        r"""Wait for the batch's answers on the host; the valid rows."""
-        if launched.done is not None:
-            launched.done.synchronize()
+        r"""Wait for every shard's answers on the host; the valid rows."""
+        for event in launched.done:
+            event.synchronize()
         return launched.answers[:launched.n].tolist()
 
     def _finish(self, launched: _Launched, count_stats: bool = True) -> List[str]:
@@ -382,9 +455,10 @@ class InferenceEngine:
 
     def warmup(self, question_length: Optional[int] = None) -> None:
         r"""Run the pipeline once at every bucket (the full batch among
-        them), so no live request pays a kernel build, a first allocation or
-        a staging buffer. ``question_length`` must match the callers' padded
-        question width (the reference's fixed 45 by default)."""
+        them) on every card, so no live request pays a kernel build, a
+        module load, a first allocation or a staging buffer.
+        ``question_length`` must match the callers' padded question width
+        (the reference's fixed 45 by default)."""
         if question_length is None:
             from probnmn_tpu_torch.utils.clevr import MAX_QUESTION_LENGTH
 
@@ -431,7 +505,8 @@ class InferenceEngine:
             self._dispatcher = self._completer = None
         self._load_kernels()
         if self._cuda:
-            torch.cuda.synchronize(self._device)
+            for replica in self._replicas:
+                torch.cuda.synchronize(replica.device)
         self._running.set()
         pipelined = pipeline_depth > 1
         slots = threading.BoundedSemaphore(pipeline_depth)

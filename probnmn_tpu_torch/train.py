@@ -84,7 +84,7 @@ parser.add_argument(
 )
 parser.add_argument("--profile-steps", type=int, default=5,
                     help="Steps to trace when --profile-dir is set.")
-add_shared_flags(parser, model_parallel=True, num_devices_ported=True)
+add_shared_flags(parser, model_parallel=True)
 
 
 def build(phase: str, config: Config, serialization_dir: str, device: str,

@@ -4,9 +4,10 @@ The flags the JAX package's CLIs share, as the port's CLIs take them:
 ``--compilation-cache-dir`` roots the kernels' build cache
 (``utils/compilation_cache.py``). ``--num-devices`` runs the train and
 evaluate CLIs over that many ranks in all four phases, one process a card
-(``parallel/mesh.py``); the serving CLIs take 1, and ``--model-parallel``
-takes 1, each refusal naming the piece of ROADMAP.md queue 1 item 5 that
-ports it.
+(``parallel/mesh.py``), and the inference and serve CLIs shard each batch
+over that many cards in one process, one replica a card (``serving.py``).
+``--model-parallel`` takes 1, its refusal naming the piece of ROADMAP.md
+queue 1 item 5 that ports it.
 """
 from __future__ import annotations
 
@@ -15,33 +16,23 @@ import logging
 from typing import Optional
 
 MESH = "ROADMAP.md queue 1 item 5"
-# The piece of the mesh item that ports --num-devices above 1 for each path
-# that does not take it yet.
-PIECES = {
-    "inference": "(d), serving over several cards",
-    "serve": "(d), serving over several cards",
-}
 MODEL_PARALLEL = "(e), the model axis"
 
 
 def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
                      model_parallel: bool = False, num_devices_default: Optional[int] = 1,
-                     cache_default: Optional[str] = "", num_devices_ported: bool = False
-                     ) -> None:
-    r"""``num_devices_ported``: the CLI runs over several ranks (the train
-    and evaluate CLIs), and the help of ``--num-devices`` says so."""
+                     cache_default: Optional[str] = "") -> None:
     if gpu_ids:
         parser.add_argument("--gpu-ids", nargs="+", type=int, default=[0],
                             help="Ignored, as in the JAX CLIs (the device is --device).")
         parser.add_argument("--cpu-workers", type=int, default=0,
                             help="Accepted and unused, as in the JAX CLIs.")
     parser.add_argument("--num-devices", type=int, default=num_devices_default,
-                        help=("Devices to run on, one process each: 0 is every card, N at "
-                              "most N (the largest count that divides OPTIM.BATCH_SIZE); with "
-                              "--device cpu, N CPU processes. All four phases train and "
-                              "evaluate over several."
-                              if num_devices_ported else
-                              f"Devices: 1 (several are {MESH}, not ported here yet)."))
+                        help="Cards to run on: 0 is every card, N at most N (the largest "
+                        "count that divides the batch size). train and evaluate run one "
+                        "process a card (with --device cpu, N CPU processes); inference and "
+                        "serve shard each batch over that many cards in one process, one "
+                        "replica a card (with --device cpu, N shards in turn).")
     if model_parallel:
         parser.add_argument("--model-parallel", type=int, default=1,
                             help=f"Devices a data shard: 1 ({MESH} {MODEL_PARALLEL}, not "
@@ -52,20 +43,13 @@ def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
         "~/.cache/probnmn_tpu_torch/kernels), so that later runs load the built kernels.")
 
 
-def apply_shared_flags(args: argparse.Namespace, mesh_piece: Optional[str] = None
-                       ) -> Optional[str]:
-    r"""Refuse ``--model-parallel`` above 1, and ``--num-devices`` other
-    than 1 where ``mesh_piece`` (a key of :data:`PIECES`) names the piece
-    that ports it (None: the caller takes it); root the build cache where
+def apply_shared_flags(args: argparse.Namespace) -> Optional[str]:
+    r"""Refuse ``--model-parallel`` above 1; root the build cache where
     ``--compilation-cache-dir`` says. Returns the cache directory, or None."""
     value = getattr(args, "model_parallel", None)
     if value not in (None, 1):
         raise NotImplementedError(f"--model-parallel {value}: not ported; it is {MESH} "
                                   f"{MODEL_PARALLEL}")
-    value = getattr(args, "num_devices", None)
-    if mesh_piece is not None and value not in (None, 1):
-        raise NotImplementedError(f"--num-devices {value}: one device only for {mesh_piece}; "
-                                  f"more are {MESH} {PIECES[mesh_piece]}")
     if not getattr(args, "compilation_cache_dir", None):
         return None
     from probnmn_tpu_torch.utils.compilation_cache import enable_compilation_cache

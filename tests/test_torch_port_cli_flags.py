@@ -10,12 +10,12 @@ iterators take ``transform=``, on the CPU.
   ``auto`` and ``$PROBNMN_COMPILATION_CACHE`` resolved as the JAX package
   resolves its XLA cache (``InferenceEngine(compilation_cache_dir=)``:
   tests/test_torch_port_serve_cli.py);
-  ``--num-devices`` passes the flag check on the train and evaluate CLIs
-  and takes 1 where the mesh is not ported (inference, serve), and
-  ``--model-parallel`` takes 1, each refusing anything else by naming the
-  mesh's ROADMAP item (tests/test_torch_port_mesh.py and
+  ``--num-devices`` passes the flag check on the train, evaluate,
+  inference and serve CLIs, and ``--model-parallel`` takes 1, refusing
+  anything else by naming the mesh's ROADMAP item
+  (tests/test_torch_port_mesh.py and
   tests/test_torch_port_mesh_semisupervised.py train and evaluate at 2
-  ranks).
+  ranks; tests/test_torch_port_serving_cards.py serves over 2 cards).
 - ``BatchIterator(transform=)`` and ``EpochIterator(transform=)`` give the
   JAX package's iterators' batches.
 """
@@ -96,20 +96,16 @@ def test_shared_flags_are_taken_as_the_jax_clis_take_them(fixture, tmp_path, bui
         "--gpu-ids", "3", "--cpu-workers", "2", "--num-devices", "1",
         "--compilation-cache-dir", cache]))
     assert np.isfinite(metrics["program_prior"]["perplexity"])
-    # train and evaluate take several devices in every phase: the flag check passes.
+    # train and evaluate take several devices in every phase, inference and
+    # serve shard each batch over several: the flag check passes.
     for module, argv in (
             (train, ["--phase", "question_coding", "--config-yml", fixture["config_path"]]),
             (evaluate, ["--phase", "program_prior", "--config-yml", fixture["config_path"],
-                        "--checkpoint-path", "x.ckpt"])):
-        assert cli_flags.apply_shared_flags(module.parser.parse_args(
-            argv + ["--num-devices", "2"])) is None
-        assert module.parser.parse_args(argv).num_devices == 1
-    for module, argv in (
+                        "--checkpoint-path", "x.ckpt"]),
             (inference, ["--config-yml", fixture["config_path"], "--checkpoint-path", "x.ckpt"]),
             (serve, ["--config-yml", fixture["config_path"], "--checkpoint", "x.ckpt"])):
         args = module.parser.parse_args(argv + ["--num-devices", "2"])
-        with pytest.raises(NotImplementedError, match="--num-devices 2.*queue 1 item 5"):
-            module.main(args) if module is not serve else serve.ServingContext(args)
+        assert cli_flags.apply_shared_flags(args) is None and args.num_devices == 2
         if module is not serve:
             assert module.parser.parse_args(argv).num_devices == 1
     with pytest.raises(NotImplementedError, match="--model-parallel 4.*queue 1 item 5"):

@@ -882,6 +882,26 @@ def test_phase13_bucket_check_at_four_rows(cuda):
     assert set(k1) == set(k2) == {"float32", "bfloat16"}
 
 
+def test_phase17_float32_check_over_two_shards(cuda):
+    r"""chip_smoke.py phase 17's float32 check at 64 rows alone, at full
+    width: greedy and sampling engines over two shards (one a card, or both
+    on card 0 on a one-card machine) give one card's answers, answers that
+    follow the image; the greedy one's dispatcher answers 256 requests as
+    one card's ``predict``; and K1 at a row base draws the rows of the full
+    batch's Philox stream."""
+    import chip_smoke
+
+    (vocab, pg_spec, nmn_spec, scripted, soft, nmn_params, questions, images,
+     seed) = chip_smoke.cards_inputs(np, torch, 64)
+    requests = chip_smoke.cards_requests(np, vocab, images, 256)
+    out = chip_smoke.cards_float32_check(np, torch, vocab, pg_spec, nmn_spec, scripted, soft,
+                                         nmn_params, questions, images, seed,
+                                         share=torch.cuda.device_count() < 2, requests=requests)
+    assert set(out) == {"greedy", "sampling"}
+    rows = chip_smoke.k1_row_base_check(np, torch, cast_params(soft, torch.float32, cuda),
+                                        pg_spec, torch.from_numpy(questions).to(cuda), seed)
+    assert set(rows) == {"0", "32"}
+
 # ------------------------------------------------------------------ inter-layer dropout
 DROPOUT_NAMES = ("lstm_fwd_sweep", "lstm_bwd_sweep", "dropout_rows", "k1_dropout")
 

@@ -183,7 +183,7 @@ def test_from_checkpoint_matches_jax(served, fmt):
         pg, nmn_params = _to_numpy(ported["program_generator"]), _to_numpy(ported["nmn"])
     else:
         pg, nmn_params = served["pg"], served["nmn"]
-    _assert_trees_equal(engine._pg_params, interop.program_generator_from_jax(pg))
+    _assert_trees_equal(engine._replicas[0].pg_params, interop.program_generator_from_jax(pg))
 
     dataset = JointTrainingDataset(config.DATA.TEST_TOKENS, config.DATA.TEST_FEATURES)
     batch = dataset.get_batch(np.arange(len(dataset)))
@@ -226,13 +226,12 @@ def test_inference_cli_matches_the_jax_cli(served, tmp_path):
     assert got == want
     assert sorted(p["question_index"] for p in got) == list(range(16))
     # The JAX CLI's flags, once refused: --gpu-ids ignored, --cpu-workers
-    # accepted, one device; more devices are the mesh, not ported yet.
-    os.remove(output)
-    assert inference.main(inference.parser.parse_args(
-        [*common, "--checkpoint-path", port_ckpt, "--device", "cpu", "--gpu-ids", "0",
-         "--cpu-workers", "2", "--num-devices", "1"])) == output
-    with open(output) as f:
-        assert json.load(f) == want
-    with pytest.raises(NotImplementedError, match="--num-devices"):
-        inference.main(inference.parser.parse_args(
-            [*common, "--checkpoint-path", port_ckpt, "--num-devices", "2"]))
+    # accepted, one device; and two, each batch of 6 split over two shards
+    # with the JAX CLI's answers.
+    for cards in ("1", "2"):
+        os.remove(output)
+        assert inference.main(inference.parser.parse_args(
+            [*common, "--checkpoint-path", port_ckpt, "--device", "cpu", "--gpu-ids", "0",
+             "--cpu-workers", "2", "--num-devices", cards])) == output
+        with open(output) as f:
+            assert json.load(f) == want

@@ -20,8 +20,8 @@ and against the port in one process.
 - ``train --device cpu --num-devices 2 --phase program_prior``: one
   checkpoint per save, written by rank 0, its parameters by the parity rule
   against the one-rank CLI's, resumed by a one-rank trainer.
-- The refusals, a rank that raises, and the features held once in shared
-  memory.
+- The refusal of ``--model-parallel`` above 1, a rank that raises, and the
+  features held once in shared memory.
 
 Rank-side code is this file's top-level functions and imports no JAX (the
 spawned ranks import this module); JAX is imported inside the tests.
@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from probnmn_tpu_torch import inference, interop, serve, train
+from probnmn_tpu_torch import interop, train
 from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.datasets import ModuleTrainingDataset, ProgramPriorDataset
 from probnmn_tpu_torch.data.pipeline import BatchIterator, EpochIterator
@@ -471,25 +471,13 @@ def test_train_cli_at_two_ranks_writes_one_checkpoint_and_resumes(fx, tmp_path):
 
 
 # ------------------------------------------------------------------ (6) refusals -------
-@pytest.mark.parametrize("what, piece", [
-    ("inference", r"\(d\)"), ("serve", r"\(d\)"), ("model_parallel", r"\(e\)")])
+@pytest.mark.parametrize("what, piece", [("model_parallel", r"\(e\)")])
 def test_paths_not_ported_refuse_more_devices_naming_their_piece(fx, what, piece):
     path = fx["program_prior"]["path"]
-    flag = "--model-parallel" if what == "model_parallel" else "--num-devices"
-    if what == "model_parallel":
-        args = train.parser.parse_args(["--phase", "program_prior", "--config-yml", path,
-                                        "--device", "cpu", flag, "2"])
-        call = lambda: train.main(args)  # noqa: E731
-    elif what == "inference":
-        args = inference.parser.parse_args(["--config-yml", path, "--checkpoint-path",
-                                            "x.ckpt", flag, "2"])
-        call = lambda: inference.main(args)  # noqa: E731
-    else:
-        args = serve.parser.parse_args(["--config-yml", path, "--checkpoint", "x.ckpt",
-                                        flag, "2"])
-        call = lambda: serve.ServingContext(args)  # noqa: E731
-    with pytest.raises(NotImplementedError, match=f"{flag} 2.*queue 1 item 5 {piece}"):
-        call()
+    args = train.parser.parse_args(["--phase", "program_prior", "--config-yml", path,
+                                    "--device", "cpu", "--model-parallel", "2"])
+    with pytest.raises(NotImplementedError, match=f"--model-parallel 2.*queue 1 item 5 {piece}"):
+        train.main(args)
 
 
 # ------------------------------------------------------------------ (7) a rank fails ---

@@ -7,8 +7,8 @@ port on --device cpu. Every request form
 (text questions by image_index, image_indices, question_tokens with inline
 features) gets the same answers from both; the malformed payloads of
 tests/test_serve_cli.py get the same status codes; /stats carries the JAX
-keys; /healthz answers. The flags the port does not take raise, and so does
---device cuda without a card."""
+keys; /healthz answers. ``--num-devices 2`` serves over two shards with the
+same answers, and --device cuda without a card raises."""
 import json
 import os
 import threading
@@ -201,18 +201,25 @@ def test_stats_carries_the_jax_keys(servers):
 
 @pytest.mark.parametrize("flag", ["--num-devices", "--compilation-cache-dir"])
 def test_flags_not_ported_raise(servers, flag, tmp_path, monkeypatch):
-    r"""``--num-devices 2`` stays refused (the mesh is not ported);
-    ``--compilation-cache-dir``, once refused, now roots the kernels' build
-    cache, as ``InferenceEngine.from_checkpoint(compilation_cache_dir=)``
-    does."""
+    r"""Both flags were once refused. ``--num-devices 2`` now shards each
+    batch over two replicas (on the CPU, in turn) with the answers of one;
+    ``--compilation-cache-dir`` roots the kernels' build cache, as
+    ``InferenceEngine.from_checkpoint(compilation_cache_dir=)`` does."""
     from probnmn_tpu_torch.ops.kernels import _build
 
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)  # restored after the test
     if flag == "--num-devices":
         args = _args(serve, servers["config_path"], servers["ckpt"], servers["features_h5"],
                      "--device", "cpu", flag, "2")
-        with pytest.raises(NotImplementedError, match=flag):
-            serve.ServingContext(args)
+        ctx = serve.ServingContext(args)
+        try:
+            assert ctx.engine.num_devices == 2
+            payload = {"questions": ["what color is the cube", "how many red spheres"],
+                       "image_indices": [1, 3]}
+            assert ctx.answer(*ctx.parse(payload))["answers"] == servers["ctx"].answer(
+                *servers["ctx"].parse(payload))["answers"]
+        finally:
+            ctx.engine.stop()
         return
     cache = str(tmp_path / "kernels")
     args = _args(serve, servers["config_path"], servers["ckpt"], servers["features_h5"],
