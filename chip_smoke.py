@@ -278,7 +278,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    14, 14) in shared host memory): 2 ranks spawned by ``mesh.launch``, over
    NCCL one card a rank when there are two cards or more, else over gloo
    both on card 0 (the ``[mesh]`` line says which). Each phase: the
-   evaluator and 3 steps at one rank on the card (module_training at
+   evaluator and 2 steps at one rank on the card (module_training at
    handed-in programs, 4 of 128 rows token soups), then the same at 2 ranks
    from the same parameters, each rank on its 128 / 64 rows: the logged
    loss within 2e-4 relative and the metrics within 1e-6 of one rank's, the
@@ -287,9 +287,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    (program_prior; the NMN's plateau gradients: 2 lr a step) and all within
    2 lr a step (rank 0 against the one-rank run), both ranks' parameters
    and logs equal, the evaluators' numbers within 1e-5; each
-   rank's launch counters over those 3 steps and a fourth traced under the
+   rank's launch counters over those 2 steps and a third traced under the
    profiler (module_training's through its own K1 sampling): K3f and K3b
-   4 a rank, or K1 and its encoder 1 and K5 and K6 4 a rank, and the traced
+   3 a rank, or K1 and its encoder 1 and K5 and K6 3 a rank, and the traced
    step's sweeps and kernels whole; then on each rank's rows K3f and K3b,
    or K1, its encoder, K5 and K6 in both dtypes, at the parameters
    after the steps, against their plain
@@ -306,7 +306,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    / 44, D = H = 256, 2 layers, batch 256, so 128 rows a rank; joint over
    256 images of (1024, 14, 14) in shared host memory with the NMN at C =
    128 in float32), from random frozen models (``[mesh] semi-supervised
-   ranks: <backend>, ...``): the evaluator and 3 steps at one rank, then
+   ranks: <backend>, ...``): the evaluator and 2 steps at one rank, then
    at 2 ranks from the same parameters, every step scoring a z that is a
    function of the row's question (``z_by_question``), so both runs score
    the same z a row: the logged losses within 2e-4 relative, the
@@ -315,9 +315,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    max|g|) a leaf, the parameters by the trainer-parity rule
    (question_coding where every |g| > 1e-5 within 1% of lr a step; joint
    2 lr a step), both ranks' parameters and logs equal, the evaluators
-   within 1e-5; a fourth step traced under the profiler samples its own z
-   with K1, and each rank's counters over the four steps read K1 and its
-   encoder 1, K3f 4, K4f 16, K4b 16 (and K5, K6 4 in joint); then on each
+   within 1e-5; a third step traced under the profiler samples its own z
+   with K1, and each rank's counters over the three steps read K1 and its
+   encoder 1, K3f 3, K4f 12, K4b 12 (and K5, K6 3 in joint); then on each
    rank's rows of the next batch K1, its encoder, K3f, the four K4 passes
    (and K5, K6 in float32), at the parameters after the steps, against
    their plain versions at the
@@ -348,6 +348,32 @@ Phases (any failure raises, and the script exits non-zero with no result):
    dispatcher, each answer equal to one card's ``predict``.
    ``python3 chip_smoke.py --serve-cards`` runs this phase alone, after the
    build.
+18. The mesh's model axis (``parallel/mesh.py``, ``--model-parallel``), at
+   the shipped widths: joint_training (OBJECTIVE ours, batch 256, the NMN
+   at C = 128 over (1024, 14, 14) in float32, from random frozen models)
+   and module_training (batch 128, the shipped bf16 NMN), over 256 images
+   in shared host memory, on a grid of data 2 x model 2 over NCCL, one card
+   a rank, where there are four cards, else data 1 x model 2 over gloo on
+   card 0 (the ``[mesh-model]`` line says which), against the same steps
+   without the model axis at the same data count (one process on the card
+   at data 1). Each case: 3 steps, the grid's last traced under the profiler,
+   every step sampling z with the trainer's own K1 (the ranks of a model
+   group draw alike, and as the reference's rank of their data index); the
+   logged values and the REINFORCE baseline within 2e-4 relative of the
+   reference's, the baseline equal on every rank bit for bit, every
+   parameter within 2 lr a step of the reference's, the replicated leaves
+   and the gathered full leaves equal on every rank bit for bit, every
+   stored leaf and its Adam moments of the slice's shape, the NMN's
+   parameters and moments a rank keeps exactly the bytes the placement
+   rule predicts (joint's a rank shrinking by about 337 MB at model 2);
+   each rank's counters over the three steps: one all-gather and K1, its
+   encoder, K5 and K6 once a step, and the traced step's sweeps and kernels
+   whole; then on each rank's rows of the next batch K1 against its plain
+   version and K5 and K6 (joint float32, held to the float64 branch;
+   module_training bf16) at phase 16's tolerances (JSON
+   ``launches_mesh_model``, by phase and rank, ``max_abs_err_mesh_model``).
+   ``python3 chip_smoke.py --model-parallel`` runs this phase alone, after
+   the build.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
@@ -4247,7 +4273,7 @@ def train_with_dropout(np, torch, dev, smi):
 
 
 MESH_RANKS = 2
-MESH_STEPS = 3
+MESH_STEPS = 2  # and a third traced under the profiler
 MESH_LOSS_RTOL = 2e-4
 MESH_VAL_RTOL = 1e-5
 
@@ -4552,7 +4578,7 @@ def train_mesh(np, torch, smi):
             log(f"[mesh {phase}] rank launches over the main path: {r['launches']}; one traced "
                 f"step under the profiler: {r['route']}; kernels against plain at "
                 f"{r['rows']} rows: {r['errs']}")
-        # Phase 16's counts: 3 steps and a traced one; K1 in the traced step alone.
+        # Phase 16's counts: MESH_STEPS steps and a traced one; K1 in the traced step alone.
         want = ({"lm_forward_cuda": MESH_STEPS + 1, "lm_backward_cuda": MESH_STEPS + 1}
                 if phase == "program_prior" else
                 {"fused_sampling_forward": 1, "sampling_encode": 1,
@@ -4878,7 +4904,7 @@ def train_mesh_semisupervised(np, torch, smi):
                 f"{r['rows']} rows: {r['errs']}")
             check(r["route"] == r["route_want"],
                   f"mesh {phase} traced step {r['route']}, not {r['route_want']}")
-        # 3 steps and a traced one: K3f once, K4f and K4b four times a step
+        # MESH_STEPS steps and a traced one: K3f once, K4f and K4b four times a step
         # (K5 and K6 once in joint); K1 and its encoder in the traced step.
         steps = MESH_STEPS + 1
         want = {"fused_sampling_forward": 1, "sampling_encode": 1, "lm_forward_cuda": steps,
@@ -5320,6 +5346,322 @@ def serve_cards(np, torch, smi):
     return out
 
 
+# Phase 18: the mesh's model axis. On a host with four cards the ranks form a
+# (data 2 x model 2) grid over NCCL, one card a rank; otherwise (data 1 x
+# model 2) over gloo, both ranks on card 0. The run without the model axis
+# at the same data count is the reference.
+MODEL_AXIS = 2
+MODEL_STEPS = 3  # the last traced under the profiler on the grid
+MODEL_COUNTERS = {"fused_sampling_forward": "seq2seq_decode",
+                  "sampling_encode": "k1_encoder_sweep",
+                  "execute_programs_train_kernel": "nmn_train_forward",
+                  "interpreter_grads_kernel": "nmn_backward"}
+# Predicted from the NMN's leaves at CLEVR's banks (15 / 6 / 4 / 4 / 7) with
+# float32 Adam moments: a rank's NMN parameters and moments shrink by these.
+MODEL_SAVING_MB = {2: 337, 4: 490}
+
+
+def _digest(torch, tensors):
+    r"""A hash of ``tensors``' bytes, to tell whether ranks hold the same bits."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_model_rank(parallel, cases, work, table):
+    r"""One rank of phase 18, spawned by ``parallel.mesh.launch`` (or, with
+    ``parallel`` None or a model axis of 1, the reference run): for each
+    case, ``MODEL_STEPS`` steps with the trainer's own K1 sampling, on the
+    grid the last traced under the profiler, the launch counters and the
+    model group's all-gathers set to 0 before those steps and read after; the logs
+    and baselines; the full leaves, the bits of the replicated and of the
+    full leaves, the shapes of the stored leaves and moments, the resident
+    bytes of the NMN's parameters and moments; then on a model-axis rank,
+    K1, K5 and K6 against their plain versions on the rank's rows of the
+    next batch."""
+    import torch
+
+    from probnmn_tpu_torch.data.pipeline import image_to_nhwc
+    from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
+        execute_programs_train_kernel, interpreter_grads_kernel,
+    )
+    from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
+        fused_sampling_forward, sampling_encode,
+    )
+    from probnmn_tpu_torch.parallel.mesh import split_leaves, tree_paths
+    from probnmn_tpu_torch.training._trainer import tree_leaves, tree_map
+    from probnmn_tpu_torch.training.joint_training_trainer import JointTrainingTrainer
+    from probnmn_tpu_torch.training.module_training_trainer import ModuleTrainingTrainer
+    from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY
+    from probnmn_tpu_torch.utils.observability import RecordingWriter
+
+    started = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = parallel.device if parallel is not None else torch.device("cuda")
+    rank = parallel.rank if parallel is not None else 0
+    mp = parallel.model_size if parallel is not None else 1
+    gen = torch.Generator().manual_seed(180 + rank)
+    counters = (fused_sampling_forward, sampling_encode, execute_programs_train_kernel,
+                interpreter_grads_kernel)
+    out = {}
+    for phase, (config, train_set) in cases.items():
+        seconds = {"start": time.perf_counter()}
+        joint = phase == "joint_training"
+        cls = JointTrainingTrainer if joint else ModuleTrainingTrainer
+        trainer = cls(config, os.path.join(work, f"{phase}_{mp}_{rank}"), device=dev,
+                      writer=RecordingWriter(), dataset=train_set, parallel=parallel)
+        seconds["build"] = time.perf_counter()
+        L = trainer.pg_spec.num_layers
+        names = ("k1_encoder_sweep", "seq2seq_sample_kernel", "nmn_interpreter_kernel",
+                 "nmn_backward_kernel")
+        want = dict(zip(names, (L, 1, 1, 1)))
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters:
+            fn.launches = 0
+        gathers = parallel.gathers if parallel is not None else 0
+        logs, baselines, smooth, route = [], [], None, None
+        for i in range(MODEL_STEPS):
+            if i < MODEL_STEPS - 1 or mp == 1:
+                logs.append(trainer.step(i))
+            else:  # the grid's last step under the profiler
+                route = traced_route(torch, lambda: logs.append(trainer.step(i)), names, want,
+                                     tries=1)[-1]
+            baselines.append(float(trainer.baseline))
+            if mp == 1:
+                grads = torch.cat([p.grad.reshape(-1) for p in tree_leaves(trainer.params)])
+                smooth = grads.abs() > 1e-5 if smooth is None else smooth & (grads.abs() > 1e-5)
+        torch.cuda.synchronize()
+        seconds["steps"] = time.perf_counter()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        gathers = (parallel.gathers if parallel is not None else 0) - gathers
+        full = tree_map(lambda t: t.detach(), trainer.full_params())
+        flat = torch.cat([p.detach().reshape(-1) for p in tree_leaves(full)]).float()
+        stored = tree_leaves(trainer.params)
+        split = split_leaves(full, mp)
+        state = trainer._optimizer.state_dict()["state"]
+        shapes_ok = all(
+            tuple(s.shape) == tuple(state[i][key].shape) == (
+                (f.shape[0] // mp,) + tuple(f.shape[1:]) if cut else tuple(f.shape))
+            for i, (s, f, cut) in enumerate(zip(stored, tree_leaves(full), split))
+            for key in ("exp_avg", "exp_avg_sq"))
+        mu_bytes = 2 if config.OPTIM.ADAM_MU_DTYPE == "bfloat16" else 4
+        predicted = sum((leaf.numel() // mp if cut else leaf.numel()) * (8 + mu_bytes)
+                        for (path, leaf), cut in zip(tree_paths(full), split) if path[0] == "nmn")
+        result = dict(
+            logs=logs, baselines=baselines, launches=launches, gathers=gathers, route=route,
+            route_want=want, device=str(dev), full_digest=_digest(torch, tree_leaves(full)),
+            replicated_digest=_digest(torch, [s for s, cut in zip(stored, split) if not cut]),
+            split_leaves=sum(split), shapes_ok=shapes_ok,
+            resident=trainer.resident_bytes(["nmn"]), predicted=predicted,
+            peak_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+        if rank == 0:
+            result["params"] = flat.cpu()
+            result["smooth"] = smooth.cpu() if smooth is not None else None
+        seconds["records"] = time.perf_counter()
+        if mp > 1:
+            # K1, K5 and K6 on the rank's rows of the next batch (its
+            # unsupervised rows in joint_training), at the parameters after
+            # the steps.
+            batch = next(trainer._batches)
+            n_sup = batch[COUNT_KEY] if joint else 0
+            questions = batch["question"][n_sup:]
+            pg = full["program_generator"] if joint else trainer.pg_params
+            pg_spec = trainer.pg_spec
+            noise = (-torch.log(-torch.log(torch.rand(
+                pg_spec.max_decoding_steps, len(questions), pg_spec.target_vocab_size,
+                generator=gen).clamp_min(1e-12)))).to(dev)
+            k1 = k1_against_plain(torch, pg, pg_spec, questions, noise,
+                                  tag=f"K1 mesh-model {phase} rank {rank}")
+            enc, _ = k1_encoder_against_plain(torch, pg, pg_spec, questions,
+                                              tag=f"K1 encoder mesh-model {phase} rank {rank}")
+            z = z_by_question(torch, questions, table.to(dev))
+            dtype = torch.float32 if joint else torch.bfloat16
+            name = "float32" if joint else "bfloat16"
+            feats = image_to_nhwc(batch["image"][n_sup:]).contiguous()
+            checked = k5_k6_against_plain(torch, gen, name, dtype, full["nmn"], trainer.nmn_spec,
+                                          trainer.tables, feats, z,
+                                          tag=f" mesh-model {phase} rank {rank}")
+            result["errs"] = {"seq2seq_decode": k1[name], "k1_encoder_sweep": enc[name],
+                              "nmn_train_forward": checked["err"], "nmn_backward": checked["worst"]}
+            result["rows"] = len(questions)
+        seconds["checks"] = time.perf_counter()
+        result["seconds"] = {k: round(seconds[k] - seconds[prev], 2) for prev, k in zip(
+            ["start", "build", "steps", "records"], ["build", "steps", "records", "checks"])
+            if k in seconds}
+        out[phase] = result
+        del trainer, full
+        torch.cuda.empty_cache()
+    out["started"] = started
+    return out
+
+
+def train_mesh_model(np, torch, smi, phases=("joint_training", "module_training"), data=None):
+    r"""Phase 18: joint_training (OBJECTIVE ours, NMN float32 at C = 128 over
+    (1024, 14, 14)) and module_training (the shipped bf16 NMN) at the
+    shipped widths over a (data x model) grid with a model axis of 2,
+    against the same steps without the model axis at the same data count,
+    held as the docstring's phase 18 says. ``phases`` picks the cases;
+    ``data`` the data count (None: 2 with four cards, else 1). Returns
+    {kernel name: the ``launches_mesh_model`` (by phase, by rank) and
+    ``max_abs_err_mesh_model`` keys of the kernels line}."""
+    import shutil
+    import tempfile
+
+    from probnmn_tpu_torch.config import Config
+    from probnmn_tpu_torch.data.datasets import JointTrainingDataset, ModuleTrainingDataset
+    from probnmn_tpu_torch.data.readers import SharedFeatures
+    from probnmn_tpu_torch.models import nmn, program_generator, question_reconstructor
+    from probnmn_tpu_torch.models.program_prior import init_program_prior_params
+    from probnmn_tpu_torch.parallel import mesh
+    from probnmn_tpu_torch.training.program_prior_trainer import make_prior_spec
+    from probnmn_tpu_torch.utils.checkpointing import save_objects
+    from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if data is None:
+        data = 2 if cards >= 2 * MODEL_AXIS else 1
+    share = data == 1
+    where = ((f"data 2 x model {MODEL_AXIS} over nccl, one card a rank ({cards} cards)")
+             if not share else
+             f"data 1 x model {MODEL_AXIS} over gloo, both ranks on card 0 ({cards} card(s))")
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_model_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    vocab = make_clevr_like_vocabulary()
+    vocab.save_to_files(os.path.join(work, "vocab"))
+    gen = torch.Generator().manual_seed(181)
+    ckpt = {name: os.path.join(work, f"{name}.ckpt")
+            for name in ("program_prior", "question_coding", "module_training")}
+    overrides = ["DATA.VOCABULARY", os.path.join(work, "vocab"),
+                 "CHECKPOINTS.PROGRAM_PRIOR", ckpt["program_prior"],
+                 "CHECKPOINTS.QUESTION_CODING", ckpt["question_coding"],
+                 "CHECKPOINTS.MODULE_TRAINING", ckpt["module_training"]]
+    jt_config = Config(os.path.join(repo, "configs", "joint_training_ours.yml"),
+                       overrides + ["NMN.COMPUTE_DTYPE", "float32"])
+    mt_config = Config(os.path.join(repo, "configs", "module_training.yml"), overrides)
+    save_objects(ckpt["program_prior"], {"program_prior": init_program_prior_params(
+        gen, make_prior_spec(jt_config, vocab))})
+    save_objects(ckpt["question_coding"], {
+        "program_generator": program_generator.init_params(
+            gen, program_generator.make_spec(vocab, jt_config)),
+        "question_reconstructor": question_reconstructor.init_params(
+            gen, question_reconstructor.make_spec(vocab, jt_config))})
+    save_objects(ckpt["module_training"], {"nmn": nmn.init_nmn_params(
+        gen, nmn.make_spec(vocab, jt_config))})
+    np.random.seed(jt_config.RANDOM_SEED)  # the supervision subset, drawn once
+    features = SharedFeatures.from_array(
+        np.random.default_rng(182).standard_normal((256, 1024, 14, 14), dtype=np.float32))
+    cases = {
+        "joint_training": lambda: (jt_config, JointTrainingDataset.from_arrays(
+            *mt_arrays(np, vocab, 4096, 256, seed=183), features,
+            num_supervision=jt_config.SUPERVISION,
+            supervision_question_max_length=jt_config.SUPERVISION_QUESTION_MAX_LENGTH)),
+        "module_training": lambda: (mt_config, ModuleTrainingDataset.from_arrays(
+            *mt_arrays(np, vocab, 4096, 256, seed=184), features)),
+    }
+    cases = {phase: cases[phase]() for phase in phases}
+    # K5 and K6's checks score z by question: 62 CLEVR-like programs, a token
+    # soup and an all-pad row.
+    table_np = sample_clevr_like_programs(vocab, 64, seed=185)
+    table_np[-2] = np.random.RandomState(186).randint(0, vocab.get_vocab_size("programs"),
+                                                      table_np.shape[1])
+    table_np[-1] = 0
+    table = torch.from_numpy(table_np)
+    log(f"[mesh-model] {where}; joint_training (ours, batch {jt_config.OPTIM.BATCH_SIZE}, NMN "
+        f"float32) and module_training (batch {mt_config.OPTIM.BATCH_SIZE}, NMN "
+        f"{mt_config.NMN.COMPUTE_DTYPE}) with K1's own draws, against data {data} x model 1; "
+        f"card {smi}")
+
+    t0 = time.perf_counter()
+    if data == 1:
+        reference = mesh_model_rank(None, cases, work, table)
+    else:
+        reference = mesh.launch(mesh_model_rank, data, "cuda", work, timeout=600,
+                                collective_timeout=300, args=(cases, work, table))[0]
+    ref_s = time.perf_counter() - t0
+    t0, launched = time.perf_counter(), time.time()
+    ranks = mesh.launch(mesh_model_rank, data * MODEL_AXIS, "cuda", work, share_card=share,
+                        timeout=600, collective_timeout=300, model_parallel=MODEL_AXIS,
+                        args=(cases, work, table))
+    grid_s = time.perf_counter() - t0
+    log(f"[mesh-model] reference ({data} x 1): {ref_s:.1f} s; grid ({data} x {MODEL_AXIS}) on "
+        f"{[r[phases[0]]['device'] for r in ranks]}: {grid_s:.1f} s (spawn, "
+        f"{MODEL_STEPS} steps a case, kernel checks); the ranks started "
+        f"{[round(r['started'] - launched, 1) for r in ranks]} s after the launch; seconds by "
+        f"part, reference {[reference[p]['seconds'] for p in phases]}, grid rank 0 "
+        f"{[ranks[0][p]['seconds'] for p in phases]}")
+    out = {}
+    for phase in cases:
+        ref, got = reference[phase], [r[phase] for r in ranks]
+        config = cases[phase][0]
+        lr, steps = config.OPTIM.LR_INITIAL, MODEL_STEPS
+        for i, (g, w) in enumerate(zip(got[0]["logs"], ref["logs"])):
+            log(f"[mesh-model {phase}] step {i}: grid {g} / reference {w}")
+            flat_g = {f"{k}/{kk}": vv for k, v in g.items() for kk, vv in
+                      (v.items() if isinstance(v, dict) else [("", v)])}
+            flat_w = {f"{k}/{kk}": vv for k, v in w.items() for kk, vv in
+                      (v.items() if isinstance(v, dict) else [("", v)])}
+            for key, value in flat_w.items():
+                check(abs(flat_g[key] - value) <= MESH_LOSS_RTOL * abs(value) + 1e-6,
+                      f"mesh-model {phase} step {i} {key}: {flat_g[key]} against {value}")
+        check(all(r["logs"] == got[0]["logs"] for r in got),
+              f"mesh-model {phase}: the ranks logged otherwise")
+        check(all(r["baselines"] == got[0]["baselines"] for r in got),
+              f"mesh-model {phase}: the baselines differ across the ranks")
+        check(all(abs(a - b) <= MESH_LOSS_RTOL * abs(b) + 1e-7
+                  for a, b in zip(got[0]["baselines"], ref["baselines"])),
+              f"mesh-model {phase}: baseline against the reference")
+        diff = (got[0]["params"] - ref["params"]).abs()
+        smooth = ref["smooth"]
+        smooth_err = float(diff[smooth].max()) if bool(smooth.any()) else 0.0
+        log(f"[mesh-model {phase}] baselines: grid {got[0]['baselines']}, reference "
+            f"{ref['baselines']}; params after {steps} steps against the reference: all "
+            f"{float(diff.max()):.3e} (limit {2 * lr * steps:.1e}, 2 lr a step), where every "
+            f"|g| > 1e-5 ({float(smooth.float().mean()):.4f} of them) {smooth_err:.3e}")
+        check(float(diff.max()) <= 2 * lr * steps, f"mesh-model {phase} params: {diff.max()}")
+        check(len({r["full_digest"] for r in got}) == 1,
+              f"mesh-model {phase}: the gathered leaves differ across the ranks")
+        check(len({r["replicated_digest"] for r in got}) == 1,
+              f"mesh-model {phase}: the replicated leaves differ across the ranks")
+        for r in got:
+            log(f"[mesh-model {phase}] rank on {r['device']}: {r['split_leaves']} split leaves, "
+                f"stored leaves and Adam moments of the slice's shape: {r['shapes_ok']}; NMN "
+                f"params + Adam moments {r['resident'] / 1e6:.1f} MB (predicted "
+                f"{r['predicted'] / 1e6:.1f} MB; reference {ref['resident'] / 1e6:.1f} MB: "
+                f"{(r['resident'] - ref['resident']) / 1e6:+.1f} MB); peak allocated "
+                f"{r['peak_mb']:.0f} MiB (reference {ref['peak_mb']:.0f} MiB); launches "
+                f"{r['launches']}, all-gathers {r['gathers']}; traced step {r['route']}; "
+                f"kernels against plain at {r['rows']} rows: {r['errs']}")
+            check(r["shapes_ok"] and r["split_leaves"] > 0,
+                  f"mesh-model {phase}: a stored leaf or moment is not its slice")
+            check(r["resident"] == r["predicted"],
+                  f"mesh-model {phase}: {r['resident']} resident bytes, {r['predicted']} predicted")
+            check(r["gathers"] == steps, f"mesh-model {phase}: {r['gathers']} all-gathers")
+            check(r["launches"] == {k: steps for k in MODEL_COUNTERS},
+                  f"mesh-model {phase} launches {r['launches']}")
+            check(r["route"] == r["route_want"],
+                  f"mesh-model {phase} traced step {r['route']}, not {r['route_want']}")
+        if phase == "joint_training" and config.OPTIM.ADAM_MU_DTYPE == "float32":
+            saved = (ref["resident"] - got[0]["resident"]) / 1e6
+            log(f"[mesh-model] a rank's NMN params + float32 Adam moments shrink by {saved:.1f} "
+                f"MB at model {MODEL_AXIS} (predicted about {MODEL_SAVING_MB[MODEL_AXIS]} MB)")
+            check(abs(saved - MODEL_SAVING_MB[MODEL_AXIS]) <= 1.0,
+                  f"mesh-model: {saved} MB saved, {MODEL_SAVING_MB[MODEL_AXIS]} predicted")
+        for counter, name in MODEL_COUNTERS.items():
+            entry = out.setdefault(name, {"launches_mesh_model": {}, "max_abs_err_mesh_model": 0.0})
+            entry["launches_mesh_model"][phase] = [r["launches"][counter] for r in got]
+            if name in got[0]["errs"]:
+                entry["max_abs_err_mesh_model"] = max(
+                    entry["max_abs_err_mesh_model"], *(r["errs"][name] for r in got))
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[mesh-model] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _leaves(torch, tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -5334,8 +5676,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["--serve-cards"]):
-        print("usage: chip_smoke.py [--serve-cards]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--serve-cards"], ["--model-parallel"]):
+        print("usage: chip_smoke.py [--serve-cards | --model-parallel]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from probnmn_tpu_torch.models import nmn, program_generator
@@ -5378,6 +5720,11 @@ def main():
     if sys.argv[1:] == ["--serve-cards"]:
         # Phase 17 alone: its lines and its part of the kernels line, no ok line.
         print(json.dumps({"serve_cards": serve_cards(np, torch, smi)}), flush=True)
+        print(nvidia_smi_line(), flush=True)
+        return 0
+    if sys.argv[1:] == ["--model-parallel"]:
+        # Phase 18 alone: its lines and its part of the kernels line, no ok line.
+        print(json.dumps({"mesh_model": train_mesh_model(np, torch, smi)}), flush=True)
         print(nvidia_smi_line(), flush=True)
         return 0
 
@@ -5721,6 +6068,10 @@ def main():
     # ---------------------------------------------------------------- 17. serving over cards
     cards = serve_cards(np, torch, smi)
 
+    # ---------------------------------------------------------------- 18. the model axis
+    mesh_model = train_mesh_model(np, torch, smi)
+    log(f"[mesh-model] the run so far {time.perf_counter() - T_START:.1f} s")
+
     # max_abs_err is the bfloat16 build's, the one predict runs (K1: logprobs
     # on rows with identical tokens; its encoder sweeps: outputs; K2:
     # outputs, all 256-row comparisons); the float32 build's error stands
@@ -5778,6 +6129,7 @@ def main():
         entry.update(dropout.get(entry["name"], {}))
         entry.update(mesh_keys.get(entry["name"], {}))
         entry.update(cards.get(entry["name"], {}))
+        entry.update(mesh_model.get(entry["name"], {}))
     kernels.append(extract)
     kernels[0]["from_checkpoint_times"] = serve_times
     kernels[0]["serve_online"] = online_times

@@ -355,13 +355,11 @@ Plan make_plan(int M, int N, int K, ll sam, ll sak, ll sbk, ll sbn, bool split_o
 
 template <int BM, int BN, bool AKC, bool BKC>
 cudaError_t launch_tile(const Plan& p, const Args& g, cudaStream_t s) {
-  static bool sized = false;  // the ring's size is fixed per instance
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_tile<BM, BN, AKC, BKC>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
+  // The attribute is the current device's, so it is set on every launch:
+  // one process may launch on several cards.
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_tile<BM, BN, AKC, BKC>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
   gemm_tile<BM, BN, AKC, BKC><<<p.grid, kThreads, p.smem, s>>>(g);
   return cudaGetLastError();
 }

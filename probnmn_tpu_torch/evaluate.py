@@ -71,7 +71,7 @@ def main(args):
             f"found {config.PHASE}"
         )
     print(config)
-    world = train.world_of(args, config)
+    world, _ = train.world_of(args, config)  # evaluate takes no --model-parallel
     if world == 1:
         return _evaluate(None, args, config)
     train_dataset, val_dataset = train.launcher_datasets(args.phase, config,

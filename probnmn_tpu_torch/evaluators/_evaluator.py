@@ -11,7 +11,10 @@ When the trainer is one rank of a data-parallel run (``trainer.parallel``),
 each val batch is the rank's rows of the global batch (the JAX package's
 ``eval_sharding``), ``num_batches`` counts global batches, and the phase
 evaluators all-reduce each batch's sums, so every rank reports the global
-batch's metrics.
+batch's metrics. Over a model axis (``parallel/mesh.py``) ``evaluate``
+first gathers the trainer's full leaves from the model group
+(``trainer.full_params()``), which the phase evaluators read as
+``self._params``, and the sums run over the data ranks alone.
 """
 from __future__ import annotations
 
@@ -27,15 +30,19 @@ class _Evaluator:
         self._C = config
         self._trainer = trainer
         self._val_batches = val_batches
+        self._params = None  # the trainer's full leaves, during evaluate()
 
     @torch.no_grad()
     def evaluate(self, num_batches: Optional[int] = None) -> Dict[str, Any]:
+        self._params = self._trainer.full_params()
         self._begin()
         for iteration, batch in enumerate(iter(self._val_batches)):
             if num_batches is not None and iteration >= num_batches:
                 break
             self._do_iteration(batch)
-        return self._collect()
+        metrics = self._collect()
+        self._params = None
+        return metrics
 
     def _begin(self) -> None:
         pass

@@ -68,10 +68,10 @@ class JointTrainingEvaluator(_Evaluator):
 
     def _begin(self) -> None:
         dtype = nmn.resolve_compute_dtype(self._nmn_spec.compute_dtype, self._trainer.device)
-        self._banks = nmn.build_banks(self._trainer.params["nmn"], self._nmn_spec, dtype)
+        self._banks = nmn.build_banks(self._params["nmn"], self._nmn_spec, dtype)
 
     def _do_iteration(self, batch: Dict[str, Any]) -> None:
-        params = self._trainer.params
+        params = self._params
         pg_out = seq2seq_forward(params["program_generator"], self._pg_spec, batch["question"],
                                  GREEDY, target_tokens=batch["program"])
         programs = pg_out["predictions"]
@@ -84,10 +84,10 @@ class JointTrainingEvaluator(_Evaluator):
             nmn_params["classifier"], image_to_nhwc(batch["image"]), programs, batch["answer"])
         self._pg_metrics.update(pg_out)
         self._answer_accuracy(out["predictions"].cpu().numpy(), batch["answer"].cpu().numpy())
-        # A count over the global batch: each of the n ranks adds n times its
-        # rows' count, so that the ranks' summed counters average to the
-        # global batch's.
-        self._average_invalid(float(out["invalid"].sum()) * self._trainer.world_size)
+        # A count over the global batch: each of the n data ranks adds n
+        # times its rows' count, so that the data ranks' summed counters
+        # average to the global batch's.
+        self._average_invalid(float(out["invalid"].sum()) * self._trainer.data_size)
 
     def _collect(self) -> Dict[str, Any]:
         reduce_metrics(self._trainer.parallel, self._pg_metrics.accumulators + [

@@ -58,7 +58,7 @@ class ModuleTrainingEvaluator(_Evaluator):
         self._banks = None
 
     def _begin(self) -> None:
-        nmn_params = self._trainer.params["nmn"]
+        nmn_params = self._params["nmn"]
         dtype = nmn.resolve_compute_dtype(self._nmn_spec.compute_dtype, self._trainer.device)
         self._banks = nmn.build_banks(nmn_params, self._nmn_spec, dtype)
 
@@ -66,7 +66,7 @@ class ModuleTrainingEvaluator(_Evaluator):
         target = None if self._free_decode else batch["program"]
         programs = seq2seq_forward(self._trainer.pg_params, self._pg_spec, batch["question"],
                                    GREEDY, target_tokens=target)["predictions"]
-        nmn_params = self._trainer.params["nmn"]
+        nmn_params = self._params["nmn"]
         out = nmn.fast_forward_from_tables(
             self._banks, self._trainer.tables, self._nmn_spec, nmn_params["stem"],
             nmn_params["classifier"], image_to_nhwc(batch["image"]), programs, batch["answer"])

@@ -54,7 +54,7 @@ class ProgramPriorEvaluator(_Evaluator):
         self._printed = False
 
     def _do_iteration(self, batch: Dict[str, Any]) -> None:
-        params = self._trainer.params["program_prior"]
+        params = self._params["program_prior"]
         loss = fused_lm_loss(params, self._spec, batch["program"])
         total, rows = global_sums(self._trainer.parallel, [loss.sum(), loss.numel()])
         self._log2_perplexity(total / rows)

@@ -102,7 +102,7 @@ class QuestionCodingEvaluator(_Evaluator):
         self._printed = False
 
     def _do_iteration(self, batch: Dict[str, Any]) -> None:
-        params = self._trainer.params
+        params = self._params
         pg_out = seq2seq_forward(params["program_generator"], self._pg_spec, batch["question"],
                                  GREEDY, target_tokens=batch["program"])
         qr_out = seq2seq_forward(params["question_reconstructor"], self._qr_spec,

@@ -18,8 +18,8 @@ without K5's stored residuals (K2 forward, K6's replay-mode backward).
 the run on (the first ones build the kernels and fill the caches), with
 ``torch.profiler`` into a Chrome trace in DIR, each step a named range
 ``train_step_<iteration>``. The JAX CLI's other flags: ``--gpu-ids`` is
-ignored, ``--cpu-workers`` accepted and unused, ``--compilation-cache-dir``
-roots the kernels' build cache, and ``--model-parallel`` takes 1
+ignored, ``--cpu-workers`` accepted and unused, and
+``--compilation-cache-dir`` roots the kernels' build cache
 (``utils/cli_flags.py``).
 
 ``--num-devices N`` trains any of the four phases data-parallel
@@ -34,6 +34,14 @@ shared host memory); each rank trains on its rows of every global batch
 with one gradient all-reduce a step (and, in question_coding and
 joint_training, one all-reduce of the logged sums), and rank 0 alone
 writes checkpoints, scalars and the ``--profile-dir`` trace.
+``--model-parallel M`` adds the JAX mesh's model axis: the ranks form a
+(data x model) grid of N / M x M (M falls back to 1 where it does not
+divide N, as ``auto_mesh``'s does), the M ranks of a data index train on
+the same rows, and each keeps its 1/M of the NMN's module banks and
+classifier matrices with their Adam moments, gathered for each step's
+forward in one all-gather (``parallel/mesh.py``). The phases whose models
+have no leaf to split (program_prior, question_coding) run data-parallel
+with M copies. Checkpoints hold full leaves, so a run resumes at any M.
 """
 import argparse
 import logging
@@ -146,11 +154,14 @@ def main(args):
     return fit(args, config)
 
 
-def world_of(args, config: Config) -> int:
-    r"""The ranks that ``--num-devices`` gives ``config`` on ``--device``."""
+def world_of(args, config: Config) -> tuple:
+    r"""(data, model): the grid of ranks that ``--num-devices`` and
+    ``--model-parallel`` (1 where the CLI has no such flag) give ``config``
+    on ``--device``."""
     device_type = resolve_device(args.device).type
     return mesh.auto_world(args.num_devices, config.OPTIM.BATCH_SIZE,
-                           mesh.available_devices(device_type, args.num_devices))
+                           mesh.available_devices(device_type, args.num_devices),
+                           getattr(args, "model_parallel", 1))
 
 
 def launcher_datasets(phase: str, config: Config, streaming: bool, train_dataset=None,
@@ -190,16 +201,18 @@ def launcher_datasets(phase: str, config: Config, streaming: bool, train_dataset
     return train_dataset, val_dataset
 
 
-def launch_ranks(fn, args, world: int, run_dir: str, rank_args: tuple):
-    r"""``fn(parallel, *rank_args)`` on ``world`` ranks on ``--device``, the
-    kernels built once here first on ``cuda`` (so that the ranks load the
-    library and no rank runs nvcc); each rank's results, by rank."""
+def launch_ranks(fn, args, world: int, run_dir: str, rank_args: tuple, model_parallel: int = 1):
+    r"""``fn(parallel, *rank_args)`` on ``world`` ranks on ``--device``
+    (``model_parallel`` a data index), the kernels built once here first on
+    ``cuda`` (so that the ranks load the library and no rank runs nvcc);
+    each rank's results, by rank."""
     device_type = resolve_device(args.device).type
     if device_type == "cuda":
         from probnmn_tpu_torch.ops.kernels import _build
 
         _build.build()
-    return mesh.launch(fn, world, device_type, run_dir, args=rank_args)
+    return mesh.launch(fn, world, device_type, run_dir, args=rank_args,
+                       model_parallel=model_parallel)
 
 
 def fit(args, config: Config, train_dataset=None, val_dataset=None, writer=None):
@@ -209,15 +222,15 @@ def fit(args, config: Config, train_dataset=None, val_dataset=None, writer=None)
     stand in for the H5 files (None: read them); ``writer`` is rank 0's
     scalar writer (None: tensorboardX), which must pickle where there are
     several ranks. Returns rank 0's ``writer`` once trained."""
-    world = world_of(args, config)
-    if world == 1:
+    data, model = world_of(args, config)
+    if data * model == 1:
         return _train(None, args, config, train_dataset, val_dataset, writer)
-    logging.getLogger(__name__).info("Training %s over %d ranks on %s", args.phase, world,
-                                     args.device)
+    logging.getLogger(__name__).info("Training %s over %d ranks (data %d x model %d) on %s",
+                                     args.phase, data * model, data, model, args.device)
     train_dataset, val_dataset = launcher_datasets(args.phase, config, args.streaming_features,
                                                    train_dataset, val_dataset)
-    return launch_ranks(_train_rank, args, world, args.serialization_dir,
-                        (args, config, train_dataset, val_dataset, writer))[0]
+    return launch_ranks(_train_rank, args, data * model, args.serialization_dir,
+                        (args, config, train_dataset, val_dataset, writer), model)[0]
 
 
 def _train_rank(parallel, args, config, train_dataset, val_dataset, writer):

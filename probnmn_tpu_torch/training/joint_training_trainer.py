@@ -191,7 +191,7 @@ class JointTrainingTrainer(_Trainer):
         masks = dropout_masks or {}
         c = self._C
         n_sup = batch[COUNT_KEY]
-        sup_count, unsup_count = subset_counts(batch, self.world_size)
+        sup_count, unsup_count = subset_counts(batch, self.data_size)
         questions, programs = batch["question"], batch["program"]
         pg, qr = params["program_generator"], params["question_reconstructor"]
         zero = torch.zeros((), dtype=torch.float32, device=questions.device)
@@ -240,7 +240,7 @@ class JointTrainingTrainer(_Trainer):
                      ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
         r"""(new baseline, logs) from this batch's :data:`JT_SUMS`
         (``global_means``)."""
-        new_baseline, means = global_means(self._parallel, sums, JT_SUMS, batch, self.world_size,
+        new_baseline, means = global_means(self._parallel, sums, JT_SUMS, batch, self.data_size,
                                            baseline, self._C.DELTA)
         losses = {"nmn": means["nmn"]}
         elbo_keys = ("reinforce_reward", "elbo")
@@ -255,7 +255,7 @@ class JointTrainingTrainer(_Trainer):
         z = None
         if batch["question"].shape[0] > n_sup:
             z = self.sample_programs(batch["question"][n_sup:], masks["pg_unsup"])
-        total, sums = self.joint_training_sums(self._params, batch, z, self._baseline, masks)
+        total, sums = self.joint_training_sums(self._live, batch, z, self._baseline, masks)
         self._apply_gradients(total, average=False)
         self._baseline, logs = self.logs_of_sums(sums, batch, self._baseline)
         return logs

@@ -104,7 +104,7 @@ class ModuleTrainingTrainer(_Trainer):
 
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         programs = self.sample_programs(batch["question"])
-        out = self.module_training_loss(self._params, batch, programs)
+        out = self.module_training_loss(self._live, batch, programs)
         loss = out["loss"].mean()
         self._apply_gradients(loss)
         metrics = out["metrics"]

@@ -77,7 +77,7 @@ class ProgramPriorTrainer(_Trainer):
     def _do_iteration(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         programs = batch["program"]
         masks = lm_dropout_masks(self.dropout_generator, self.spec, programs)
-        loss = fused_lm_loss(self._params["program_prior"], self.spec, programs, masks).mean()
+        loss = fused_lm_loss(self._live["program_prior"], self.spec, programs, masks).mean()
         self._apply_gradients(loss)
         total, rows = global_sums(self._parallel, [loss.detach().double() * len(programs),
                                                    len(programs)])

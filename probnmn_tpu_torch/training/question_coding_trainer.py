@@ -54,7 +54,7 @@ all-reduce of a fixed float64 vector (:data:`QC_SUMS`) gives every rank the
 global sums of the logged terms and of the centered reward, from which every
 rank computes the same logs and the same new baseline. K1 samples a rank's
 rows from a Philox seed of the rank's own generator (seeded by
-(``RANDOM_SEED``, rank)), the counterpart of the JAX package's per-shard
+(``RANDOM_SEED``, data index)), the counterpart of the JAX package's per-shard
 ``fold_in``. A rank whose block holds no row of a subset skips its passes
 and still joins both all-reduces, so every step runs the same collectives.
 In one process the same code runs with the batch as the global batch.
@@ -106,16 +106,17 @@ ELBO_LOGS = ("reconstruction_likelihood", "kl_divergence", "reinforce_reward", "
 SUP_LOGS = ("question_reconstruction_gt", "program_generation_gt")
 
 
-def subset_counts(batch: Dict[str, Any], world_size: int) -> Tuple[int, int]:
+def subset_counts(batch: Dict[str, Any], data_size: int) -> Tuple[int, int]:
     r"""(supervised, unsupervised) rows of the global batch whose block of
-    ``batch`` a rank of ``world_size`` holds (one process: 1). Over ranks
-    the batch must carry the global count that ``BatchIterator`` attaches."""
-    n_sup = batch[COUNT_KEY] if world_size == 1 else batch[GLOBAL_COUNT_KEY]
-    return n_sup, batch["question"].shape[0] * world_size - n_sup
+    ``batch`` a rank of ``data_size`` data ranks holds (one process: 1;
+    the ranks of a model group hold the same block). Over data ranks the
+    batch must carry the global count that ``BatchIterator`` attaches."""
+    n_sup = batch[COUNT_KEY] if data_size == 1 else batch[GLOBAL_COUNT_KEY]
+    return n_sup, batch["question"].shape[0] * data_size - n_sup
 
 
 def global_means(parallel, sums: Dict[str, torch.Tensor], keys: Tuple[str, ...],
-                 batch: Dict[str, Any], world_size: int, baseline: torch.Tensor, delta: float
+                 batch: Dict[str, Any], data_size: int, baseline: torch.Tensor, delta: float
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     r"""(new baseline, {key: the global batch's mean}) from a rank's
     detached ``sums`` at ``keys`` (which end with ``centered_reward``): one
@@ -124,7 +125,7 @@ def global_means(parallel, sums: Dict[str, torch.Tensor], keys: Tuple[str, ...],
     unsupervised ones), and the baseline moved by the mean centered reward.
     Every rank computes the same bits; with no unsupervised row the
     baseline holds."""
-    sup_count, unsup_count = subset_counts(batch, world_size)
+    sup_count, unsup_count = subset_counts(batch, data_size)
     total = dict(zip(keys, global_sum_vector(parallel, [sums[k] for k in keys],
                                              baseline.device)))
     means = {k: mean_over(total[k], sup_count if k in SUP_LOGS else unsup_count) for k in keys}
@@ -263,7 +264,7 @@ class QuestionCodingTrainer(_Trainer):
         subset (:func:`subset_counts`)."""
         masks = dropout_masks or {}
         n_sup = batch[COUNT_KEY]
-        sup_count, unsup_count = subset_counts(batch, self.world_size)
+        sup_count, unsup_count = subset_counts(batch, self.data_size)
         questions, programs = batch["question"], batch["program"]
         pg, qr = params["program_generator"], params["question_reconstructor"]
         zero = torch.zeros((), dtype=torch.float32, device=questions.device)
@@ -306,7 +307,7 @@ class QuestionCodingTrainer(_Trainer):
         r"""(new baseline, logs) from this batch's :data:`QC_SUMS`
         (:func:`global_means`). OBJECTIVE ``baseline`` sums no centered
         reward, so its baseline holds."""
-        new_baseline, means = global_means(self._parallel, sums, QC_SUMS, batch, self.world_size,
+        new_baseline, means = global_means(self._parallel, sums, QC_SUMS, batch, self.data_size,
                                            baseline, self._C.DELTA)
         logs = {"loss": {key: means[key] for key in SUP_LOGS}}
         if self._C.OBJECTIVE == "ours":
@@ -319,7 +320,7 @@ class QuestionCodingTrainer(_Trainer):
         z = None
         if self._C.OBJECTIVE == "ours" and n_unsup > 0:
             z = self.sample_programs(batch["question"][batch[COUNT_KEY]:], masks["pg_unsup"])
-        total, sums = self.question_coding_sums(self._params, batch, z, self._baseline, masks)
+        total, sums = self.question_coding_sums(self._live, batch, z, self._baseline, masks)
         self._apply_gradients(total, average=False)
         self._baseline, logs = self.logs_of_sums(sums, batch, self._baseline)
         return logs

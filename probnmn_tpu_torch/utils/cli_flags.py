@@ -6,17 +6,17 @@ The flags the JAX package's CLIs share, as the port's CLIs take them:
 evaluate CLIs over that many ranks in all four phases, one process a card
 (``parallel/mesh.py``), and the inference and serve CLIs shard each batch
 over that many cards in one process, one replica a card (``serving.py``).
-``--model-parallel`` takes 1, its refusal naming the piece of ROADMAP.md
-queue 1 item 5 that ports it.
+``--model-parallel M`` (train alone, as in the JAX CLIs) lays those ranks
+out as a (data x model) grid with M ranks a data index, each keeping its
+1/M of the NMN's banks and classifier matrices with their Adam moments
+(``parallel/mesh.py``); M must divide the device count, else it falls back
+to 1, as the JAX package's ``auto_mesh`` does.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 from typing import Optional
-
-MESH = "ROADMAP.md queue 1 item 5"
-MODEL_PARALLEL = "(e), the model axis"
 
 
 def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
@@ -35,8 +35,9 @@ def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
                         "replica a card (with --device cpu, N shards in turn).")
     if model_parallel:
         parser.add_argument("--model-parallel", type=int, default=1,
-                            help=f"Devices a data shard: 1 ({MESH} {MODEL_PARALLEL}, not "
-                            "ported yet).")
+                            help="Devices a data shard (the model axis): each keeps 1/M of the "
+                            "NMN's module banks and classifier matrices and their Adam state. "
+                            "Falls back to 1 where M does not divide the device count.")
     parser.add_argument(
         "--compilation-cache-dir", default=cache_default,
         help="Root the CUDA kernels' build cache here ('auto': $PROBNMN_COMPILATION_CACHE or "
@@ -44,12 +45,8 @@ def add_shared_flags(parser: argparse.ArgumentParser, *, gpu_ids: bool = True,
 
 
 def apply_shared_flags(args: argparse.Namespace) -> Optional[str]:
-    r"""Refuse ``--model-parallel`` above 1; root the build cache where
-    ``--compilation-cache-dir`` says. Returns the cache directory, or None."""
-    value = getattr(args, "model_parallel", None)
-    if value not in (None, 1):
-        raise NotImplementedError(f"--model-parallel {value}: not ported; it is {MESH} "
-                                  f"{MODEL_PARALLEL}")
+    r"""Root the build cache where ``--compilation-cache-dir`` says. Returns
+    the cache directory, or None."""
     if not getattr(args, "compilation_cache_dir", None):
         return None
     from probnmn_tpu_torch.utils.compilation_cache import enable_compilation_cache

@@ -11,11 +11,12 @@ iterators take ``transform=``, on the CPU.
   resolves its XLA cache (``InferenceEngine(compilation_cache_dir=)``:
   tests/test_torch_port_serve_cli.py);
   ``--num-devices`` passes the flag check on the train, evaluate,
-  inference and serve CLIs, and ``--model-parallel`` takes 1, refusing
-  anything else by naming the mesh's ROADMAP item
+  inference and serve CLIs, and the train CLI's ``--model-parallel`` lays
+  the ranks out as a (data x model) grid
   (tests/test_torch_port_mesh.py and
   tests/test_torch_port_mesh_semisupervised.py train and evaluate at 2
-  ranks; tests/test_torch_port_serving_cards.py serves over 2 cards).
+  ranks, tests/test_torch_port_mesh_model.py trains at 2 x 2;
+  tests/test_torch_port_serving_cards.py serves over 2 cards).
 - ``BatchIterator(transform=)`` and ``EpochIterator(transform=)`` give the
   JAX package's iterators' batches.
 """
@@ -33,6 +34,7 @@ from probnmn_tpu.data.samplers import (
     SupervisionWeightedRandomSampler as JaxSupervisionWeightedRandomSampler,
 )
 from probnmn_tpu_torch import evaluate, inference, serve, train
+from probnmn_tpu_torch.config import Config
 from probnmn_tpu_torch.data.datasets import QuestionCodingDataset
 from probnmn_tpu_torch.data.pipeline import BatchIterator, EpochIterator
 from probnmn_tpu_torch.data.samplers import SupervisionWeightedRandomSampler
@@ -108,8 +110,10 @@ def test_shared_flags_are_taken_as_the_jax_clis_take_them(fixture, tmp_path, bui
         assert cli_flags.apply_shared_flags(args) is None and args.num_devices == 2
         if module is not serve:
             assert module.parser.parse_args(argv).num_devices == 1
-    with pytest.raises(NotImplementedError, match="--model-parallel 4.*queue 1 item 5"):
-        train.main(_train_args(fixture, out, "--model-parallel", "4"))
+    # --model-parallel 4 over 4 devices: one data index of 4 model ranks.
+    args = _train_args(fixture, out, "--num-devices", "4", "--model-parallel", "4")
+    assert cli_flags.apply_shared_flags(args) is None and args.model_parallel == 4
+    assert train.world_of(args, Config(fixture["config_path"])) == (1, 4)
     assert serve.parser.parse_args(["--config-yml", "c", "--checkpoint", "x"]).num_devices is None
 
 

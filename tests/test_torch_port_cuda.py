@@ -838,6 +838,30 @@ def test_gemm_matches_float64(cuda, shape, pattern, epilogue):
         assert torch.equal(runs[0], runs[1]), split
 
 
+def test_gemm_sizes_its_shared_memory_on_every_card(cuda):
+    r"""The GEMM's shared-memory size is an attribute of the current device:
+    at tiles whose ring needs more than the default 48 KB (60 KB at 64 x 64,
+    80 KB at 128 x 128), split and not, on card 0 and then on card 1 in one
+    process, each within 1e-5 of the sum of |products| of float64."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    M, N, K = 1024, 256, 3456
+    for index in (0, 1):
+        device = torch.device("cuda", index)
+        with torch.cuda.device(device):
+            rs = np.random.RandomState(index)
+            a = _gemm_operand(rs, M, K, False, 0, device)
+            b = _gemm_operand(rs, K, N, False, 0, device)
+            want, scale = a.double() @ b.double(), a.double().abs() @ b.double().abs()
+            for split in (False, True):
+                assert gemm_plan(M, N, K, a.stride(), b.stride(), split)["smem"] > 48 * 1024
+                out = gemm_cuda(a, b, split=split)
+                torch.cuda.synchronize(device)
+                assert out.device == device
+                err = (out.double() - want).abs()
+                assert bool((err <= 1e-5 * scale + 1e-30).all()), (index, split, float(err.max()))
+
+
 def test_gemm_plan_and_launches_match_the_python_twin(cuda):
     r"""The C library's plan equals :func:`gemm_plan` on every shape and
     stride pattern of GEMM_SHAPES, split and not; the launch count and the
@@ -901,6 +925,19 @@ def test_phase17_float32_check_over_two_shards(cuda):
     rows = chip_smoke.k1_row_base_check(np, torch, cast_params(soft, torch.float32, cuda),
                                         pg_spec, torch.from_numpy(questions).to(cuda), seed)
     assert set(rows) == {"0", "32"}
+
+def test_phase18_float32_joint_check_at_one_by_two(cuda):
+    r"""chip_smoke.py phase 18's joint_training case alone, at data 1 x model
+    2 on card 0 (gloo): the float32 NMN at full width against the run
+    without the model axis, every check of the phase, K1, K5 and K6 against
+    their plain versions on each rank's rows."""
+    import chip_smoke
+
+    out = chip_smoke.train_mesh_model(np, torch, "card test", phases=("joint_training",),
+                                      data=1)
+    assert set(out) == set(chip_smoke.MODEL_COUNTERS.values())
+    for entry in out.values():
+        assert entry["launches_mesh_model"]["joint_training"] == [chip_smoke.MODEL_STEPS] * 2
 
 # ------------------------------------------------------------------ inter-layer dropout
 DROPOUT_NAMES = ("lstm_fwd_sweep", "lstm_bwd_sweep", "dropout_rows", "k1_dropout")

@@ -20,8 +20,8 @@ and against the port in one process.
 - ``train --device cpu --num-devices 2 --phase program_prior``: one
   checkpoint per save, written by rank 0, its parameters by the parity rule
   against the one-rank CLI's, resumed by a one-rank trainer.
-- The refusal of ``--model-parallel`` above 1, a rank that raises, and the
-  features held once in shared memory.
+- ``--model-parallel 2`` taken as a grid of ranks, a rank that raises, and
+  the features held once in shared memory.
 
 Rank-side code is this file's top-level functions and imports no JAX (the
 spawned ranks import this module); JAX is imported inside the tests.
@@ -470,14 +470,16 @@ def test_train_cli_at_two_ranks_writes_one_checkpoint_and_resumes(fx, tmp_path):
     assert np.isfinite(trainers["two"].step()["loss"]) and trainers["two"].iteration == 4
 
 
-# ------------------------------------------------------------------ (6) refusals -------
-@pytest.mark.parametrize("what, piece", [("model_parallel", r"\(e\)")])
-def test_paths_not_ported_refuse_more_devices_naming_their_piece(fx, what, piece):
+# ------------------------------------------------------------------ (6) the model axis -
+@pytest.mark.parametrize("num_devices, grid", [("2", (1, 2)), ("4", (2, 2)), ("3", (2, 1))])
+def test_model_parallel_is_taken_as_a_grid_of_ranks(fx, num_devices, grid):
+    r"""``--model-parallel 2`` is taken (test_torch_port_mesh_model.py trains
+    on the grid): 2 devices a data index where 2 divides the count, else 1."""
     path = fx["program_prior"]["path"]
     args = train.parser.parse_args(["--phase", "program_prior", "--config-yml", path,
-                                    "--device", "cpu", "--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match=f"--model-parallel 2.*queue 1 item 5 {piece}"):
-        train.main(args)
+                                    "--device", "cpu", "--num-devices", num_devices,
+                                    "--model-parallel", "2"])
+    assert train.world_of(args, Config(path)) == grid
 
 
 # ------------------------------------------------------------------ (7) a rank fails ---

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 r"""
-The train CLI's data-parallel path (``train.fit``, what ``python -m
-probnmn_tpu_torch.train --num-devices N`` runs after reading its H5 files)
-at 1, 2 and 4 ranks on the cards of this machine, on mini-CLEVR data made in
-memory (``data/mini_clevr.py``, the arrays ``mini_clevr_run`` trains on)
-at production geometry:
+The train CLI's data-parallel path (what ``python -m probnmn_tpu_torch.train
+--num-devices N --model-parallel M`` runs after reading its H5 files: the
+launcher's datasets, ``train.launch_ranks``, each rank ``train.build`` and
+``train.run``) at 1, 2 and 4 ranks on the cards of this machine, each world
+at every model axis M of ``--model-parallel`` that divides it, on mini-CLEVR
+data made in memory (``data/mini_clevr.py``, the arrays ``mini_clevr_run``
+trains on) at production geometry:
 
-    python3 tools/mesh_train_times.py [--worlds 1 2 4] [--steps 300] \
-        [--out build/mesh_times.json]
+    python3 tools/mesh_train_times.py [--worlds 1 2 4] [--model-parallel 1 2 4] \
+        [--steps 300] [--out build/mesh_times.json]
 
 For each case (program_prior at batch 256; module_training at batch 128 on
 mini-CLEVR's 16-channel features; module_training on 512 random images of
@@ -19,7 +21,9 @@ examples/s rank 0's trainer logs at its last 50-step mark
 (``train/step_time_ms``, ``train/examples_per_sec``, ``train/prefetch_wait_ms``)
 and the device's idle share over the traced steps (1 - the union of the
 kernels' and copies' intervals over the span of the ``train_step_*``
-ranges). The frozen models (module_training's generator; the prior of
+ranges), and rank 0's resident bytes of parameters and Adam moments
+(``trainer.resident_bytes``, all models and the NMN's) and its peak
+allocated device memory over the run. The frozen models (module_training's generator; the prior of
 question_coding and joint_training, joint's generator, reconstructor and
 NMN) are random. The features go to the ranks as one copy in shared
 memory, and the supervision subsets are drawn once, as ``train.fit``'s
@@ -61,6 +65,8 @@ from probnmn_tpu_torch.utils.observability import RecordingWriter  # noqa: E402
 
 parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 parser.add_argument("--worlds", type=int, nargs="+", default=[1, 2, 4])
+parser.add_argument("--model-parallel", type=int, nargs="+", default=[1],
+                    help="Model-axis sizes; each world runs at each one that divides it.")
 parser.add_argument("--steps", type=int, default=300)
 parser.add_argument("--cases", nargs="+",
                     default=["program_prior", "module_training", "module_training_1024",
@@ -137,6 +143,39 @@ def case_data(case, splits, supervision):
     return phase, overrides, sets[0], sets[1]
 
 
+def train_rank(parallel, cli, config, train_set, val_set, writer):
+    r"""One rank of the CLI's path (``train._train``), which also returns
+    rank 0's resident parameter and moment bytes and peak device memory."""
+    device = parallel.device if parallel is not None else torch.device(cli.device)
+    np.random.seed(config.RANDOM_SEED)
+    trainer, evaluator = train.build(cli.phase, config, cli.serialization_dir, device,
+                                     writer=writer, train_dataset=train_set,
+                                     val_dataset=val_set, parallel=parallel)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    train.run(trainer, evaluator, config.OPTIM.NUM_ITERATIONS, cli.checkpoint_every,
+              cli.num_val_batches, cli.profile_dir if trainer.is_writer else "",
+              cli.profile_steps, progress=False)
+    if not trainer.is_writer:
+        return None
+    return {"writer": writer, "resident_mb": trainer.resident_bytes() / 1e6,
+            "nmn_resident_mb": (trainer.resident_bytes(["nmn"]) / 1e6
+                                if "nmn" in trainer.params else None),
+            "peak_allocated_mib": (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                                   if device.type == "cuda" else None)}
+
+
+def run_grid(cli, config, train_set, val_set):
+    r"""Rank 0's :func:`train_rank` result over the grid ``cli`` asks for."""
+    data, model = train.world_of(cli, config)
+    if data * model == 1:
+        return train_rank(None, cli, config, train_set, val_set, RecordingWriter()), (1, 1)
+    train_set, val_set = train.launcher_datasets(cli.phase, config, False, train_set, val_set)
+    return train.launch_ranks(train_rank, cli, data * model, cli.serialization_dir,
+                              (cli, config, train_set, val_set, RecordingWriter()),
+                              model_parallel=model)[0], (data, model)
+
+
 def frozen_checkpoints(vocab, config, work):
     r"""Random frozen models of the later phases, saved as the port's
     checkpoints in ``work``; the config overrides that name them."""
@@ -181,29 +220,34 @@ def main():
         base.dump(yml)
         config = Config(yml, [*frozen_checkpoints(vocab, base, work), *overrides])
         config.dump(yml)
-        for world in args.worlds:
-            run_dir = os.path.join(work, f"{case}_{world}")
+        for world, mp in [(w, m) for w in args.worlds for m in args.model_parallel
+                          if w % m == 0]:
+            run_dir = os.path.join(work, f"{case}_{world}_{mp}")
             trace_dir = os.path.join(run_dir, "trace")
             cli = train.parser.parse_args([
                 "--phase", phase, "--config-yml", yml, "--device", args.device,
                 "--serialization-dir", run_dir, "--checkpoint-every", str(10 ** 9),
-                "--num-devices", str(world), "--profile-dir", trace_dir])
+                "--num-devices", str(world), "--model-parallel", str(mp),
+                "--profile-dir", trace_dir])
+            os.makedirs(run_dir, exist_ok=True)
             t1 = time.perf_counter()
-            writer = train.fit(cli, config, train_set, val_set, RecordingWriter())
+            rank0, grid = run_grid(cli, config, train_set, val_set)
             wall = time.perf_counter() - t1
             last = {}
-            for tag, value, step in writer.scalars:
+            for tag, value, step in rank0.pop("writer").scalars:
                 if tag.startswith("train/") and tag[6:] in ("step_time_ms", "examples_per_sec",
                                                             "prefetch_wait_ms", "h2d_dispatch_ms"):
                     last[tag[6:]] = (value, step)
             traces = glob.glob(os.path.join(trace_dir, "*.json"))
             entry = {k: v for k, (v, _) in last.items()}
             entry.update(at_step=max((s for _, s in last.values()), default=None),
-                         batch=config.OPTIM.BATCH_SIZE, rows_a_rank=config.OPTIM.BATCH_SIZE // world,
-                         wall_s=wall, traces=len(traces),
-                         trace=idle_share(traces[0]) if traces else None)
-            results["cases"].setdefault(case, {})[world] = entry
-            print(f"[mesh-times] {case} at {world} ranks: {json.dumps(entry)}", flush=True)
+                         batch=config.OPTIM.BATCH_SIZE, grid=list(grid),
+                         rows_a_rank=config.OPTIM.BATCH_SIZE // grid[0], wall_s=wall,
+                         traces=len(traces), trace=idle_share(traces[0]) if traces else None,
+                         **rank0)
+            results["cases"].setdefault(case, {})[f"{grid[0]}x{grid[1]}"] = entry
+            print(f"[mesh-times] {case} at data {grid[0]} x model {grid[1]}: "
+                  f"{json.dumps(entry)}", flush=True)
     print(json.dumps(results), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
