@@ -73,11 +73,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    reconstructor from z): K4f's per-example loss within 1e-4 of its plain
    version and equal to the lean forward's, every K4b gradient leaf (from
    the residuals K4f kept) within 1e-4 * max(1, max|g|) of autograd under a
-   random positive cotangent, K4f + K4b bitwise repeatable, and under the
-   profiler K4f launching one forward encoder sweep a layer and one step
-   kernel a decoder step, K4b no forward kernel, one reverse encoder sweep
-   a layer and one cell backward a decoder step (both sweeps' plans, and
-   time = a + b * S fitted to every sweep launch of the four passes);
+   random positive cotangent, the decoder cell's leaves also within
+   1e-4 * max(1, max|g|) of the by-step reverse in float64
+   (``tf_decoder_reverse_plain``), K4f + K4b bitwise repeatable, and under
+   the profiler K4f launching one forward encoder sweep a layer and one
+   decoder sweep (``tf_decoder_fwd_sweep``), K4b no forward kernel, one
+   decoder reverse sweep (``tf_decoder_bwd_sweep``) and one reverse encoder
+   sweep a layer, neither a step kernel (the four sweeps' plans, time =
+   a + b * S fitted to every encoder sweep launch of the four passes and
+   time = a + b * T to every decoder sweep launch);
    ``question_coding_objective`` at the card's z against the same call on
    the CPU (total, logs and baseline within 1e-4, every gradient leaf within
    1e-4 * max(1, max|g|)); 20 ``QuestionCodingTrainer.step()``s on ``cuda``
@@ -90,8 +94,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    backward alone: a partial yardstick), the memory of a train step, and the
    step itself, timed beside their bounds, with the step's launches under
    the profiler (the forward sweep 10 times: K4f's encoder layers and K3f's;
-   the reverse sweep 8 times; ``lstm_fwd_step`` only the decoder's). Its
-   checkpoint is phase 8's frozen generator.
+   the reverse sweep 8 times; each decoder sweep 4 times; no
+   ``lstm_fwd_step``, ``tf_attend`` or ``lstm_bwd_step``) and its GEMM
+   launches (64 at two layers). Its checkpoint is phase 8's frozen
+   generator.
 8. The module_training training phase at the shipped width
    (``configs/module_training.yml``: NMN C=128 on 14x14 with 1024 feature
    channels, class projection and classifier 1024, batch 128, lr 1e-4,
@@ -1115,16 +1121,18 @@ def qc_passes(params, pg_spec, qr_spec, questions, programs, n_sup, z):
 
 
 def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, dloss,
-                          dropout_masks=None):
+                          dropout_masks=None, reference=False):
     r"""One K4 pass (with the encoder's ``dropout_masks``, if any) against
     its plain version: K4f's per-example loss within 1e-4 and equal to the
     lean forward's, every K4b gradient leaf (from the residuals K4f kept)
     within 1e-4 * max(1, max|g|) of autograd under the cotangent ``dloss``,
-    K4f + K4b bitwise repeatable. Returns K4f's error, K4b's largest leaf
-    error, the packed weights and the residuals' bytes."""
+    K4f + K4b bitwise repeatable; with ``reference``, the decoder cell's
+    leaves also within 1e-4 * max(1, max|g|) of the by-step reverse in
+    float64 (``tf_decoder_reverse_plain``). Returns K4f's error, K4b's
+    largest leaf error, the packed weights and the residuals' bytes."""
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
-        pack_tf_weights, tf_backward_cuda, tf_forward_cuda, tf_grads_plain, tf_loss_plain,
-        tf_param_leaves,
+        pack_tf_weights, tf_backward_cuda, tf_decoder_reverse_plain, tf_forward_cuda,
+        tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_params_from_leaves,
     )
 
     leaf_names = ["source_embedding", "target_embedding"] + [
@@ -1159,6 +1167,21 @@ def k4_pass_against_plain(torch, name, params, spec, src, tgt, reinforce_norm, d
         worst = max(worst, (e, scale, leaf))
     log(f"[K4b {name}] every leaf within 1e-4 * max(1, max|g|); worst {worst[2]}: max |err| "
         f"{worst[0]:.3e}, max |grad| {worst[1]:.3e}; K4f + K4b bitwise repeatable")
+    if reference:
+        double = tf_params_from_leaves([p.double() for p in tf_param_leaves(params)])
+        ref = tf_decoder_reverse_plain(double, spec, src, tgt, dloss.double(), reinforce_norm,
+                                       dropout_masks)
+        dec = 2 + 4 * spec.num_layers
+        ratios = {}
+        for i, key in enumerate(("w_ih", "w_hh", "b", "b")):
+            want64 = ref[key]
+            e = float((got[dec + i].double() - want64).abs().max())
+            tol = 1e-4 * max(1.0, float(want64.abs().max()))
+            ratios[leaf_names[dec + i]] = e / tol
+            check(e <= tol, f"K4b {name} {leaf_names[dec + i]} against the float64 reference: "
+                  f"{e} (limit {tol})")
+        log(f"[K4b {name}] the decoder cell's leaves against the by-step reverse in float64: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items()) + " of the limit")
     return err, worst[0], packed, residual_bytes
 
 
@@ -1253,8 +1276,8 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     from probnmn_tpu_torch.ops.kernels.gemm import gemm_launches
     from probnmn_tpu_torch.ops.kernels.seq2seq_decode import fused_sampling_forward
     from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
-        lm_backward_cuda, lm_forward_cuda, tf_backward_cuda, tf_forward_cuda, tf_grads_plain,
-        tf_loss_plain, tf_sweep_plan,
+        lm_backward_cuda, lm_forward_cuda, tf_backward_cuda, tf_decoder_plan, tf_forward_cuda,
+        tf_grads_plain, tf_loss_plain, tf_sweep_plan,
     )
     from probnmn_tpu_torch.training._trainer import copy_into, tree_leaves, tree_map
     from probnmn_tpu_torch.training.question_coding_trainer import COUNT_KEY, QuestionCodingTrainer
@@ -1298,16 +1321,19 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
     passes = qc_passes(init, pg_spec, qr_spec, questions, programs, n_sup, z)
     k4f_err = k4b_err = 0.0
     checked = []
-    kernels = ("lstm_fwd_sweep", "lstm_fwd_step", "tf_attend", "lstm_bwd_sweep", "lstm_bwd_step")
+    kernels = ("lstm_fwd_sweep", "lstm_fwd_step", "tf_attend", "lstm_bwd_sweep", "lstm_bwd_step",
+               "tf_decoder_fwd_sweep", "tf_decoder_bwd_sweep")
     sweep_points = {"lstm_fwd_sweep": [], "lstm_bwd_sweep": []}  # (S, µs) of each launch
+    decoder_points = {"tf_decoder_fwd_sweep": [], "tf_decoder_bwd_sweep": []}  # (T, µs)
     plans = {}
     for name, params, spec, src, tgt, reinforce_norm in passes:
         dloss = (torch.rand(src.shape[0], generator=gen) + 0.5).to(dev)
         err, e, packed, residual_bytes = k4_pass_against_plain(torch, name, params, spec, src, tgt,
-                                                               reinforce_norm, dloss)
+                                                               reinforce_norm, dloss,
+                                                               reference=True)
         k4f_err, k4b_err = max(k4f_err, err), max(k4b_err, e)
-        # K4f and K4b alone under the profiler: one encoder sweep a layer each
-        # way; the decoder a step launch a step, K4b no forward kernel.
+        # K4f and K4b alone under the profiler: one encoder sweep a layer and
+        # one decoder sweep each way, no step kernel, K4b no forward kernel.
         S, L = src.shape[1] + 1, spec.num_layers
         steps = tgt.shape[1] + (0 if reinforce_norm else 1)
         times = {}
@@ -1317,16 +1343,21 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
         times["K4b"] = launch_times(torch, lambda: tf_backward_cuda(residuals, dloss), kernels)
         inside = {k: {n: len(v) for n, v in t.items()} for k, t in times.items()}
         plans[name] = {"forward": tf_sweep_plan(src.shape[0], spec.hidden_size, forward=True),
-                       "reverse": tf_sweep_plan(src.shape[0], spec.hidden_size)}
-        log(f"[K4 {name}] launches inside one K4f and one K4b: {inside}; encoder sweep plans "
+                       "reverse": tf_sweep_plan(src.shape[0], spec.hidden_size),
+                       "decoder_forward": tf_decoder_plan(src.shape[0], src.shape[1],
+                                                          spec.hidden_size, forward=True),
+                       "decoder_reverse": tf_decoder_plan(src.shape[0], src.shape[1],
+                                                          spec.hidden_size)}
+        log(f"[K4 {name}] launches inside one K4f and one K4b: {inside}; sweep plans "
             f"{plans[name]}")
-        check(inside == {"K4f": {"lstm_fwd_sweep": L, "lstm_fwd_step": steps, "tf_attend": steps,
-                                 "lstm_bwd_sweep": 0, "lstm_bwd_step": 0},
-                         "K4b": {"lstm_fwd_sweep": 0, "lstm_fwd_step": 0, "tf_attend": 0,
-                                 "lstm_bwd_sweep": L, "lstm_bwd_step": steps}},
+        none = dict.fromkeys(kernels, 0)
+        check(inside == {"K4f": {**none, "lstm_fwd_sweep": L, "tf_decoder_fwd_sweep": 1},
+                         "K4b": {**none, "lstm_bwd_sweep": L, "tf_decoder_bwd_sweep": 1}},
               f"K4 {name} launches {inside}")
         sweep_points["lstm_fwd_sweep"] += [(S, us) for us in times["K4f"]["lstm_fwd_sweep"]]
         sweep_points["lstm_bwd_sweep"] += [(S, us) for us in times["K4b"]["lstm_bwd_sweep"]]
+        for part, kernel in (("K4f", "tf_decoder_fwd_sweep"), ("K4b", "tf_decoder_bwd_sweep")):
+            decoder_points[kernel] += [(steps, us) for us in times[part][kernel]]
         checked.append((name, params, spec, src, tgt, reinforce_norm, packed, dloss,
                         residual_bytes))
 
@@ -1336,6 +1367,11 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
         a, b = fit_steps(points)
         sweep_fit[kernel] = {"a_us": a, "b_us": b, "points": points}
         log(f"[sweep] {kernel}: time = a + b * S over {len(points)} launches at S = "
+            f"{sorted({p[0] for p in points})}: a = {a:.2f} µs, b = {b:.3f} µs a step")
+    for kernel, points in decoder_points.items():
+        a, b = fit_steps(points)
+        sweep_fit[kernel] = {"a_us": a, "b_us": b, "points": points}
+        log(f"[sweep] {kernel}: time = a + b * T over {len(points)} launches at T = "
             f"{sorted({p[0] for p in points})}: a = {a:.2f} µs, b = {b:.3f} µs a step")
 
     # The objective on the card against the same call on the CPU at the card's z.
@@ -1479,15 +1515,17 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
         log("[trace] the profiler recorded no device time: idle share not measured")
     step_launches = {k: launches_of(counts, k) for k in kernels}
     # Each encoder layer of the four K4f passes, and each layer of K3f, is one
-    # forward sweep; the decoder's steps alone launch lstm_fwd_step.
+    # forward sweep; each pass's decoder one sweep each way; no step kernel.
     log(f"[trace] launches in that step: {step_launches}")
-    check(step_launches["lstm_bwd_sweep"] == 4 * pg_spec.num_layers
-          and step_launches["lstm_bwd_step"] == step_launches["tf_attend"]
-          and step_launches["lstm_fwd_step"] == step_launches["tf_attend"]
-          and step_launches["lstm_fwd_sweep"] == 4 * pg_spec.num_layers
-          + trainer.prior_spec.num_layers,
+    L, Lp = pg_spec.num_layers, trainer.prior_spec.num_layers
+    check(step_launches == {**dict.fromkeys(kernels, 0), "lstm_fwd_sweep": 4 * L + Lp,
+                            "lstm_bwd_sweep": 4 * L, "tf_decoder_fwd_sweep": 4,
+                            "tf_decoder_bwd_sweep": 4},
           f"question_coding step launches {step_launches}")
     gemm_in_step(torch, "question_coding", trainer.step)
+    # The GEMM a step: each pass L + 2 forward and 3 L + 5 backward, K3f L + 2.
+    qc_gemms = len(GEMM_PATH["records"]["question_coding"])
+    check(qc_gemms == 4 * (4 * L + 7) + Lp + 2, f"{qc_gemms} GEMM launches a question_coding step")
     shutil.rmtree(work, ignore_errors=True)
 
     passes_ms = {name: {"ms": p["fwd_ms"], "lean_ms": p["lean_ms"], "backward_ms": p["bwd_ms"]}
@@ -1501,7 +1539,9 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
          "yardstick": "cuDNN LSTM over the four encoders, forward, recurrence only",
          "yardstick_ms": total_of("cudnn_fwd"), "per_pass": passes_ms,
          "sweep_plans": plans, "sweep_fit": sweep_fit["lstm_fwd_sweep"],
-         "step_launches": {k: step_launches[k] for k in ("lstm_fwd_sweep", "lstm_fwd_step")}},
+         "decoder_sweep_fit": sweep_fit["tf_decoder_fwd_sweep"],
+         "step_launches": {k: step_launches[k] for k in ("lstm_fwd_sweep", "lstm_fwd_step",
+                                                         "tf_decoder_fwd_sweep")}},
         {"name": "tf_backward", "route": "cuda", "source": "probnmn_tpu_torch/csrc/tf_train.cu",
          "replaces": "probnmn_tpu/ops/pallas/seq2seq_train.py:285",
          "launches": launches["tf_backward_cuda"], "max_abs_err": k4b_err,
@@ -1510,7 +1550,8 @@ def train_question_coding(np, torch, dev, gen, vocab, smi, prior_ckpt, qc_out):
          "yardstick": "cuDNN LSTM over the four encoders, backward alone, recurrence only",
          "yardstick_ms": total_of("cudnn_bwd"), "step_mb": step_mb,
          "residual_mb": sum(c[-1] for c in checked) / 1e6, "step_launches": step_launches,
-         "sweep_fit": sweep_fit["lstm_bwd_sweep"]},
+         "sweep_plans": plans, "sweep_fit": sweep_fit["lstm_bwd_sweep"],
+         "decoder_sweep_fit": sweep_fit["tf_decoder_bwd_sweep"]},
     ]
 
 
@@ -4157,18 +4198,22 @@ def train_with_dropout(np, torch, dev, smi):
     check(all(m.dtype == torch.bfloat16
               for m in (s["exp_avg"] for s in qc_card._optimizer.state_dict()["state"].values())),
           "the Adam first moment is not bfloat16")
-    names = ("dropout_rows", "k1_dropout", "k1_encoder_sweep", "lstm_fwd_sweep", "lstm_bwd_sweep")
+    names = ("dropout_rows", "k1_dropout", "k1_encoder_sweep", "lstm_fwd_sweep", "lstm_bwd_sweep",
+             "tf_decoder_fwd_sweep", "tf_decoder_bwd_sweep")
     # A question_coding step: K1's encoder (a sweep a layer, a dropout pass a
     # layer below the top), the four K4 passes (a forward and a reverse sweep
-    # a layer, a dropout pass each way a layer below the top), the frozen
-    # prior's K3f (a sweep a layer, no mask). A program_prior step: K3f and
-    # K3b's replay (a sweep a layer each) and three dropout passes a layer
-    # below the top (K3f, the replay, the gradient).
+    # a layer, a dropout pass each way a layer below the top, a decoder sweep
+    # each way), the frozen prior's K3f (a sweep a layer, no mask). A
+    # program_prior step: K3f and K3b's replay (a sweep a layer each) and
+    # three dropout passes a layer below the top (K3f, the replay, the
+    # gradient).
     L, Lp = pg_spec.num_layers, prior_spec.num_layers
     qc_want = {"dropout_rows": 8 * (L - 1), "k1_dropout": L - 1, "k1_encoder_sweep": L,
-               "lstm_fwd_sweep": 4 * L + Lp, "lstm_bwd_sweep": 4 * L}
+               "lstm_fwd_sweep": 4 * L + Lp, "lstm_bwd_sweep": 4 * L,
+               "tf_decoder_fwd_sweep": 4, "tf_decoder_bwd_sweep": 4}
     pp_want = {"dropout_rows": 3 * (Lp - 1), "k1_dropout": 0, "k1_encoder_sweep": 0,
-               "lstm_fwd_sweep": 2 * Lp, "lstm_bwd_sweep": 0}
+               "lstm_fwd_sweep": 2 * Lp, "lstm_bwd_sweep": 0, "tf_decoder_fwd_sweep": 0,
+               "tf_decoder_bwd_sweep": 0}
     qc_tries = traced_route(torch, qc_card.step, names, qc_want)
     pp_tries = traced_route(torch, pp_card.step, names, pp_want)
     qc_route, pp_route = qc_tries[-1], pp_tries[-1]
@@ -4189,7 +4234,7 @@ def train_with_dropout(np, torch, dev, smi):
     kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     steps_seen = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("train_step_")})
     wanted = ("k1_encoder_sweep", "k1_dropout", "seq2seq_sample_kernel", "lstm_fwd_sweep",
-              "lstm_bwd_sweep", "dropout_rows", "tf_attend")
+              "lstm_bwd_sweep", "dropout_rows", "tf_decoder_fwd_sweep", "tf_decoder_bwd_sweep")
     named = {k: sum(1 for n in kernel_names if f"{k}(" in n or f"{k}<" in n) > 0 for k in wanted}
     log(f"[dropout] --profile-dir trace {files[0]}: {len(events)} events, {len(kernel_names)} "
         f"kernel names, ranges {steps_seen}; kernels named: {named}")

@@ -4,9 +4,10 @@
 // CTAs, keeps its weights in shared memory, pushes each step's hidden state
 // into every CTA of the cluster through distributed shared memory and
 // meets the cluster barrier once a step. The training kernels' LSTM sweeps
-// (lstm_sweep.cuh) and K1's encoder sweep (seq2seq_decode.cu) are built
-// from these pieces: the asynchronous copies that fill shared memory, the
-// push into the cluster, the split cluster barrier and the launch plan.
+// (lstm_sweep.cuh), K4's decoder sweeps (tf_decoder_sweep.cuh) and K1's
+// sweeps (seq2seq_decode.cu) are built from these pieces: the asynchronous
+// copies that fill shared memory, the pushes into the cluster, the split
+// cluster barrier and the launch plan.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -58,6 +59,17 @@ template <typename V>
 __device__ __forceinline__ void push_to_cluster(cg::cluster_group& cluster, V* slot, const V& v,
                                                 int n) {
   for (int p = 0; p < n; ++p) *cluster.map_shared_rank(slot, p) = v;
+}
+
+// The 16 bytes at `slot` in this CTA's shared memory into the same place in
+// the cluster's other CTAs, each CTA starting at the next rank.
+__device__ __forceinline__ void copy_to_peers(cg::cluster_group& cluster, uint4* slot, int rank,
+                                              int n) {
+  const uint4 v = *slot;
+  for (int q = 1; q < n; ++q) {
+    const int peer = rank + q < n ? rank + q : rank + q - n;
+    *cluster.map_shared_rank(slot, peer) = v;
+  }
 }
 
 // A sweep's launch plan: the cluster size, the units a CTA, the rows a

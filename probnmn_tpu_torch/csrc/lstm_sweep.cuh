@@ -211,8 +211,12 @@ constexpr int kFwdMaxThreads = kSweepMaxUnits * 4 * ((kFwdMaxRows + 4 * kFwdMaxR
 
 // The row groups G of a cluster's R rows (a multiple of 4, each group at
 // most kFwdMaxRpt rows: row r is in group r % G) and the rows a group owns.
-int fwd_groups(int R) { return 4 * ((R + 4 * kFwdMaxRpt - 1) / (4 * kFwdMaxRpt)); }
-int fwd_rpt(int R) { return (R + fwd_groups(R) - 1) / fwd_groups(R); }
+__host__ __device__ __forceinline__ int fwd_groups(int R) {
+  return 4 * ((R + 4 * kFwdMaxRpt - 1) / (4 * kFwdMaxRpt));
+}
+__host__ __device__ __forceinline__ int fwd_rpt(int R) {
+  return (R + fwd_groups(R) - 1) / fwd_groups(R);
+}
 
 // W_hh's and h's depth, padded with zeros to whole float4s. Rows of both
 // lie depth + 4 floats apart in shared memory, so that the 8 units or 4

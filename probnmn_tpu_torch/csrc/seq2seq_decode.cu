@@ -741,17 +741,6 @@ __device__ __forceinline__ void context_quad(const float* w, const T* e, int S, 
   }
 }
 
-// The 16 bytes at `slot` in this CTA's shared memory into the same place in
-// the cluster's other CTAs.
-__device__ __forceinline__ void copy_to_peers(cg::cluster_group& cluster, uint4* slot, int rank,
-                                              int n) {
-  const uint4 v = *slot;
-  for (int q = 1; q < n; ++q) {
-    const int peer = rank + q < n ? rank + q : rank + q - n;
-    *cluster.map_shared_rank(slot, peer) = v;
-  }
-}
-
 // acc[mt][nt] += A . B over k < depth (a multiple of 32) for the warp's
 // n-tiles nt0 .. nt0 + NT - 1: A's rows (clamped to R - 1) `as` elements
 // apart in shared memory; B either resident ([k][c], `bs` apart, read by

@@ -21,12 +21,15 @@
 //   cluster-resident launch of lstm_fwd_sweep, lstm_sweep.cuh; one step
 //   launch a step above H = 256). The decoder's token
 //   inputs are known, so emb(dec_in) . W_ih[:, H:]^T + bias is one GEMM over
-//   T*B rows. Each decoder step is two launches: the attention (one block
-//   per example: scores of the previous h over the source, masked softmax,
-//   the attended vector, written beside h_prev as [attended, h_prev]) and
-//   the step kernel, whose recurrent product runs over that 2H-wide row
-//   against [W_ih[:, :H], W_hh] with the cell in its epilogue. The head
-//   (logits, log-sum-exp, CE) runs over all T*B rows at once.
+//   T*B rows. The decoder's recurrence is then one cluster-resident launch
+//   (tf_decoder_fwd_sweep, tf_decoder_sweep.cuh): each step the attention of
+//   the previous h over the source (scores, masked softmax, the attended
+//   vector, written beside h_prev as [attended, h_prev]), then the product
+//   of that 2H-wide row with [W_ih[:, :H], W_hh] and the cell. Above
+//   H = 256, where no cluster holds the cell, each step is two launches
+//   instead: tf_attend (one block per example) and lstm_fwd_step, in the
+//   same sum orders, so both routes give the same bits. The head (logits,
+//   log-sum-exp, CE) runs over all T*B rows at once.
 // - Backward. The JAX kernel replays the forward first, since a TPU's VMEM
 //   holds residuals for one grid step only; K4b does not: a K4f run with
 //   keep writes the residual layout (every encoder layer's h, c, y and
@@ -35,16 +38,15 @@
 //   a pass of a question_coding step) and K4b starts from it, consuming it
 //   in place (dpre over the gates, dlogits over the logits). dlogits for
 //   every row, and the head's dh for every step (one GEMM), do not depend
-//   on the recurrence. The decoder is swept back in three parts a step: the
-//   cell backward (dpre over the gates), dpre . [W_ih[:, :H], W_hh] (one
-//   GEMM, its 4H-deep sum split so that the grid covers the card, then its
-//   fixed-order reduction), and the attention backward (one block per
-//   example, so its rows of the encoder outputs' gradient need no atomics),
-//   which hands the gradient reaching h_prev to the step before. What
-//   reaches the initial decoder h enters the top encoder layer's carry
-//   after its last step; then each encoder layer is swept back in one
-//   cluster-resident launch (lstm_sweep.cuh) and its weight gradients
-//   follow, as in K3b.
+//   on the recurrence. The decoder is swept back in one cluster-resident
+//   launch (tf_decoder_bwd_sweep): each step the cell backward (dpre over
+//   the gates), dpre . [W_ih[:, :H], W_hh] and the attention backward,
+//   which hands the gradient reaching h_prev to the step before and adds
+//   to the encoder outputs' gradient. What reaches the initial decoder h
+//   enters the top encoder layer's carry after its last step; then each
+//   encoder layer is swept back in one cluster-resident launch
+//   (lstm_sweep.cuh) and its weight gradients follow, as in K3b. Above
+//   H = 256 no cluster holds either reverse sweep, and K4b refuses.
 // - Every weight gradient is a contraction over rows, split-K with its
 //   partials added in a fixed order; the bias gradients are column sums and
 //   both embeddings' gradients are reduced per token id: no float atomics,
@@ -63,18 +65,21 @@
 // most of it the encoder, and twice that backward: 0.1-0.2 ms and 0.2-0.4
 // ms at the 67 TFLOP/s float32 SIMT peak. Reading the residuals takes
 // about 0.04 ms at 3.35 TB/s, so both are bound by operations, and in
-// this version by their serial steps (L sweeps and 2*T launches forward;
-// L sweeps and 4*T launches backward), each too small to fill the card.
-// Later work: the decoder's forward and reverse sweeps persistent too, with
-// the attention inside the cluster; the tensor cores; and skipping
-// row-steps past each row's end.
+// this version by their serial steps: L encoder sweeps and one decoder
+// sweep each way, each a chain of S or T steps. A decoder step (two
+// cluster barriers) takes 14 + 0.42 S us forward and 20 + 0.55 S us in
+// reverse on an H100, most of it the owned rows' attention: chains of
+// dependent L2 reads. Later work: those reads issued ahead of their use,
+// the tensor cores, skipping row-steps past each row's end, and one wave
+// at B = 256 (two h buffers and the attended vectors of 37 rows do not fit
+// beside the resident weights).
 //
 // Every entry point launches on the caller's stream and allocates nothing:
 // the caller passes K4f's workspace (probnmn_tf_workspace_floats() floats)
 // and K4b's scratch (probnmn_tf_scratch_floats()). Each returns
 // cudaGetLastError() or the launch's own error.
 
-#include "lstm_sweep.cuh"
+#include "tf_decoder_sweep.cuh"
 
 namespace probnmn {
 namespace {
@@ -85,10 +90,11 @@ constexpr int kAttnThreads = 256;
 constexpr int kMaxSource = 4096;  // source positions (S floats of shared memory)
 
 // ------------------------------------------------------------------ attention
-// Decoder step t's attention, one block per example b: scores of the previous
-// hidden state h_prev[b] over the source positions with m = 1, their softmax
-// w, the attended vector. Writes w_out[s * B + b] (0 where m = 0) and
-// cat[b] = [attended, h_prev[b]] (B, 2H).
+// Decoder step t's attention where no cluster holds the cell (H > 256), one
+// block per example b: scores of the previous hidden state h_prev[b] over
+// the source positions with m = 1, their softmax w, the attended vector.
+// Writes w_out[s * B + b] (0 where m = 0) and cat[b] = [attended, h_prev[b]]
+// (B, 2H). tf_decoder_fwd_sweep runs the same sums.
 __global__ void __launch_bounds__(kAttnThreads)
 tf_attend(const float* __restrict__ enc, const float* __restrict__ src_m,
           const float* __restrict__ h_prev, float* w_out, float* cat, int S, int B, int H) {
@@ -134,59 +140,6 @@ tf_attend(const float* __restrict__ enc, const float* __restrict__ src_m,
   }
 }
 
-// Its backward, one block per example b. dcat[b] (B, 2H) is the gradient
-// reaching [attended, h_prev]: datt = dcat[b, :H]. With dw_s = enc_s . datt
-// and ds_s = w_s (dw_s - sum_s' w_s' dw_s'), writes the gradient reaching
-// h_prev, dh_out[b] = sum_s ds_s enc_s + dcat[b, H:] (+ dh_add[b], the
-// head's gradient of the step before, when given), and adds
-// ds_s h_prev + w_s datt to the encoder outputs' gradient denc[s, b]; the
-// block owns example b's rows, so no atomics.
-__global__ void __launch_bounds__(kAttnThreads)
-tf_attend_bwd(const float* __restrict__ enc, const float* __restrict__ src_m,
-              const float* __restrict__ w, const float* __restrict__ h_prev,
-              const float* __restrict__ dcat, const float* __restrict__ dh_add, float* dh_out,
-              float* denc, int S, int B, int H) {
-  extern __shared__ float sh[];  // S values of w dw, then ds
-  __shared__ float total;
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  const float* datt = dcat + static_cast<ll>(b) * 2 * H;
-  const float* hp = h_prev + static_cast<ll>(b) * H;
-  for (int s = warp; s < S; s += warps) {
-    const bool real = src_m[static_cast<ll>(s) * B + b] != 0.f;
-    float acc = 0.f;
-    if (real) {
-      const float* e = enc + (static_cast<ll>(s) * B + b) * H;
-      for (int k = lane; k < H; k += 32) acc = fmaf(e[k], datt[k], acc);
-      acc = warp_sum(acc);
-    }
-    if (lane == 0) sh[s] = real ? w[static_cast<ll>(s) * B + b] * acc : 0.f;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float sum = 0.f;
-    for (int s = lane; s < S; s += 32) sum += sh[s];
-    sum = warp_sum(sum);
-    if (lane == 0) total = sum;
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    sh[s] -= w[static_cast<ll>(s) * B + b] * total;
-  __syncthreads();
-  for (int k = threadIdx.x; k < H; k += blockDim.x) {
-    float acc = 0.f;
-    const float hk = hp[k], ak = datt[k];
-    for (int s = 0; s < S; ++s) {
-      if (src_m[static_cast<ll>(s) * B + b] == 0.f) continue;
-      const ll idx = (static_cast<ll>(s) * B + b) * H + k;
-      acc = fmaf(sh[s], enc[idx], acc);
-      denc[idx] += sh[s] * hk + w[static_cast<ll>(s) * B + b] * ak;
-    }
-    const ll o = static_cast<ll>(b) * H + k;
-    dh_out[o] = acc + datt[H + k] + (dh_add != nullptr ? dh_add[o] : 0.f);
-  }
-}
-
 // ------------------------------------------------------------------ host side
 struct Dims {
   int B, Ls, S, Lt, T, D, H, L, Vs, Vt;
@@ -219,9 +172,10 @@ struct Workspace {
   ll cat_step;              // stride between the steps' [attended, h_prev] rows; 0 when lean
 };
 
-// K4b's own scratch, allocated for the backward alone.
+// K4b's own scratch, allocated for the backward alone. ext receives the
+// gradient reaching the initial decoder h.
 struct Scratch {
-  float *dnum, *dh_head, *dcat, *ext, *dzero, *dc, *denc, *e0, *e1, *partial;
+  float *dnum, *dh_head, *ext, *denc, *e0, *e1, *partial;
 };
 
 ll partial_floats(const Dims& d) {
@@ -229,7 +183,7 @@ ll partial_floats(const Dims& d) {
   const ll dmax = d.D > d.H ? d.D : d.H;
   const ll vmax = d.Vs > d.Vt ? d.Vs : d.Vt;
   ll n = layer_partial_floats(d.SB, d.H, dmax);
-  const ll more[] = {splitk_floats(d.G, d.B, 2 * d.H), splitk_floats(d.TB, d.G, 2 * d.H),
+  const ll more[] = {splitk_floats(d.TB, d.G, 2 * d.H),
                      splitk_floats(d.TB, d.G, d.D),
                      splitk_floats(d.TB, d.Vt, d.H), chunk_count(d.TB) * d.G,
                      chunk_count(d.TB) * d.Vt, chunk_count(rows) * vmax * d.D};
@@ -288,10 +242,7 @@ ll scratch_layout(const Dims& d, float* base, Scratch* w) {
   Scratch sc{};
   sc.dnum = cv.take(d.B);
   sc.dh_head = cv.take(d.TB * d.H);
-  sc.dcat = cv.take(2 * bh);
   sc.ext = cv.take(bh);
-  sc.dzero = cv.take(bh);
-  sc.dc = cv.take(bh);
   sc.denc = cv.take(d.SB * d.H);
   sc.e0 = cv.take(wide);
   sc.e1 = cv.take(wide);
@@ -316,6 +267,27 @@ LayerArgs encoder_layer(const Dims& d, const Weights& wt, const Workspace& ws, i
   a.c = ws.c + l * ws.layer_h;
   a.y = ws.y + l * ws.layer_h;
   return a;
+}
+
+// The decoder where no cluster holds the cell (H > 256): two launches a step.
+cudaError_t decoder_steps(const Dims& d, const Weights& wt, const Workspace& ws, const float* enc,
+                          cudaStream_t s) {
+  const ll bh = static_cast<ll>(d.B) * d.H;
+  const dim3 step_grid(ceil_div(d.H, kFUnits), ceil_div(d.B, kFRows));
+  const size_t attn_smem = static_cast<size_t>(d.S) * sizeof(float);
+  for (int t = 0; t < d.T; ++t) {
+    float* cat = ws.cat + t * ws.cat_step;
+    tf_attend<<<d.B, kAttnThreads, attn_smem, s>>>(enc, ws.src_m, ws.hdec + t * bh,
+                                                   ws.attn_w + t * d.SB, cat, d.S, d.B, d.H);
+    TRAIN_LAUNCHED();
+    lstm_fwd_step<<<step_grid, 256, 0, s>>>(cat, 2 * d.H, wt.dec_w, 2 * d.H, nullptr,
+                                            t > 0 ? ws.cdec + (t - 1) * bh : nullptr,
+                                            ws.dgates + t * d.B * d.G, nullptr,
+                                            ws.hdec + (t + 1) * bh, ws.cdec + t * bh, nullptr,
+                                            d.B, d.H);
+    TRAIN_LAUNCHED();
+  }
+  return cudaSuccess;
 }
 
 // The forward through the logits, into the workspace. With dropout, encoder
@@ -351,19 +323,24 @@ cudaError_t forward_pass(const Dims& d, const Weights& wt, const Workspace& ws, 
   TRAIN_LAUNCHED();
   TRAIN_TRY(gemm(s, ws.ex, d.D, 1, wt.dec_wx, 1, d.D, ws.dgates, d.G, static_cast<int>(d.TB),
                  static_cast<int>(d.G), d.D, wt.dec_bias, false, nullptr));
-  const dim3 step_grid(ceil_div(d.H, kFUnits), ceil_div(d.B, kFRows));
-  const size_t attn_smem = static_cast<size_t>(d.S) * sizeof(float);
-  for (int t = 0; t < d.T; ++t) {
-    float* cat = ws.cat + t * ws.cat_step;
-    tf_attend<<<d.B, kAttnThreads, attn_smem, s>>>(enc, ws.src_m, ws.hdec + t * bh,
-                                                   ws.attn_w + t * d.SB, cat, d.S, d.B, d.H);
-    TRAIN_LAUNCHED();
-    lstm_fwd_step<<<step_grid, 256, 0, s>>>(cat, 2 * d.H, wt.dec_w, 2 * d.H, nullptr,
-                                            t > 0 ? ws.cdec + (t - 1) * bh : nullptr,
-                                            ws.dgates + t * d.B * d.G, nullptr,
-                                            ws.hdec + (t + 1) * bh, ws.cdec + t * bh, nullptr,
-                                            d.B, d.H);
-    TRAIN_LAUNCHED();
+  if (dec_sweep_holds(d.H)) {
+    DecSweepArgs a{};
+    a.enc = enc;
+    a.src_m = ws.src_m;
+    a.w = wt.dec_w;
+    a.gates = ws.dgates;
+    a.hdec = ws.hdec;
+    a.cdec = ws.cdec;
+    a.cat = ws.cat;
+    a.cat_step = ws.cat_step;
+    a.attn_w = ws.attn_w;
+    a.T = d.T;
+    a.S = d.S;
+    a.B = d.B;
+    a.H = d.H;
+    TRAIN_TRY(dec_sweep_launch(s, a, true));
+  } else {
+    TRAIN_TRY(decoder_steps(d, wt, ws, enc, s));
   }
   // logits = h . proj_w^T + proj_b over all T*B rows.
   return gemm(s, ws.hdec + bh, d.H, 1, wt.proj_w, 1, d.H, ws.logits, d.Vt,
@@ -380,6 +357,9 @@ struct Grads {
 cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
                           const Scratch& sc, const float* dloss, const Grads& gr,
                           const Dropout& dr, cudaStream_t s) {
+  // No cluster holds the decoder's or the encoder's reverse sweep above
+  // H = 256: refuse before any launch.
+  if (!dec_sweep_holds(d.H) || !sweep_holds(d.H)) return cudaErrorInvalidValue;
   const ll bh = static_cast<ll>(d.B) * d.H;
   const int TB = static_cast<int>(d.TB), G = static_cast<int>(d.G), H2 = 2 * d.H;
   loss_rows<<<ceil_div(d.B, 128), 128, 0, s>>>(nullptr, ws.label, dloss, nullptr, sc.dnum, d.B,
@@ -398,29 +378,26 @@ cudaError_t backward_pass(const Dims& d, const Weights& wt, const Workspace& ws,
                  false, sc.partial));
   TRAIN_TRY(column_sum(s, dlogits, TB, d.Vt, gr.proj_b, false, sc.partial));
 
-  // Decoder reverse sweep. sc.ext carries the gradient reaching the step's
-  // output h from later steps and the head; at the end it holds the gradient
+  // The decoder's reverse sweep: dpre over the gates, the attention's part
+  // of the encoder outputs' gradient into denc, and in sc.ext the gradient
   // reaching the initial h, the top encoder layer's final hidden state.
-  const float* enc = ws.y + (d.L - 1) * ws.layer_h;
-  TRAIN_TRY(cudaMemsetAsync(sc.dzero, 0, bh * sizeof(float), s));
-  TRAIN_TRY(cudaMemsetAsync(sc.dc, 0, bh * sizeof(float), s));
   TRAIN_TRY(cudaMemsetAsync(sc.denc, 0, d.SB * d.H * sizeof(float), s));
-  const dim3 bwd_grid(ceil_div(d.H, kBUnits), ceil_div(d.B, kBRows));
-  const size_t attn_smem = static_cast<size_t>(d.S) * sizeof(float);
-  for (int t = d.T - 1; t >= 0; --t) {
-    float* dpre = ws.dgates + t * d.B * d.G;
-    lstm_bwd_step<<<bwd_grid, 256, 0, s>>>(nullptr, nullptr, dpre, ws.cdec + t * bh,
-                                           t > 0 ? ws.cdec + (t - 1) * bh : nullptr, nullptr,
-                                           t == d.T - 1 ? sc.dh_head + t * bh : sc.ext, sc.dzero,
-                                           sc.dc, d.B, d.H);
-    TRAIN_LAUNCHED();
-    TRAIN_TRY(gemm(s, dpre, d.G, 1, wt.dec_w, H2, 1, sc.dcat, H2, d.B, H2, G, nullptr, false,
-                   sc.partial));
-    tf_attend_bwd<<<d.B, kAttnThreads, attn_smem, s>>>(
-        enc, ws.src_m, ws.attn_w + t * d.SB, ws.hdec + t * bh, sc.dcat,
-        t > 0 ? sc.dh_head + (t - 1) * bh : nullptr, sc.ext, sc.denc, d.S, d.B, d.H);
-    TRAIN_LAUNCHED();
-  }
+  DecSweepArgs a{};
+  a.enc = ws.y + (d.L - 1) * ws.layer_h;
+  a.src_m = ws.src_m;
+  a.w = wt.dec_w;
+  a.gates = ws.dgates;
+  a.hdec = ws.hdec;
+  a.cdec = ws.cdec;
+  a.attn_w = ws.attn_w;
+  a.dh_head = sc.dh_head;
+  a.dh0 = sc.ext;
+  a.denc = sc.denc;
+  a.T = d.T;
+  a.S = d.S;
+  a.B = d.B;
+  a.H = d.H;
+  TRAIN_TRY(dec_sweep_launch(s, a, false));
   // Decoder weights: dpre against [attended, h_prev] and against emb(dec_in).
   const float* dpre_all = ws.dgates;
   TRAIN_TRY(gemm(s, dpre_all, 1, d.G, ws.cat, H2, 1, gr.dec_w, H2, G, H2, TB, nullptr, false,
@@ -527,6 +504,26 @@ extern "C" int probnmn_tf_sweep_plan(int batch, int hidden, int forward, int* ou
     err = forward ? cudaFuncGetAttributes(&attr, fwd_sweep_kernel(p.rows))
                   : cudaFuncGetAttributes(&attr, lstm_bwd_sweep);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[] = {p.cluster, p.units,   p.rows,
+                   p.threads, p.clusters, p.fit,
+                   static_cast<int>(p.smem), attr.numRegs};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The launch plan of the decoder's sweep for B rows of H units over a
+// source of ls tokens (ls + 1 positions), the forward's (forward = 1, K4f)
+// or the reverse's (K4b): out = {the cluster size, units a CTA, rows a
+// cluster, threads a CTA, clusters, clusters the card runs at once, shared
+// memory bytes a CTA, registers a thread}. cudaErrorInvalidValue above
+// H = 256, where no cluster holds the cell.
+extern "C" int probnmn_tf_decoder_plan(int batch, int ls, int hidden, int forward, int* out) {
+  SweepPlan p;
+  cudaFuncAttributes attr;
+  cudaError_t err = dec_sweep_plan(hidden, ls + 1, batch, forward != 0, nullptr, &p);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, forward ? dec_fwd_kernel(p.rows) : tf_decoder_bwd_sweep);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int v[] = {p.cluster, p.units,   p.rows,
                    p.threads, p.clusters, p.fit,

@@ -60,7 +60,7 @@ from probnmn_tpu_torch.ops.kernels.nmn_interpreter import (
 __all__ = [
     "NOP", "SCENE", "AND", "OR", "ATTENTION", "QUERY", "RELATE", "SAME", "COMPARE",
     "TAG_NONE", "TAG_ATTN", "TAG_FEAT", "INVALID_LOSS", "NMNSpec", "classify_token",
-    "make_spec", "init_nmn_params", "apply_stem", "apply_classifier",
+    "make_spec", "init_nmn_params", "apply_stem", "training_stem", "apply_classifier",
     "execute_programs", "nmn_forward", "nmn_forward_fast", "fast_forward_from_tables",
     "make_fast_inference_fn", "resolve_compute_dtype",
 ]
@@ -235,6 +235,57 @@ def apply_stem(params: Dict[str, torch.Tensor], features: torch.Tensor) -> torch
     return torch.relu(gconv.conv3x3(out, params["w2"], params["b2"]))
 
 
+_STEM_KEYS = ("w1", "b1", "w2", "b2")
+
+
+class _DeterministicCudnn:
+    r"""``torch.backends.cudnn.deterministic`` set for the block, then restored."""
+
+    def __enter__(self):
+        self.before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.before
+
+
+class _TrainingStem(torch.autograd.Function):
+    r""":func:`apply_stem` with its convs' forward and backward under
+    ``cudnn.deterministic``: the backward runs the inner graph through
+    ``torch.autograd.grad`` inside the flag, which a plain autograd call
+    would leave to whatever the flag reads when ``backward()`` runs."""
+
+    @staticmethod
+    def forward(ctx, features, *weights):
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in (features, *weights)]
+        with torch.enable_grad(), _DeterministicCudnn():
+            out = apply_stem(dict(zip(_STEM_KEYS, leaves[1:])), leaves[0])
+        ctx.leaves, ctx.out = leaves, out
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        leaves, ctx.leaves = ctx.leaves, None
+        wanted = [t for t in leaves if t.requires_grad]
+        with _DeterministicCudnn():
+            got = iter(torch.autograd.grad(ctx.out, wanted, grad))
+        ctx.out = None
+        return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+def training_stem(params: Dict[str, torch.Tensor], features: torch.Tensor) -> torch.Tensor:
+    r"""The stem of the training forward (:func:`nmn_forward_fast`): :func:`apply_stem`
+    with cuDNN's deterministic algorithms in its forward and backward, so
+    that a float32 training step repeats bit for bit (cuDNN's default
+    backward of these convs moves by ~1e-8 from run to run). Serving and the
+    feature extractor keep cuDNN's default algorithms."""
+    inputs = (features, *(params[k] for k in _STEM_KEYS))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _TrainingStem.apply(*inputs)
+    with _DeterministicCudnn():
+        return apply_stem(params, features)
+
+
 def apply_classifier(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     out = torch.relu(gconv.conv1x1(x, params["proj_w"], params["proj_b"]))
     out = gconv.max_pool_2x2(out)
@@ -319,7 +370,8 @@ def nmn_forward_fast(
 ) -> Dict[str, Any]:
     r"""The training forward, with the output contract of :func:`nmn_forward`
     (counterpart of the JAX package's ``nmn_forward_fast``): the banks are
-    built from the live ``params`` each call, the stem runs ``F.conv2d``, the
+    built from the live ``params`` each call, the stem runs ``F.conv2d`` with
+    cuDNN's deterministic algorithms (:func:`training_stem`), the
     interpreter is :func:`execute_programs_diff` (K5 forward and K6 backward
     on CUDA, or K2 and K6's replay mode with ``replay`` or
     ``PROBNMN_NMN_REPLAY_BWD=1``; their plain versions on the CPU), then the
@@ -330,7 +382,7 @@ def nmn_forward_fast(
     banks = build_banks(params, spec, dtype)
     if tables is None:
         tables = build_tables(spec, features.device)
-    stem_feats = apply_stem(cast_params(params["stem"], dtype), features.to(dtype))
+    stem_feats = training_stem(cast_params(params["stem"], dtype), features.to(dtype))
     final, invalid = execute_programs_diff(banks, tables, spec, stem_feats.contiguous(), programs,
                                            replay=replay)
     logits = apply_classifier(cast_params(params["classifier"], dtype), final).float()

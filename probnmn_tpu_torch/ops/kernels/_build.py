@@ -244,6 +244,8 @@ def library() -> ctypes.CDLL:
     lib.probnmn_tf_scratch_floats.argtypes = tf_dims
     lib.probnmn_tf_sweep_plan.restype = _INT
     lib.probnmn_tf_sweep_plan.argtypes = [_INT, _INT, _INT, ctypes.POINTER(_INT)]  # B, H, forward, out[8]
+    lib.probnmn_tf_decoder_plan.restype = _INT
+    lib.probnmn_tf_decoder_plan.argtypes = [_INT] * 4 + [ctypes.POINTER(_INT)]  # B, Ls, H, forward; out[8]
     tf_sizes = [_INT] * 9 + [_VOID_P]           # D, H, layers, Vs, Vt, reinforce, pad, start, end; stream
     lib.probnmn_tf_forward.restype = _INT
     lib.probnmn_tf_forward.argtypes = [

@@ -48,10 +48,16 @@ from probnmn_tpu_torch.models.program_prior import ProgramPriorSpec, program_pri
 from probnmn_tpu_torch.models.seq2seq import (
     GREEDY,
     Seq2SeqSpec,
+    _encode,
     seq2seq_forward,
     teacher_forced_logits,
 )
-from probnmn_tpu_torch.ops.common import length_normalized_logprob_loss
+from probnmn_tpu_torch.ops.common import (
+    add_boundary,
+    length_normalized_logprob_loss,
+    masked_softmax,
+    sequence_cross_entropy,
+)
 from probnmn_tpu_torch.ops.kernels import _build
 from probnmn_tpu_torch.ops.rnn import keep_bytes
 
@@ -260,6 +266,15 @@ _TF_PACKED = ("src_emb", "tgt_emb", "enc_wih", "enc_whh", "enc_bias",
               "dec_w", "dec_wx", "dec_bias", "proj_w", "proj_b")
 
 
+def _tf_step_inputs(spec: Seq2SeqSpec, target_tokens: torch.Tensor, reinforce_norm: bool):
+    r"""The decoder's step inputs and labels, as tf_loss_plain feeds them."""
+    if reinforce_norm:
+        start = torch.full_like(target_tokens[:, :1], spec.start_index)
+        return torch.cat([start, target_tokens[:, :-1]], dim=1), target_tokens
+    targets = add_boundary(target_tokens, spec.pad_index, spec.start_index, spec.end_index)
+    return targets[:, :-1], targets[:, 1:]
+
+
 def tf_loss_plain(
     params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
     target_tokens: torch.Tensor, reinforce_norm: bool = False,
@@ -277,8 +292,7 @@ def tf_loss_plain(
     if not reinforce_norm:
         return seq2seq_forward(params, spec, source_tokens, GREEDY,
                                target_tokens=target_tokens, dropout_masks=dropout_masks)["loss"]
-    start = torch.full_like(target_tokens[:, :1], spec.start_index)
-    step_inputs = torch.cat([start, target_tokens[:, :-1]], dim=1)
+    step_inputs, _ = _tf_step_inputs(spec, target_tokens, True)
     logits = teacher_forced_logits(params, spec, source_tokens, step_inputs, dropout_masks)
     logprobs = torch.log_softmax(logits, dim=-1).gather(-1, target_tokens[..., None])[..., 0]
     return length_normalized_logprob_loss(logprobs, target_tokens, spec.pad_index)
@@ -393,6 +407,184 @@ def tf_sweep_plan(batch: int, hidden: int, forward: bool = False) -> Dict[str, i
     return dict(zip(keys, out))
 
 
+# K4's decoder sweeps (csrc/tf_decoder_sweep.cuh): the constants their plans
+# use, mirrored for the plans' twin.
+DEC_THREADS = 256        # kDecThreads
+DEC_MAX_UNITS = 16       # kDecMaxUnits
+DEC_MAX_CLUSTER = 16     # kDecMaxCluster
+DEC_FWD_MAX_ROWS = 64    # kDecFwdMaxRows
+DEC_MAX_OWN = 4          # kDecMaxOwn
+DEC_BWD_MAX_RPT = 16     # kDecBwdMaxRpt
+SWEEP_MAX_SMEM = 232448  # kSweepMaxSmem: the H100's shared memory a block can use
+_PLAN_KEYS = ("cluster", "units", "rows", "threads", "clusters", "fit", "smem_bytes", "registers")
+
+
+def tf_decoder_plan(batch: int, source_len: int, hidden: int,
+                    forward: bool = False) -> Dict[str, int]:
+    r"""How K4's decoder is swept on this card (``csrc/tf_decoder_sweep.cuh``)
+    for ``batch`` rows of ``hidden`` units over a source of ``source_len``
+    tokens: forward, as K4f runs it, or in reverse, as K4b. The keys of
+    :func:`tf_sweep_plan`. Raises above H = 256, where no cluster holds the
+    cell (K4f then takes two launches a step, and K4b refuses)."""
+    out = (ctypes.c_int * 8)()
+    what = "forward" if forward else "reverse"
+    _build.check(_build.library().probnmn_tf_decoder_plan(batch, source_len, hidden,
+                                                          int(bool(forward)), out),
+                 f"the decoder's {what} sweep at B={batch}, H={hidden}")
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def decoder_sweep_holds(hidden: int) -> bool:
+    r"""Whether a cluster holds the decoder cell (``dec_sweep_holds``): K4f's
+    route, decided from H before any launch."""
+    return 0 < hidden <= DEC_MAX_CLUSTER * DEC_MAX_UNITS
+
+
+def _depth(hidden: int) -> int:
+    return (hidden + 3) // 4 * 4  # fwd_depth
+
+
+def decoder_sweep_smem(hidden: int, source_len: int, rows: int, forward: bool) -> int:
+    r"""A decoder sweep CTA's shared memory in bytes for ``rows`` rows a
+    cluster (``dec_fwd_smem_bytes`` / ``dec_bwd_smem_bytes``)."""
+    n, units = _decoder_cluster(hidden)
+    hp, sp = _depth(hidden), (source_len + 1 + 3) // 4 * 4
+    own = -(-rows // n)
+    weights = 4 * units * (2 * hp + 4)
+    if forward:
+        return 4 * (weights + 3 * rows * (hp + 4) + own * sp)
+    return 4 * (weights + 4 * rows * units + own * n * 2 * hp + own * 8 * hp + 3 * own * sp
+                + (own + 3) // 4 * 4)
+
+
+def _decoder_cluster(hidden: int) -> Tuple[int, int]:
+    n = 1
+    while -(-hidden // n) > DEC_MAX_UNITS:
+        n *= 2
+    return n, (-(-hidden // n) + 3) // 4 * 4
+
+
+def decoder_row_cap(hidden: int, forward: bool) -> int:
+    r"""Rows a decoder sweep cluster owns at most (``dec_row_cap``)."""
+    n, _ = _decoder_cluster(hidden)
+    sets = DEC_THREADS // (_depth(hidden) // 2)
+    return min(DEC_MAX_OWN * n, DEC_FWD_MAX_ROWS if forward else DEC_BWD_MAX_RPT * sets)
+
+
+def tf_decoder_plan_twin(batch: int, source_len: int, hidden: int, forward: bool,
+                         fit: int) -> Dict[str, int]:
+    r"""What :func:`tf_decoder_plan` computes without the card, given ``fit``,
+    the clusters the card runs at once at the widest shared memory: the
+    cluster size and units, the largest rows a cluster that shared memory
+    holds (``r_max``), then the fewest rows that run every cluster at once,
+    up to ``r_max``. Raises above H = 256."""
+    if not decoder_sweep_holds(hidden):
+        raise ValueError(f"no cluster holds a decoder cell of {hidden} units (H > 256)")
+    n, units = _decoder_cluster(hidden)
+    r_max = decoder_row_cap(hidden, forward)
+    while r_max > 0 and decoder_sweep_smem(hidden, source_len, r_max, forward) > SWEEP_MAX_SMEM:
+        r_max -= 1
+    if r_max == 0:
+        raise ValueError("not one row of the decoder sweep fits in shared memory")
+    rows = min(-(-batch // fit), r_max)
+    return {"cluster": n, "units": units, "rows": rows, "threads": DEC_THREADS,
+            "clusters": -(-batch // rows), "fit": fit,
+            "smem_bytes": decoder_sweep_smem(hidden, source_len, rows, forward), "r_max": r_max}
+
+
+def _tf_head_loss(params, spec: Seq2SeqSpec, h_out: torch.Tensor, labels: torch.Tensor,
+                  reinforce_norm: bool) -> torch.Tensor:
+    r"""The per-example loss of the decoder's outputs ``h_out`` (B, T, H)."""
+    proj = params["output_projection"]
+    logits = h_out @ proj["w"].T + proj["b"]
+    if reinforce_norm:
+        logprobs = torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
+        return length_normalized_logprob_loss(logprobs, labels, spec.pad_index)
+    return sequence_cross_entropy(logits, labels, labels != spec.pad_index)
+
+
+def tf_decoder_reverse_plain(
+    params: Dict[str, Any], spec: Seq2SeqSpec, source_tokens: torch.Tensor,
+    target_tokens: torch.Tensor, dloss: torch.Tensor, reinforce_norm: bool = False,
+    dropout_masks: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    r"""Plain version of K4b's decoder reverse sweep, step by step as the JAX
+    kernel's ``dec_bwd`` writes it, in the dtype of ``params`` (float64 for
+    the card's check of the reverse sweep). The forward is the plain one
+    (the encoder, then the attentive decoder cell step by step); the head's
+    gradient reaching each step's h, ``dh_head``, comes from autograd
+    through the projection and the loss under the cotangent ``dloss``.
+
+    Returns, with T steps, S = Ls + 1 source positions: ``dpre`` (B, T, 4H),
+    the gradient of each step's gate pre-activations; ``dcat`` (B, T, 2H),
+    the gradient reaching [attended, h_prev]; ``ds`` (B, T, S), that of the
+    attention scores; ``dh`` (B, T + 1, H), the gradient reaching each
+    step's h_prev (``dh[:, 0]`` reaches the initial h, the top encoder
+    layer's final state); ``denc`` (B, S, H), the attention's gradient of the
+    encoder outputs; and the decoder cell's gradients ``w_ih`` (4H, H + D),
+    ``w_hh`` (4H, H), ``b`` (4H,) (b_ih's and b_hh's alike)."""
+    H = spec.hidden_size
+    step_inputs, labels = _tf_step_inputs(spec, target_tokens, reinforce_norm)
+    with torch.no_grad():
+        enc, src_mask, h, c = _encode(params, spec, source_tokens, dropout_masks=dropout_masks)
+        cell = params["decoder_cell"]
+        emb = params["target_embedding"][step_inputs]  # (B, T, D)
+        bias = cell["b_ih"] + cell["b_hh"]
+        hs, cs, gates, weights, cats = [h], [], [], [], []
+        for t in range(step_inputs.shape[1]):
+            w = masked_softmax(torch.einsum("bsh,bh->bs", enc, h), src_mask)
+            att = torch.einsum("bs,bsh->bh", w, enc)
+            pre = torch.cat([att, emb[:, t]], -1) @ cell["w_ih"].T + h @ cell["w_hh"].T + bias
+            i, f, g, o = pre.split(H, -1)
+            i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+            c = f * (cs[-1] if cs else torch.zeros_like(h)) + i * g
+            cats.append(torch.cat([att, h], -1))
+            h = o * torch.tanh(c)
+            hs.append(h)
+            cs.append(c)
+            gates.append((i, f, g, o))
+            weights.append(w)
+    h_out = torch.stack(hs[1:], 1).requires_grad_(True)
+    with torch.enable_grad():
+        loss = _tf_head_loss(params, spec, h_out, labels, reinforce_norm)
+        dh_head, = torch.autograd.grad(loss, h_out, grad_outputs=dloss.to(loss.dtype))
+
+    dec_w = torch.cat([cell["w_ih"][:, :H], cell["w_hh"]], 1)  # (4H, 2H)
+    T = len(gates)
+    dh, dc = torch.zeros_like(h), torch.zeros_like(h)
+    denc = torch.zeros_like(enc)
+    dpres, dcats, dss, dhs = [None] * T, [None] * T, [None] * T, [None] * (T + 1)
+    for t in reversed(range(T)):
+        i, f, g, o = gates[t]
+        dh = dh + dh_head[:, t]
+        c_prev = cs[t - 1] if t > 0 else torch.zeros_like(h)
+        tc = torch.tanh(cs[t])
+        do = dh * tc
+        dc_t = dc + dh * o * (1.0 - tc * tc)
+        dpre = torch.cat([dc_t * g * i * (1.0 - i), dc_t * c_prev * f * (1.0 - f),
+                          dc_t * i * (1.0 - g * g), do * o * (1.0 - o)], -1)
+        dcat = dpre @ dec_w
+        datt = dcat[:, :H]
+        w = weights[t]
+        wdw = w * torch.einsum("bsh,bh->bs", enc, datt)
+        ds = wdw - w * wdw.sum(-1, keepdim=True)
+        dh = dcat[:, H:] + torch.einsum("bs,bsh->bh", ds, enc)
+        denc = denc + ds[..., None] * hs[t][:, None] + w[..., None] * datt[:, None]
+        dc = dc_t * f
+        dpres[t], dcats[t], dss[t], dhs[t] = dpre, dcat, ds, dh
+    dhs[T] = dh_head[:, T - 1]
+    dpre_all = torch.stack(dpres, 1)
+    cat_all = torch.stack(cats, 1)
+    x_all = torch.cat([cat_all[..., :H], emb], -1)  # [attended, embedded]
+    return {
+        "dpre": dpre_all, "dcat": torch.stack(dcats, 1), "ds": torch.stack(dss, 1),
+        "dh": torch.stack(dhs, 1), "denc": denc,
+        "w_ih": torch.einsum("btg,btk->gk", dpre_all, x_all),
+        "w_hh": torch.einsum("btg,btk->gk", dpre_all, cat_all[..., H:]),
+        "b": dpre_all.sum((0, 1)),
+    }
+
+
 @dataclasses.dataclass
 class TFResiduals:
     r"""What K4f keeps for K4b (``tf_forward_cuda(..., keep=True)``): its
@@ -479,7 +671,8 @@ def tf_backward_cuda(residuals: TFResiduals, dloss: torch.Tensor) -> Dict[str, A
     if code == _CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(
             f"teacher-forced backward kernel: cudaErrorInvalidValue at B={batch}, H={sizes[1]}: "
-            f"no thread-block cluster holds the encoder's reverse sweep above H = 256")
+            f"no thread-block cluster holds the decoder's and the encoder's reverse sweeps "
+            f"above H = 256")
     _build.check(code, "teacher-forced backward kernel")
     tf_backward_cuda.launches += 1
     residuals.packed = residuals.keep = None

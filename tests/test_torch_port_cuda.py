@@ -31,8 +31,8 @@ from probnmn_tpu_torch.ops.kernels.seq2seq_decode import (
 from probnmn_tpu_torch.ops.kernels.seq2seq_train import (
     fused_lm_loss, fused_tf_loss, lm_backward_cuda, lm_forward_cuda, lm_grads_plain, lm_loss_plain,
     pack_lm_weights, pack_tf_weights, param_leaves, params_from_leaves, tf_backward_cuda,
-    tf_forward_cuda, tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_params_from_leaves,
-    tf_sweep_plan,
+    tf_decoder_plan, tf_decoder_plan_twin, tf_decoder_reverse_plain, tf_forward_cuda,
+    tf_grads_plain, tf_loss_plain, tf_param_leaves, tf_params_from_leaves, tf_sweep_plan,
 )
 from probnmn_tpu_torch.utils.clevr import make_clevr_like_vocabulary, sample_clevr_like_programs
 
@@ -596,6 +596,13 @@ def _tf_tokens(rs, batch, length, vocab, end_index=3):
          batch=37, ls=1, lt=26, pad_rows=9),
     dict(source_vocab_size=92, target_vocab_size=44, input_size=256, hidden_size=256,
          num_layers=2, batch=128, ls=45, lt=26),
+    # The shipped width with one row and one target token (one decoder step
+    # in REINFORCE mode, two with @end@), and with rows past their end on
+    # both sides.
+    dict(source_vocab_size=92, target_vocab_size=44, input_size=256, hidden_size=256,
+         num_layers=2, batch=1, ls=45, lt=1),
+    dict(source_vocab_size=92, target_vocab_size=44, input_size=256, hidden_size=256,
+         num_layers=2, batch=128, ls=45, lt=26, pad_rows=20),
 ])
 @pytest.mark.parametrize("reinforce_norm", [False, True])
 def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
@@ -626,6 +633,9 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
         assert plan["clusters"] > plan["fit"], plan
         plan = tf_sweep_plan(batch, spec.hidden_size, forward=True)
         assert plan["clusters"] <= plan["fit"], plan
+        for forward in (True, False):  # the decoder's sweeps both run in waves
+            plan = tf_decoder_plan(batch, ls, spec.hidden_size, forward)
+            assert plan["clusters"] > plan["fit"], plan
     before = (tf_forward_cuda.launches, tf_backward_cuda.launches)
     lean = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)
     loss, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
@@ -648,14 +658,16 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
         assert torch.equal(a, b)
     assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 3, before[1] + 2)
     # The encoder: one forward sweep a layer (lean or keeping) and one reverse
-    # sweep a layer; the decoder: a step launch each way a step.
-    steps = lt + (0 if reinforce_norm else 1)
+    # sweep a layer; the decoder: one sweep each way, none of the step kernels.
     L = spec.num_layers
-    assert _launches(lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm)) == {
-        "lstm_fwd_sweep": L, "lstm_fwd_step": steps, "lstm_bwd_sweep": 0, "lstm_bwd_step": 0}
+    assert _launches(lambda: tf_forward_cuda(packed, spec, src, tgt, reinforce_norm),
+                     TF_NAMES) == {
+        "lstm_fwd_sweep": L, "lstm_fwd_step": 0, "lstm_bwd_sweep": 0, "lstm_bwd_step": 0,
+        "tf_decoder_fwd_sweep": 1, "tf_decoder_bwd_sweep": 0, "tf_attend": 0}
     _, residuals = tf_forward_cuda(packed, spec, src, tgt, reinforce_norm, keep=True)
-    assert _launches(lambda: tf_backward_cuda(residuals, dloss)) == {
-        "lstm_fwd_sweep": 0, "lstm_fwd_step": 0, "lstm_bwd_sweep": L, "lstm_bwd_step": steps}
+    assert _launches(lambda: tf_backward_cuda(residuals, dloss), TF_NAMES) == {
+        "lstm_fwd_sweep": 0, "lstm_fwd_step": 0, "lstm_bwd_sweep": L, "lstm_bwd_step": 0,
+        "tf_decoder_fwd_sweep": 0, "tf_decoder_bwd_sweep": 1, "tf_attend": 0}
     before = (tf_forward_cuda.launches, tf_backward_cuda.launches)
 
     # Through autograd: K4f keeping its residuals, K4b from them, once each.
@@ -668,6 +680,45 @@ def test_tf_kernels_match_plain_versions(cuda, sizes, reinforce_norm):
     with pytest.raises(RuntimeError, match="second time"):
         total.backward()
     assert (tf_forward_cuda.launches, tf_backward_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+# The LSTM kernels of K3 and K4: the sweeps and the step kernels.
+TF_NAMES = ("lstm_fwd_sweep", "lstm_fwd_step", "lstm_bwd_sweep", "lstm_bwd_step",
+            "tf_decoder_fwd_sweep", "tf_decoder_bwd_sweep", "tf_attend")
+
+
+@pytest.mark.parametrize("hidden", [12, 64, 96, 128, 256])
+def test_decoder_sweep_plans_match_their_twins(cuda, hidden):
+    r"""Both decoder sweeps' plans on the card against their Python twins,
+    given the card's fit, at B = 1, 37, 128, 256, 300 and 4000, S = 46."""
+    for forward in (True, False):
+        for batch in (1, 37, 128, 256, 300, 4000):
+            plan = tf_decoder_plan(batch, 45, hidden, forward)
+            twin = tf_decoder_plan_twin(batch, 45, hidden, forward, plan["fit"])
+            assert {k: plan[k] for k in plan if k != "registers"} == \
+                {k: twin[k] for k in twin if k != "r_max"}, (forward, batch, plan, twin)
+            assert plan["registers"] <= 255
+
+
+def test_decoder_reverse_sweep_matches_the_float64_reference(cuda):
+    r"""K4b's decoder cell gradient at the shipped width against the by-step
+    reverse in float64 (``tf_decoder_reverse_plain``), within the card's
+    tolerance, 1e-4 * max(1, max|g|), as against the float32 plain version."""
+    spec = Seq2SeqSpec(source_vocab_size=92, target_vocab_size=44, input_size=256,
+                       hidden_size=256, num_layers=2)
+    params = init_seq2seq_params(torch.Generator().manual_seed(13), spec)
+    params = tf_params_from_leaves([p.to(cuda) for p in tf_param_leaves(params)])
+    rs = np.random.RandomState(13)
+    src = torch.from_numpy(_tf_tokens(rs, 128, 45, spec.source_vocab_size)).to(cuda)
+    tgt = torch.from_numpy(_tf_tokens(rs, 128, 26, spec.target_vocab_size)).to(cuda)
+    dloss = torch.from_numpy(rs.rand(128).astype(np.float32) + 0.5).to(cuda)
+    _, residuals = tf_forward_cuda(pack_tf_weights(params, spec), spec, src, tgt, keep=True)
+    got = tf_backward_cuda(residuals, dloss)["decoder_cell"]
+    double = tf_params_from_leaves([p.double() for p in tf_param_leaves(params)])
+    ref = tf_decoder_reverse_plain(double, spec, src, tgt, dloss.double())
+    for name, want in (("w_ih", ref["w_ih"]), ("w_hh", ref["w_hh"]), ("b_ih", ref["b"])):
+        torch.testing.assert_close(got[name].double(), want, rtol=0,
+                                   atol=1e-4 * max(1.0, float(want.abs().max())))
 
 
 def test_forward_takes_the_per_step_route_above_a_cluster(cuda):
@@ -706,16 +757,20 @@ def test_forward_takes_the_per_step_route_above_a_cluster(cuda):
     tgt = torch.from_numpy(_tf_tokens(rs, 4, 5, tf_spec.target_vocab_size)).to(cuda)
     with torch.no_grad():
         got = {}
-        counts = _launches(lambda: got.update(loss=fused_tf_loss(tf_params, tf_spec, src, tgt)))
+        counts = _launches(lambda: got.update(loss=fused_tf_loss(tf_params, tf_spec, src, tgt)),
+                           TF_NAMES)
     assert counts == {"lstm_fwd_sweep": 0, "lstm_fwd_step": L * 7 + 6, "lstm_bwd_sweep": 0,
-                      "lstm_bwd_step": 0}, counts
+                      "lstm_bwd_step": 0, "tf_decoder_fwd_sweep": 0, "tf_decoder_bwd_sweep": 0,
+                      "tf_attend": 6}, counts
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tf_decoder_plan(4, 6, 264, True)
     torch.testing.assert_close(got["loss"], tf_loss_plain(tf_params, tf_spec, src, tgt), rtol=0,
                                atol=1e-5)
 
 
 def test_tf_backward_refuses_a_layer_no_cluster_holds(cuda):
-    r"""Above H = 256 no cluster holds the encoder's reverse sweep: K4b
-    refuses with cudaErrorInvalidValue and the wrapper raises."""
+    r"""Above H = 256 no cluster holds the decoder's or the encoder's reverse
+    sweep: K4b refuses with cudaErrorInvalidValue and the wrapper raises."""
     spec = Seq2SeqSpec(source_vocab_size=20, target_vocab_size=15, input_size=16, hidden_size=264,
                        num_layers=1)
     params = init_seq2seq_params(torch.Generator().manual_seed(7), spec)
@@ -728,7 +783,10 @@ def test_tf_backward_refuses_a_layer_no_cluster_holds(cuda):
         tf_backward_cuda(residuals, torch.ones(4, device=cuda))
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         tf_sweep_plan(4, 264)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tf_decoder_plan(4, 6, 264, False)
     assert tf_sweep_plan(4, 256)["cluster"] == 8
+    assert tf_decoder_plan(4, 6, 256, False)["cluster"] == 16
 
 
 def test_phase8_float32_k6_input(cuda, tmp_path):

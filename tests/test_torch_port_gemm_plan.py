@@ -49,8 +49,6 @@ def test_every_call_site_gets_a_plan_that_covers_it(key):
         assert gemm.gemm_partial_floats(M, N, K) == plan["splits"] * M * N
     else:
         assert plan["splits"] == 1
-    if (N, K) == (512, 1024) and M <= 256:  # the decoder's serial chain: the grid covers the card
-        assert gx * gy * gz >= 128
 
 
 def test_the_plan_does_not_read_the_device(monkeypatch):

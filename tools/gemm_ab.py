@@ -52,7 +52,6 @@ def step_classes(rows=128):
         add(qc, (TB, Vt, H, (H, 1), (1, H), False, True))          # logits
         add(qc, (TB, H, Vt, (Vt, 1), (H, 1), False, False))        # dh of the head
         add(qc, (Vt, H, TB, (1, Vt), (H, 1), True, False))         # d proj_w
-        add(qc, (B, 2 * H, G, (G, 1), (2 * H, 1), True, False), T)  # the decoder's steps
         add(qc, (G, 2 * H, TB, (1, G), (2 * H, 1), True, False))   # d dec_w
         add(qc, (G, D, TB, (1, G), (D, 1), True, False))           # d dec_wx
         add(qc, (TB, D, G, (G, 1), (D, 1), False, False))          # e0

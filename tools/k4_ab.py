@@ -16,9 +16,14 @@ other). Through the public API both trees share, each process
   mode at the z that K1 sampled, the reconstructor from z;
 - times ``fused_tf_loss`` forward + ``.backward`` on each pass (K4f, K4b),
   K4f alone under ``torch.no_grad()`` (lean), K4f keeping its residuals and
-  K4b alone from fresh residuals, with CUDA events over 10 calls;
+  K4b alone from fresh residuals, with CUDA events over 10 calls, and each
+  LSTM kernel's launches inside one K4f and one K4b under the profiler
+  (the decoder's sweeps among them, where the tree has them);
 - saves each pass's loss and ten gradients to a ``.npz`` in a temporary
-  directory;
+  directory, and K4f's whole residual workspace (allocated zeroed, so that
+  its padding compares too) beside it; the first run of this tree also
+  saves the decoder cell's gradient from the by-step float64 reference
+  (``tf_decoder_reverse_plain``);
 - reads the memory the four passes' forwards and backward take beyond what
   was allocated before them, and that of one trainer step;
 - times the trainer step (host clock over 10 steps that each fetch their
@@ -34,8 +39,10 @@ other). Through the public API both trees share, each process
 
 Prints every time and the max |dev| of each pass's loss and gradients, and
 of K3f's loss and K3b's gradients, between the checkouts' first runs (and
-between each checkout's two runs), against 1e-4 * max(1, max|g|). Needs a
-CUDA card and the CUDA toolkit.
+between each checkout's two runs), against 1e-4 * max(1, max|g|); the words
+of K4f's loss and residuals that differ between the checkouts and between
+runs; each tree's decoder cell gradient against the float64 reference,
+against the same tolerance. Needs a CUDA card and the CUDA toolkit.
 """
 import json
 import os
@@ -46,13 +53,13 @@ import tempfile
 
 PASSES = ("pg_sup", "qr_sup", "pg_z", "qr_z")
 KERNELS = ("lstm_fwd_step", "lstm_fwd_sweep", "lstm_bwd_step", "lstm_bwd_sweep", "tf_attend",
-           "tf_attend_bwd")
+           "tf_attend_bwd", "tf_decoder_fwd_sweep", "tf_decoder_bwd_sweep")
 
 RUN = r"""
 import json, os, sys, tempfile, time
 import numpy as np
 import torch
-tree, out_npz = sys.argv[1], sys.argv[2]
+tree, out_npz, want_ref = sys.argv[1], sys.argv[2], sys.argv[3] == "ref"
 sys.path.insert(0, tree)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -131,6 +138,22 @@ def cuda_ms(fn, iters=10, warmup=2):
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
+def kernel_us(fn):
+    # {kernel: [device µs of each launch]} inside one call of fn, under the profiler.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    out = {k: [] for k in KERNELS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in KERNELS:
+                if k + "(" in e.name or k + "<" in e.name:
+                    out[k].append(e.time_range.elapsed_us())
+    return out
+
 def transient_mb(fn):
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -176,6 +199,26 @@ for name, params, spec, src, tgt, reinforce in passes:
     result["passes"][name] = {"B": int(src.shape[0]), "fwd_bwd_ms": cuda_ms(fwd_bwd),
                               "fwd_ms": cuda_ms(fwd), "keep_ms": cuda_ms(keep),
                               "bwd_ms": bwd_ms()}
+    res = keep()
+    result["passes"][name]["k4f_us"] = kernel_us(keep)
+    result["passes"][name]["k4b_us"] = kernel_us(lambda: tf_backward_cuda(res, dloss))
+    # K4f's loss and residuals, from a zeroed workspace.
+    real_empty = torch.empty
+    torch.empty = lambda *a, **k: torch.zeros(*a, **k)
+    try:
+        loss_k, res = tf_forward_cuda(packed, spec, src, tgt, reinforce, keep=True)
+    finally:
+        torch.empty = real_empty
+    grads[f"k4f.{name}"] = loss_k.cpu().numpy()
+    np.save(f"{out_npz}.ws.{name}.npy", res.workspace.cpu().numpy())
+    del res
+    if want_ref:  # the decoder cell's gradient, by-step reverse in float64
+        from probnmn_tpu_torch.ops.kernels.seq2seq_train import tf_decoder_reverse_plain
+        double = tf_params_from_leaves([p.double() for p in tf_param_leaves(params)])
+        ref = tf_decoder_reverse_plain(double, spec, src, tgt, dloss.double(), reinforce)
+        dec = 2 + 4 * spec.num_layers
+        for i, key in enumerate(("w_ih", "w_hh", "b", "b")):
+            grads[f"ref.{name}.{dec + i}"] = ref[key].cpu().numpy()
     runs.append((leaves, spec, src, tgt, reinforce, dloss))
 def all_passes():
     losses = [fused_tf_loss(tf_params_from_leaves(l), s, a, b, r) for l, s, a, b, r, _ in runs]
@@ -246,8 +289,9 @@ print("RESULT " + json.dumps(result))
 """
 
 
-def run(tree, npz):
-    out = subprocess.run([sys.executable, "-c", RUN.replace("KERNEL_NAMES", repr(KERNELS)), tree, npz], cwd=tree,
+def run(tree, npz, ref=False):
+    out = subprocess.run([sys.executable, "-c", RUN.replace("KERNEL_NAMES", repr(KERNELS)), tree, npz,
+                          "ref" if ref else "-"], cwd=tree,
                          capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
         print(out.stdout[-4000:], out.stderr[-8000:], sep="\n", file=sys.stderr)
@@ -267,6 +311,38 @@ def max_dev(a, b):
         devs = [(float(np.abs(a[k] - b[k]).max()), 1e-4 * max(1.0, float(np.abs(b[k]).max())))
                 for k in keys]
         out[name] = (max(d for d, _ in devs), max(d / t for d, t in devs))
+    return out
+
+
+def k4f_bits(tmp, a, b):
+    r"""Per pass: (words of K4f's residual workspace that differ between runs
+    a and b, their count, whether the losses are equal bit for bit)."""
+    import numpy as np
+
+    la, lb = np.load(os.path.join(tmp, f"{a}.npz")), np.load(os.path.join(tmp, f"{b}.npz"))
+    out = {}
+    for name in PASSES:
+        wa = np.load(os.path.join(tmp, f"{a}.npz.ws.{name}.npy")).view(np.uint32)
+        wb = np.load(os.path.join(tmp, f"{b}.npz.ws.{name}.npy")).view(np.uint32)
+        loss_same = la[f"k4f.{name}"].tobytes() == lb[f"k4f.{name}"].tobytes()
+        out[name] = (int((wa != wb).sum()) if wa.shape == wb.shape else -1, wa.size, loss_same)
+    return out
+
+
+def against_reference(grads, ref):
+    r"""Per pass: the decoder cell leaves' worst ratio of max |g - ref| to
+    1e-4 * max(1, max |ref|), with the largest |g - ref|."""
+    import numpy as np
+
+    out = {}
+    for name in PASSES:
+        worst = (0.0, 0.0)
+        for key in (k for k in ref.files if k.startswith(f"ref.{name}.")):
+            r = ref[key]
+            g = grads[key[len("ref."):]]
+            dev = float(np.abs(g - r).max())
+            worst = max(worst, (dev / (1e-4 * max(1.0, float(np.abs(r).max()))), dev))
+        out[name] = worst
     return out
 
 
@@ -308,13 +384,19 @@ def main(argv):
     results = {"other": [], "this": []}
     for i, (name, tree) in enumerate((("other", other), ("this", here), ("this", here),
                                       ("other", other))):
-        res = run(tree, os.path.join(tmp, f"{name}{len(results[name])}.npz"))
+        res = run(tree, os.path.join(tmp, f"{name}{len(results[name])}.npz"), ref=i == 1)
         results[name].append(res)
         per = ", ".join(f"{p} B={v['B']} {v['fwd_bwd_ms']:.3f} (K4f lean {v['fwd_ms']:.3f}, "
                         f"keeping {v['keep_ms']:.3f}; K4b {v['bwd_ms']:.3f})"
                         for p, v in res["passes"].items())
         def total(key):
             return sum(v[key] for v in res["passes"].values())
+        sweeps = {k: [round(sum(v[part][k]), 2) for v in res["passes"].values()]
+                  for part, k in (("k4f_us", "tf_decoder_fwd_sweep"),
+                                  ("k4b_us", "tf_decoder_bwd_sweep"),
+                                  ("k4f_us", "lstm_fwd_sweep"), ("k4b_us", "lstm_bwd_sweep"))}
+        print(f"[k4-ab] {name}: device µs per pass of the sweeps inside K4f / K4b: {sweeps}",
+              flush=True)
         print(f"[k4-ab] {name}: fused_tf_loss forward + backward, ms per pass: {per}; four passes "
               f"{total('fwd_bwd_ms'):.3f} (K4f lean {total('fwd_ms'):.3f}, keeping "
               f"{total('keep_ms'):.3f}; K4b {total('bwd_ms'):.3f}); memory of the four passes {res['four_passes_mb']:.1f} "
@@ -323,12 +405,26 @@ def main(argv):
               f"{res['step_launches']}; the GEMM (launches, device ms) in the step and in "
               f"K3f + K3b: {gemm_summary(res)}", flush=True)
     grads = {k: np.load(os.path.join(tmp, f"{k}.npz")) for k in ("other0", "other1", "this0", "this1")}
+    checks = {"k4f_bits": {}, "against_float64": {}}
     for a, b, what in (("this0", "other0", "this vs other"), ("this0", "this1", "this, run 1 vs 2"),
                        ("other0", "other1", "other, run 1 vs 2")):
         devs = max_dev(grads[a], grads[b])
         print(f"[k4-ab] losses and gradients, {what}: " + ", ".join(
             f"{p} max |dev| {d:.3e} ({r:.3e} of the tolerance)" for p, (d, r) in devs.items()),
             flush=True)
+    for a, b, what in (("this0", "other0", "this vs other"), ("this0", "this1", "this, run 1 vs 2"),
+                       ("other0", "other1", "other, run 1 vs 2")):
+        bits = k4f_bits(tmp, a, b)
+        print(f"[k4-ab] K4f's loss and residual words, {what}: " + ", ".join(
+            f"{p} {d} of {n} words differ, losses {'equal' if same else 'DIFFER'}"
+            for p, (d, n, same) in bits.items()), flush=True)
+        checks["k4f_bits"][what] = bits
+    for key in ("this0", "other0"):
+        worst = against_reference(grads[key], grads["this0"])
+        print(f"[k4-ab] {key}'s decoder cell gradient against the float64 reference: " + ", ".join(
+            f"{p} {r:.3e} of the tolerance (max |dev| {d:.3e})" for p, (r, d) in worst.items()),
+            flush=True)
+        checks["against_float64"][key] = worst
     shutil.rmtree(tmp, ignore_errors=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -338,11 +434,11 @@ def main(argv):
     print(f"[k4-ab] card {smi}")
     if len(argv) > 1:  # every number, the GEMM's launches and records too
         with open(argv[1], "w") as f:
-            json.dump(results, f)
+            json.dump({**results, **checks}, f)
     for runs in results.values():
         for res in runs:
             res.update(gemm_summary(res))
-    print("[k4-ab] " + json.dumps(results))
+    print("[k4-ab] " + json.dumps({**results, **checks}))
     return 0
 
 
